@@ -1,0 +1,375 @@
+"""FF-PQN trainer for feedforward Q-networks.
+
+Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork on
+CartPole-v1. Each update: a NUM_STEPS rollout over NUM_ENVS envs (epsilon-
+greedy on the current params), Q(lambda) targets, NUM_EPOCHS epochs of
+NUM_MINIBATCHES minibatch steps of clip + RAdam on the 0.5 * MSE TD loss,
+the update metrics, and every TEST_INTERVAL of the run a greedy eval.
+
+Where the JAX package scans, this trainer loops in Python; it keeps host
+syncs out of the update loop: counters and schedules are host integers and
+floats, metrics stay device tensors and are stacked once at the end. The
+only sync is the fused eval's early-exit test, once per chunk.
+
+Two rollout paths:
+
+- unfused (pqn.py:321-340): network forward, `eps_greedy_batch` and the
+  Log-wrapped env step, one env step at a time;
+- FUSED_ROLLOUT (pqn.py:342-406): the whole rollout in one launch of the
+  CartPole kernel (ops/cartpole_rollout.py), with the Log wrapper's episode
+  statistics replayed from the (reward, done) streams afterwards.
+
+The lambda targets always go through `ops.lambda_returns.lambda_returns`,
+the CUDA kernel on the GPU; PALLAS_RETURNS is accepted and changes nothing.
+
+Line references ``pqn.py:N`` in this module are to purejaxql_tpu/algo/pqn.py.
+
+Randomness comes from two generators seeded from SEED: a host generator
+(parameter init, kernel seeds) and one on the run's device (env resets,
+exploration, minibatch permutations). Parameters are initialised on the
+host, so a CPU and a GPU run start from the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from purejaxql_torch.algo.exploration import eps_greedy_batch
+from purejaxql_torch.algo.metrics import (
+    apply_eval_subsample,
+    episode_mean_metrics,
+    test_interval_updates,
+)
+from purejaxql_torch.algo.types import Transition
+from purejaxql_torch.core.config import derive_pqn_schedule_keys
+from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
+from purejaxql_torch.core.schedules import epsilon_schedule, lr_schedule
+from purejaxql_torch.core.train_state import PQNTrainState
+from purejaxql_torch.envs import make as make_env
+from purejaxql_torch.envs import wrappers
+from purejaxql_torch.models.factory import make_q_network
+from purejaxql_torch.ops.cartpole_rollout import (
+    cartpole_from_state_matrix,
+    cartpole_rollout,
+    cartpole_weights,
+    state_matrix_from_cartpole,
+)
+from purejaxql_torch.ops.lambda_returns import lambda_returns
+from purejaxql_torch.utils.platform import resolve_device
+
+# options of the JAX trainer that later slices port; asking for one raises
+_NOT_PORTED = {
+    "BATCH_ENV": "BATCH_ENV",
+    "USE_OPTIMISTIC_RESETS": "optimistic resets",
+    "FAST_TARGETS": "FAST_TARGETS",
+    "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
+    "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
+}
+
+
+def _check_supported(config: Dict[str, Any]) -> None:
+    if str(config.get("ALG_NAME", "pqn")) != "pqn":
+        raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not ported yet")
+    if config.get("NUM_SEEDS", 1) != 1:
+        raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
+    if not config.get("Q_LAMBDA", True):
+        raise NotImplementedError("Q_LAMBDA=False (1-step TD) is not ported yet")
+    for key, what in _NOT_PORTED.items():
+        if config.get(key, False):
+            raise NotImplementedError(f"{what} is not ported yet")
+    if config.get("FUSED_ROLLOUT", False) and (
+        config["ENV_NAME"] != "CartPole-v1"
+        or config.get("NORM_TYPE") != "layer_norm"
+        or config.get("NORM_INPUT", False)
+        or config.get("NUM_LAYERS", 2) != 2
+        or config.get("ENV_KWARGS")
+    ):
+        raise ValueError(
+            "FUSED_ROLLOUT supports CartPole-v1 with its default physics and a "
+            "2-layer layer_norm MLP, NORM_INPUT=False (ops/cartpole_rollout.py)"
+        )
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    """A kernel seed from the host generator (no device sync)."""
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
+def episode_running_stats(
+    rew: torch.Tensor,
+    done: torch.Tensor,
+    ep_return0: torch.Tensor,
+    ep_length0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Running return and length of each env's episode after every step of a
+    (T, E) reward/done stream, continuing episodes that entered the stream
+    at (ep_return0, ep_length0): what the Log wrapper's carry computes step
+    by step (pqn.py:371-386, 721-731), done as prefix sums instead of a T-step
+    loop. Exact for integer-valued rewards."""
+    T = rew.shape[0]
+    steps = torch.arange(T, device=rew.device)[:, None].expand_as(rew)
+    last_done = torch.where(done, steps, -1).cummax(0).values
+    prev_done = torch.cat([torch.full_like(last_done[:1], -1), last_done[:-1]])
+    started = prev_done >= 0
+    cum_r = rew.cumsum(0)
+    base_r = torch.where(
+        started, cum_r.gather(0, prev_done.clamp(min=0)), -ep_return0.expand_as(rew)
+    )
+    base_l = torch.where(started, prev_done + 1, -ep_length0.to(steps.dtype).expand_as(rew))
+    return cum_r - base_r, (steps + 1 - base_l).to(torch.int32)
+
+
+def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.Tensor):
+    """The Log wrapper's infos and end state over a (T, E) stream of rewards
+    and done flags from the fused rollout (pqn.py:371-405)."""
+    ner, nel = episode_running_stats(
+        rew, done, log_state.episode_returns, log_state.episode_lengths
+    )
+    T = rew.shape[0]
+    steps = torch.arange(T, device=rew.device)[:, None].expand_as(rew)
+    last_done = torch.where(done, steps, -1).cummax(0).values
+    ended = last_done >= 0
+    idx = last_done.clamp(min=0)
+    ret_r = torch.where(ended, ner.gather(0, idx), log_state.returned_episode_returns)
+    ret_l = torch.where(ended, nel.gather(0, idx), log_state.returned_episode_lengths)
+    timestep = log_state.timestep + 1 + steps.to(torch.int32)
+    not_done = ~done[-1]
+    infos = {
+        "returned_episode_returns": ret_r,
+        "returned_episode_lengths": ret_l,
+        "timestep": timestep,
+        "returned_episode": done,
+    }
+    new_state = wrappers.LogEnvState(
+        env_state=log_state.env_state,
+        episode_returns=ner[-1] * not_done,
+        episode_lengths=nel[-1] * not_done,
+        returned_episode_returns=ret_r[-1],
+        returned_episode_lengths=ret_l[-1],
+        timestep=timestep[-1],
+    )
+    return new_state, infos
+
+
+def learn_minibatch(
+    network: torch.nn.Module,
+    optimizer: ClipRAdam,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    target: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One minibatch step (pqn.py:492-553): a train-mode forward (the batch
+    norms update their running statistics, even the unused input norm), the
+    0.5 * MSE TD loss on the taken actions, and clip + RAdam on every
+    parameter (zero gradients for the unused ones, as jax.grad gives).
+    Returns the loss and the chosen Q-values, detached."""
+    q_vals = network(obs, train=True)
+    chosen = q_vals.gather(1, action[:, None]).squeeze(1)
+    loss = 0.5 * torch.square(chosen - target).mean()
+    grads = torch.autograd.grad(
+        loss, optimizer.params, allow_unused=True, materialize_grads=True
+    )
+    optimizer.step(grads)
+    return loss.detach(), chosen.detach()
+
+
+def make_train(
+    config: Dict[str, Any], device: Optional[str] = None
+) -> Callable[..., Dict[str, Any]]:
+    """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
+
+    ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
+    GPU raises. ``metrics`` maps each metric name to a tensor of shape
+    (NUM_UPDATES,); ``runner_state`` is (train_state, (obs, env_state),
+    test_metrics).
+    """
+    config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
+    _check_supported(config)
+    device = resolve_device(device if device is not None else config.get("DEVICE"))
+
+    env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
+    log_env = wrappers.Log(env)
+    config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
+    action_dim = env.action_space(env_params).n
+    obs_shape = env.observation_space(env_params).shape
+    max_steps = env_params.max_steps_in_episode
+
+    n_envs, n_steps = config["NUM_ENVS"], config["NUM_STEPS"]
+    n_minibatches, n_epochs = config["NUM_MINIBATCHES"], config["NUM_EPOCHS"]
+    rew_scale = config.get("REW_SCALE", 1.0)
+    timestep_scale = config.get("TIMESTEP_SCALE", 1)
+    use_fused = config.get("FUSED_ROLLOUT", False)
+    test_during_training = config.get("TEST_DURING_TRAINING", False)
+    eps_scheduler = epsilon_schedule(
+        config["EPS_START"],
+        config["EPS_FINISH"],
+        config["EPS_DECAY"] * config["NUM_UPDATES_DECAY"],
+    )
+
+    def train(seed: Optional[int] = None) -> Dict[str, Any]:
+        host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
+        network = make_q_network(config, action_dim, obs_shape, generator=host_gen)
+        network = network.to(device)
+        dev_gen = torch.Generator(device=device).manual_seed(_draw_seed(host_gen))
+        optimizer = make_optimizer(
+            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
+        )
+        train_state = PQNTrainState(network, optimizer)
+
+        def rollout(obs, log_state):
+            eps = eps_scheduler(train_state.n_updates)
+            if use_fused:
+                stf, sti = state_matrix_from_cartpole(log_state.env_state)
+                obs_seq, act, rew, done_i, q_seq, final_obs, stf, sti = cartpole_rollout(
+                    _draw_seed(host_gen), eps, cartpole_weights(network), stf, sti,
+                    n_steps, max_steps=max_steps,
+                )
+                done = done_i.bool()
+                transitions = Transition(
+                    obs=obs_seq,
+                    action=act.long(),
+                    reward=rew_scale * rew,
+                    done=done,
+                    next_obs=torch.cat([obs_seq[1:], final_obs[None]]),
+                    q_val=q_seq,
+                )
+                log_state, infos = log_replay(log_state, rew, done)
+                log_state.env_state = cartpole_from_state_matrix(stf, sti)
+                return final_obs, log_state, transitions, infos
+
+            steps = []
+            with torch.no_grad():
+                for _ in range(n_steps):
+                    q_vals = network(obs, train=False)
+                    action = eps_greedy_batch(dev_gen, q_vals, eps)
+                    new_obs, log_state, reward, done, info = log_env.step(
+                        dev_gen, log_state, action, env_params
+                    )
+                    steps.append((obs, action, rew_scale * reward, done, new_obs, q_vals, info))
+                    obs = new_obs
+            fields = list(zip(*steps))
+            transitions = Transition(*(torch.stack(f) for f in fields[:6]))
+            infos = {k: torch.stack([i[k] for i in fields[6]]) for k in fields[6][0]}
+            return obs, log_state, transitions, infos
+
+        def learn(transitions, targets):
+            n = n_steps * n_envs
+            obs = transitions.obs.reshape(n, *obs_shape)
+            action = transitions.action.reshape(n)
+            targets = targets.reshape(n)
+            losses, qvals = [], []
+            for _ in range(n_epochs):
+                # one permutation per epoch, shared by every leaf and the targets
+                perm = torch.randperm(n, generator=dev_gen, device=device)
+                batches = zip(
+                    obs[perm].reshape(n_minibatches, -1, *obs_shape),
+                    action[perm].reshape(n_minibatches, -1),
+                    targets[perm].reshape(n_minibatches, -1),
+                )
+                for mb_obs, mb_action, mb_target in batches:
+                    loss, chosen = learn_minibatch(
+                        network, optimizer, mb_obs, mb_action, mb_target
+                    )
+                    train_state.grad_steps += 1
+                    losses.append(loss)
+                    qvals.append(chosen)
+            return torch.stack(losses).mean(), torch.stack(qvals).mean()
+
+        @torch.no_grad()
+        def get_test_metrics() -> Dict[str, torch.Tensor]:
+            n_test = config["TEST_NUM_ENVS"]
+            n_test_steps = config["TEST_NUM_STEPS"]
+            _, test_state = log_env.reset(dev_gen, n_test, env_params)
+            if use_fused:
+                # the greedy rollout through the same kernel in NUM_STEPS
+                # chunks; with EVAL_EARLY_EXIT it stops once every env has
+                # finished an episode, and unexecuted steps count as not done
+                chunk = n_steps
+                n_chunks = -(-n_test_steps // chunk)
+                seed0 = _draw_seed(host_gen)
+                weights = cartpole_weights(network)
+                stf, sti = state_matrix_from_cartpole(test_state.env_state)
+                rews = torch.zeros(n_chunks, chunk, n_test, device=device)
+                dones = torch.zeros(n_chunks, chunk, n_test, dtype=torch.bool, device=device)
+                done_once = torch.zeros(n_test, dtype=torch.bool, device=device)
+                for i in range(n_chunks):
+                    _, _, rew, done_i, _, _, stf, sti = cartpole_rollout(
+                        seed0 + i * chunk, config["EPS_TEST"], weights, stf, sti,
+                        chunk, max_steps=max_steps,
+                    )
+                    rews[i], dones[i] = rew, done_i.bool()
+                    if config.get("EVAL_EARLY_EXIT", False):
+                        done_once |= dones[i].any(0)
+                        if bool(done_once.all()):  # one host sync per chunk
+                            break
+                rews = rews.reshape(-1, n_test)[:n_test_steps]
+                dones = dones.reshape(-1, n_test)[:n_test_steps]
+                zero = torch.zeros(n_test, device=device)
+                ner, nel = episode_running_stats(rews, dones, zero, zero)
+                infos = {
+                    "returned_episode_returns": ner,
+                    "returned_episode_lengths": nel.float(),
+                    "returned_episode": dones,
+                }
+                return episode_mean_metrics(infos)
+
+            obs, state = log_env.reset(dev_gen, n_test, env_params)
+            infos = []
+            for _ in range(n_test_steps):
+                q_vals = network(obs, train=False)
+                action = eps_greedy_batch(dev_gen, q_vals, config["EPS_TEST"])
+                obs, state, _, _, info = log_env.step(dev_gen, state, action, env_params)
+                infos.append(info)
+            return episode_mean_metrics(
+                {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+            )
+
+        test_metrics = get_test_metrics() if test_during_training else {}
+        obs, log_state = log_env.reset(dev_gen, n_envs, env_params)
+        history = []
+        for _ in range(config["NUM_UPDATES"]):
+            obs, log_state, transitions, infos = rollout(obs, log_state)
+            train_state.timesteps += n_steps * n_envs * timestep_scale
+
+            with torch.no_grad():
+                last_q = network(transitions.next_obs[-1], train=False).max(-1).values
+                targets = lambda_returns(
+                    last_q,
+                    transitions.reward,
+                    transitions.done.float(),
+                    transitions.q_val.max(-1).values,
+                    config["GAMMA"],
+                    config["LAMBDA"],
+                )
+            td_loss, qvals = learn(transitions, targets)
+            train_state.n_updates += 1
+
+            metrics = {
+                "env_step": train_state.timesteps,
+                "update_steps": train_state.n_updates,
+                "grad_steps": train_state.grad_steps,
+                "td_loss": td_loss,
+                "qvals": qvals,
+            }
+            metrics.update({k: v.float().mean() for k, v in infos.items()})
+            if test_during_training:
+                if train_state.n_updates % test_interval_updates(config) == 0:
+                    test_metrics = get_test_metrics()
+                metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
+            history.append(metrics)
+
+        stacked = {}
+        for k in history[0] if history else {}:
+            values = [m[k] for m in history]
+            # device tensors stack on the device; host counters on the host
+            stacked[k] = (
+                torch.stack(values) if torch.is_tensor(values[0]) else torch.tensor(values)
+            )
+        return {
+            "runner_state": (train_state, (obs, log_state), test_metrics),
+            "metrics": stacked,
+        }
+
+    return train

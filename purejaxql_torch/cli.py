@@ -1,0 +1,81 @@
+"""CLI entry point: hydra-style UX over the port's config system.
+
+    python -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
+
+Runs on the GPU unless DEVICE=cpu is given. Prints "Training took ...",
+writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors`` (flax wire format) and
+``<run>_config.yaml``, and replays the metrics into the LOG_JSONL file.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+
+def single_run(config):
+    from purejaxql_torch.algo.pqn import make_train
+    from purejaxql_torch.core.checkpoint import save_run
+    from purejaxql_torch.utils.logging import make_logger
+
+    if config.get("TRAINER", "fused") == "stepwise":
+        raise SystemExit("TRAINER=stepwise is not ported yet")
+    if str(config.get("ALG_NAME", "pqn")) != "pqn":
+        raise SystemExit(f"ALG_NAME '{config.get('ALG_NAME')}' is not ported yet (pqn only)")
+    if config.get("FUSED_ROLLOUT", False) and config["NUM_SEEDS"] != 1:
+        raise SystemExit(
+            "FUSED_ROLLOUT supports NUM_SEEDS=1 only (single-seed kernel); "
+            "drop the flag or run one seed"
+        )
+    env_name = config["ENV_NAME"]
+    logger = make_logger(config)
+    train = make_train(config)
+
+    t0 = time.time()
+    outs = train()
+    # reading a metric waits for the device to finish the run
+    float(outs["metrics"]["td_loss"][-1])
+    dt = time.time() - t0
+    train_state = outs["runner_state"][0]
+    total = train_state.timesteps
+    print(
+        f"Training took {dt:.2f}s — {total} env steps "
+        f"({total / dt:.0f} steps/s aggregate)."
+    )
+    logger.log_history(outs["metrics"])
+    logger.close()
+
+    if config.get("SAVE_PATH"):
+        save_dir = os.path.join(config["SAVE_PATH"], env_name)
+        run_name = f"{config.get('ALG_NAME', 'pqn')}_{env_name}_seed{config['SEED']}"
+        save_run(train_state.network, config, save_dir, run_name)
+        print(f"Saved params to {save_dir}/")
+    return outs
+
+
+def main(argv=None):
+    from purejaxql_torch.core.config import CONFIG_DIR, compose
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("Available algorithm configs:")
+        for f in sorted(os.listdir(os.path.join(CONFIG_DIR, "alg"))):
+            print("  +alg=" + f.removesuffix(".yaml"))
+        return 0
+
+    config = compose(overrides=argv)
+    if "ENV_NAME" not in config:
+        raise SystemExit(
+            "No algorithm selected: pass +alg=<name> "
+            "(see python -m purejaxql_torch.cli --help)"
+        )
+    if config.get("HYP_TUNE"):
+        raise SystemExit("HYP_TUNE sweeps are not ported yet")
+    single_run(config)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

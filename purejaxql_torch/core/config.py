@@ -1,0 +1,187 @@
+"""Config system: YAML composition + CLI overrides, hydra-style UX.
+
+Port of purejaxql_tpu/core/config.py: the same UPPER_SNAKE keys,
+``+alg=<name>`` selection and ``KEY=value`` dotlist overrides, read from this
+package's own copies of the YAMLs under ``configs/``.
+
+The default-performance policy keys on the run's device type, read from the
+``DEVICE`` key (default ``cuda``), so composing a config never opens a CUDA
+context.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import sys
+from typing import Any, Dict, Iterable, List, Optional
+
+import yaml
+
+from purejaxql_torch.utils.platform import device_type
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs")
+
+
+def _parse_value(raw: str) -> Any:
+    """Parse a CLI override value: literal if possible, else string."""
+    low = raw.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "none"):
+        return None
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def _set_by_path(cfg: Dict[str, Any], dotted: str, value: Any) -> None:
+    keys = dotted.split(".")
+    node = cfg
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return yaml.safe_load(f) or {}
+
+
+def compose(
+    alg: Optional[str] = None,
+    overrides: Iterable[str] = (),
+    config_dir: Optional[str] = None,
+    base_name: str = "config",
+) -> Dict[str, Any]:
+    """Compose base config + algorithm config + dotlist overrides.
+
+    Overrides like ``NUM_ENVS=64`` or ``alg.LR=1e-3`` or ``+alg=pqn_cartpole``.
+    Returns a flat dict with the alg table merged on top.
+    """
+    config_dir = config_dir or CONFIG_DIR
+    cfg = load_yaml(os.path.join(config_dir, f"{base_name}.yaml"))
+
+    extra: List[str] = []
+    for ov in overrides:
+        ov = ov.strip()
+        if not ov:
+            continue
+        if ov.startswith("+alg=") or ov.startswith("alg="):
+            alg = ov.split("=", 1)[1]
+        else:
+            extra.append(ov)
+
+    if alg is not None:
+        alg_path = os.path.join(config_dir, "alg", f"{alg}.yaml")
+        if not os.path.exists(alg_path):
+            available = sorted(
+                f.removesuffix(".yaml")
+                for f in os.listdir(os.path.join(config_dir, "alg"))
+            )
+            raise ValueError(
+                f"Unknown algorithm config '{alg}'. Available: {available}"
+            )
+        alg_cfg = load_yaml(alg_path)
+        base_alg = cfg.get("alg") or {}
+        base_alg.update(alg_cfg)
+        cfg["alg"] = base_alg
+        cfg.setdefault("ALG_CONFIG_NAME", alg)
+
+    flat = dict(cfg)
+    flat.update(cfg.get("alg") or {})
+
+    # CLI overrides are applied after the alg merge so they always win.
+    for ov in extra:
+        if "=" not in ov:
+            raise ValueError(f"Override '{ov}' is not KEY=value")
+        key, raw = ov.split("=", 1)
+        _set_by_path(flat, key.lstrip("+"), _parse_value(raw))
+    return resolve_fast_paths(flat)
+
+
+# Envs whose whole rollout this package runs as one kernel
+# (ops/cartpole_rollout.py).
+_FUSED_GAMES = ("CartPole-v1",)
+
+
+def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
+    """Mirror of the trainer's FUSED_ROLLOUT constraint checks
+    (algo/pqn.py), plus the single-seed requirement."""
+    return (
+        config.get("NUM_SEEDS", 1) == 1
+        and str(config.get("ALG_NAME", "pqn")) == "pqn"
+        and config.get("ENV_NAME") in _FUSED_GAMES
+        and not config.get("USE_OPTIMISTIC_RESETS", False)
+        and not config.get("BATCH_ENV", False)
+        and config.get("NORM_TYPE") == "layer_norm"
+        and not config.get("NORM_INPUT", False)
+        and config.get("NUM_LAYERS", 2) == 2
+    )
+
+
+def resolve_fast_paths(
+    config: Dict[str, Any], device: Optional[str] = None
+) -> Dict[str, Any]:
+    """GPU default-performance policy.
+
+    On a ``cuda`` run, turn on FUSED_ROLLOUT and EVAL_EARLY_EXIT for an
+    eligible feedforward config, as the JAX package does on a TPU. Two
+    escape hatches: ``PARITY=strict`` turns off all auto-enabling, and a
+    flag set explicitly (on the command line or in an alg YAML) always wins.
+    CPU runs are left untouched. The flags turned on are printed to stderr.
+
+    ``device`` defaults to the config's ``DEVICE`` key (``cuda`` when
+    absent); only its type is read, so no CUDA context is opened.
+    """
+    if str(config.get("PARITY", "fast")).lower() == "strict":
+        return config
+    if device_type(device if device is not None else config.get("DEVICE")) != "cuda":
+        return config
+
+    config = dict(config)
+    enabled = []
+
+    def _default(key: str, value: Any) -> None:
+        if key not in config or config[key] is None:
+            config[key] = value
+            enabled.append(f"{key}={value}")
+
+    if _fused_rollout_eligible(config):
+        _default("FUSED_ROLLOUT", True)
+        if config["FUSED_ROLLOUT"]:
+            _default("EVAL_EARLY_EXIT", True)
+    if enabled:
+        print(
+            "resolve_fast_paths (cuda): enabled " + ", ".join(enabled),
+            file=sys.stderr,
+        )
+    return config
+
+
+def derive_pqn_schedule_keys(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Fill in NUM_UPDATES / NUM_UPDATES_DECAY and validate divisibility."""
+    config = dict(config)
+    config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
+    decay_steps = config.get("TOTAL_TIMESTEPS_DECAY", config["TOTAL_TIMESTEPS"])
+    config["TOTAL_TIMESTEPS_DECAY"] = int(float(decay_steps))
+    config["NUM_UPDATES"] = (
+        config["TOTAL_TIMESTEPS"] // config["NUM_STEPS"] // config["NUM_ENVS"]
+    )
+    config["NUM_UPDATES_DECAY"] = (
+        config["TOTAL_TIMESTEPS_DECAY"] // config["NUM_STEPS"] // config["NUM_ENVS"]
+    )
+    if (config["NUM_STEPS"] * config["NUM_ENVS"]) % config["NUM_MINIBATCHES"] != 0:
+        raise ValueError("NUM_MINIBATCHES must divide NUM_STEPS*NUM_ENVS")
+    return config
+
+
+def save_config(config: Dict[str, Any], path: str) -> None:
+    serializable = {
+        k: v
+        for k, v in config.items()
+        if isinstance(v, (int, float, str, bool, list, dict, type(None)))
+    }
+    with open(path, "w") as f:
+        yaml.safe_dump(serializable, f, sort_keys=False)

@@ -1,0 +1,101 @@
+"""Batched environment protocol.
+
+Port of purejaxql_tpu/envs/base.py. Where the JAX package writes one env and
+``vmap``s it, an environment here steps a whole batch: its state is a
+dataclass of (E,)-shaped tensors, and ``reset``/``step`` take the batch size
+and a ``torch.Generator`` on the device the envs live on.
+
+Auto-reset: ``step`` computes both the stepped state and a fresh reset
+state and selects between them on ``done`` (purejaxql_tpu/envs/base.py:
+77-84), so a finished env starts its next episode on the same step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+import torch
+
+from purejaxql_torch.envs import spaces
+
+
+def select_state(done: torch.Tensor, on_true, on_false):
+    """Per-env select between two state dataclasses of (E, ...) tensors."""
+
+    def _sel(a, b):
+        mask = done.reshape(done.shape + (1,) * (a.dim() - done.dim()))
+        return torch.where(mask, a, b)
+
+    return dataclasses.replace(
+        on_false,
+        **{
+            f.name: _sel(getattr(on_true, f.name), getattr(on_false, f.name))
+            for f in dataclasses.fields(on_false)
+        },
+    )
+
+
+class Environment:
+    """Base class: subclasses implement ``reset_env``/``step_env``/spaces."""
+
+    @property
+    def default_params(self):
+        raise NotImplementedError
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def reset(self, generator: torch.Generator, num_envs: int, params=None):
+        if params is None:
+            params = self.default_params
+        return self.reset_env(generator, num_envs, params)
+
+    def step(self, generator: torch.Generator, state, action: torch.Tensor, params=None):
+        """Step with auto-reset on episode end."""
+        if params is None:
+            params = self.default_params
+        obs_st, state_st, reward, done, info = self.step_env(state, action, params)
+        obs_re, state_re = self.reset_env(generator, done.shape[0], params)
+        state = select_state(done, state_re, state_st)
+        obs = torch.where(done[:, None], obs_re, obs_st)
+        return obs, state, reward, done, info
+
+    def reset_env(self, generator: torch.Generator, num_envs: int, params) -> Tuple[torch.Tensor, Any]:
+        raise NotImplementedError
+
+    def step_env(self, state, action: torch.Tensor, params):
+        raise NotImplementedError
+
+    def observation_space(self, params) -> spaces.Space:
+        raise NotImplementedError
+
+    def action_space(self, params) -> spaces.Space:
+        raise NotImplementedError
+
+
+class Wrapper(Environment):
+    """Attribute-forwarding wrapper base."""
+
+    def __init__(self, env: Environment):
+        self._env = env
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._env, name)
+
+    def reset(self, generator, num_envs, params=None):
+        return self._env.reset(generator, num_envs, params)
+
+    def step(self, generator, state, action, params=None):
+        return self._env.step(generator, state, action, params)
+
+    @property
+    def default_params(self):
+        return self._env.default_params
+
+    def observation_space(self, params):
+        return self._env.observation_space(params)
+
+    def action_space(self, params):
+        return self._env.action_space(params)

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the time of the port's pqn_cartpole run goes, on one GPU.
+
+    python scripts/profile_torch_cartpole.py [--steps 200000] [--profile-updates 5]
+
+Two measurements of the full-width config (H 256, 32 envs x 64 steps, 16
+minibatches x 4 epochs, greedy eval 128 envs x 500 steps):
+
+1. phase wall times over a whole run: each phase (fused rollout, Log replay,
+   lambda targets, minibatch steps, eval) is wrapped with a device
+   synchronize before and after, so the phases add up to the run's wall
+   time (the syncs cost a little overlap, which the total shows);
+2. the device's busy share: torch.profiler over a short run without eval,
+   summed kernel time over the wall time of the profiled run.
+
+Prints one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    import torch
+
+    from purejaxql_torch.algo import pqn
+    from purejaxql_torch.core.config import compose
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=200_000)
+    ap.add_argument("--profile-updates", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+
+    # ---- 1. phase wall times ------------------------------------------------
+    totals = defaultdict(float)
+    counts = defaultdict(int)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            # the rollout kernel serves training (B = NUM_ENVS) and eval chunks
+            key = f"{name}_B{a[3].shape[1]}" if name == "cartpole_rollout" else name
+            totals[key] += time.perf_counter() - t0
+            counts[key] += 1
+            return out
+
+        return wrapper
+
+    originals = {n: getattr(pqn, n) for n in ("cartpole_rollout", "log_replay", "lambda_returns", "learn_minibatch")}
+    for name, fn in originals.items():
+        setattr(pqn, name, timed(name, fn))
+    config = compose(
+        alg="pqn_cartpole",
+        overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}"],
+    )
+    train = pqn.make_train(config)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for name, fn in originals.items():
+        setattr(pqn, name, fn)
+    ts = out["runner_state"][0]
+    phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
+    accounted = sum(totals.values())
+
+    # ---- 2. device busy share over a short run without eval -----------------
+    n = args.profile_updates
+    pconfig = compose(
+        alg="pqn_cartpole",
+        overrides=[f"TOTAL_TIMESTEPS={n * 2048}", f"TOTAL_TIMESTEPS_DECAY={n * 2048}",
+                   "TEST_DURING_TRAINING=False"],
+    )
+    ptrain = pqn.make_train(pconfig)
+    ptrain()  # warm-up: kernel build and load, allocator
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        ptrain()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t1
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    result = {
+        "card": card,
+        "run": {
+            "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
+            "phases_synced": phases, "unaccounted_s": wall - accounted,
+        },
+        "profile": {
+            "updates": n, "wall_s": pwall, "device_busy_s": device_us / 1e6,
+            "device_busy_share": device_us / 1e6 / pwall,
+            "device_ops_per_update": launches / n,
+            "top_device_ops": [
+                {"name": e.key[:60], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top
+            ],
+        },
+    }
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

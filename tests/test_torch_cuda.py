@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (sm_90a) and skips elsewhere.
+Run on the card from the root of a checkout:
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from purejaxql_torch.algo import pqn
+from purejaxql_torch.core.config import compose
+from purejaxql_torch.models.qnet import QNetwork
+from purejaxql_torch.ops import cartpole_rollout as cr
+from purejaxql_torch.ops import lambda_returns as lr
+
+pytestmark = pytest.mark.cuda
+
+NAMES = ("obs", "act", "rew", "done", "q", "final_obs", "stf", "sti")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels build with nvcc for sm_90a)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("T,E", [(64, 32), (64, 200), (1, 7)])
+def test_lambda_returns_kernel_matches_plain(dev, T, E):
+    rng = np.random.RandomState(E)
+    args = [
+        torch.tensor(a, device=dev)
+        for a in (
+            rng.randn(E).astype(np.float32),
+            rng.randn(T, E).astype(np.float32),
+            (rng.rand(T, E) < 0.15).astype(np.float32),
+            rng.randn(T, E).astype(np.float32),
+        )
+    ]
+    got = lr.lambda_returns(*args, 0.99, 0.95)
+    want = lr.lambda_returns_plain(*args, 0.99, 0.95)
+    # rounded op for op as the twin: equal to the last bit
+    assert torch.equal(got, want)
+
+
+def test_lambda_returns_wrapper_rejects_bad_inputs(dev):
+    x = torch.zeros(8, 4, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        lr.lambda_returns(torch.zeros(4, device=dev), x.T.contiguous().T[:, :4], x[:, :3], x, 0.9, 0.9)
+    with pytest.raises(ValueError, match="float32"):
+        lr.lambda_returns(torch.zeros(4, device=dev), x, x.double(), x, 0.9, 0.9)
+
+
+@pytest.mark.parametrize("B", [32, 128])
+@pytest.mark.parametrize("use_prng", [False, True])
+def test_rollout_kernel_matches_plain(dev, B, use_prng):
+    gen = torch.Generator().manual_seed(B)
+    net = QNetwork(4, 2, hidden_size=256, generator=gen).to(dev)
+    weights = cr.cartpole_weights(net)
+    stf0 = (torch.rand(4, B, generator=gen) * 0.1 - 0.05).to(dev)
+    sti0 = torch.zeros(1, B, dtype=torch.int32, device=dev)
+    got = dict(zip(NAMES, cr.cartpole_rollout(7, 0.2, weights, stf0, sti0, 64, use_prng=use_prng)))
+    want = dict(zip(NAMES, cr.cartpole_rollout_plain(7, 0.2, weights, stf0, sti0, 64, use_prng=use_prng)))
+    for k in ("act", "rew", "done", "sti"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("obs", "final_obs", "stf"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got["q"], want["q"], atol=1e-4, rtol=0)
+
+
+def test_tiny_train_on_the_card_launches_both_kernels(dev):
+    config = compose(
+        alg="pqn_cartpole",
+        overrides=[
+            "TOTAL_TIMESTEPS=8192", "TOTAL_TIMESTEPS_DECAY=8192", "TEST_NUM_STEPS=128",
+            "TEST_INTERVAL=0.5",
+        ],
+    )
+    lr.lambda_returns.launches = cr.cartpole_rollout.launches = 0
+    out = pqn.make_train(config)()
+    n_updates = 8192 // 64 // 32
+    assert lr.lambda_returns.launches == n_updates
+    assert cr.cartpole_rollout.launches > n_updates
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()

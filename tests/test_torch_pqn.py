@@ -1,0 +1,246 @@
+"""The port's FF-PQN trainer and CLI on the CPU: one minibatch step against
+a JAX composition of the package's pieces, tiny end-to-end runs (fused and
+unfused), the Log replay and the chunked eval, and the CLI recipe."""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from purejaxql_torch import cli
+from purejaxql_torch.algo import pqn
+from purejaxql_torch.core import checkpoint as tckpt
+from purejaxql_torch.core.config import compose
+from purejaxql_torch.core.optim import make_optimizer
+from purejaxql_torch.core.schedules import lr_schedule
+from purejaxql_torch.envs import make as tmake
+from purejaxql_torch.envs import wrappers as twrappers
+from purejaxql_torch.models.qnet import QNetwork as TQNetwork
+from purejaxql_torch.ops import cartpole_rollout as tcr
+from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_tpu.core.config import derive_pqn_schedule_keys
+from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
+from purejaxql_tpu.core.schedules import lr_schedule as jax_lr_schedule
+from purejaxql_tpu.models.qnet import QNetwork as JQNetwork
+
+torch.set_num_threads(1)
+
+
+def tiny_config(**kw):
+    overrides = [f"{k}={v}" for k, v in kw.items()]
+    return compose(
+        alg="pqn_cartpole",
+        overrides=[
+            "DEVICE=cpu",
+            "TOTAL_TIMESTEPS=2048",
+            "TOTAL_TIMESTEPS_DECAY=2048",
+            "NUM_ENVS=8",
+            "NUM_STEPS=16",
+            "NUM_MINIBATCHES=2",
+            "NUM_EPOCHS=2",
+            "HIDDEN_SIZE=32",
+            "TEST_DURING_TRAINING=False",
+        ]
+        + overrides,
+    )
+
+
+def test_minibatch_steps_match_jax_composition():
+    """Three minibatch steps from the same params, transitions and targets:
+    the flax network in train mode, the loss of pqn.py:536-541, and
+    make_optimizer with the config's LR schedule, against learn_minibatch.
+    Params within 1e-6, their updates within 1e-4 of the update's scale
+    (or two ulps of the params), batch statistics within 1e-5."""
+    config = derive_pqn_schedule_keys(compose(alg="pqn_cartpole", overrides=["DEVICE=cpu"]))
+    jnet = JQNetwork(action_dim=2, hidden_size=256, num_layers=2)
+    variables = jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, 4)), train=False)
+    tx = jax_make_optimizer(config["MAX_GRAD_NORM"], jax_lr_schedule(config))
+    params, batch_stats = variables["params"], variables["batch_stats"]
+    opt_state = tx.init(params)
+
+    tnet = TQNetwork(obs_dim=4, action_dim=2, hidden_size=256)
+    tnet.load_state_dict(tckpt.params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
+    opt = make_optimizer(tnet.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config))
+
+    rng = np.random.RandomState(0)
+    for step in range(3):
+        obs = (rng.randn(128, 4) * [0.5, 1.0, 0.05, 1.0]).astype(np.float32)
+        act = rng.randint(0, 2, 128).astype(np.int32)
+        tgt = (rng.randn(128) * 2).astype(np.float32)
+
+        def loss_fn(p):
+            q, upd = jnet.apply(
+                {"params": p, "batch_stats": batch_stats}, jnp.asarray(obs),
+                train=True, mutable=["batch_stats"],
+            )
+            chosen = jnp.take_along_axis(q, jnp.asarray(act)[:, None], axis=-1).squeeze(-1)
+            return 0.5 * jnp.square(chosen - jnp.asarray(tgt)).mean(), upd
+
+        (jloss, upd), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        new_params = optax.apply_updates(params, updates)
+        batch_stats = upd["batch_stats"]
+
+        before = {k: v.detach().clone() for k, v in tnet.named_parameters()}
+        loss, _ = pqn.learn_minibatch(
+            tnet, opt, torch.tensor(obs), torch.tensor(act).long(), torch.tensor(tgt)
+        )
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+        want_new = tckpt.params_from_flax({"params": jax.tree_util.tree_map(np.asarray, new_params)})
+        want_old = tckpt.params_from_flax({"params": jax.tree_util.tree_map(np.asarray, params)})
+        for name, p in tnet.named_parameters():
+            got = p.detach()
+            np.testing.assert_allclose(got.numpy(), want_new[name].numpy(), atol=1e-6, rtol=0, err_msg=name)
+            # the update is read back as a difference of float32 params,
+            # so it is known only to the params' last bit
+            d_want = (want_new[name] - want_old[name]).numpy()
+            d_got = (got - before[name]).numpy()
+            ulp = np.spacing(np.abs(want_new[name].numpy()).max())
+            np.testing.assert_allclose(
+                d_got, d_want, rtol=0, atol=max(1e-4 * np.abs(d_want).max(), 2 * ulp), err_msg=name
+            )
+        stats = tckpt.params_to_flax(tnet)["batch_stats"]["BatchNorm_0"]
+        for leaf in ("mean", "var"):
+            np.testing.assert_allclose(
+                stats[leaf], np.asarray(batch_stats["BatchNorm_0"][leaf]), rtol=1e-5, atol=1e-7
+            )
+        params = new_params
+    assert opt.count == 3
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_train_counts_eval_and_determinism(fused):
+    config = tiny_config(
+        FUSED_ROLLOUT=fused, EVAL_EARLY_EXIT=fused, TEST_DURING_TRAINING=True,
+        TEST_NUM_ENVS=8, TEST_NUM_STEPS=48, TEST_INTERVAL=0.25,
+    )
+    before = (tlr.lambda_returns.launches, tcr.cartpole_rollout.launches)
+    a = pqn.make_train(config)()
+    m = a["metrics"]
+    n_updates = 2048 // 16 // 8
+    assert int(m["env_step"][-1]) == 2048 and int(m["update_steps"][-1]) == n_updates
+    assert int(m["grad_steps"][-1]) == n_updates * 2 * 2
+    assert all(v.shape == (n_updates,) for v in m.values())
+    assert torch.isfinite(m["td_loss"]).all() and torch.isfinite(m["qvals"]).all()
+    for k in ("test/returned_episode_returns", "test/returned_episode_lengths", "test/returned_episode"):
+        assert k in m
+    assert (m["returned_episode_returns"] >= 0).all()
+    ts = a["runner_state"][0]
+    assert ts.timesteps == 2048 and ts.step == n_updates * 4
+    assert set(ts.batch_stats) == {"BatchNorm_0.mean", "BatchNorm_0.var"}
+    assert set(ts.params) == {n for n, _ in ts.network.named_parameters()}
+    # the CPU takes the plain twins: no kernel launch is counted
+    assert (tlr.lambda_returns.launches, tcr.cartpole_rollout.launches) == before
+    # one seed, one result; another seed, another
+    b = pqn.make_train(config)()
+    for (name, x), y in zip(ts.network.named_parameters(), b["runner_state"][0].network.parameters()):
+        assert torch.equal(x, y), name
+    c = pqn.make_train(config)(seed=1)
+    assert not torch.equal(m["td_loss"], c["metrics"]["td_loss"])
+
+
+def test_log_replay_matches_log_wrapper():
+    """The fused path's vectorised Log replay gives the Log wrapper's infos
+    and end state on the same reward/done stream."""
+    env, params = tmake("CartPole-v1", max_steps_in_episode=9)
+    log_env = twrappers.Log(env)
+    gen = torch.Generator().manual_seed(0)
+    obs, state = log_env.reset(gen, 16, params)
+    for _ in range(5):  # enter the window mid-episode
+        obs, state, *_ = log_env.step(gen, state, torch.randint(0, 2, (16,), generator=gen), params)
+    start = state
+    rews, dones, infos = [], [], []
+    for _ in range(40):
+        obs, state, rew, done, info = log_env.step(
+            gen, state, torch.randint(0, 2, (16,), generator=gen), params
+        )
+        rews.append(rew), dones.append(done), infos.append(info)
+    got_state, got = pqn.log_replay(start, torch.stack(rews), torch.stack(dones))
+    for k in got:
+        want = torch.stack([i[k] for i in infos])
+        assert torch.equal(got[k], want), k
+    for k in ("episode_returns", "episode_lengths", "returned_episode_returns",
+              "returned_episode_lengths", "timestep"):
+        assert torch.equal(getattr(got_state, k), getattr(state, k)), k
+
+
+@pytest.mark.parametrize("early_exit,expected", [(False, 22 / 3), (True, 6.0)])
+def test_fused_eval_chunks_and_early_exit(monkeypatch, early_exit, expected):
+    """As tests/test_ops.py pins the JAX package's fused eval: with a stub
+    kernel that ends every episode at local step 5 of each 8-step chunk,
+    the plain chunked eval sees episodes of 6, 8, 8 steps, and
+    EVAL_EARLY_EXIT stops after the first chunk (unexecuted steps count as
+    not done)."""
+    CHUNK, B = 8, 4
+    calls = []
+
+    def fake_rollout(seed, eps, weights, stf, sti, T, use_prng=True, max_steps=500):
+        calls.append(seed)
+        assert T == CHUNK
+        rew = torch.ones(T, B)
+        done = (torch.arange(T) == 5).to(torch.int32)[:, None].expand(T, B).contiguous()
+        return (torch.zeros(T, B, 4), torch.zeros(T, B, dtype=torch.int32), rew, done,
+                torch.zeros(T, B, 2), torch.zeros(B, 4), stf, sti)
+
+    monkeypatch.setattr(pqn, "cartpole_rollout", fake_rollout)
+    config = tiny_config(
+        TOTAL_TIMESTEPS=256, TOTAL_TIMESTEPS_DECAY=256, NUM_ENVS=B, NUM_STEPS=CHUNK,
+        NUM_MINIBATCHES=1, NUM_EPOCHS=1, TEST_DURING_TRAINING=True, TEST_NUM_ENVS=B,
+        TEST_NUM_STEPS=24, TEST_INTERVAL=0.01, FUSED_ROLLOUT=True, EVAL_EARLY_EXIT=early_exit,
+    )
+    m = pqn.make_train(config)()["metrics"]
+    assert m["test/returned_episode_returns"][-1].item() == pytest.approx(expected)
+    assert m["test/returned_episode_lengths"][-1].item() == pytest.approx(expected)
+
+
+def test_unsupported_options_raise():
+    for kw in ({"NUM_SEEDS": 2}, {"Q_LAMBDA": False}, {"BATCH_ENV": True},
+               {"USE_OPTIMISTIC_RESETS": True}, {"FAST_TARGETS": True}):
+        with pytest.raises(NotImplementedError):
+            pqn.make_train(tiny_config(**kw))
+    with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
+        pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
+    with pytest.raises(ValueError, match="Unknown env"):
+        pqn.make_train(tiny_config(ENV_NAME="Breakout-MinAtar"))
+    if not torch.cuda.is_available():
+        # the GPU is the default device, and its absence is an error
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pqn.make_train({**tiny_config(), "DEVICE": None})
+
+
+def test_cli_recipe(tmp_path, capsys):
+    jsonl = tmp_path / "m.jsonl"
+    cli.main([
+        "+alg=pqn_cartpole", "DEVICE=cpu", "TOTAL_TIMESTEPS=2048", "TOTAL_TIMESTEPS_DECAY=2048",
+        "NUM_ENVS=8", "NUM_STEPS=16", "NUM_MINIBATCHES=2", "NUM_EPOCHS=2", "HIDDEN_SIZE=32",
+        "TEST_DURING_TRAINING=False", f"SAVE_PATH={tmp_path / 'models'}", f"LOG_JSONL={jsonl}",
+    ])
+    assert "Training took" in capsys.readouterr().out
+    run_dir = tmp_path / "models" / "CartPole-v1"
+    saved = tckpt.load_params(str(run_dir / "pqn_CartPole-v1_seed0.safetensors"))
+    assert tuple(saved["Dense_0"]["kernel"].shape) == (4, 32)
+    assert (run_dir / "pqn_CartPole-v1_seed0_config.yaml").exists()
+    rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert len(rows) == 16 and rows[-1]["env_step"] == 2048 and "td_loss" in rows[-1]
+    with pytest.raises(SystemExit):
+        cli.main(["+alg=pqn_cartpole", "DEVICE=cpu", "HYP_TUNE=True"])
+
+
+@pytest.mark.slow
+def test_cartpole_learns():
+    """The port's counterpart of tests/test_pqn_train.py::test_cartpole_learns
+    on the CPU: a 200k-step run must clearly beat the random baseline (~20
+    return) with a mean training return above 100 near the end."""
+    config = compose(
+        alg="pqn_cartpole",
+        overrides=[
+            "DEVICE=cpu", "TOTAL_TIMESTEPS=200000", "TOTAL_TIMESTEPS_DECAY=200000",
+            "TEST_DURING_TRAINING=False",
+        ],
+    )
+    rets = pqn.make_train(config)()["metrics"]["returned_episode_returns"]
+    assert rets[-10:].mean().item() > 100, rets[-10:]
