@@ -1,10 +1,11 @@
 """FF-PQN trainer for feedforward Q-networks.
 
-Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork on
-CartPole-v1. Each update: a NUM_STEPS rollout over NUM_ENVS envs (epsilon-
-greedy on the current params), Q(lambda) targets, NUM_EPOCHS epochs of
-NUM_MINIBATCHES minibatch steps of clip + RAdam on the 0.5 * MSE TD loss,
-the update metrics, and every TEST_INTERVAL of the run a greedy eval.
+Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork
+(CartPole-v1) and the MinAtar CNN (Breakout-MinAtar). Each update: a
+NUM_STEPS rollout over NUM_ENVS envs (epsilon-greedy on the current params),
+Q(lambda) targets, NUM_EPOCHS epochs of NUM_MINIBATCHES minibatch steps of
+clip + RAdam on the 0.5 * MSE TD loss, the update metrics, and every
+TEST_INTERVAL of the run a greedy eval.
 
 Where the JAX package scans, this trainer loops in Python; it keeps host
 syncs out of the update loop: counters and schedules are host integers and
@@ -16,8 +17,9 @@ Two rollout paths:
 - unfused (pqn.py:321-340): network forward, `eps_greedy_batch` and the
   Log-wrapped env step, one env step at a time;
 - FUSED_ROLLOUT (pqn.py:342-406): the whole rollout in one launch of the
-  CartPole kernel (ops/cartpole_rollout.py), with the Log wrapper's episode
-  statistics replayed from the (reward, done) streams afterwards.
+  game's kernel (`fused_game_rollout`: ops/cartpole_rollout.py,
+  ops/breakout_rollout.py), with the Log wrapper's episode statistics
+  replayed from the (reward, done) streams afterwards.
 
 The lambda targets always go through `ops.lambda_returns.lambda_returns`,
 the CUDA kernel on the GPU; PALLAS_RETURNS is accepted and changes nothing.
@@ -50,6 +52,12 @@ from purejaxql_torch.core.train_state import PQNTrainState
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs import wrappers
 from purejaxql_torch.models.factory import make_q_network
+from purejaxql_torch.ops.breakout_rollout import (
+    breakout_from_state_matrix,
+    breakout_rollout,
+    breakout_weights,
+    state_matrix_from_breakout,
+)
 from purejaxql_torch.ops.cartpole_rollout import (
     cartpole_from_state_matrix,
     cartpole_rollout,
@@ -79,22 +87,53 @@ def _check_supported(config: Dict[str, Any]) -> None:
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
+    env_name = config["ENV_NAME"]
     if config.get("FUSED_ROLLOUT", False) and (
-        config["ENV_NAME"] != "CartPole-v1"
+        env_name not in ("CartPole-v1", "Breakout-MinAtar")
         or config.get("NORM_TYPE") != "layer_norm"
         or config.get("NORM_INPUT", False)
-        or config.get("NUM_LAYERS", 2) != 2
-        or config.get("ENV_KWARGS")
+        or (
+            env_name == "CartPole-v1"
+            and (config.get("NUM_LAYERS", 2) != 2 or config.get("ENV_KWARGS"))
+        )
     ):
         raise ValueError(
             "FUSED_ROLLOUT supports CartPole-v1 with its default physics and a "
-            "2-layer layer_norm MLP, NORM_INPUT=False (ops/cartpole_rollout.py)"
+            "2-layer MLP, and Breakout-MinAtar with the MinAtar CNN, both with "
+            "layer_norm and NORM_INPUT=False (ops/cartpole_rollout.py, "
+            "ops/breakout_rollout.py)"
         )
 
 
 def _draw_seed(generator: torch.Generator) -> int:
     """A kernel seed from the host generator (no device sync)."""
     return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
+def fused_weights(env_name: str, network: torch.nn.Module):
+    """The weight tensors the game's rollout kernel takes."""
+    if env_name == "CartPole-v1":
+        return cartpole_weights(network)
+    return breakout_weights(network)
+
+
+def fused_game_rollout(env_name, seed, eps, weights, env_state, num_steps, max_steps):
+    """A whole ``num_steps`` rollout of the game (network forward,
+    epsilon-greedy, env dynamics and auto-reset) in one launch of its kernel
+    (pqn.py:126-171). Returns the (obs, action, reward, done, q) streams, the
+    final obs and the final env state. Shared by the training rollout and
+    the chunked eval."""
+    if env_name == "CartPole-v1":
+        stf, sti = state_matrix_from_cartpole(env_state)
+        *streams, stf, sti = cartpole_rollout(
+            seed, eps, weights, stf, sti, num_steps, max_steps=max_steps
+        )
+        return (*streams, cartpole_from_state_matrix(stf, sti))
+    st, brick = state_matrix_from_breakout(env_state)
+    *streams, st, brick = breakout_rollout(
+        seed, eps, weights, st, brick, num_steps, max_steps=max_steps
+    )
+    return (*streams, breakout_from_state_matrix(st, brick))
 
 
 def episode_running_stats(
@@ -217,14 +256,14 @@ def make_train(
             network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
         )
         train_state = PQNTrainState(network, optimizer)
+        env_name = config["ENV_NAME"]
 
         def rollout(obs, log_state):
             eps = eps_scheduler(train_state.n_updates)
             if use_fused:
-                stf, sti = state_matrix_from_cartpole(log_state.env_state)
-                obs_seq, act, rew, done_i, q_seq, final_obs, stf, sti = cartpole_rollout(
-                    _draw_seed(host_gen), eps, cartpole_weights(network), stf, sti,
-                    n_steps, max_steps=max_steps,
+                obs_seq, act, rew, done_i, q_seq, final_obs, env_state = fused_game_rollout(
+                    env_name, _draw_seed(host_gen), eps, fused_weights(env_name, network),
+                    log_state.env_state, n_steps, max_steps,
                 )
                 done = done_i.bool()
                 transitions = Transition(
@@ -236,7 +275,7 @@ def make_train(
                     q_val=q_seq,
                 )
                 log_state, infos = log_replay(log_state, rew, done)
-                log_state.env_state = cartpole_from_state_matrix(stf, sti)
+                log_state.env_state = env_state
                 return final_obs, log_state, transitions, infos
 
             steps = []
@@ -289,15 +328,15 @@ def make_train(
                 chunk = n_steps
                 n_chunks = -(-n_test_steps // chunk)
                 seed0 = _draw_seed(host_gen)
-                weights = cartpole_weights(network)
-                stf, sti = state_matrix_from_cartpole(test_state.env_state)
+                weights = fused_weights(env_name, network)
+                env_state = test_state.env_state
                 rews = torch.zeros(n_chunks, chunk, n_test, device=device)
                 dones = torch.zeros(n_chunks, chunk, n_test, dtype=torch.bool, device=device)
                 done_once = torch.zeros(n_test, dtype=torch.bool, device=device)
                 for i in range(n_chunks):
-                    _, _, rew, done_i, _, _, stf, sti = cartpole_rollout(
-                        seed0 + i * chunk, config["EPS_TEST"], weights, stf, sti,
-                        chunk, max_steps=max_steps,
+                    _, _, rew, done_i, _, _, env_state = fused_game_rollout(
+                        env_name, seed0 + i * chunk, config["EPS_TEST"], weights,
+                        env_state, chunk, max_steps,
                     )
                     rews[i], dones[i] = rew, done_i.bool()
                     if config.get("EVAL_EARLY_EXIT", False):

@@ -7,10 +7,14 @@ Port of purejaxql_tpu/core/checkpoint.py (``save_params``, ``load_params``,
 package loads in the other. Full-state resume (``save_state`` /
 ``load_state``) is not ported yet.
 
-Layouts: a flax ``Dense.kernel`` is (in, out) and a torch ``Linear.weight``
-is (out, in); flax's ``scale`` is torch's ``weight``; batch statistics live
-in a separate flax collection (``batch_stats``: ``mean``, ``var``) and in
-the modules' buffers here.
+Names: a torch parameter ``CNN_0.Conv_0.weight`` is the flax leaf
+``params/CNN_0/Conv_0/kernel``; nested modules map level for level.
+
+Layouts, told apart by the weight's rank: a flax ``Dense.kernel`` is
+(in, out) and a torch ``Linear.weight`` is (out, in); a flax ``Conv.kernel``
+is HWIO and a torch conv weight is OIHW; flax's ``scale`` (rank 1) is
+torch's ``weight``. Batch statistics live in a separate flax collection
+(``batch_stats``: ``mean``, ``var``) and in the modules' buffers here.
 """
 
 from __future__ import annotations
@@ -62,23 +66,47 @@ def load_params(filename: str) -> Dict:
     return _unflatten(load_file(filename))
 
 
+def _to_flax_leaf(leaf: str, a: np.ndarray):
+    """(flax leaf name, array in flax layout) of a torch parameter."""
+    if leaf != "weight":
+        return leaf, a
+    if a.ndim == 1:
+        return "scale", a
+    if a.ndim == 2:  # Linear (out, in) -> Dense (in, out)
+        return "kernel", np.ascontiguousarray(a.T)
+    if a.ndim == 4:  # conv OIHW -> HWIO
+        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    raise ValueError(f"no flax layout for a rank-{a.ndim} weight")
+
+
+def _from_flax_leaf(leaf: str, t: torch.Tensor):
+    """(torch leaf name, tensor in torch layout) of a flax leaf."""
+    if leaf == "scale":
+        return "weight", t
+    if leaf != "kernel":
+        return leaf, t
+    if t.dim() == 2:  # Dense (in, out) -> Linear (out, in)
+        return "weight", t.T.contiguous()
+    if t.dim() == 4:  # conv HWIO -> OIHW
+        return "weight", t.permute(3, 2, 0, 1).contiguous()
+    raise ValueError(f"no torch layout for a rank-{t.dim()} kernel")
+
+
 def params_to_flax(module: torch.nn.Module) -> Dict[str, Dict]:
     """The module's weights as flax variables ``{"params", "batch_stats"}``
-    of numpy arrays in flax names and layouts."""
-    params: Dict[str, Dict] = {}
-    batch_stats: Dict[str, Dict] = {}
+    of numpy arrays in flax names and layouts (nested as the modules are)."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
     for name, p in module.named_parameters():
         mod, leaf = name.rsplit(".", 1)
-        a = p.detach().cpu().numpy()
-        if mod.startswith("Dense_") and leaf == "weight":
-            params.setdefault(mod, {})["kernel"] = np.ascontiguousarray(a.T)
-        else:
-            flax_leaf = "scale" if leaf == "weight" else leaf
-            params.setdefault(mod, {})[flax_leaf] = a
+        flax_leaf, a = _to_flax_leaf(leaf, p.detach().cpu().numpy())
+        params[f"{mod}.{flax_leaf}"] = a
     for name, b in module.named_buffers():
-        mod, leaf = name.rsplit(".", 1)
-        batch_stats.setdefault(mod, {})[leaf] = b.detach().cpu().numpy()
-    return {"params": params, "batch_stats": batch_stats}
+        batch_stats[name] = b.detach().cpu().numpy()
+    return {
+        "params": _unflatten(params, sep="."),
+        "batch_stats": _unflatten(batch_stats, sep="."),
+    }
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -91,18 +119,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     else:
         params, batch_stats = tree, {}
     sd: Dict[str, torch.Tensor] = {}
-    for mod, leaves in params.items():
-        for leaf, v in leaves.items():
-            t = torch.from_numpy(np.array(v))
-            if leaf == "kernel":
-                sd[f"{mod}.weight"] = t.T.contiguous()
-            elif leaf == "scale":
-                sd[f"{mod}.weight"] = t
-            else:
-                sd[f"{mod}.{leaf}"] = t
-    for mod, leaves in batch_stats.items():
-        for leaf, v in leaves.items():
-            sd[f"{mod}.{leaf}"] = torch.from_numpy(np.array(v))
+    for key, v in _flatten(params, sep=".").items():
+        mod, leaf = key.rsplit(".", 1)
+        name, t = _from_flax_leaf(leaf, torch.from_numpy(np.array(v)))
+        sd[f"{mod}.{name}"] = t
+    for key, v in _flatten(batch_stats, sep=".").items():
+        sd[key] = torch.from_numpy(np.array(v))
     return sd
 
 

@@ -102,8 +102,8 @@ def compose(
 
 
 # Envs whose whole rollout this package runs as one kernel
-# (ops/cartpole_rollout.py).
-_FUSED_GAMES = ("CartPole-v1",)
+# (ops/cartpole_rollout.py, ops/breakout_rollout.py).
+_FUSED_GAMES = ("CartPole-v1", "Breakout-MinAtar")
 
 
 def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
@@ -117,7 +117,7 @@ def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
         and not config.get("BATCH_ENV", False)
         and config.get("NORM_TYPE") == "layer_norm"
         and not config.get("NORM_INPUT", False)
-        and config.get("NUM_LAYERS", 2) == 2
+        and (config.get("ENV_NAME") != "CartPole-v1" or config.get("NUM_LAYERS", 2) == 2)
     )
 
 

@@ -25,13 +25,16 @@
 // operations (no fused multiply-add) so that it rounds as the plain
 // PyTorch twin does, op for op.
 //
-// Randomness: Philox4x32-10 keyed by the wrapper's 64-bit seed, counting
-// over (step, env, draw group): the counterpart of prng_seed(seed + t) at
-// pallas_rollout.py:491. With use_prng = 0 the coin is 1, the random action
-// 0 and the reset state zero, as at pallas_rollout.py:525-528.
+// Randomness: Philox4x32-10 (philox.cuh) keyed by the wrapper's 64-bit
+// seed, counting over (step, env, draw group): the counterpart of
+// prng_seed(seed + t) at pallas_rollout.py:491. With use_prng = 0 the coin
+// is 1, the random action 0 and the reset state zero, as at
+// pallas_rollout.py:525-528.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -48,24 +51,6 @@ constexpr float kXThreshold = 2.4f;
 constexpr float kThetaThreshold = (float)(12 * 2 * 3.141592653589793 / 360);
 constexpr float kUnit24 = 1.0f / 16777216.0f;
 constexpr float kResetScale = (float)(0.1 / 16777216.0);
-
-struct U4 {
-  uint32_t x, y, z, w;
-};
-
-__device__ __forceinline__ U4 philox4x32_10(U4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = U4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
-  }
-  return c;
-}
 
 __device__ __forceinline__ float reset_draw(uint32_t w) {
   return __fsub_rn(__fmul_rn((float)(w >> 8), kResetScale), 0.05f);

@@ -20,17 +20,18 @@ import torch
 from purejaxql_torch.envs import spaces
 
 
+def select_env(done: torch.Tensor, on_true: torch.Tensor, on_false: torch.Tensor) -> torch.Tensor:
+    """Per-env select between two (E, ...) tensors of any rank."""
+    mask = done.reshape(done.shape + (1,) * (on_true.dim() - done.dim()))
+    return torch.where(mask, on_true, on_false)
+
+
 def select_state(done: torch.Tensor, on_true, on_false):
     """Per-env select between two state dataclasses of (E, ...) tensors."""
-
-    def _sel(a, b):
-        mask = done.reshape(done.shape + (1,) * (a.dim() - done.dim()))
-        return torch.where(mask, a, b)
-
     return dataclasses.replace(
         on_false,
         **{
-            f.name: _sel(getattr(on_true, f.name), getattr(on_false, f.name))
+            f.name: select_env(done, getattr(on_true, f.name), getattr(on_false, f.name))
             for f in dataclasses.fields(on_false)
         },
     )
@@ -59,7 +60,7 @@ class Environment:
         obs_st, state_st, reward, done, info = self.step_env(state, action, params)
         obs_re, state_re = self.reset_env(generator, done.shape[0], params)
         state = select_state(done, state_re, state_st)
-        obs = torch.where(done[:, None], obs_re, obs_st)
+        obs = select_env(done, obs_re, obs_st)
         return obs, state, reward, done, info
 
     def reset_env(self, generator: torch.Generator, num_envs: int, params) -> Tuple[torch.Tensor, Any]:

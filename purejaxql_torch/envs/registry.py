@@ -12,8 +12,12 @@ from typing import Callable, Dict, Tuple
 
 from purejaxql_torch.envs.base import Environment
 from purejaxql_torch.envs.classic.cartpole import CartPole
+from purejaxql_torch.envs.minatar.breakout import MinBreakout
 
-_REGISTRY: Dict[str, Callable[..., Environment]] = {"CartPole-v1": CartPole}
+_REGISTRY: Dict[str, Callable[..., Environment]] = {
+    "CartPole-v1": CartPole,
+    "Breakout-MinAtar": MinBreakout,
+}
 
 
 def make(env_name: str, **env_kwargs) -> Tuple[Environment, object]:

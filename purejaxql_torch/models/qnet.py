@@ -43,14 +43,28 @@ def _normalize(x, mean, var, eps, scale, bias):
     return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias
 
 
-def dense(in_features: int, out_features: int, generator: Optional[torch.Generator]) -> nn.Linear:
-    """An ``nn.Linear`` initialised as flax's ``Dense``, drawing only from
-    ``generator`` (torch's own init is skipped, so the global RNG is not
-    touched)."""
-    layer = torch.nn.utils.skip_init(nn.Linear, in_features, out_features)
-    std = math.sqrt(1.0 / in_features) / _TRUNC_STD_CORRECTION
+def variance_scaling_(
+    weight: torch.Tensor, fan_in: int, scale: float, generator: Optional[torch.Generator]
+) -> None:
+    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")`` in
+    place: lecun_normal is scale 1, he_normal scale 2."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD_CORRECTION
     with torch.no_grad():
-        nn.init.trunc_normal_(layer.weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+        nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def dense(
+    in_features: int,
+    out_features: int,
+    generator: Optional[torch.Generator],
+    scale: float = 1.0,
+) -> nn.Linear:
+    """An ``nn.Linear`` initialised as flax's ``Dense`` (lecun-normal, or
+    ``variance_scaling(scale)``), drawing only from ``generator`` (torch's
+    own init is skipped, so the global RNG is not touched)."""
+    layer = torch.nn.utils.skip_init(nn.Linear, in_features, out_features)
+    variance_scaling_(layer.weight, in_features, scale, generator)
+    with torch.no_grad():
         layer.bias.zero_()
     return layer
 
@@ -68,7 +82,8 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the leading (batch) axis."""
+    """flax ``nn.BatchNorm``: statistics over every axis but the last (the
+    batch and, for an image, its pixels), one per feature."""
 
     def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -80,11 +95,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool):
         if train:
-            mean, var = _stats(x, 0)
+            mean, var = _stats(x, tuple(range(x.dim() - 1)))
             with torch.no_grad():
                 m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean.squeeze(0))
-                self.var.copy_(m * self.var + (1 - m) * var.squeeze(0))
+                self.mean.copy_(m * self.mean + (1 - m) * mean.reshape(-1))
+                self.var.copy_(m * self.var + (1 - m) * var.reshape(-1))
         else:
             mean, var = self.mean, self.var
         return _normalize(x, mean, var, self.eps, self.weight, self.bias)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. A library is
 built at first use into ``build/purejaxql_torch/`` at the root of the
-checkout, under a name keyed by a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is not. ``build`` starts one
+checkout, under a name keyed by a hash of its source, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is not. ``build`` starts one
 ``nvcc`` per source, all together, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -43,9 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:
@@ -61,7 +64,10 @@ def build(names: Iterable[str]) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [
+            nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+            str(CSRC_DIR / f"{name}.cu"),
+        ]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

@@ -9,8 +9,8 @@ epsilon coin and a uniform random action, the Euler physics, done on
 incoming state, and auto-reset to U(-0.05, 0.05)^4.
 
 The kernel is ``csrc/cartpole_rollout.cu``. ``cartpole_rollout_plain`` is
-the same function in PyTorch, including its Philox4x32-10 random stream, so
-the two agree with the PRNG on as well as off. ``cartpole_rollout`` takes
+the same function in PyTorch, including its Philox4x32-10 random stream
+(``ops/philox.py``), so the two agree with the PRNG on as well as off. ``cartpole_rollout`` takes
 the plain version only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.
 
@@ -29,6 +29,7 @@ import torch
 
 from purejaxql_torch.envs.classic.cartpole import CartPoleState
 from purejaxql_torch.ops import build
+from purejaxql_torch.ops.philox import philox4x32_10, seed_key, step_env_counters
 
 # CartPole-v1 constants (envs/classic/cartpole.py CartPoleParams)
 G, POLEMASS_L, TOTAL_M = 9.8, 0.05, 1.1
@@ -37,42 +38,13 @@ X_THR = 2.4
 TH_THR = 12 * 2 * 3.141592653589793 / 360
 MAX_ACTIONS = 8
 
-_MASK = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def _mulhilo(a: int, b: torch.Tensor):
-    """(hi, lo) 32-bit halves of a * b for a < 2**32 and b int64 in
-    [0, 2**32), with every partial product below 2**63."""
-    p_lo = a * (b & 0xFFFF)
-    p_hi = a * (b >> 16)
-    mid = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (mid >> 32), mid & _MASK
-
-
-def philox4x32_10(counter: Sequence[torch.Tensor], key: Tuple[int, int]):
-    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding uint32
-    words; the generator the CUDA kernel runs."""
-    c0, c1, c2, c3 = counter
-    k0, k1 = key
-    for i in range(10):
-        if i:
-            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK, (k1 + _PHILOX_W[1]) & _MASK
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
 
 def _draws(seed: int, num_steps: int, batch: int, num_actions: int, device):
     """The coin u, the random action (both (T, B)) and the 4 reset values
     ((T, 4, B)) of every step and env: Philox counter (t, env, group, 0),
     key = the seed's two 32-bit words."""
-    t = torch.arange(num_steps, dtype=torch.int64, device=device)[:, None]
-    env = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
-    t, env = torch.broadcast_tensors(t, env)
-    key = (seed & _MASK, (seed >> 32) & _MASK)
+    t, env = step_env_counters(num_steps, batch, device)
+    key = seed_key(seed)
     zero = torch.zeros_like(t)
     r0 = philox4x32_10((t, env, zero, zero), key)
     r1 = philox4x32_10((t, env, zero + 1, zero), key)
@@ -83,7 +55,7 @@ def _draws(seed: int, num_steps: int, batch: int, num_actions: int, device):
     return u, rand_act, reset
 
 
-def _layer_norm_relu(h, scale, bias):
+def layer_norm_relu(h, scale, bias):
     # two-pass LayerNorm, eps 1e-6: the formula of the TPU kernel
     mu = h.mean(-1, keepdim=True)
     d = h - mu
@@ -120,8 +92,8 @@ def cartpole_rollout_plain(
     for t in range(num_steps):
         s = torch.stack([x, x_dot, theta, theta_dot], -1)
         obs.append(s)
-        h1 = _layer_norm_relu(s @ w1.T + b1, l1s, l1b)
-        h2 = _layer_norm_relu(h1 @ w2.T + b2, l2s, l2b)
+        h1 = layer_norm_relu(s @ w1.T + b1, l1s, l1b)
+        h2 = layer_norm_relu(h1 @ w2.T + b2, l2s, l2b)
         q = h2 @ hw.T + hb
         qs.append(q)
         greedy = q.argmax(-1)

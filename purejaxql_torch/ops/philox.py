@@ -1,0 +1,52 @@
+"""Philox4x32-10 (Salmon et al., SC'11) in int64 torch arithmetic.
+
+The counter-based generator every fused rollout kernel runs
+(``csrc/philox.cuh``), here for their plain twins: each (step, env, draw
+group) is a counter, the kernel's 64-bit seed the key, so a twin draws the
+same bits as its kernel without sharing any state with it.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+MASK = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of a * b for a < 2**32 and b int64 in
+    [0, 2**32), with every partial product below 2**63."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & MASK
+
+
+def philox4x32_10(counter: Sequence[torch.Tensor], key: Tuple[int, int]):
+    """Philox4x32-10 on int64 tensors holding uint32 words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _PHILOX_W[0]) & MASK, (k1 + _PHILOX_W[1]) & MASK
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def seed_key(seed: int) -> Tuple[int, int]:
+    """The Philox key of a 64-bit seed: its low and high 32-bit words."""
+    return seed & MASK, (seed >> 32) & MASK
+
+
+def step_env_counters(num_steps: int, batch: int, device):
+    """(t, env) int64 grids of shape (T, B): the first two counter words of
+    the draws at step t for env b."""
+    t = torch.arange(num_steps, dtype=torch.int64, device=device)[:, None]
+    env = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
+    return torch.broadcast_tensors(t, env)

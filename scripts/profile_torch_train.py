@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of the port's pqn_cartpole run goes, on one GPU.
+"""Where the time of a full-width training run of the port goes, on one GPU.
 
-    python scripts/profile_torch_cartpole.py [--steps 200000] [--profile-updates 5]
+    python scripts/profile_torch_train.py [--steps 200000] [--profile-updates 5]
+    python scripts/profile_torch_train.py --alg pqn_minatar --env Breakout-MinAtar --steps 500000
 
-Two measurements of the full-width config (H 256, 32 envs x 64 steps, 16
-minibatches x 4 epochs, greedy eval 128 envs x 500 steps):
+Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
+32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
+steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
+2 epochs, greedy eval 128 envs x up to 1000 steps):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps, eval) is wrapped with a device
@@ -29,6 +32,8 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+ROLLOUTS = ("cartpole_rollout", "breakout_rollout")
+
 
 def main() -> int:
     import torch
@@ -37,6 +42,8 @@ def main() -> int:
     from purejaxql_torch.core.config import compose
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--alg", default="pqn_cartpole")
+    ap.add_argument("--env", default=None, help="ENV_NAME (default: the YAML's)")
     ap.add_argument("--steps", type=int, default=200_000)
     ap.add_argument("--profile-updates", type=int, default=5)
     args = ap.parse_args()
@@ -57,20 +64,21 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            # the rollout kernel serves training (B = NUM_ENVS) and eval chunks
-            key = f"{name}_B{a[3].shape[1]}" if name == "cartpole_rollout" else name
+            # a rollout kernel serves training (B = NUM_ENVS) and eval chunks
+            key = f"{name}_B{a[3].shape[-1]}" if name in ROLLOUTS else name
             totals[key] += time.perf_counter() - t0
             counts[key] += 1
             return out
 
         return wrapper
 
-    originals = {n: getattr(pqn, n) for n in ("cartpole_rollout", "log_replay", "lambda_returns", "learn_minibatch")}
+    originals = {n: getattr(pqn, n) for n in (*ROLLOUTS, "log_replay", "lambda_returns", "learn_minibatch")}
     for name, fn in originals.items():
         setattr(pqn, name, timed(name, fn))
+    env = [f"ENV_NAME={args.env}"] if args.env else []
     config = compose(
-        alg="pqn_cartpole",
-        overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}"],
+        alg=args.alg,
+        overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", *env],
     )
     train = pqn.make_train(config)
     torch.cuda.synchronize()
@@ -86,10 +94,11 @@ def main() -> int:
 
     # ---- 2. device busy share over a short run without eval -----------------
     n = args.profile_updates
+    per_update = config["NUM_STEPS"] * config["NUM_ENVS"]
     pconfig = compose(
-        alg="pqn_cartpole",
-        overrides=[f"TOTAL_TIMESTEPS={n * 2048}", f"TOTAL_TIMESTEPS_DECAY={n * 2048}",
-                   "TEST_DURING_TRAINING=False"],
+        alg=args.alg,
+        overrides=[f"TOTAL_TIMESTEPS={n * per_update}", f"TOTAL_TIMESTEPS_DECAY={n * per_update}",
+                   "TEST_DURING_TRAINING=False", *env],
     )
     ptrain = pqn.make_train(pconfig)
     ptrain()  # warm-up: kernel build and load, allocator
@@ -107,6 +116,7 @@ def main() -> int:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     result = {
         "card": card,
+        "config": {"alg": args.alg, "env": config["ENV_NAME"]},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,

@@ -16,6 +16,7 @@ import yaml
 from purejaxql_torch.core import config as tconfig
 from purejaxql_torch.core import optim as toptim
 from purejaxql_torch.core import schedules as tsched
+from purejaxql_torch.envs import make as make_env
 from purejaxql_tpu.core import config as jconfig
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
 
@@ -34,6 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
         ["DEVICE=cpu"],
         ["DEVICE=cpu", "NUM_ENVS=64", "alg.LR=0.001", "EPS_TEST=0.05"],
         ["PARITY=strict", "HIDDEN_SIZE=64", "ENV_KWARGS={'max_steps_in_episode': 200}"],
+        # pqn_minatar, chosen by the override as on the command line
+        ["+alg=pqn_minatar", "DEVICE=cpu", "ENV_NAME=Breakout-MinAtar"],
+        ["+alg=pqn_minatar", "PARITY=strict", "TOTAL_TIMESTEPS=5e5", "HIDDEN_SIZE=32"],
     ],
 )
 def test_compose_matches_jax(overrides):
@@ -43,7 +47,7 @@ def test_compose_matches_jax(overrides):
 
 
 def test_yaml_copies_equal_jax():
-    for rel in ("config.yaml", "alg/pqn_cartpole.yaml"):
+    for rel in ("config.yaml", "alg/pqn_cartpole.yaml", "alg/pqn_minatar.yaml"):
         mine = yaml.safe_load(open(ROOT / "purejaxql_torch" / "configs" / rel))
         ref = yaml.safe_load(open(ROOT / "purejaxql_tpu" / "configs" / rel))
         assert mine == ref, rel
@@ -87,6 +91,23 @@ def test_cuda_policy(capsys):
     # ineligible configs stay unfused
     for ov in (["NUM_LAYERS=3"], ["NORM_TYPE=batch_norm"], ["NUM_SEEDS=2"], ["NORM_INPUT=True"]):
         assert "FUSED_ROLLOUT" not in tconfig.compose(alg="pqn_cartpole", overrides=ov)
+
+
+def test_cuda_policy_breakout():
+    """On cuda the policy fuses Breakout-MinAtar's rollout and eval; the
+    YAML's default game (Asterix) and the other MinAtar games are not
+    eligible and stay unknown to the port's registry."""
+    cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Breakout-MinAtar"])
+    assert cfg["FUSED_ROLLOUT"] is True and cfg["EVAL_EARLY_EXIT"] is True
+    assert "FUSED_ROLLOUT" not in tconfig.compose(
+        alg="pqn_minatar", overrides=["ENV_NAME=Breakout-MinAtar", "NORM_INPUT=True"]
+    )
+    for game in ("Asterix", "Freeway", "SpaceInvaders", "Seaquest"):
+        cfg = tconfig.compose(alg="pqn_minatar", overrides=[f"ENV_NAME={game}-MinAtar"])
+        assert "FUSED_ROLLOUT" not in cfg and "EVAL_EARLY_EXIT" not in cfg
+        with pytest.raises(ValueError, match="Unknown env"):
+            make_env(cfg["ENV_NAME"])
+    assert tconfig.compose(alg="pqn_minatar")["ENV_NAME"] == "Asterix-MinAtar"
 
 
 def test_compose_errors():

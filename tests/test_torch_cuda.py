@@ -12,7 +12,10 @@ import torch
 
 from purejaxql_torch.algo import pqn
 from purejaxql_torch.core.config import compose
+from purejaxql_torch.envs.minatar.breakout import start_state
+from purejaxql_torch.models.cnn import CNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork
+from purejaxql_torch.ops import breakout_rollout as br
 from purejaxql_torch.ops import cartpole_rollout as cr
 from purejaxql_torch.ops import lambda_returns as lr
 
@@ -84,5 +87,58 @@ def test_tiny_train_on_the_card_launches_both_kernels(dev):
     n_updates = 8192 // 64 // 32
     assert lr.lambda_returns.launches == n_updates
     assert cr.cartpole_rollout.launches > n_updates
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+def _breakout_inputs(dev, B=128, hidden=128):
+    net = CNNQNetwork((10, 10, 4), 3, hidden_size=hidden, generator=torch.Generator().manual_seed(B)).to(dev)
+    side = torch.randint(0, 2, (B,), generator=torch.Generator().manual_seed(0)).to(torch.int32)
+    st0, brick0 = br.state_matrix_from_breakout(start_state(side))
+    return br.breakout_weights(net), st0.to(dev), brick0.to(dev)
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("max_steps", [1000, 5])
+def test_breakout_kernel_matches_plain(dev, use_prng, max_steps):
+    """B 128, T 32, H 128: every integer output and the observations equal,
+    Q-values within 1e-4."""
+    weights, st0, brick0 = _breakout_inputs(dev)
+    got = br.breakout_rollout(5, 0.2, weights, st0, brick0, 32, use_prng=use_prng, max_steps=max_steps)
+    want = br.breakout_rollout_plain(5, 0.2, weights, st0, brick0, 32, use_prng=use_prng, max_steps=max_steps)
+    names = ("obs", "act", "rew", "done", "q", "final_obs", "st", "brick")
+    for name, g, w in zip(names, got, want):
+        if name == "q":
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(g, w), name
+    assert want[3].any()
+
+
+def test_breakout_wrapper_rejects_bad_inputs(dev):
+    weights, st0, brick0 = _breakout_inputs(dev)
+    with pytest.raises(ValueError, match="int32"):
+        br.breakout_rollout(0, 0.0, weights, st0.long(), brick0, 4)
+    with pytest.raises(ValueError, match="hidden size"):
+        br.breakout_rollout(0, 0.0, _breakout_inputs(dev, hidden=48)[0], st0, brick0, 4)
+    shifted = torch.empty(weights[4].numel() + 1, device=dev)[1:].view_as(weights[4])
+    shifted.copy_(weights[4])
+    with pytest.raises(ValueError, match="aligned"):
+        br.breakout_rollout(0, 0.0, weights[:4] + (shifted,) + weights[5:], st0, brick0, 4)
+
+
+def test_tiny_breakout_train_on_the_card_launches_both_kernels(dev):
+    config = compose(
+        alg="pqn_minatar",
+        overrides=[
+            "ENV_NAME=Breakout-MinAtar", "TOTAL_TIMESTEPS=16384", "TOTAL_TIMESTEPS_DECAY=16384",
+            "TEST_NUM_STEPS=64", "TEST_INTERVAL=0.5",
+        ],
+    )
+    lr.lambda_returns.launches = br.breakout_rollout.launches = 0
+    out = pqn.make_train(config)()
+    n_updates = 16384 // 32 // 128
+    assert lr.lambda_returns.launches == n_updates
+    assert br.breakout_rollout.launches > n_updates
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()

@@ -19,21 +19,25 @@ from purejaxql_torch.core.optim import make_optimizer
 from purejaxql_torch.core.schedules import lr_schedule
 from purejaxql_torch.envs import make as tmake
 from purejaxql_torch.envs import wrappers as twrappers
+from purejaxql_torch.models.cnn import CNNQNetwork as TCNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork as TQNetwork
+from purejaxql_torch.ops import breakout_rollout as tbr
 from purejaxql_torch.ops import cartpole_rollout as tcr
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_tpu.core import checkpoint as jckpt
 from purejaxql_tpu.core.config import derive_pqn_schedule_keys
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
 from purejaxql_tpu.core.schedules import lr_schedule as jax_lr_schedule
+from purejaxql_tpu.models.cnn import CNNQNetwork as JCNNQNetwork
 from purejaxql_tpu.models.qnet import QNetwork as JQNetwork
 
 torch.set_num_threads(1)
 
 
-def tiny_config(**kw):
+def tiny_config(alg="pqn_cartpole", **kw):
     overrides = [f"{k}={v}" for k, v in kw.items()]
     return compose(
-        alg="pqn_cartpole",
+        alg=alg,
         overrides=[
             "DEVICE=cpu",
             "TOTAL_TIMESTEPS=2048",
@@ -49,27 +53,50 @@ def tiny_config(**kw):
     )
 
 
-def test_minibatch_steps_match_jax_composition():
+# per family: the alg config, the flax and port networks, an observation
+# batch (128 rows) from a numpy generator, and the number of actions
+FAMILIES = {
+    "mlp": (
+        "pqn_cartpole",
+        lambda: JQNetwork(action_dim=2, hidden_size=256, num_layers=2),
+        lambda: TQNetwork(obs_dim=4, action_dim=2, hidden_size=256),
+        lambda rng: (rng.randn(128, 4) * [0.5, 1.0, 0.05, 1.0]).astype(np.float32),
+        2,
+    ),
+    "cnn": (
+        "pqn_minatar",
+        lambda: JCNNQNetwork(action_dim=3, hidden_size=32),
+        lambda: TCNNQNetwork((10, 10, 4), 3, hidden_size=32),
+        lambda rng: (rng.rand(128, 10, 10, 4) < 0.2).astype(np.float32),
+        3,
+    ),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_minibatch_steps_match_jax_composition(family):
     """Three minibatch steps from the same params, transitions and targets:
     the flax network in train mode, the loss of pqn.py:536-541, and
-    make_optimizer with the config's LR schedule, against learn_minibatch.
-    Params within 1e-6, their updates within 1e-4 of the update's scale
-    (or two ulps of the params), batch statistics within 1e-5."""
-    config = derive_pqn_schedule_keys(compose(alg="pqn_cartpole", overrides=["DEVICE=cpu"]))
-    jnet = JQNetwork(action_dim=2, hidden_size=256, num_layers=2)
-    variables = jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, 4)), train=False)
+    make_optimizer with the config's LR schedule, against learn_minibatch,
+    for the MLP (pqn_cartpole) and the MinAtar CNN (pqn_minatar). Params
+    within 1e-6, their updates within 1e-4 of the update's scale (or two
+    ulps of the params), batch statistics within 1e-5."""
+    alg, make_jnet, make_tnet, make_obs, n_actions = FAMILIES[family]
+    config = derive_pqn_schedule_keys(compose(alg=alg, overrides=["DEVICE=cpu"]))
+    rng = np.random.RandomState(0)
+    jnet = make_jnet()
+    variables = jnet.init(jax.random.PRNGKey(0), jnp.asarray(make_obs(rng)[:1]), train=False)
     tx = jax_make_optimizer(config["MAX_GRAD_NORM"], jax_lr_schedule(config))
     params, batch_stats = variables["params"], variables["batch_stats"]
     opt_state = tx.init(params)
 
-    tnet = TQNetwork(obs_dim=4, action_dim=2, hidden_size=256)
+    tnet = make_tnet()
     tnet.load_state_dict(tckpt.params_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
     opt = make_optimizer(tnet.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config))
 
-    rng = np.random.RandomState(0)
     for step in range(3):
-        obs = (rng.randn(128, 4) * [0.5, 1.0, 0.05, 1.0]).astype(np.float32)
-        act = rng.randint(0, 2, 128).astype(np.int32)
+        obs = make_obs(rng)
+        act = rng.randint(0, n_actions, 128).astype(np.int32)
         tgt = (rng.randn(128) * 2).astype(np.float32)
 
         def loss_fn(p):
@@ -205,7 +232,7 @@ def test_unsupported_options_raise():
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
         pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
     with pytest.raises(ValueError, match="Unknown env"):
-        pqn.make_train(tiny_config(ENV_NAME="Breakout-MinAtar"))
+        pqn.make_train(tiny_config(ENV_NAME="Asterix-MinAtar"))
     if not torch.cuda.is_available():
         # the GPU is the default device, and its absence is an error
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -230,6 +257,99 @@ def test_cli_recipe(tmp_path, capsys):
         cli.main(["+alg=pqn_cartpole", "DEVICE=cpu", "HYP_TUNE=True"])
 
 
+BREAKOUT = dict(alg="pqn_minatar", ENV_NAME="Breakout-MinAtar")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_breakout_train_counts_and_determinism(fused):
+    """Breakout-MinAtar with the MinAtar CNN, fused (the rollout's plain twin
+    on the CPU) and unfused, with the in-loop eval on: the step, update and
+    grad-step counts, finite metrics, the CNN's flax-named parameters, no
+    kernel launch on the CPU, and one result per seed."""
+    config = tiny_config(
+        **BREAKOUT, FUSED_ROLLOUT=fused, EVAL_EARLY_EXIT=fused, TEST_DURING_TRAINING=True,
+        TEST_NUM_ENVS=8, TEST_NUM_STEPS=48, TEST_INTERVAL=0.5,
+    )
+    before = (tlr.lambda_returns.launches, tbr.breakout_rollout.launches)
+    a = pqn.make_train(config)()
+    m = a["metrics"]
+    n_updates = 2048 // 16 // 8
+    assert int(m["env_step"][-1]) == 2048 and int(m["update_steps"][-1]) == n_updates
+    assert int(m["grad_steps"][-1]) == n_updates * 2 * 2
+    assert all(v.shape == (n_updates,) for v in m.values())
+    assert torch.isfinite(m["td_loss"]).all() and torch.isfinite(m["qvals"]).all()
+    assert "test/returned_episode_returns" in m
+    ts = a["runner_state"][0]
+    assert isinstance(ts.network, TCNNQNetwork)
+    assert ts.params["CNN_0.Conv_0.weight"].shape == (16, 4, 3, 3)
+    assert ts.batch_stats["BatchNorm_0.mean"].shape == (4,)
+    obs, log_state = a["runner_state"][1]
+    assert obs.shape == (8, 10, 10, 4) and log_state.env_state.brick_map.shape == (8, 10, 10)
+    assert (tlr.lambda_returns.launches, tbr.breakout_rollout.launches) == before
+    b = pqn.make_train(config)()
+    assert torch.equal(m["td_loss"], b["metrics"]["td_loss"])
+    c = pqn.make_train(config)(seed=1)
+    assert not torch.equal(m["td_loss"], c["metrics"]["td_loss"])
+
+
+def test_breakout_fused_eval_goes_through_the_game_dispatch(monkeypatch):
+    """The chunked eval calls the Breakout rollout with the env's own
+    max_steps (1000, the TPU kernel's default) and threads the state from
+    chunk to chunk."""
+    calls = []
+    real = pqn.breakout_rollout
+
+    def spy(seed, eps, weights, st, brick, T, use_prng=True, max_steps=None):
+        out = real(seed, eps, weights, st, brick, T, use_prng, max_steps)
+        calls.append((T, max_steps, st.clone(), out[6]))
+        return out
+
+    monkeypatch.setattr(pqn, "breakout_rollout", spy)
+    config = tiny_config(
+        **BREAKOUT, TOTAL_TIMESTEPS=256, TOTAL_TIMESTEPS_DECAY=256, NUM_ENVS=4, NUM_STEPS=8,
+        NUM_MINIBATCHES=1, NUM_EPOCHS=1, FUSED_ROLLOUT=True, EVAL_EARLY_EXIT=False,
+        TEST_DURING_TRAINING=True, TEST_NUM_ENVS=4, TEST_NUM_STEPS=24, TEST_INTERVAL=1.0,
+    )
+    pqn.make_train(config)()
+    assert all(T == 8 and ms == 1000 for T, ms, _, _ in calls)
+    # an eval of 3 chunks, 8 training rollouts, an eval of 3 chunks; each
+    # rollout starts where the one before it in its stream ended
+    assert len(calls) == 3 + 8 + 3
+    for stream in (calls[:3], calls[3:11], calls[11:]):
+        for (_, _, _, st_out), (_, _, st_in, _) in zip(stream, stream[1:]):
+            assert torch.equal(st_in, st_out)
+
+
+def test_breakout_fused_rollout_requires_layer_norm_and_raw_input():
+    for kw in ({"NORM_INPUT": True}, {"NORM_TYPE": "batch_norm"}):
+        with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
+            pqn.make_train(tiny_config(**BREAKOUT, FUSED_ROLLOUT=True, **kw))
+    with pytest.raises(NotImplementedError, match="CNN_TRUNK"):
+        pqn.make_train(tiny_config(**BREAKOUT, CNN_TRUNK="nature"))()
+
+
+def test_cli_recipe_breakout(tmp_path, capsys):
+    """The README's CPU recipe for Breakout: the saved params load in the
+    JAX package's loader with flax's names and shapes."""
+    jsonl = tmp_path / "m.jsonl"
+    cli.main([
+        "+alg=pqn_minatar", "ENV_NAME=Breakout-MinAtar", "DEVICE=cpu", "TOTAL_TIMESTEPS=2048",
+        "TOTAL_TIMESTEPS_DECAY=2048", "NUM_ENVS=8", "NUM_STEPS=16", "NUM_MINIBATCHES=2",
+        "NUM_EPOCHS=2", "HIDDEN_SIZE=32", "TEST_DURING_TRAINING=False",
+        f"SAVE_PATH={tmp_path / 'models'}", f"LOG_JSONL={jsonl}",
+    ])
+    assert "Training took" in capsys.readouterr().out
+    run_dir = tmp_path / "models" / "Breakout-MinAtar"
+    saved = jckpt.load_params(str(run_dir / "pqn_Breakout-MinAtar_seed0.safetensors"))
+    assert saved["CNN_0"]["Conv_0"]["kernel"].shape == (3, 3, 4, 16)
+    assert saved["CNN_0"]["Dense_0"]["kernel"].shape == (1024, 32)
+    assert saved["Dense_0"]["kernel"].shape == (32, 3)
+    assert saved["BatchNorm_0"]["scale"].shape == (4,)
+    assert (run_dir / "pqn_Breakout-MinAtar_seed0_config.yaml").exists()
+    rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert len(rows) == 16 and rows[-1]["env_step"] == 2048
+
+
 @pytest.mark.slow
 def test_cartpole_learns():
     """The port's counterpart of tests/test_pqn_train.py::test_cartpole_learns
@@ -244,3 +364,23 @@ def test_cartpole_learns():
     )
     rets = pqn.make_train(config)()["metrics"]["returned_episode_returns"]
     assert rets[-10:].mean().item() > 100, rets[-10:]
+
+
+@pytest.mark.slow
+def test_breakout_learns():
+    """The chip gate of pqn_minatar on Breakout-MinAtar, on the CPU: at the
+    YAML's full width, 500k env steps through the fused rollout's plain twin
+    (the path the card runs through the kernel) must lift the mean of the
+    last 10 training returns above 3; random play scores about 0.5."""
+    config = compose(
+        alg="pqn_minatar",
+        overrides=[
+            "DEVICE=cpu", "ENV_NAME=Breakout-MinAtar", "TOTAL_TIMESTEPS=500000",
+            "TOTAL_TIMESTEPS_DECAY=500000", "TEST_DURING_TRAINING=False",
+            "FUSED_ROLLOUT=True",
+        ],
+    )
+    rets = pqn.make_train(config)()["metrics"]["returned_episode_returns"]
+    print(f"mean return over the first 10 updates {rets[:10].mean().item():.2f}, "
+          f"over the last 10 {rets[-10:].mean().item():.2f}")
+    assert rets[-10:].mean().item() > 3, rets[-10:]
