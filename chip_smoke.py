@@ -9,17 +9,18 @@ Phases, each ending the run with a non-zero exit if it fails:
 2. build the CUDA kernels under purejaxql_torch/csrc/ (one nvcc each, in
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   trainers' shapes: lambda returns, the CartPole rollout, the Breakout
-   rollout (PRNG off and on);
+   trainers' shapes: lambda returns, the CartPole rollout, and the Breakout,
+   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on);
 4. check the rollout kernels' random streams by their statistics;
 5. train pqn_cartpole at full width (H 256, 32 envs x 64 steps, 16
    minibatches x 4 epochs, greedy eval 128 envs x 500 steps) for 200k env
    steps through the CLI's entry point, with the launch counters zeroed just
    before and read just after, and check that it learned;
-6. train pqn_minatar on Breakout-MinAtar at full width (the MinAtar CNN,
-   128 envs x 32 steps, 32 minibatches x 2 epochs, greedy eval 128 envs x
-   up to 1000 steps) for 500k env steps the same way, and check that it
-   learned;
+6. train pqn_minatar at full width (the MinAtar CNN, 128 envs x 32 steps,
+   32 minibatches x 2 epochs, greedy eval 128 envs x up to max_steps) the
+   same way: Breakout-MinAtar for 500k env steps and Asterix-MinAtar (the
+   YAML's default game, no ENV_NAME) for 500k, each checked for learning,
+   then Freeway-MinAtar and SpaceInvaders-MinAtar for 16 updates each;
 7. time each kernel and its twin with CUDA events at the trainers' shapes;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
@@ -42,7 +43,19 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 TRAIN_STEPS = 200_000
 BREAKOUT_STEPS = 500_000
-KERNELS = ("lambda_returns", "cartpole_rollout", "breakout_rollout")
+ASTERIX_STEPS = 500_000
+SHORT_STEPS = 16 * 32 * 128  # 16 updates of Freeway and of SpaceInvaders
+# the mean of the last 10 training returns the Asterix run must beat:
+# tests/test_torch_asterix.py::test_asterix_learns
+ASTERIX_GATE = 0.8
+KERNELS = (
+    "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
+    "freeway_rollout", "space_invaders_rollout",
+)
+# the Breakout run and check as recorded on an H100 before its CNN moved into
+# csrc/minatar_cnn.cuh (PERF.md): the last-10 mean return, the last greedy
+# eval, the resets with the PRNG off
+BREAKOUT_RECORD = (8.29, 9.00, 531)
 
 
 def fail(msg: str) -> None:
@@ -90,15 +103,30 @@ def rollout_bound_ms(T: int, B: int, H: int, A: int):
     return _bound(nbytes, T * B * per_step)
 
 
-def breakout_bound_ms(T: int, B: int, H: int, A: int):
-    taps, flat, obs = 36, 1024, 400
+def minatar_bound_ms(T: int, B: int, H: int, A: int, C: int, state_ints: int, game_ops: int):
+    """A MinAtar rollout kernel's bound: C observation channels (9 C conv
+    taps), ``state_ints`` int32 of game state per env (read and written),
+    about ``game_ops`` operations of game rules per env step."""
+    taps, flat, obs = 9 * C, 1024, 100 * C
     weights = 4 * (taps * 16 + 3 * 16 + H * flat + 3 * H + A * H + A)
-    state = 4 * (8 + 100) * B  # state matrix and brick map, in and out
+    state = 4 * state_ints * B
     nbytes = weights + 2 * state + 4 * T * B * (obs + 3 + A) + 4 * B * obs
     # per env step: the conv (2 flops per MAC plus bias), the dense layer and
-    # the head, two LayerNorms with relu (~8 per unit), the game (~50)
-    per_step = (2 * taps + 1) * flat + 8 * flat + (2 * flat + 1) * H + 8 * H + (2 * H + 1) * A + 50
+    # the head, two LayerNorms with relu (~8 per unit), the game
+    per_step = (2 * taps + 1) * flat + 8 * flat + (2 * flat + 1) * H + 8 * H + (2 * H + 1) * A + game_ops
     return _bound(nbytes, T * B * per_step)
+
+
+# per game: (channels, state ints per env, game operations per env step):
+# Breakout's (8, B) matrix and brick map, Asterix's (48, B), Freeway's
+# (32, B), SpaceInvaders' (16, B) and three maps; SpaceInvaders' rules touch
+# every cell a few times, the others' a few slots or lanes
+GAME_SHAPES = {
+    "breakout_rollout": (4, 8 + 100, 50),
+    "asterix_rollout": (4, 48, 100),
+    "freeway_rollout": (7, 32, 100),
+    "space_invaders_rollout": (6, 16 + 300, 1000),
+}
 
 
 def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()):
@@ -130,28 +158,164 @@ def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()
 
 
 def check_run(name, outs, wall, launches, n_updates, steps_per_update, rollout, gate):
-    """The checks both training runs share; returns the mean of the last 10
-    returned_episode_returns."""
+    """The checks every training run shares: one lambda-returns launch per
+    update, the game's rollout kernel more than once per update (the eval
+    chunks) and no other rollout kernel, the env-step count, finite metrics
+    and, where ``gate`` is given, learning. Returns (mean of the last 10
+    returned_episode_returns, last greedy eval return)."""
     import numpy as np
 
     train_state = outs["runner_state"][0]
     m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
     last10 = float(m["returned_episode_returns"][-10:].mean())
+    last_eval = float(m["test/returned_episode_returns"][-1])
     print(
         f"train {name}: {train_state.timesteps} env steps in {wall:.2f} s wall "
         f"({train_state.timesteps / wall:.0f} env-steps/s, eval included); launches {launches}; "
         f"mean of last 10 returned_episode_returns {last10:.2f}; "
-        f"last greedy eval return {float(m['test/returned_episode_returns'][-1]):.2f}"
+        f"last greedy eval return {last_eval:.2f}"
     )
     check(all(p.device.type == "cuda" for p in train_state.network.parameters()), f"{name}: a parameter is not on cuda")
     check(launches["lambda_returns"] == n_updates,
           f"{name}: lambda_returns launched {launches['lambda_returns']} times, expected {n_updates}")
     check(launches[rollout] > n_updates, f"{name}: {rollout} launched {launches[rollout]} times: no eval chunks")
+    others = {k: v for k, v in launches.items() if k not in ("lambda_returns", rollout) and v}
+    check(not others, f"{name}: another game's kernel launched: {others}")
     check(train_state.timesteps == n_updates * steps_per_update, f"{name}: wrong env-step count")
     check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals", "returned_episode_returns")),
           f"{name}: non-finite metrics")
-    check(last10 > gate, f"{name} did not learn: mean of last 10 returned_episode_returns {last10} <= {gate}")
-    return last10
+    check(np.isfinite(last_eval), f"{name}: the last greedy eval finished no episode")
+    if gate is not None:
+        check(last10 > gate, f"{name} did not learn: mean of last 10 returned_episode_returns {last10} <= {gate}")
+    return last10, last_eval
+
+
+def asterix_states(B: int, seed: int):
+    """Asterix states that meet every rule: half at an episode's start, half
+    on random boards (entities in any slot, timers about to fire, ramps due
+    at both parities, times near the limit), a quarter of those with enemies
+    next to the player on its row and the rows above and below."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.envs.minatar.asterix import AsterixParams, AsterixState, start_state
+    from purejaxql_torch.ops.asterix_rollout import state_matrix_from_asterix
+
+    r = np.random.RandomState(seed)
+    n = B - B // 2
+    cols = {
+        "player_x": r.randint(0, 10, n), "player_y": r.randint(1, 9, n),
+        "e_exists": r.rand(n, 8) < 0.5, "e_x": r.randint(0, 10, (n, 8)),
+        "e_lr": r.rand(n, 8) < 0.5, "e_gold": r.rand(n, 8) < 0.3,
+        "spawn_speed": r.randint(1, 11, n), "spawn_timer": r.randint(0, 3, n),
+        "move_speed": r.randint(1, 6, n), "move_timer": r.randint(0, 3, n),
+        "ramp_timer": r.choice([0, 1, 50], n), "ramp_index": r.randint(0, 6, n),
+        "terminal": np.zeros(n, bool), "time": r.randint(0, 1000, n),
+    }
+    q = n // 4
+    cols["player_x"][:q], cols["player_y"][:q], cols["move_timer"][:q] = 5, 5, 0
+    for slot in (3, 4, 5):
+        cols["e_exists"][:q, slot], cols["e_gold"][:q, slot] = True, False
+        cols["e_lr"][:q, slot] = np.arange(q) % 2 == 0
+        cols["e_x"][:q, slot] = np.where(cols["e_lr"][:q, slot], 4, 6)
+    rand = AsterixState(**{k: torch.tensor(v if v.dtype == bool else v.astype(np.int32)) for k, v in cols.items()})
+    st = torch.cat([state_matrix_from_asterix(start_state(B // 2, AsterixParams(), "cpu")),
+                    state_matrix_from_asterix(rand)], 1)
+    return (st.contiguous(),)
+
+
+def freeway_states(B: int, seed: int):
+    """Freeway states that meet every rule: half at an episode's start, half
+    on random roads (the chicken anywhere, cooldowns running, timers about
+    to fire, both directions), a quarter of those 0-31 steps before the
+    2500-step limit."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.envs.minatar.freeway import FreewayDraws, FreewayState, start_state
+    from purejaxql_torch.ops.freeway_rollout import state_matrix_from_freeway
+
+    r = np.random.RandomState(seed)
+    h, n = B // 2, B - B // 2
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32))  # noqa: E731
+    starts = start_state(i32(r.randint(0, 10, (h, 8))), FreewayDraws(
+        i32(r.randint(1, 6, (h, 8))), i32(r.choice([-1, 1], (h, 8)))))
+    time = r.randint(0, 2400, n)
+    time[: n // 4] = 2499 - np.arange(n // 4) % 32
+    rand = FreewayState(
+        pos=i32(r.randint(0, 10, n)), car_x=i32(r.randint(0, 10, (n, 8))),
+        car_timer=i32(r.randint(0, 4, (n, 8))),
+        car_speed=i32(r.randint(1, 6, (n, 8)) * r.choice([-1, 1], (n, 8))),
+        move_timer=i32(r.randint(0, 4, n)), terminal=torch.zeros(n, dtype=torch.bool), time=i32(time),
+    )
+    st = torch.cat([state_matrix_from_freeway(starts), state_matrix_from_freeway(rand)], 1)
+    return (st.contiguous(),)
+
+
+def space_invaders_states(B: int, seed: int):
+    """SpaceInvaders states that meet every rule: half at an episode's
+    start, half on random boards (thinned waves anywhere, at the walls and on
+    the bottom row, bullets in flight both ways, timers about to fire), a
+    quarter of those with a row of enemy bullets over the cannon's row."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.envs.minatar.space_invaders import (
+        SpaceInvadersParams,
+        SpaceInvadersState,
+        start_state,
+    )
+    from purejaxql_torch.ops.space_invaders_rollout import state_matrix_from_space_invaders
+
+    r = np.random.RandomState(seed)
+    n = B - B // 2
+    alien = np.zeros((n, 10, 10), np.int32)
+    for i in range(n):
+        top, left = r.randint(0, 7), r.randint(0, 5)
+        alien[i, top : top + 4, left : left + 6] = r.rand(4, 6) < 0.6
+    ebul = (r.rand(n, 10, 10) < 0.05).astype(np.int32)
+    ebul[: n // 4, 8, :] = 1
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32))  # noqa: E731
+    rand = SpaceInvadersState(
+        pos=i32(r.randint(0, 10, n)), f_bullet_map=i32(r.rand(n, 10, 10) < 0.05), e_bullet_map=i32(ebul),
+        alien_map=i32(alien), alien_dir=i32(r.choice([-1, 1], n)),
+        enemy_move_interval=i32(r.randint(6, 13, n)), alien_move_timer=i32(r.randint(0, 3, n)),
+        alien_shot_timer=i32(r.randint(0, 3, n)), ramp_index=i32(r.randint(0, 4, n)),
+        shot_timer=i32(r.randint(0, 3, n)), terminal=torch.zeros(n, dtype=torch.bool),
+        time=i32(r.randint(0, 1000, n)),
+    )
+    a = state_matrix_from_space_invaders(start_state(B // 2, SpaceInvadersParams(), "cpu"))
+    b = state_matrix_from_space_invaders(rand)
+    return tuple(torch.cat([x, y], -1).contiguous() for x, y in zip(a, b))
+
+
+def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, eps=0.1):
+    """One kernel call against its twin on the same inputs: every output
+    equal but Q, within 1e-4. Returns (max |Q error|, resets, reward sum,
+    non-greedy actions)."""
+    import torch
+
+    got = kernel(seed, eps, weights, *states, T, use_prng=use_prng)
+    want = plain(seed, eps, weights, *states, T, use_prng=use_prng)
+    torch.cuda.synchronize()
+    mism = (got[1] != want[1]).nonzero()
+    if len(mism):
+        t, b = mism[0].tolist()
+        top2 = want[4][t, b].topk(2).values
+        fail(
+            f"{name} prng={use_prng}: action differs first at t={t} env={b}; "
+            f"plain q-gap there {(top2[0] - top2[1]).item():.3g}, kernel q {got[4][t, b].tolist()} "
+            f"plain q {want[4][t, b].tolist()}"
+        )
+    labels = ("obs", "act", "rew", "done", "q", "final_obs") + tuple(f"state{i}" for i in range(len(states)))
+    for label, g, w in zip(labels, got, want):
+        if label != "q":
+            check(torch.equal(g, w), f"{name} prng={use_prng}: {label} differs")
+    err = (got[4] - want[4]).abs().max().item()
+    check(err <= 1e-4, f"{name} prng={use_prng}: q err {err} > 1e-4")
+    n_done, rew = int(want[3].sum()), float(want[2].sum())
+    n_random = int((want[1].long() != want[4].argmax(-1)).sum())
+    return err, n_done, rew, n_random
 
 
 def main() -> int:
@@ -166,10 +330,14 @@ def main() -> int:
         from purejaxql_torch.envs.minatar.breakout import start_state
         from purejaxql_torch.models.cnn import CNNQNetwork
         from purejaxql_torch.models.qnet import QNetwork
+        from purejaxql_torch.ops import asterix_rollout as ar
         from purejaxql_torch.ops import breakout_rollout as br
         from purejaxql_torch.ops import build
         from purejaxql_torch.ops import cartpole_rollout as cr
+        from purejaxql_torch.ops import freeway_rollout as fr
         from purejaxql_torch.ops import lambda_returns as lr
+        from purejaxql_torch.ops import space_invaders_rollout as sr
+        from purejaxql_torch.ops.minatar_rollout import minatar_weights
     except ImportError as e:
         fail(f"cannot import purejaxql_torch ({e}): run from the root of a checkout")
     import numpy as np
@@ -182,6 +350,9 @@ def main() -> int:
         "lambda_returns": lr.lambda_returns,
         "cartpole_rollout": cr.cartpole_rollout,
         "breakout_rollout": br.breakout_rollout,
+        "asterix_rollout": ar.asterix_rollout,
+        "freeway_rollout": fr.freeway_rollout,
+        "space_invaders_rollout": sr.space_invaders_rollout,
     }
 
     # ---- 1. the card -------------------------------------------------------
@@ -277,7 +448,7 @@ def main() -> int:
     # ---- 3c. Breakout rollout vs plain, PRNG off and on ------------------------
     BB, BT, BH, BA = 128, 32, 128, 3
     bnet = CNNQNetwork((10, 10, 4), BA, hidden_size=BH, generator=torch.Generator().manual_seed(1)).to(dev)
-    bweights = br.breakout_weights(bnet)
+    bweights = minatar_weights(bnet)
 
     def breakout_states(B, seed):
         """Half the envs at an episode's start, half on random boards (any
@@ -298,37 +469,49 @@ def main() -> int:
         brick[:, :, B // 2:] = torch.tensor(walls, dtype=torch.int32)
         return st.to(dev).contiguous(), brick.to(dev).contiguous()
 
-    bnames = ("obs", "act", "rew", "done", "q", "final_obs", "st", "brick")
     st0, brick0 = breakout_states(BB, 3)
     q_err = 0.0
+    breakout_resets = {}
     for use_prng in (False, True):
-        got = br.breakout_rollout(77, 0.1, bweights, st0, brick0, BT, use_prng=use_prng)
-        want = br.breakout_rollout_plain(77, 0.1, bweights, st0, brick0, BT, use_prng=use_prng)
-        torch.cuda.synchronize()
-        g, w = dict(zip(bnames, got)), dict(zip(bnames, want))
-        mism = (g["act"] != w["act"]).nonzero()
-        if len(mism):
-            t, b = mism[0].tolist()
-            top2 = w["q"][t, b].topk(2).values
-            fail(
-                f"breakout_rollout prng={use_prng}: action differs first at t={t} env={b}; "
-                f"plain q-gap there {(top2[0] - top2[1]).item():.3g}, kernel q {g['q'][t, b].tolist()} "
-                f"plain q {w['q'][t, b].tolist()}"
-            )
-        for k in ("obs", "rew", "done", "final_obs", "st", "brick"):
-            check(torch.equal(g[k], w[k]), f"breakout_rollout prng={use_prng}: {k} differs")
-        err = (g["q"] - w["q"]).abs().max().item()
-        n_done, n_rew = int(w["done"].sum()), int(w["rew"].sum())
-        n_random = int((w["act"].long() != w["q"].argmax(-1)).sum())
+        err, n_done, n_rew, n_random = compare_minatar(
+            "breakout_rollout", br.breakout_rollout, br.breakout_rollout_plain, bweights, (st0, brick0), BT, use_prng
+        )
+        breakout_resets[use_prng] = n_done
         print(
             f"breakout_rollout B={BB} T={BT} prng={use_prng}: obs/actions/rewards/dones/state/bricks equal "
-            f"({n_done} resets, {n_rew} bricks scored, {n_random} non-greedy actions), "
+            f"({n_done} resets, {n_rew:.0f} bricks scored, {n_random} non-greedy actions), "
             f"max|q err| {err:.3g} (tolerance 1e-4)"
         )
-        check(err <= 1e-4, f"breakout_rollout prng={use_prng}: q err {err} > 1e-4")
         check(n_done > 0, "breakout_rollout: no env reset in the comparison")
         q_err = max(q_err, err)
     errors["breakout_rollout"] = q_err
+
+    # ---- 3d. Asterix, Freeway and SpaceInvaders rollouts vs plain, PRNG off and on --
+    games = {  # kernel, twin, states, channels, actions, what a reward is
+        "asterix_rollout": (ar.asterix_rollout, ar.asterix_rollout_plain, asterix_states, 4, 5, "gold"),
+        "freeway_rollout": (fr.freeway_rollout, fr.freeway_rollout_plain, freeway_states, 7, 3, "crossings"),
+        "space_invaders_rollout": (
+            sr.space_invaders_rollout, sr.space_invaders_rollout_plain, space_invaders_states, 6, 4, "kills",
+        ),
+    }
+    game_inputs = {}
+    for i, (name, (kernel, plain, make_states, gC, gA, scores)) in enumerate(games.items()):
+        net = CNNQNetwork((10, 10, gC), gA, hidden_size=BH, generator=torch.Generator().manual_seed(2 + i)).to(dev)
+        gweights = minatar_weights(net)
+        gstates = tuple(x.to(dev) for x in make_states(BB, 3 + i))
+        game_inputs[name] = (gweights, gstates)
+        q_err = 0.0
+        for use_prng in (False, True):
+            err, n_done, rew, n_random = compare_minatar(name, kernel, plain, gweights, gstates, BT, use_prng)
+            print(
+                f"{name} B={BB} T={BT} prng={use_prng}: obs/actions/rewards/dones/state equal "
+                f"({n_done} resets, {rew:.0f} {scores}, {n_random} non-greedy actions), "
+                f"max|q err| {err:.3g} (tolerance 1e-4)"
+            )
+            check(n_done > 0, f"{name}: no env reset in the comparison")
+            check(rew > 0 or name == "freeway_rollout", f"{name}: nothing scored in the comparison")
+            q_err = max(q_err, err)
+        errors[name] = q_err
 
     # ---- 4. PRNG-on statistics -----------------------------------------------
     B, T = 128, 64
@@ -362,6 +545,81 @@ def main() -> int:
     check(not torch.equal(bobs1, bobs2) and not torch.equal(bact, bact2), "breakout: different seeds gave the same stream")
     print("breakout: different seeds give different streams")
 
+    for name, expect in (("asterix_rollout", 0.24), ("freeway_rollout", 0.2), ("space_invaders_rollout", 0.225)):
+        kernel, gA = games[name][0], games[name][4]
+        gweights, gstates = game_inputs[name]
+        _, gact, _, _, gq, *_ = kernel(99, 0.3, gweights, *gstates, BT)
+        p_random = (gact.long() != gq.argmax(-1)).float().mean().item()
+        print(f"{name}: P(act != greedy) at eps 0.3, A={gA}: {p_random:.4f} (expect {expect})")
+        check(abs(p_random - expect) < 0.02, f"{name} P(act != greedy) = {p_random}")
+        gact2 = kernel(100, 0.3, gweights, *gstates, BT)[1]
+        check(not torch.equal(gact, gact2), f"{name}: different seeds gave the same actions")
+
+    # Asterix spawns: one step of 8192 envs, each with a random set of free
+    # slots and its spawn timer at 0 (nothing moves, nothing collides)
+    from purejaxql_torch.envs.minatar.asterix import AsterixState
+
+    NB = 8192
+    r = np.random.RandomState(5)
+    exists = r.rand(NB, 8) < 0.5
+    exists[np.arange(NB), r.randint(0, 8, NB)] = False  # at least one free slot
+    i32 = lambda v: torch.full((NB,), v, dtype=torch.int32)  # noqa: E731
+    spawn_state = AsterixState(
+        player_x=i32(5), player_y=i32(5), e_exists=torch.tensor(exists),
+        e_x=torch.full((NB, 8), 2, dtype=torch.int32), e_lr=torch.zeros(NB, 8, dtype=torch.bool),
+        e_gold=torch.zeros(NB, 8, dtype=torch.bool), spawn_speed=i32(10), spawn_timer=i32(0),
+        move_speed=i32(5), move_timer=i32(5), ramp_timer=i32(50), ramp_index=i32(0),
+        terminal=torch.zeros(NB, dtype=torch.bool), time=i32(0),
+    )
+    spawn_st = ar.state_matrix_from_asterix(spawn_state).to(dev)
+    aweights = game_inputs["asterix_rollout"][0]
+    spawned = []
+    for seed in (7, 8):
+        after = ar.asterix_from_state_matrix(ar.asterix_rollout(seed, 0.0, aweights, spawn_st, 1)[6].cpu())
+        new = after.e_exists & ~spawn_state.e_exists
+        check(bool((new.sum(1) == 1).all()), "asterix: a spawn did not fill exactly one free slot")
+        slot = new.int().argmax(1)
+        spawned.append(slot)
+    rows = torch.arange(NB)
+    gold = after.e_gold[rows, slot].float().mean().item()
+    right = after.e_lr[rows, slot]
+    check(bool(torch.equal(after.e_x[rows, slot], torch.where(right, 0, 9).to(torch.int32))),
+          "asterix: a spawn is not at the edge it walks from")
+    free = torch.tensor(~exists).float()
+    expect = (free / free.sum(1, keepdim=True)).sum(0)
+    counts = torch.bincount(slot, minlength=8).float()
+    dev_slot = ((counts - expect).abs() / expect).max().item()
+    print(
+        f"asterix spawns: gold {gold:.4f} (expect 1/3), walking right {right.float().mean().item():.4f} "
+        f"(expect 0.5), per-slot count / uniform-over-free-slots expectation off by at most "
+        f"{100 * dev_slot:.1f} % over {NB} spawns"
+    )
+    check(abs(gold - 1 / 3) < 0.02 and abs(right.float().mean().item() - 0.5) < 0.02, "asterix spawn shares")
+    check(dev_slot < 0.1, f"asterix: spawned slots not uniform over the free slots ({dev_slot})")
+    check(not torch.equal(spawned[0], spawned[1]), "asterix: different seeds gave the same spawns")
+
+    # Freeway resets: one step of 8192 envs at max_steps=1, so every env
+    # resets to new car columns and the step's lane speeds and directions
+    fst0 = freeway_states(NB, 9)[0].to(dev)
+    fweights = game_inputs["freeway_rollout"][0]
+    resets = [fr.freeway_from_state_matrix(fr.freeway_rollout(seed, 0.0, fweights, fst0, 1, max_steps=1)[6].cpu())
+              for seed in (7, 8)]
+    cars = resets[0]
+    x_share = torch.bincount(cars.car_x.flatten(), minlength=10).float() / cars.car_x.numel()
+    speed = cars.car_speed.abs().flatten()
+    s_share = torch.bincount(speed, minlength=6)[1:].float() / speed.numel()
+    right = (cars.car_speed > 0).float().mean().item()
+    print(
+        f"freeway resets: car columns {[round(v, 4) for v in x_share.tolist()]} (expect 0.1 each), "
+        f"speeds 1-5 {[round(v, 4) for v in s_share.tolist()]} (expect 0.2 each), "
+        f"direction +1 {right:.4f} (expect 0.5), over {cars.car_x.numel()} cars"
+    )
+    check((x_share - 0.1).abs().max().item() < 0.01 and (s_share - 0.2).abs().max().item() < 0.01
+          and abs(right - 0.5) < 0.01, "freeway reset draws")
+    check(bool(torch.equal(cars.car_timer, cars.car_speed.abs())) and bool((cars.pos == 9).all()),
+          "freeway: a reset's timers or chicken are wrong")
+    check(not torch.equal(resets[0].car_x, resets[1].car_x), "freeway: different seeds gave the same resets")
+
     # ---- 5. train pqn_cartpole at full width through the kernels ---------------
     save_path = os.path.join(root, "build", "chip_smoke_models")
     outs, wall, launches_cp = train(cli, compose, "pqn_cartpole", TRAIN_STEPS, save_path, counters)
@@ -376,7 +634,7 @@ def main() -> int:
         extra=["ENV_NAME=Breakout-MinAtar"],
     )
     bo_updates = BREAKOUT_STEPS // 32 // 128
-    bo_last10 = check_run("breakout", outs, wall, launches_bo, bo_updates, 32 * 128, "breakout_rollout", 3)
+    bo_last10, bo_eval = check_run("breakout", outs, wall, launches_bo, bo_updates, 32 * 128, "breakout_rollout", 3)
     check(launches_bo["cartpole_rollout"] == 0, "the Breakout run launched the CartPole kernel")
     bo_rate = outs["runner_state"][0].timesteps / wall
     saved = load_params(os.path.join(save_path, "Breakout-MinAtar", "pqn_Breakout-MinAtar_seed0.safetensors"))
@@ -384,6 +642,42 @@ def main() -> int:
     check(tuple(saved["CNN_0"]["Dense_0"]["kernel"].shape) == (1024, 128), "saved dense kernel has the wrong shape")
     print(json.dumps({"breakout_run": {"env_steps_per_s": bo_rate, "wall_s": wall, "last10_return": bo_last10,
                                        "launches": launches_bo, "card": card}}))
+    now = (round(bo_last10, 2), round(bo_eval, 2), breakout_resets[False])
+    print(
+        f"breakout after the shared CNN header: last-10 mean {now[0]}, last eval {now[1]}, "
+        f"{now[2]} resets in the PRNG-off check; recorded before the shared header {BREAKOUT_RECORD}: "
+        f"{'equal' if now == BREAKOUT_RECORD else 'DIFFERENT'}"
+    )
+
+    # ---- 6b. train pqn_minatar on Asterix, the YAML's default game -------------
+    outs, wall, launches_as = train(cli, compose, "pqn_minatar", ASTERIX_STEPS, save_path, counters)
+    as_updates = ASTERIX_STEPS // 32 // 128
+    as_last10, as_eval = check_run(
+        "asterix", outs, wall, launches_as, as_updates, 32 * 128, "asterix_rollout", ASTERIX_GATE
+    )
+    as_rate = outs["runner_state"][0].timesteps / wall
+    saved = load_params(os.path.join(save_path, "Asterix-MinAtar", "pqn_Asterix-MinAtar_seed0.safetensors"))
+    check(tuple(saved["CNN_0"]["Conv_0"]["kernel"].shape) == (3, 3, 4, 16), "asterix: saved conv kernel has the wrong shape")
+    print(json.dumps({"asterix_run": {"env_steps_per_s": as_rate, "wall_s": wall, "last10_return": as_last10,
+                                      "last_eval_return": as_eval, "gate": ASTERIX_GATE,
+                                      "launches": launches_as, "card": card}}))
+
+    # ---- 6c. Freeway and SpaceInvaders, 16 updates each at full width ----------
+    # (the eval chunks' share of such a run: scripts/profile_torch_train.py)
+    short_launches = {}
+    for env_name, rollout in (("Freeway-MinAtar", "freeway_rollout"), ("SpaceInvaders-MinAtar", "space_invaders_rollout")):
+        outs, wall, launches = train(
+            cli, compose, "pqn_minatar", SHORT_STEPS, save_path, counters, extra=[f"ENV_NAME={env_name}"],
+        )
+        check_run(env_name, outs, wall, launches, 16, 32 * 128, rollout, None)
+        short_launches[rollout] = launches
+        print(json.dumps({"short_run": {"env": env_name, "env_steps_per_s": outs["runner_state"][0].timesteps / wall,
+                                        "wall_s": wall, "launches": launches, "card": card}}))
+    # Freeway's eval: 17 evals (one before training, one after each update at
+    # TEST_INTERVAL 0.05 of 16 updates) of 79 chunks of 32 steps; no episode
+    # ends before the 2500-step limit, so early exit cuts none of them
+    check(short_launches["freeway_rollout"]["freeway_rollout"] == 16 + 17 * 79,
+          f"freeway: {short_launches['freeway_rollout']['freeway_rollout']} launches, expected {16 + 17 * 79}")
 
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
@@ -401,22 +695,36 @@ def main() -> int:
         b_ms, b_by = rollout_bound_ms(64, B, H, A)
         timings[f"cartpole_rollout_B{B}"] = (k_ms, p_ms, b_ms, b_by)
         print(json.dumps({"timing": "cartpole_rollout", "shape": {"T": 64, "B": B, "H": H}, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
-    k_ms = cuda_time_ms(lambda: br.breakout_rollout(3, 0.1, bweights, st0, brick0, BT), 50)
-    p_ms = cuda_time_ms(lambda: br.breakout_rollout_plain(3, 0.1, bweights, st0, brick0, BT), 3, warmup=1)
-    b_ms, b_by = breakout_bound_ms(BT, BB, BH, BA)
-    timings["breakout_rollout"] = (k_ms, p_ms, b_ms, b_by)
-    print(json.dumps({"timing": "breakout_rollout", "shape": {"T": BT, "B": BB, "H": BH}, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
+    game_inputs["breakout_rollout"] = (bweights, (st0, brick0))
+    games["breakout_rollout"] = (br.breakout_rollout, br.breakout_rollout_plain, None, 4, BA, None)
+    for name in ("breakout_rollout", "asterix_rollout", "freeway_rollout", "space_invaders_rollout"):
+        kernel, plain, _, gC, gA, _ = games[name]
+        gweights, gstates = game_inputs[name]
+        k_ms = cuda_time_ms(lambda: kernel(3, 0.1, gweights, *gstates, BT), 50)
+        p_ms = cuda_time_ms(lambda: plain(3, 0.1, gweights, *gstates, BT), 3, warmup=1)
+        b_ms, b_by = minatar_bound_ms(BT, BB, BH, gA, *GAME_SHAPES[name])
+        timings[name] = (k_ms, p_ms, b_ms, b_by)
+        print(json.dumps({"timing": name, "shape": {"T": BT, "B": BB, "H": BH, "C": gC, "A": gA}, "ms": k_ms,
+                          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
 
     # ---- 8. the kernel table -----------------------------------------------------
-    # launches: each kernel's count from the run of its slice's path
+    # launches: each kernel's count from the run of its slice's path (the
+    # lambda returns from this slice's main path, the Asterix run)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x128", launches_bo),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x128", launches_as),
         ("cartpole_rollout", "purejaxql_torch/csrc/cartpole_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:465", "cartpole_rollout_B32", launches_cp),
         ("breakout_rollout", "purejaxql_torch/csrc/breakout_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:195", "breakout_rollout", launches_bo),
+        ("asterix_rollout", "purejaxql_torch/csrc/asterix_rollout.cu",
+         "purejaxql_tpu/ops/pallas_rollout.py:693", "asterix_rollout", launches_as),
+        ("freeway_rollout", "purejaxql_torch/csrc/freeway_rollout.cu",
+         "purejaxql_tpu/ops/pallas_rollout.py:1039", "freeway_rollout", short_launches["freeway_rollout"]),
+        ("space_invaders_rollout", "purejaxql_torch/csrc/space_invaders_rollout.cu",
+         "purejaxql_tpu/ops/pallas_rollout.py:1276", "space_invaders_rollout",
+         short_launches["space_invaders_rollout"]),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

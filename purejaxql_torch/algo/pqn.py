@@ -1,7 +1,8 @@
 """FF-PQN trainer for feedforward Q-networks.
 
 Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork
-(CartPole-v1) and the MinAtar CNN (Breakout-MinAtar). Each update: a
+(CartPole-v1) and the MinAtar CNN (Asterix-, Breakout-, Freeway- and
+SpaceInvaders-MinAtar). Each update: a
 NUM_STEPS rollout over NUM_ENVS envs (epsilon-greedy on the current params),
 Q(lambda) targets, NUM_EPOCHS epochs of NUM_MINIBATCHES minibatch steps of
 clip + RAdam on the 0.5 * MSE TD loss, the update metrics, and every
@@ -17,9 +18,9 @@ Two rollout paths:
 - unfused (pqn.py:321-340): network forward, `eps_greedy_batch` and the
   Log-wrapped env step, one env step at a time;
 - FUSED_ROLLOUT (pqn.py:342-406): the whole rollout in one launch of the
-  game's kernel (`fused_game_rollout`: ops/cartpole_rollout.py,
-  ops/breakout_rollout.py), with the Log wrapper's episode statistics
-  replayed from the (reward, done) streams afterwards.
+  game's kernel (`fused_game_rollout`: ops/cartpole_rollout.py and the
+  MinAtar games' ops/<game>_rollout.py), with the Log wrapper's episode
+  statistics replayed from the (reward, done) streams afterwards.
 
 The lambda targets always go through `ops.lambda_returns.lambda_returns`,
 the CUDA kernel on the GPU; PALLAS_RETURNS is accepted and changes nothing.
@@ -45,17 +46,21 @@ from purejaxql_torch.algo.metrics import (
     test_interval_updates,
 )
 from purejaxql_torch.algo.types import Transition
-from purejaxql_torch.core.config import derive_pqn_schedule_keys
+from purejaxql_torch.core.config import FUSED_GAMES, derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import epsilon_schedule, lr_schedule
 from purejaxql_torch.core.train_state import PQNTrainState
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs import wrappers
 from purejaxql_torch.models.factory import make_q_network
+from purejaxql_torch.ops.asterix_rollout import (
+    asterix_from_state_matrix,
+    asterix_rollout,
+    state_matrix_from_asterix,
+)
 from purejaxql_torch.ops.breakout_rollout import (
     breakout_from_state_matrix,
     breakout_rollout,
-    breakout_weights,
     state_matrix_from_breakout,
 )
 from purejaxql_torch.ops.cartpole_rollout import (
@@ -64,7 +69,18 @@ from purejaxql_torch.ops.cartpole_rollout import (
     cartpole_weights,
     state_matrix_from_cartpole,
 )
+from purejaxql_torch.ops.freeway_rollout import (
+    freeway_from_state_matrix,
+    freeway_rollout,
+    state_matrix_from_freeway,
+)
 from purejaxql_torch.ops.lambda_returns import lambda_returns
+from purejaxql_torch.ops.minatar_rollout import minatar_weights
+from purejaxql_torch.ops.space_invaders_rollout import (
+    space_invaders_from_state_matrix,
+    space_invaders_rollout,
+    state_matrix_from_space_invaders,
+)
 from purejaxql_torch.utils.platform import resolve_device
 
 # options of the JAX trainer that later slices port; asking for one raises
@@ -75,6 +91,14 @@ _NOT_PORTED = {
     "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
     "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
 }
+
+
+# games whose kernel, as its TPU kernel, keeps its env params built in but
+# max_steps: the CartPole physics, Asterix's cadences and `ramping`,
+# SpaceInvaders' cooldowns and reset march interval (pallas_rollout.py:469-472,
+# 860, 1473-1474); the Breakout and Freeway kernels take all of their env's
+# params
+_BUILT_IN_PARAMS = ("CartPole-v1", "Asterix-MinAtar", "SpaceInvaders-MinAtar")
 
 
 def _check_supported(config: Dict[str, Any]) -> None:
@@ -89,19 +113,18 @@ def _check_supported(config: Dict[str, Any]) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
     env_name = config["ENV_NAME"]
     if config.get("FUSED_ROLLOUT", False) and (
-        env_name not in ("CartPole-v1", "Breakout-MinAtar")
+        env_name not in FUSED_GAMES
         or config.get("NORM_TYPE") != "layer_norm"
         or config.get("NORM_INPUT", False)
-        or (
-            env_name == "CartPole-v1"
-            and (config.get("NUM_LAYERS", 2) != 2 or config.get("ENV_KWARGS"))
-        )
+        or (env_name == "CartPole-v1" and config.get("NUM_LAYERS", 2) != 2)
+        or (env_name in _BUILT_IN_PARAMS and config.get("ENV_KWARGS"))
     ):
         raise ValueError(
-            "FUSED_ROLLOUT supports CartPole-v1 with its default physics and a "
-            "2-layer MLP, and Breakout-MinAtar with the MinAtar CNN, both with "
-            "layer_norm and NORM_INPUT=False (ops/cartpole_rollout.py, "
-            "ops/breakout_rollout.py)"
+            "FUSED_ROLLOUT supports CartPole-v1 with a 2-layer MLP and the MinAtar "
+            "games Asterix, Breakout, Freeway and SpaceInvaders with the MinAtar CNN, "
+            "all with layer_norm and NORM_INPUT=False; CartPole, Asterix and "
+            "SpaceInvaders with their default env params (ENV_KWARGS empty): "
+            "ops/cartpole_rollout.py, ops/<game>_rollout.py"
         )
 
 
@@ -114,21 +137,40 @@ def fused_weights(env_name: str, network: torch.nn.Module):
     """The weight tensors the game's rollout kernel takes."""
     if env_name == "CartPole-v1":
         return cartpole_weights(network)
-    return breakout_weights(network)
+    return minatar_weights(network)
 
 
-def fused_game_rollout(env_name, seed, eps, weights, env_state, num_steps, max_steps):
+def fused_game_rollout(env_name, seed, eps, weights, env_state, num_steps, env_params):
     """A whole ``num_steps`` rollout of the game (network forward,
     epsilon-greedy, env dynamics and auto-reset) in one launch of its kernel
-    (pqn.py:126-171). Returns the (obs, action, reward, done, q) streams, the
-    final obs and the final env state. Shared by the training rollout and
-    the chunked eval."""
+    (pqn.py:126-171), with the env params the kernel takes. Returns the
+    (obs, action, reward, done, q) streams, the final obs and the final env
+    state. Shared by the training rollout and the chunked eval."""
+    max_steps = env_params.max_steps_in_episode
     if env_name == "CartPole-v1":
         stf, sti = state_matrix_from_cartpole(env_state)
         *streams, stf, sti = cartpole_rollout(
             seed, eps, weights, stf, sti, num_steps, max_steps=max_steps
         )
         return (*streams, cartpole_from_state_matrix(stf, sti))
+    if env_name == "Asterix-MinAtar":
+        *streams, st = asterix_rollout(
+            seed, eps, weights, state_matrix_from_asterix(env_state), num_steps,
+            max_steps=max_steps,
+        )
+        return (*streams, asterix_from_state_matrix(st))
+    if env_name == "Freeway-MinAtar":
+        *streams, st = freeway_rollout(
+            seed, eps, weights, state_matrix_from_freeway(env_state), num_steps,
+            max_steps=max_steps, player_speed=env_params.player_speed,
+        )
+        return (*streams, freeway_from_state_matrix(st))
+    if env_name == "SpaceInvaders-MinAtar":
+        *streams, st, alien, fmap, emap = space_invaders_rollout(
+            seed, eps, weights, *state_matrix_from_space_invaders(env_state), num_steps,
+            max_steps=max_steps,
+        )
+        return (*streams, space_invaders_from_state_matrix(st, alien, fmap, emap))
     st, brick = state_matrix_from_breakout(env_state)
     *streams, st, brick = breakout_rollout(
         seed, eps, weights, st, brick, num_steps, max_steps=max_steps
@@ -233,7 +275,6 @@ def make_train(
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
-    max_steps = env_params.max_steps_in_episode
 
     n_envs, n_steps = config["NUM_ENVS"], config["NUM_STEPS"]
     n_minibatches, n_epochs = config["NUM_MINIBATCHES"], config["NUM_EPOCHS"]
@@ -263,7 +304,7 @@ def make_train(
             if use_fused:
                 obs_seq, act, rew, done_i, q_seq, final_obs, env_state = fused_game_rollout(
                     env_name, _draw_seed(host_gen), eps, fused_weights(env_name, network),
-                    log_state.env_state, n_steps, max_steps,
+                    log_state.env_state, n_steps, env_params,
                 )
                 done = done_i.bool()
                 transitions = Transition(
@@ -336,7 +377,7 @@ def make_train(
                 for i in range(n_chunks):
                     _, _, rew, done_i, _, _, env_state = fused_game_rollout(
                         env_name, seed0 + i * chunk, config["EPS_TEST"], weights,
-                        env_state, chunk, max_steps,
+                        env_state, chunk, env_params,
                     )
                     rews[i], dones[i] = rew, done_i.bool()
                     if config.get("EVAL_EARLY_EXIT", False):

@@ -102,8 +102,12 @@ def compose(
 
 
 # Envs whose whole rollout this package runs as one kernel
-# (ops/cartpole_rollout.py, ops/breakout_rollout.py).
-_FUSED_GAMES = ("CartPole-v1", "Breakout-MinAtar")
+# (ops/cartpole_rollout.py, ops/<game>_rollout.py), as the JAX package's
+# policy lists them (purejaxql_tpu/core/config.py:107-110) less Seaquest.
+FUSED_GAMES = (
+    "CartPole-v1", "Asterix-MinAtar", "Breakout-MinAtar", "Freeway-MinAtar",
+    "SpaceInvaders-MinAtar",
+)
 
 
 def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
@@ -112,7 +116,7 @@ def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
     return (
         config.get("NUM_SEEDS", 1) == 1
         and str(config.get("ALG_NAME", "pqn")) == "pqn"
-        and config.get("ENV_NAME") in _FUSED_GAMES
+        and config.get("ENV_NAME") in FUSED_GAMES
         and not config.get("USE_OPTIMISTIC_RESETS", False)
         and not config.get("BATCH_ENV", False)
         and config.get("NORM_TYPE") == "layer_norm"

@@ -23,19 +23,8 @@
 // blocks run side by side on the 132 SMs. Each step the block
 //   - builds the 4 planes (row, col, channel) in shared memory and writes
 //     them out as that step's observation;
-//   - runs the conv, one thread per output (i, j, f), its 36 taps in the
-//     (di, dj, c) order with the 1/255 already folded into the weights;
-//   - runs LayerNorm over the 16 channels of each pixel (one thread per
-//     pixel, two-pass) and relu;
-//   - runs the dense layer one warp per output row, lanes striding the row
-//     with float4 loads, so each load instruction reads 512 contiguous
-//     bytes. The weight (H x 1024 floats, 512 KiB at H = 128) does not fit
-//     in the 227 KB of shared memory a block may have; it is read from
-//     global memory, where it stays in L2 across blocks and steps. The
-//     conv output sits in shared memory in flax's (i, j, f) flatten order,
-//     so the weight's columns need no reorder;
-//   - runs LayerNorm over the H units (two-pass block reduction) and relu,
-//     then the head, one warp per action;
+//   - runs the MinAtar CNN of minatar_cnn.cuh (conv, LayerNorms, dense
+//     layer with the weight read from L2, head);
 //   - on thread 0: the argmax (first index wins ties, as jnp.argmax), the
 //     epsilon coin, the Breakout dynamics in the rule order of
 //     breakout.py:83-159 and the reset; the brick map is then updated by
@@ -52,23 +41,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "minatar_cnn.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSide = 10;                        // the board is 10 x 10
-constexpr int kCells = kSide * kSide;
+using namespace minatar;
+
 constexpr int kChannels = 4;                     // paddle, ball, trail, brick
 constexpr int kObs = kCells * kChannels;         // floats per observation
-constexpr int kOut = kSide - 2;                  // VALID 3x3 conv: 8 x 8
-constexpr int kFeatures = 16;                    // conv channels
-constexpr int kFlat = kOut * kOut * kFeatures;   // 1024
-constexpr int kTaps = 9 * kChannels;             // 36
-constexpr int kMaxActions = 8;
 constexpr int kWallBricks = 3 * kSide;           // rows 1-3
-constexpr float kUnit24 = 1.0f / 16777216.0f;
-constexpr float kLnEps = 1e-6f;
 
 // rows of the (8, B) state matrix
 enum { kBallY, kBallX, kDir, kPos, kStrike, kLastY, kLastX, kTime, kStateRows };
@@ -81,28 +63,6 @@ __device__ __forceinline__ int dir_dy(int d) { return d < 2 ? -1 : 1; }
 __device__ __forceinline__ int bounce_x(int d) { return d ^ 1; }
 __device__ __forceinline__ int bounce_y(int d) { return 3 - d; }
 __device__ __forceinline__ int bounce_corner(int d) { return d ^ 2; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum over the block; every thread gets the total. `red` holds 33 floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < nwarps ? red[lane] : 0.0f;
-    s = warp_sum(s);
-    if (lane == 0) red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
-}
 
 // The observation of a state as (row, col, channel) planes, into shared
 // memory and out to `out` (breakout.py get_obs).
@@ -127,12 +87,7 @@ __device__ void build_planes(float* planes, float* __restrict__ out,
 }
 
 __global__ void __launch_bounds__(kThreads) breakout_rollout_kernel(
-    const float* __restrict__ conv_w, const float* __restrict__ conv_b,
-    const float* __restrict__ ln1_scale, const float* __restrict__ ln1_bias,
-    const float* __restrict__ dense_w, const float* __restrict__ dense_b,
-    const float* __restrict__ ln2_scale, const float* __restrict__ ln2_bias,
-    const float* __restrict__ head_w, const float* __restrict__ head_b,
-    const int* __restrict__ st0, const int* __restrict__ brick0,
+    CnnWeights wts, const int* __restrict__ st0, const int* __restrict__ brick0,
     float* __restrict__ obs_out, int* __restrict__ act_out,
     float* __restrict__ rew_out, int* __restrict__ done_out,
     float* __restrict__ q_out, float* __restrict__ final_obs,
@@ -140,19 +95,13 @@ __global__ void __launch_bounds__(kThreads) breakout_rollout_kernel(
     int A, uint32_t key0, uint32_t key1, float eps, int use_prng,
     int max_steps) {
   extern __shared__ __align__(16) float smem[];
-  float* planes = smem;                    // kObs
-  float* h1 = planes + kObs;               // kFlat, in (i, j, f) order
-  float* h2 = h1 + kFlat;                  // H
-  float* wconv = h2 + H;                   // kTaps x kFeatures
-  float* red = wconv + kTaps * kFeatures;  // 33
-  float* q = red + 33;                     // kMaxActions
+  const CnnSmem m = cnn_smem<kChannels>(smem, H);
   __shared__ int s[kStateRows];
   __shared__ int bricks[kCells];
   __shared__ int n_bricks, hit_cell, refill;
 
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int k = tid; k < kTaps * kFeatures; k += blockDim.x) wconv[k] = conv_w[k];
+  load_conv<kChannels>(m, wts);
   for (int k = tid; k < kCells; k += blockDim.x) bricks[k] = brick0[k * B + b];
   if (tid < kStateRows) s[tid] = st0[tid * B + b];
   __syncthreads();
@@ -164,100 +113,17 @@ __global__ void __launch_bounds__(kThreads) breakout_rollout_kernel(
 
   for (int t = 0; t < T; ++t) {
     const long tb = (long)t * B + b;
-    build_planes(planes, obs_out + tb * kObs, s, bricks);
+    build_planes(m.planes, obs_out + tb * kObs, s, bricks);
     __syncthreads();
-
-    // conv 3x3 VALID, 4 -> 16 channels: output o = (i * 8 + j) * 16 + f
-    for (int o = tid; o < kFlat; o += blockDim.x) {
-      const int f = o % kFeatures, p = o / kFeatures;
-      const int i = p / kOut, j = p - i * kOut;
-      float acc = conv_b[f];
-      for (int di = 0; di < 3; ++di) {
-        for (int dj = 0; dj < 3; ++dj) {
-          const float* x = planes + ((i + di) * kSide + (j + dj)) * kChannels;
-          const float* w = wconv + (di * 3 + dj) * kChannels * kFeatures + f;
-#pragma unroll
-          for (int c = 0; c < kChannels; ++c) acc += x[c] * w[c * kFeatures];
-        }
-      }
-      h1[o] = acc;
-    }
-    __syncthreads();
-
-    // LayerNorm over the channels of each pixel (two-pass), relu
-    if (tid < kOut * kOut) {
-      float* hp = h1 + tid * kFeatures;
-      float sum = 0.0f;
-      for (int f = 0; f < kFeatures; ++f) sum += hp[f];
-      const float mu = sum / (float)kFeatures;
-      float ss = 0.0f;
-      for (int f = 0; f < kFeatures; ++f) {
-        const float d = hp[f] - mu;
-        ss += d * d;
-      }
-      const float inv = 1.0f / sqrtf(ss / (float)kFeatures + kLnEps);
-      for (int f = 0; f < kFeatures; ++f) {
-        hp[f] = fmaxf((hp[f] - mu) * inv * ln1_scale[f] + ln1_bias[f], 0.0f);
-      }
-    }
-    __syncthreads();
-
-    // dense (1024 -> H): one warp per output row, float4 loads along it
-    {
-      const float4* x4 = reinterpret_cast<const float4*>(h1);
-      for (int row = warp; row < H; row += nwarps) {
-        const float4* w4 = reinterpret_cast<const float4*>(dense_w + (size_t)row * kFlat);
-        float acc = 0.0f;
-#pragma unroll
-        for (int m = 0; m < kFlat / 128; ++m) {
-          const float4 w = __ldg(w4 + lane + 32 * m);
-          const float4 x = x4[lane + 32 * m];
-          acc += w.x * x.x + w.y * x.y + w.z * x.z + w.w * x.w;
-        }
-        acc = warp_sum(acc);
-        if (lane == 0) h2[row] = acc + dense_b[row];
-      }
-    }
-    __syncthreads();
-
-    // LayerNorm over the H units (two-pass), relu: thread j owns unit j
-    {
-      const float v = tid < H ? h2[tid] : 0.0f;
-      const float mu = block_sum(v, red) / (float)H;
-      const float d = tid < H ? v - mu : 0.0f;
-      const float var = block_sum(d * d, red) / (float)H;
-      if (tid < H) {
-        h2[tid] = fmaxf(d * (1.0f / sqrtf(var + kLnEps)) * ln2_scale[tid] + ln2_bias[tid], 0.0f);
-      }
-    }
-    __syncthreads();
-
-    // head (H -> A): warp a computes q[a]
-    if (warp < A) {
-      const float* wr = head_w + (size_t)warp * H;
-      float acc = 0.0f;
-      for (int k = lane; k < H; k += 32) acc += wr[k] * h2[k];
-      acc = warp_sum(acc);
-      if (lane == 0) q[warp] = acc + head_b[warp];
-    }
-    __syncthreads();
+    q_values<kChannels>(m, wts, H, A);
 
     if (tid == 0) {
-      int greedy = 0;
-      float best = q[0];
-      q_out[tb * A] = q[0];
-      for (int a = 1; a < A; ++a) {
-        q_out[tb * A + a] = q[a];
-        if (q[a] > best) {
-          best = q[a];
-          greedy = a;
-        }
-      }
+      const int greedy = greedy_action(m.q, q_out + tb * A, A);
       float u = 1.0f;
       int rand_act = 0, side = 0;
       if (use_prng) {
         const U4 r = philox4x32_10(U4{(uint32_t)t, (uint32_t)b, 0u, 0u}, key0, key1);
-        u = (float)(r.x >> 8) * kUnit24;
+        u = unit24(r.x);
         rand_act = (int)((r.y >> 8) % (uint32_t)A);
         side = (int)((r.z >> 8) & 1u);
       }
@@ -341,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) breakout_rollout_kernel(
     __syncthreads();
   }
 
-  build_planes(planes, final_obs + (long)b * kObs, s, bricks);
+  build_planes(m.planes, final_obs + (long)b * kObs, s, bricks);
   if (tid < kStateRows) st_out[tid * B + b] = s[tid];
   for (int k = tid; k < kCells; k += blockDim.x) brick_out[k * B + b] = bricks[k];
 }
@@ -365,14 +231,13 @@ int breakout_rollout_f32(const float* conv_w, const float* conv_b,
                          int* brick_out, int T, int B, int H, int A,
                          unsigned long long seed, float eps, int use_prng,
                          int max_steps, void* stream) {
-  const size_t smem =
-      (size_t)(kObs + kFlat + H + kTaps * kFeatures + 33 + kMaxActions) * sizeof(float);
+  const CnnWeights wts{conv_w, conv_b, ln1_scale, ln1_bias, dense_w,
+                       dense_b, ln2_scale, ln2_bias, head_w, head_b};
+  const size_t smem = cnn_smem_floats(kChannels, H) * sizeof(float);
   breakout_rollout_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      conv_w, conv_b, ln1_scale, ln1_bias, dense_w, dense_b, ln2_scale,
-      ln2_bias, head_w, head_b, st0, brick0, obs_out, act_out, rew_out,
-      done_out, q_out, final_obs, st_out, brick_out, T, B, H, A,
-      (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32), eps, use_prng,
-      max_steps);
+      wts, st0, brick0, obs_out, act_out, rew_out, done_out, q_out, final_obs,
+      st_out, brick_out, T, B, H, A, (uint32_t)(seed & 0xffffffffull),
+      (uint32_t)(seed >> 32), eps, use_prng, max_steps);
   return (int)cudaGetLastError();
 }
 

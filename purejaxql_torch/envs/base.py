@@ -8,6 +8,15 @@ and a ``torch.Generator`` on the device the envs live on.
 Auto-reset: ``step`` computes both the stepped state and a fresh reset
 state and selects between them on ``done`` (purejaxql_tpu/envs/base.py:
 77-84), so a finished env starts its next episode on the same step.
+
+Randomness inside a step: where the JAX env draws from the step's key (an
+Asterix spawn, new Freeway car speeds), the env here takes the draws as an
+argument, ``step_env(state, action, params, draws)``, and makes them with
+``step_draws(generator, num_envs)``. So one set of rules serves three
+callers: ``step`` draws them from the device generator, each fused rollout's
+plain twin passes its kernel's Philox words, and the tests pass the draws the
+JAX env makes from its own key. An env whose step draws nothing returns
+``NO_DRAWS``.
 """
 
 from __future__ import annotations
@@ -37,6 +46,14 @@ def select_state(done: torch.Tensor, on_true, on_false):
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class NoDraws:
+    """The draws of an env whose step takes no randomness."""
+
+
+NO_DRAWS = NoDraws()
+
+
 class Environment:
     """Base class: subclasses implement ``reset_env``/``step_env``/spaces."""
 
@@ -57,7 +74,8 @@ class Environment:
         """Step with auto-reset on episode end."""
         if params is None:
             params = self.default_params
-        obs_st, state_st, reward, done, info = self.step_env(state, action, params)
+        draws = self.step_draws(generator, action.shape[0])
+        obs_st, state_st, reward, done, info = self.step_env(state, action, params, draws)
         obs_re, state_re = self.reset_env(generator, done.shape[0], params)
         state = select_state(done, state_re, state_st)
         obs = select_env(done, obs_re, obs_st)
@@ -66,7 +84,11 @@ class Environment:
     def reset_env(self, generator: torch.Generator, num_envs: int, params) -> Tuple[torch.Tensor, Any]:
         raise NotImplementedError
 
-    def step_env(self, state, action: torch.Tensor, params):
+    def step_draws(self, generator: torch.Generator, num_envs: int):
+        """The random inputs of one step of ``num_envs`` envs."""
+        return NO_DRAWS
+
+    def step_env(self, state, action: torch.Tensor, params, draws):
         raise NotImplementedError
 
     def observation_space(self, params) -> spaces.Space:

@@ -69,7 +69,7 @@ class CartPole(Environment):
         )
         return self.get_obs(state), state
 
-    def step_env(self, state, action, params):
+    def step_env(self, state, action, params, draws):
         p = params
         prev_done = self.is_terminal(state, p)
 

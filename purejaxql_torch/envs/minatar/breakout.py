@@ -86,7 +86,7 @@ class MinBreakout(Environment):
         state = start_state(side.to(torch.int32))
         return self.get_obs(state), state
 
-    def step_env(self, state, action, params):
+    def step_env(self, state, action, params, draws):
         action = action.to(torch.int32)
         move = torch.where(action == 1, -1, torch.where(action == 2, 1, 0))
         pos = (state.pos + move).clamp(0, 9)

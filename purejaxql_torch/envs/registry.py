@@ -12,11 +12,17 @@ from typing import Callable, Dict, Tuple
 
 from purejaxql_torch.envs.base import Environment
 from purejaxql_torch.envs.classic.cartpole import CartPole
+from purejaxql_torch.envs.minatar.asterix import MinAsterix
 from purejaxql_torch.envs.minatar.breakout import MinBreakout
+from purejaxql_torch.envs.minatar.freeway import MinFreeway
+from purejaxql_torch.envs.minatar.space_invaders import MinSpaceInvaders
 
 _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "CartPole-v1": CartPole,
+    "Asterix-MinAtar": MinAsterix,
     "Breakout-MinAtar": MinBreakout,
+    "Freeway-MinAtar": MinFreeway,
+    "SpaceInvaders-MinAtar": MinSpaceInvaders,
 }
 
 

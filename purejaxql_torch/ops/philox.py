@@ -4,6 +4,22 @@ The counter-based generator every fused rollout kernel runs
 (``csrc/philox.cuh``), here for their plain twins: each (step, env, draw
 group) is a counter, the kernel's 64-bit seed the key, so a twin draws the
 same bits as its kernel without sharing any state with it.
+
+Word layout. The random words of step t for env b are numbered w = 0, 1,
+...; word w is lane w % 4 of the call with counter (t, b, w // 4, 0). So a
+game that needs n words makes ceil(n / 4) calls, k = 0, 1, ..., and every
+game reads its words in this order:
+
+- CartPole: 0 coin, 1 random action, 2-5 the four reset values;
+- Breakout: 0 coin, 1 random action, 2 reset side;
+- Asterix: 0 coin, 1 random action, 2-9 the Gumbel score of each slot,
+  10 spawn direction, 11 gold;
+- Freeway: 0 coin, 1 random action, 2-9 lane speeds, 10-17 lane
+  directions, 18-25 reset x of each car;
+- SpaceInvaders: 0 coin, 1 random action.
+
+A word is used through its top 24 bits (``w >> 8``), as the TPU kernels use
+their hardware PRNG's words.
 """
 
 from __future__ import annotations
@@ -50,3 +66,18 @@ def step_env_counters(num_steps: int, batch: int, device):
     t = torch.arange(num_steps, dtype=torch.int64, device=device)[:, None]
     env = torch.arange(batch, dtype=torch.int64, device=device)[None, :]
     return torch.broadcast_tensors(t, env)
+
+
+def step_words(seed: int, num_steps: int, batch: int, num_words: int, device) -> torch.Tensor:
+    """Words 0 .. num_words - 1 of every step and env, as a (T, B, n) int64
+    tensor of uint32 values, in the layout of the module docstring."""
+    t, env = step_env_counters(num_steps, batch, device)
+    zero = torch.zeros_like(t)
+    key = seed_key(seed)
+    calls = [philox4x32_10((t, env, zero + k, zero), key) for k in range(-(-num_words // 4))]
+    return torch.stack([w for call in calls for w in call], -1)[..., :num_words]
+
+
+def unit24(word: torch.Tensor) -> torch.Tensor:
+    """A word's top 24 bits as a float32 in [0, 1), in steps of 2**-24."""
+    return (word >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -2,7 +2,9 @@
 """Where the time of a full-width training run of the port goes, on one GPU.
 
     python scripts/profile_torch_train.py [--steps 200000] [--profile-updates 5]
+    python scripts/profile_torch_train.py --alg pqn_minatar --steps 500000   # Asterix
     python scripts/profile_torch_train.py --alg pqn_minatar --env Breakout-MinAtar --steps 500000
+    python scripts/profile_torch_train.py --alg pqn_minatar --env Freeway-MinAtar --steps 65536
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -10,9 +12,11 @@ steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
 2 epochs, greedy eval 128 envs x up to 1000 steps):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
-   lambda targets, minibatch steps, eval) is wrapped with a device
-   synchronize before and after, so the phases add up to the run's wall
-   time (the syncs cost a little overlap, which the total shows);
+   lambda targets, minibatch steps) is wrapped with a device synchronize
+   before and after, so the phases add up to the run's wall time (the syncs
+   cost a little overlap, which the total shows); a rollout's calls are
+   split into training and eval chunks (the calls at EPS_TEST), and the eval
+   chunks' share of the wall is printed;
 2. the device's busy share: torch.profiler over a short run without eval,
    summed kernel time over the wall time of the profiled run.
 
@@ -32,7 +36,10 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-ROLLOUTS = ("cartpole_rollout", "breakout_rollout")
+ROLLOUTS = (
+    "cartpole_rollout", "asterix_rollout", "breakout_rollout", "freeway_rollout",
+    "space_invaders_rollout",
+)
 
 
 def main() -> int:
@@ -55,6 +62,16 @@ def main() -> int:
     ).stdout.strip()
 
     # ---- 1. phase wall times ------------------------------------------------
+    env = [f"ENV_NAME={args.env}"] if args.env else []
+    config = compose(
+        alg=args.alg,
+        overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", *env],
+    )
+    # a rollout kernel serves training and the eval chunks; the eval's calls
+    # are those at EPS_TEST, below every training epsilon (>= EPS_FINISH)
+    eval_eps = config["EPS_TEST"]
+    if not eval_eps < config["EPS_FINISH"]:
+        raise SystemExit("EPS_TEST must be below EPS_FINISH to tell eval calls from training calls")
     totals = defaultdict(float)
     counts = defaultdict(int)
 
@@ -64,8 +81,11 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            # a rollout kernel serves training (B = NUM_ENVS) and eval chunks
-            key = f"{name}_B{a[3].shape[-1]}" if name in ROLLOUTS else name
+            if name in ROLLOUTS:
+                phase = "eval" if a[1] == eval_eps else "train"
+                key = f"{name}_{phase}_B{a[3].shape[-1]}"
+            else:
+                key = name
             totals[key] += time.perf_counter() - t0
             counts[key] += 1
             return out
@@ -75,11 +95,6 @@ def main() -> int:
     originals = {n: getattr(pqn, n) for n in (*ROLLOUTS, "log_replay", "lambda_returns", "learn_minibatch")}
     for name, fn in originals.items():
         setattr(pqn, name, timed(name, fn))
-    env = [f"ENV_NAME={args.env}"] if args.env else []
-    config = compose(
-        alg=args.alg,
-        overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", *env],
-    )
     train = pqn.make_train(config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -120,6 +135,9 @@ def main() -> int:
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,
+            "eval_chunks_share_of_wall": sum(
+                v for k, v in totals.items() if "_eval_" in k
+            ) / wall,
         },
         "profile": {
             "updates": n, "wall_s": pwall, "device_busy_s": device_us / 1e6,

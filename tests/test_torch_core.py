@@ -94,19 +94,20 @@ def test_cuda_policy(capsys):
 
 
 def test_cuda_policy_breakout():
-    """On cuda the policy fuses Breakout-MinAtar's rollout and eval; the
-    YAML's default game (Asterix) and the other MinAtar games are not
-    eligible and stay unknown to the port's registry."""
-    cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Breakout-MinAtar"])
-    assert cfg["FUSED_ROLLOUT"] is True and cfg["EVAL_EARLY_EXIT"] is True
+    """On cuda the policy fuses the rollout and eval of every MinAtar game
+    the port has a kernel for, Breakout and the YAML's default game
+    (Asterix) among them; Seaquest is not eligible and stays unknown to the
+    port's registry."""
+    for game in ("Asterix", "Breakout", "Freeway", "SpaceInvaders"):
+        cfg = tconfig.compose(alg="pqn_minatar", overrides=[f"ENV_NAME={game}-MinAtar"])
+        assert cfg["FUSED_ROLLOUT"] is True and cfg["EVAL_EARLY_EXIT"] is True, game
     assert "FUSED_ROLLOUT" not in tconfig.compose(
         alg="pqn_minatar", overrides=["ENV_NAME=Breakout-MinAtar", "NORM_INPUT=True"]
     )
-    for game in ("Asterix", "Freeway", "SpaceInvaders", "Seaquest"):
-        cfg = tconfig.compose(alg="pqn_minatar", overrides=[f"ENV_NAME={game}-MinAtar"])
-        assert "FUSED_ROLLOUT" not in cfg and "EVAL_EARLY_EXIT" not in cfg
-        with pytest.raises(ValueError, match="Unknown env"):
-            make_env(cfg["ENV_NAME"])
+    cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Seaquest-MinAtar"])
+    assert "FUSED_ROLLOUT" not in cfg and "EVAL_EARLY_EXIT" not in cfg
+    with pytest.raises(ValueError, match="Unknown env"):
+        make_env(cfg["ENV_NAME"])
     assert tconfig.compose(alg="pqn_minatar")["ENV_NAME"] == "Asterix-MinAtar"
 
 

@@ -12,12 +12,17 @@ import torch
 
 from purejaxql_torch.algo import pqn
 from purejaxql_torch.core.config import compose
+from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs.minatar.breakout import start_state
 from purejaxql_torch.models.cnn import CNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork
+from purejaxql_torch.ops import asterix_rollout as ar
 from purejaxql_torch.ops import breakout_rollout as br
 from purejaxql_torch.ops import cartpole_rollout as cr
+from purejaxql_torch.ops import freeway_rollout as fr
 from purejaxql_torch.ops import lambda_returns as lr
+from purejaxql_torch.ops import space_invaders_rollout as sr
+from purejaxql_torch.ops.minatar_rollout import minatar_weights
 
 pytestmark = pytest.mark.cuda
 
@@ -95,7 +100,7 @@ def _breakout_inputs(dev, B=128, hidden=128):
     net = CNNQNetwork((10, 10, 4), 3, hidden_size=hidden, generator=torch.Generator().manual_seed(B)).to(dev)
     side = torch.randint(0, 2, (B,), generator=torch.Generator().manual_seed(0)).to(torch.int32)
     st0, brick0 = br.state_matrix_from_breakout(start_state(side))
-    return br.breakout_weights(net), st0.to(dev), brick0.to(dev)
+    return minatar_weights(net), st0.to(dev), brick0.to(dev)
 
 
 @pytest.mark.parametrize("use_prng", [False, True])
@@ -140,5 +145,68 @@ def test_tiny_breakout_train_on_the_card_launches_both_kernels(dev):
     n_updates = 16384 // 32 // 128
     assert lr.lambda_returns.launches == n_updates
     assert br.breakout_rollout.launches > n_updates
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+# per game: the kernel's wrapper, its plain twin, the state converter, the
+# observation channels and the actions
+GAMES = {
+    "Asterix-MinAtar": (ar.asterix_rollout, ar.asterix_rollout_plain, ar.state_matrix_from_asterix, 4, 5),
+    "Freeway-MinAtar": (fr.freeway_rollout, fr.freeway_rollout_plain, fr.state_matrix_from_freeway, 7, 3),
+    "SpaceInvaders-MinAtar": (
+        sr.space_invaders_rollout, sr.space_invaders_rollout_plain, sr.state_matrix_from_space_invaders, 6, 4,
+    ),
+}
+
+
+def _game_inputs(dev, env_name, B=128):
+    """The game's kernel weights (H 128) and states after 40 steps of random
+    play through the twin from a reset."""
+    _, plain, to_matrix, channels, actions = GAMES[env_name]
+    net = CNNQNetwork((10, 10, channels), actions, hidden_size=128, generator=torch.Generator().manual_seed(B)).to(dev)
+    weights = minatar_weights(net)
+    env, params = make_env(env_name)
+    _, state = env.reset(torch.Generator(device=dev).manual_seed(0), B, params)
+    packed = to_matrix(state)
+    packed = packed if isinstance(packed, tuple) else (packed,)
+    return weights, plain(3, 1.0, weights, *packed, 40)[6:]
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("env_name", sorted(GAMES))
+def test_minatar_kernel_matches_plain(dev, env_name, use_prng):
+    """B 128, T 32, H 128: every integer output, the observations and the
+    state equal, Q-values within 1e-4."""
+    kernel, plain = GAMES[env_name][:2]
+    weights, states = _game_inputs(dev, env_name)
+    got = kernel(5, 0.2, weights, *states, 32, use_prng=use_prng)
+    want = plain(5, 0.2, weights, *states, 32, use_prng=use_prng)
+    assert len(got) == len(want) == 6 + len(states)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 4:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("env_name", sorted(GAMES))
+def test_tiny_minatar_train_on_the_card_launches_its_kernel(dev, env_name):
+    config = compose(
+        alg="pqn_minatar",
+        overrides=[
+            f"ENV_NAME={env_name}", "TOTAL_TIMESTEPS=16384", "TOTAL_TIMESTEPS_DECAY=16384",
+            "TEST_NUM_STEPS=64", "TEST_INTERVAL=0.5",
+        ],
+    )
+    kernels = [GAMES[g][0] for g in GAMES] + [br.breakout_rollout]
+    for fn in kernels + [lr.lambda_returns]:
+        fn.launches = 0
+    out = pqn.make_train(config)()
+    n_updates = 16384 // 32 // 128
+    assert lr.lambda_returns.launches == n_updates
+    mine = GAMES[env_name][0]
+    assert mine.launches > n_updates
+    assert all(fn.launches == 0 for fn in kernels if fn is not mine)
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()

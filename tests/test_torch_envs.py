@@ -9,6 +9,7 @@ import torch
 
 from purejaxql_torch.envs import make as tmake
 from purejaxql_torch.envs import wrappers as twrappers
+from purejaxql_torch.envs.base import NO_DRAWS
 from purejaxql_torch.envs.classic.cartpole import CartPoleState
 from purejaxql_torch.envs.minatar.breakout import BreakoutState, start_state
 from purejaxql_tpu.envs import make as jmake
@@ -45,7 +46,7 @@ def test_step_env_matches_jax():
     )
     tenv, tparams = tmake("CartPole-v1")
     tstate = CartPoleState(**{k: torch.tensor(v) for k, v in cols.items()})
-    tobs, tst, trew, tdone, _ = tenv.step_env(tstate, torch.tensor(actions).long(), tparams)
+    tobs, tst, trew, tdone, _ = tenv.step_env(tstate, torch.tensor(actions).long(), tparams, NO_DRAWS)
     np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), atol=1e-6, rtol=0)
     np.testing.assert_array_equal(trew.numpy(), np.asarray(jrew))
     np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
@@ -108,7 +109,7 @@ def test_registry():
     assert params.max_steps_in_episode == 50 and env.action_space(params).n == 2
     assert env.observation_space(params).shape == (4,)
     with pytest.raises(ValueError, match="Unknown env"):
-        tmake("Asterix-MinAtar")
+        tmake("Seaquest-MinAtar")
 
 
 # ---- Breakout-MinAtar ------------------------------------------------------------
@@ -184,7 +185,7 @@ def _step_both(cols, actions):
     )
     tenv, tparams = tmake("Breakout-MinAtar")
     tstate = BreakoutState(**{k: torch.tensor(v) for k, v in cols.items()})
-    tout = tenv.step_env(tstate, torch.tensor(actions).long(), tparams)
+    tout = tenv.step_env(tstate, torch.tensor(actions).long(), tparams, NO_DRAWS)
     return jout, tout
 
 
@@ -258,7 +259,7 @@ def test_auto_reset_selects_image_obs_per_env(n):
     _, state = env.reset(gen, n, params)
     state.time[::2] = 999  # every other env reaches the time limit
     action = torch.zeros(n, dtype=torch.long)
-    obs_st, *_ = env.step_env(state, action, params)
+    obs_st, *_ = env.step_env(state, action, params, NO_DRAWS)
     obs, new_state, _, done, _ = env.step(gen, state, action, params)
     assert done[::2].all() and not done[1::2].any()
     np.testing.assert_array_equal(obs.numpy(), env.get_obs(new_state).numpy())

@@ -12,6 +12,7 @@ import torch
 
 from purejaxql_torch.core.checkpoint import params_from_flax
 from purejaxql_torch.envs import make as tmake
+from purejaxql_torch.envs.base import NO_DRAWS
 from purejaxql_torch.models.cnn import CNNQNetwork as TCNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork as TQNetwork
 from purejaxql_torch.ops import breakout_rollout as tbr
@@ -19,6 +20,7 @@ from purejaxql_torch.ops import build
 from purejaxql_torch.ops import cartpole_rollout as tcr
 from purejaxql_torch.ops import lambda_returns as tlr
 from purejaxql_torch.ops import philox
+from purejaxql_torch.ops.minatar_rollout import cnn_forward_plain, minatar_weights
 from purejaxql_tpu.algo.returns import lambda_returns as jax_lambda_returns
 from purejaxql_tpu.envs import make as jmake
 from purejaxql_tpu.models.cnn import CNNQNetwork as JCNNQNetwork
@@ -124,7 +126,7 @@ def test_rollout_plain_matches_port_env():
             act = net(obs, train=False).argmax(-1)
         np.testing.assert_allclose(got[0][t].numpy(), obs.numpy(), atol=1e-6)
         assert torch.equal(got[1][t].long(), act)
-        obs, state, rew, done, _ = env.step_env(state, act, params)
+        obs, state, rew, done, _ = env.step_env(state, act, params, NO_DRAWS)
         assert not done.any()
         assert torch.equal(got[2][t], rew)
     back = tcr.cartpole_from_state_matrix(got[6], got[7])
@@ -247,7 +249,7 @@ def test_breakout_rollout_plain_matches_pallas_interpret(max_steps):
         T, use_prng=False, interpret=True, max_steps=max_steps,
     )
     got = tbr.breakout_rollout(
-        0, 0.0, tbr.breakout_weights(tnet), torch.tensor(st0), torch.tensor(brick0), T,
+        0, 0.0, minatar_weights(tnet), torch.tensor(st0), torch.tensor(brick0), T,
         use_prng=False, max_steps=max_steps,
     )
     names = ("obs", "act", "rew", "done", "q", "final_obs", "st", "brick")
@@ -269,14 +271,14 @@ def test_breakout_weights_compute_the_cnn():
     weight in flax's (i, j, f) column order, an unpadded head) run through
     the twin's CNN gives the network's Q-values, within 1e-5."""
     _, _, _, tnet = _breakout_weights_from_flax(2, hidden=32)
-    weights = tbr.breakout_weights(tnet)
+    weights = minatar_weights(tnet)
     assert [tuple(w.shape) for w in weights] == [
         (36, 16), (16,), (16,), (16,), (32, 1024), (32,), (32,), (32,), (3, 32), (3,)
     ]
     obs = torch.tensor((np.random.RandomState(0).rand(64, 10, 10, 4) < 0.3).astype(np.float32))
     with torch.no_grad():
         want = tnet(obs, train=False)
-    np.testing.assert_allclose(tbr.cnn_forward_plain(obs, weights).numpy(), want.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(cnn_forward_plain(obs, weights).numpy(), want.numpy(), atol=1e-5, rtol=0)
 
 
 def test_breakout_state_matrix_round_trip():
@@ -294,7 +296,7 @@ def test_breakout_rollout_prng_statistics():
     max_steps=1 every step resets and the ball starts at x = 9 about half
     the time; different seeds give different streams."""
     _, _, _, tnet = _breakout_weights_from_flax(4, hidden=32)
-    weights = tbr.breakout_weights(tnet)
+    weights = minatar_weights(tnet)
     st0, brick0 = (torch.tensor(a) for a in _breakout_starts(128, 4))
     _, act, _, _, q, _, _, _ = tbr.breakout_rollout(11, 0.3, weights, st0, brick0, 32)
     p = (act.long() != q.argmax(-1)).float().mean().item()
@@ -311,10 +313,10 @@ def test_breakout_wrapper_takes_plain_version_on_cpu_without_counting():
     before = tbr.breakout_rollout.launches
     _, _, _, tnet = _breakout_weights_from_flax(0, hidden=32)
     st0, brick0 = (torch.tensor(a) for a in _breakout_starts(2, 0))
-    out = tbr.breakout_rollout(0, 0.0, tbr.breakout_weights(tnet), st0, brick0, 3)
+    out = tbr.breakout_rollout(0, 0.0, minatar_weights(tnet), st0, brick0, 3)
     assert [tuple(o.shape) for o in out] == [
         (3, 2, 10, 10, 4), (3, 2), (3, 2), (3, 2), (3, 2, 3), (2, 10, 10, 4), (8, 2), (10, 10, 2)
     ]
     assert tbr.breakout_rollout.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        tbr.breakout_rollout(0, 0.0, tbr.breakout_weights(tnet), st0.to("meta"), brick0.to("meta"), 3)
+        tbr.breakout_rollout(0, 0.0, minatar_weights(tnet), st0.to("meta"), brick0.to("meta"), 3)

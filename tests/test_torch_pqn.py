@@ -232,7 +232,7 @@ def test_unsupported_options_raise():
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
         pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
     with pytest.raises(ValueError, match="Unknown env"):
-        pqn.make_train(tiny_config(ENV_NAME="Asterix-MinAtar"))
+        pqn.make_train(tiny_config(ENV_NAME="Seaquest-MinAtar"))
     if not torch.cuda.is_available():
         # the GPU is the default device, and its absence is an error
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -292,32 +292,47 @@ def test_tiny_breakout_train_counts_and_determinism(fused):
     assert not torch.equal(m["td_loss"], c["metrics"]["td_loss"])
 
 
-def test_breakout_fused_eval_goes_through_the_game_dispatch(monkeypatch):
-    """The chunked eval calls the Breakout rollout with the env's own
-    max_steps (1000, the TPU kernel's default) and threads the state from
-    chunk to chunk."""
-    calls = []
-    real = pqn.breakout_rollout
+# per MinAtar game: its rollout wrapper in algo/pqn.py, the number of state
+# tensors it takes and returns, and the env's max_steps
+MINATAR_KERNELS = {
+    "Asterix-MinAtar": ("asterix_rollout", 1, 1000),
+    "Breakout-MinAtar": ("breakout_rollout", 2, 1000),
+    "Freeway-MinAtar": ("freeway_rollout", 1, 2500),
+    "SpaceInvaders-MinAtar": ("space_invaders_rollout", 4, 1000),
+}
 
-    def spy(seed, eps, weights, st, brick, T, use_prng=True, max_steps=None):
-        out = real(seed, eps, weights, st, brick, T, use_prng, max_steps)
-        calls.append((T, max_steps, st.clone(), out[6]))
+
+@pytest.mark.parametrize("env_name", sorted(MINATAR_KERNELS))
+def test_breakout_fused_eval_goes_through_the_game_dispatch(monkeypatch, env_name):
+    """The training rollouts and the chunked eval call the game's rollout
+    with the env's own max_steps (Freeway's 2500, the others' 1000, the TPU
+    kernels' defaults) and thread the state from chunk to chunk."""
+    name, n_state, max_steps = MINATAR_KERNELS[env_name]
+    calls = []
+    real = getattr(pqn, name)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        states_in = [x.clone() for x in args[3 : 3 + n_state]]
+        calls.append((args[3 + n_state], kwargs["max_steps"], states_in, out[6:]))
         return out
 
-    monkeypatch.setattr(pqn, "breakout_rollout", spy)
+    monkeypatch.setattr(pqn, name, spy)
     config = tiny_config(
-        **BREAKOUT, TOTAL_TIMESTEPS=256, TOTAL_TIMESTEPS_DECAY=256, NUM_ENVS=4, NUM_STEPS=8,
-        NUM_MINIBATCHES=1, NUM_EPOCHS=1, FUSED_ROLLOUT=True, EVAL_EARLY_EXIT=False,
-        TEST_DURING_TRAINING=True, TEST_NUM_ENVS=4, TEST_NUM_STEPS=24, TEST_INTERVAL=1.0,
+        alg="pqn_minatar", ENV_NAME=env_name, TOTAL_TIMESTEPS=256, TOTAL_TIMESTEPS_DECAY=256,
+        NUM_ENVS=4, NUM_STEPS=8, NUM_MINIBATCHES=1, NUM_EPOCHS=1, FUSED_ROLLOUT=True,
+        EVAL_EARLY_EXIT=False, TEST_DURING_TRAINING=True, TEST_NUM_ENVS=4, TEST_NUM_STEPS=24,
+        TEST_INTERVAL=1.0,
     )
     pqn.make_train(config)()
-    assert all(T == 8 and ms == 1000 for T, ms, _, _ in calls)
+    assert all(T == 8 and ms == max_steps for T, ms, _, _ in calls)
     # an eval of 3 chunks, 8 training rollouts, an eval of 3 chunks; each
     # rollout starts where the one before it in its stream ended
     assert len(calls) == 3 + 8 + 3
     for stream in (calls[:3], calls[3:11], calls[11:]):
-        for (_, _, _, st_out), (_, _, st_in, _) in zip(stream, stream[1:]):
-            assert torch.equal(st_in, st_out)
+        for (_, _, _, out), (_, _, state_in, _) in zip(stream, stream[1:]):
+            assert len(out) == len(state_in) == n_state
+            assert all(torch.equal(a, b) for a, b in zip(state_in, out))
 
 
 def test_breakout_fused_rollout_requires_layer_norm_and_raw_input():
