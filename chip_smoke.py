@@ -9,8 +9,9 @@ Phases, each ending the run with a non-zero exit if it fails:
 2. build the CUDA kernels under purejaxql_torch/csrc/ (one nvcc each, in
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   trainers' shapes: lambda returns, the CartPole rollout, and the Breakout,
-   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on);
+   trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
+   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on), and the
+   GRU scan's forward and backward kernels (and autograd through them);
 4. check the rollout kernels' random streams by their statistics;
 5. train pqn_cartpole at full width (H 256, 32 envs x 64 steps, 16
    minibatches x 4 epochs, greedy eval 128 envs x 500 steps) for 200k env
@@ -21,6 +22,11 @@ Phases, each ending the run with a non-zero exit if it fails:
    same way: Breakout-MinAtar for 500k env steps and Asterix-MinAtar (the
    YAML's default game, no ENV_NAME) for 500k, each checked for learning,
    then Freeway-MinAtar and SpaceInvaders-MinAtar for 16 updates each;
+6d. train pqn_rnn_memory_chain at its full config (GRU H 256, 32 envs x 128
+   steps, window 4, 16 minibatches x 4 epochs, 1e5 env steps, greedy eval
+   128 envs x 64 steps) through the GRU scan kernels and check that it
+   remembers; the FF trainer on the same config must not; then
+   pqn_rnn_cartpole at full width for 16 updates;
 7. time each kernel and its twin with CUDA events at the trainers' shapes;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
@@ -45,12 +51,21 @@ TRAIN_STEPS = 200_000
 BREAKOUT_STEPS = 500_000
 ASTERIX_STEPS = 500_000
 SHORT_STEPS = 16 * 32 * 128  # 16 updates of Freeway and of SpaceInvaders
+MEMORY_STEPS = 100_000  # pqn_rnn_memory_chain.yaml's TOTAL_TIMESTEPS: 24 updates
+RNN_CARTPOLE_STEPS = 16 * 64 * 32  # 16 updates of pqn_rnn_cartpole
+# the last-3 mean greedy eval return on MemoryChain: above MEMORY_GATE for the
+# recurrent trainer, below FF_GATE for the feedforward one
+# (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
+MEMORY_GATE, FF_GATE = 0.8, 0.5
+# the GRU scan at the trainers' shapes (T = MEMORY_WINDOW + NUM_STEPS, B =
+# NUM_ENVS / NUM_MINIBATCHES, H) and one with more than one block
+GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128))
 # the mean of the last 10 training returns the Asterix run must beat:
 # tests/test_torch_asterix.py::test_asterix_learns
 ASTERIX_GATE = 0.8
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
-    "freeway_rollout", "space_invaders_rollout",
+    "freeway_rollout", "space_invaders_rollout", "gru_scan_fwd", "gru_scan_bwd",
 )
 # the Breakout run and check as recorded on an H100 before its CNN moved into
 # csrc/minatar_cnn.cuh (PERF.md): the last-10 mean return, the last greedy
@@ -117,6 +132,37 @@ def minatar_bound_ms(T: int, B: int, H: int, A: int, C: int, state_ints: int, ga
     return _bound(nbytes, T * B * per_step)
 
 
+def gru_fwd_bound_ms(T: int, B: int, H: int):
+    """Reads xi, keep, h0, W_h, b_hn once and writes y, r, z, n, c; per step
+    the (B, H) x (H, 3H) product and ~30 operations of gate math per unit."""
+    nbytes = 4 * (T * B * 3 * H + T * B + B * H + 3 * H * H + H + 5 * T * B * H)
+    return _bound(nbytes, T * (2 * B * H * 3 * H + 30 * B * H))
+
+
+def gru_bwd_bound_ms(T: int, B: int, H: int):
+    """Reads keep, hprev, r, z, n, c, g_y, g_hT and W_h once and writes dxi,
+    dh0, dW_h and db_hn; per step the carry's (B, 3H) x (3H, H) product, the
+    dW_h term (the same size) and ~20 operations per unit."""
+    nbytes = 4 * (T * B + 6 * T * B * H + B * H + 3 * H * H + T * B * 3 * H + B * H + 3 * H * H + H)
+    return _bound(nbytes, T * (2 * 2 * B * H * 3 * H + 20 * B * H))
+
+
+def gru_inputs(T: int, B: int, H: int, seed: int, dev):
+    """The GRU scan's inputs from numpy: xi ~ N(0, 1), keep with about 20 %
+    resets, h0 ~ N(0, 0.25), an orthogonal W_h (the init's scale), b_hn ~
+    N(0, 0.01), and random cotangents g_y, g_hT."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(3 * H, 3 * H))
+    arrays = (
+        rng.randn(T, B, 3 * H), rng.rand(T, B, 1) > 0.2, 0.5 * rng.randn(B, H),
+        q[:H], 0.1 * rng.randn(H), rng.randn(T, B, H), rng.randn(B, H),
+    )
+    return [torch.tensor(np.asarray(a, np.float32), device=dev) for a in arrays]
+
+
 # per game: (channels, state ints per env, game operations per env step):
 # Breakout's (8, B) matrix and brick map, Asterix's (48, B), Freeway's
 # (32, B), SpaceInvaders' (16, B) and three maps; SpaceInvaders' rules touch
@@ -129,10 +175,12 @@ GAME_SHAPES = {
 }
 
 
-def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()):
+def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=(),
+          policy=("FUSED_ROLLOUT", "EVAL_EARLY_EXIT")):
     """One full-width run through the CLI's entry point, with every launch
-    counter zeroed just before it and read just after it. Returns (outputs,
-    seconds, launches by kernel)."""
+    counter zeroed just before it and read just after it; the flags in
+    ``policy`` must have been turned on by the config's cuda policy. Returns
+    (outputs, seconds, launches by kernel)."""
     import torch
 
     jsonl = os.path.join(save_path, "train.jsonl")
@@ -145,8 +193,8 @@ def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()
             f"SAVE_PATH={save_path}", f"LOG_JSONL={jsonl}", *extra,
         ],
     )
-    check(config["FUSED_ROLLOUT"] and config["EVAL_EARLY_EXIT"],
-          f"{alg}: the cuda policy did not turn on FUSED_ROLLOUT and EVAL_EARLY_EXIT")
+    check(all(config.get(flag) is True for flag in policy),
+          f"{alg}: the cuda policy did not turn on {policy}")
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -335,6 +383,7 @@ def main() -> int:
         from purejaxql_torch.ops import build
         from purejaxql_torch.ops import cartpole_rollout as cr
         from purejaxql_torch.ops import freeway_rollout as fr
+        from purejaxql_torch.ops import gru_scan as gs
         from purejaxql_torch.ops import lambda_returns as lr
         from purejaxql_torch.ops import space_invaders_rollout as sr
         from purejaxql_torch.ops.minatar_rollout import minatar_weights
@@ -353,6 +402,8 @@ def main() -> int:
         "asterix_rollout": ar.asterix_rollout,
         "freeway_rollout": fr.freeway_rollout,
         "space_invaders_rollout": sr.space_invaders_rollout,
+        "gru_scan_fwd": gs.gru_scan_fwd,
+        "gru_scan_bwd": gs.gru_scan_bwd,
     }
 
     # ---- 1. the card -------------------------------------------------------
@@ -512,6 +563,46 @@ def main() -> int:
             check(rew > 0 or name == "freeway_rollout", f"{name}: nothing scored in the comparison")
             q_err = max(q_err, err)
         errors[name] = q_err
+
+    # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
+    # forward within 1e-5; backward within 1e-4 absolute and relative: the
+    # kernels sum the products in another order than the twins' matmuls
+    gru_inputs_by_shape = {}
+    for i, shape in enumerate(GRU_SHAPES):
+        xi, keep, h0, w_h, b_hn, g_y, g_hT = gru_inputs(*shape, 10 + i, dev)
+        got = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+        want = gs.gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn)
+        torch.cuda.synchronize()
+        f_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        hprev = torch.cat([h0[None], want[0][:-1]])
+        res = (keep, hprev, w_h, *want[1:])
+        got = gs.gru_scan_bwd(*res, g_y, g_hT)
+        want = gs.gru_scan_bwd_plain(*res, g_y, g_hT)
+        torch.cuda.synchronize()
+        b_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        b_rel = max(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max().item() for g, w in zip(got, want))
+        print(
+            f"gru_scan (T, B, H) = {shape} ({(shape[1] + 7) // 8} block(s)): forward max|err| {f_err:.3g} "
+            f"(tolerance 1e-5); backward max|err| {b_err:.3g}, max |err| / (1e-4 + 1e-4 |plain|) "
+            f"{b_rel:.3g} (must be <= 1); resets {int((keep == 0).sum())}"
+        )
+        check(f_err <= 1e-5, f"gru_scan_fwd disagrees with its twin at {shape}: {f_err}")
+        check(b_rel <= 1.0, f"gru_scan_bwd disagrees with its twin at {shape}: {b_err}")
+        errors["gru_scan_fwd"] = max(errors.get("gru_scan_fwd", 0.0), f_err)
+        errors["gru_scan_bwd"] = max(errors.get("gru_scan_bwd", 0.0), b_err)
+        gru_inputs_by_shape[shape] = (xi, keep, h0, w_h, b_hn, g_y, g_hT, res)
+    xi, keep, h0, w_h, b_hn = gru_inputs_by_shape[GRU_SHAPES[0]][:5]
+    grads = []
+    for use_kernel in (True, False):
+        args = [a.clone().requires_grad_(i != 1) for i, a in enumerate((xi, keep, h0, w_h, b_hn))]
+        h_T, y = gs.GRUScan.apply(*args) if use_kernel else (None, gs.gru_scan_fwd_plain(*args)[0])
+        h_T = y[-1] if h_T is None else h_T
+        (torch.sin(y).sum() + h_T.sum()).backward()
+        grads.append([a.grad for i, a in enumerate(args) if i != 1])
+    a_rel = max(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max().item() for g, w in zip(*grads))
+    print(f"GRUScan autograd vs autograd through the plain loop (T 132, B 2, H 256): "
+          f"max |err| / (1e-4 + 1e-4 |plain|) {a_rel:.3g} (must be <= 1)")
+    check(a_rel <= 1.0, f"autograd through GRUScan disagrees with the plain loop: {a_rel}")
 
     # ---- 4. PRNG-on statistics -----------------------------------------------
     B, T = 128, 64
@@ -679,6 +770,74 @@ def main() -> int:
     check(short_launches["freeway_rollout"]["freeway_rollout"] == 16 + 17 * 79,
           f"freeway: {short_launches['freeway_rollout']['freeway_rollout']} launches, expected {16 + 17 * 79}")
 
+    # ---- 6d. the recurrent trainer on MemoryChain, the FF contrast, CartPole ----
+    outs, wall, launches_mc = train(
+        cli, compose, "pqn_rnn_memory_chain", MEMORY_STEPS, save_path, counters,
+        extra=["TEST_NUM_STEPS=64"], policy=("FAST_BPTT", "PALLAS_BPTT"),
+    )
+    mc_updates = MEMORY_STEPS // 128 // 32
+    mc_grad_steps = mc_updates * 4 * 16
+    ts = outs["runner_state"][0]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    mc_last3 = float(m["test/returned_episode_returns"][-3:].mean())
+    print(
+        f"train memory_chain (pqn_rnn, GRU): {ts.timesteps} env steps in {wall:.2f} s wall "
+        f"({ts.timesteps / wall:.0f} env-steps/s, eval included); launches {launches_mc}; greedy eval "
+        f"returns {[round(float(v), 3) for v in m['test/returned_episode_returns']]}; last-3 mean {mc_last3:.3f}"
+    )
+    check(ts.timesteps == mc_updates * 128 * 32, "memory_chain: wrong env-step count")
+    check(all(p.device.type == "cuda" for p in ts.network.parameters()), "memory_chain: a parameter is not on cuda")
+    for name in ("gru_scan_fwd", "gru_scan_bwd"):
+        check(launches_mc[name] == mc_grad_steps,
+              f"memory_chain: {name} launched {launches_mc[name]} times, expected {mc_grad_steps}")
+    others = {k: v for k, v in launches_mc.items() if not k.startswith("gru_scan") and v}
+    check(not others, f"memory_chain: another kernel launched: {others}")
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "memory_chain: non-finite metrics")
+    check(mc_last3 > MEMORY_GATE, f"the recurrent trainer did not remember: last-3 greedy return {mc_last3} <= {MEMORY_GATE}")
+    saved = load_params(os.path.join(save_path, "MemoryChain-bsuite", "pqn_rnn_MemoryChain-bsuite_seed0.safetensors"))
+    gru = saved["ScannedRNN_0"]["GRUCell_0"]
+    check(tuple(gru["ir"]["kernel"].shape) == (258, 256) and tuple(gru["hn"]["kernel"].shape) == (256, 256)
+          and "bias" not in gru["hr"], "memory_chain: saved GRU params have the wrong flax tree")
+    mc_rate = ts.timesteps / wall
+    print(json.dumps({"memory_chain_run": {"env_steps_per_s": mc_rate, "wall_s": wall, "last3_eval_return": mc_last3,
+                                           "gate": MEMORY_GATE, "launches": launches_mc, "card": card}}))
+
+    outs, wall, launches_ff = train(
+        cli, compose, "pqn_rnn_memory_chain", MEMORY_STEPS, save_path, counters,
+        extra=["TEST_NUM_STEPS=64", "ALG_NAME=pqn"], policy=(),
+    )
+    ff_returns = outs["metrics"]["test/returned_episode_returns"].cpu().numpy()
+    ff_last3 = float(ff_returns[-3:].mean())
+    print(
+        f"train memory_chain (pqn, feedforward): {wall:.2f} s wall; launches {launches_ff}; "
+        f"last-3 greedy eval return {ff_last3:.3f} (must stay below {FF_GATE})"
+    )
+    check(launches_ff["lambda_returns"] == mc_updates and launches_ff["gru_scan_fwd"] == 0,
+          f"memory_chain FF: unexpected launches {launches_ff}")
+    check(ff_last3 < FF_GATE, f"the feedforward trainer remembered: last-3 greedy return {ff_last3} >= {FF_GATE}")
+    print(json.dumps({"memory_chain_ff_run": {"env_steps_per_s": outs["runner_state"][0].timesteps / wall,
+                                              "wall_s": wall, "last3_eval_return": ff_last3, "gate": FF_GATE,
+                                              "card": card}}))
+
+    outs, wall, launches_rc = train(
+        cli, compose, "pqn_rnn_cartpole", RNN_CARTPOLE_STEPS, save_path, counters,
+        policy=("FAST_BPTT", "PALLAS_BPTT"),
+    )
+    ts = outs["runner_state"][0]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    print(
+        f"train cartpole (pqn_rnn, GRU): {ts.timesteps} env steps in {wall:.2f} s wall "
+        f"({ts.timesteps / wall:.0f} env-steps/s, eval included); launches {launches_rc}; "
+        f"last greedy eval return {float(m['test/returned_episode_returns'][-1]):.2f}"
+    )
+    check(ts.timesteps == RNN_CARTPOLE_STEPS, "rnn cartpole: wrong env-step count")
+    for name in ("gru_scan_fwd", "gru_scan_bwd"):
+        check(launches_rc[name] == 16 * 4 * 16, f"rnn cartpole: {name} launched {launches_rc[name]} times, expected 1024")
+    check(all(np.isfinite(v).all() for k, v in m.items() if not k.startswith("test/")) and
+          np.isfinite(m["test/returned_episode_returns"]).all(), "rnn cartpole: non-finite metrics")
+    print(json.dumps({"rnn_cartpole_run": {"env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
+                                           "launches": launches_rc, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for shape in ((64, 32), (32, 128)):
@@ -707,9 +866,22 @@ def main() -> int:
         print(json.dumps({"timing": name, "shape": {"T": BT, "B": BB, "H": BH, "C": gC, "A": gA}, "ms": k_ms,
                           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
 
+    for shape in GRU_SHAPES[:2]:
+        xi, keep, h0, w_h, b_hn, g_y, g_hT, res = gru_inputs_by_shape[shape]
+        for name, kernel, plain, args, bound in (
+            ("gru_scan_fwd", gs.gru_scan_fwd, gs.gru_scan_fwd_plain, (xi, keep, h0, w_h, b_hn), gru_fwd_bound_ms),
+            ("gru_scan_bwd", gs.gru_scan_bwd, gs.gru_scan_bwd_plain, (*res, g_y, g_hT), gru_bwd_bound_ms),
+        ):
+            k_ms = cuda_time_ms(lambda: kernel(*args), 50)
+            p_ms = cuda_time_ms(lambda: plain(*args), 3, warmup=1)
+            b_ms, b_by = bound(*shape)
+            timings[f"{name}_T{shape[0]}"] = (k_ms, p_ms, b_ms, b_by)
+            print(json.dumps({"timing": name, "shape": dict(zip("TBH", shape)), "ms": k_ms, "plain_ms": p_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
+
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
-    # lambda returns from this slice's main path, the Asterix run)
+    # lambda returns' from the Asterix run, the GRU scan's from MemoryChain)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -725,6 +897,10 @@ def main() -> int:
         ("space_invaders_rollout", "purejaxql_torch/csrc/space_invaders_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:1276", "space_invaders_rollout",
          short_launches["space_invaders_rollout"]),
+        ("gru_scan_fwd", "purejaxql_torch/csrc/gru_scan_fwd.cu",
+         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132", launches_mc),
+        ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",
+         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132", launches_mc),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

@@ -7,9 +7,10 @@ finds each counterpart at the same path.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``make_train(config, device="cpu")``, ``DEVICE=cpu`` on the CLI). The hot
-loops (the fused CartPole rollout, the Q(lambda) returns) are hand-written
-CUDA kernels under ``csrc/``, each with a plain PyTorch twin that runs only
-for CPU tensors.
+loops (the fused game rollouts, the Q(lambda) returns, the GRU time scan and
+its backward) are hand-written CUDA kernels under ``csrc/``, each with a plain
+PyTorch twin that runs only for CPU tensors. ``make_train`` is the FF
+trainer's; the recurrent trainer's is ``algo.pqn_rnn.make_train``.
 
 Quick start:
 

@@ -128,6 +128,24 @@ def _check_supported(config: Dict[str, Any]) -> None:
         )
 
 
+def build_env(config: Dict[str, Any]):
+    """The env of the config, its params and its Log-wrapped form
+    (pqn.py:50-107, "split" mode, the only one ported): ``(log_env, env,
+    env_params)``. Shared with the recurrent trainer."""
+    env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
+    return wrappers.Log(env), env, env_params
+
+
+def stack_metrics(history):
+    """The per-update metric dicts as one tensor per metric, (NUM_UPDATES,):
+    device tensors stack on the device, host counters on the host."""
+    stacked = {}
+    for k in history[0] if history else {}:
+        values = [m[k] for m in history]
+        stacked[k] = torch.stack(values) if torch.is_tensor(values[0]) else torch.tensor(values)
+    return stacked
+
+
 def _draw_seed(generator: torch.Generator) -> int:
     """A kernel seed from the host generator (no device sync)."""
     return int(torch.randint(0, 2**62, (1,), generator=generator))
@@ -270,8 +288,7 @@ def make_train(
     _check_supported(config)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
-    env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
-    log_env = wrappers.Log(env)
+    log_env, env, env_params = build_env(config)
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
@@ -440,16 +457,9 @@ def make_train(
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 
-        stacked = {}
-        for k in history[0] if history else {}:
-            values = [m[k] for m in history]
-            # device tensors stack on the device; host counters on the host
-            stacked[k] = (
-                torch.stack(values) if torch.is_tensor(values[0]) else torch.tensor(values)
-            )
         return {
             "runner_state": (train_state, (obs, log_state), test_metrics),
-            "metrics": stacked,
+            "metrics": stack_metrics(history),
         }
 
     return train

@@ -1,8 +1,10 @@
 """CLI entry point: hydra-style UX over the port's config system.
 
     python -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_rnn_memory_chain [KEY=val ...]
 
-Runs on the GPU unless DEVICE=cpu is given. Prints "Training took ...",
+The trainer is picked by the config's ALG_NAME: ``pqn`` (algo/pqn.py) or
+``pqn_rnn*`` (algo/pqn_rnn.py). Runs on the GPU unless DEVICE=cpu is given. Prints "Training took ...",
 writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors`` (flax wire format) and
 ``<run>_config.yaml``, and replays the metrics into the LOG_JSONL file.
 """
@@ -14,15 +16,26 @@ import sys
 import time
 
 
+def _select_make_train(config):
+    """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40
+    picks it: ``pqn`` or ``pqn_rnn*``; the other families are not ported."""
+    name = str(config.get("ALG_NAME", "pqn"))
+    if name == "pqn":
+        from purejaxql_torch.algo.pqn import make_train
+        return make_train
+    if name.startswith("pqn_rnn"):
+        from purejaxql_torch.algo.pqn_rnn import make_train
+        return make_train
+    raise SystemExit(f"ALG_NAME '{name}' is not ported yet (pqn and pqn_rnn only)")
+
+
 def single_run(config):
-    from purejaxql_torch.algo.pqn import make_train
     from purejaxql_torch.core.checkpoint import save_run
     from purejaxql_torch.utils.logging import make_logger
 
     if config.get("TRAINER", "fused") == "stepwise":
         raise SystemExit("TRAINER=stepwise is not ported yet")
-    if str(config.get("ALG_NAME", "pqn")) != "pqn":
-        raise SystemExit(f"ALG_NAME '{config.get('ALG_NAME')}' is not ported yet (pqn only)")
+    make_train = _select_make_train(config)
     if config.get("FUSED_ROLLOUT", False) and config["NUM_SEEDS"] != 1:
         raise SystemExit(
             "FUSED_ROLLOUT supports NUM_SEEDS=1 only (single-seed kernel); "

@@ -5,18 +5,26 @@
     python scripts/profile_torch_train.py --alg pqn_minatar --steps 500000   # Asterix
     python scripts/profile_torch_train.py --alg pqn_minatar --env Breakout-MinAtar --steps 500000
     python scripts/profile_torch_train.py --alg pqn_minatar --env Freeway-MinAtar --steps 65536
+    python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 --set TEST_NUM_STEPS=64
+    python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 \
+        --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
 steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
-2 epochs, greedy eval 128 envs x up to 1000 steps):
+2 epochs, greedy eval 128 envs x up to 1000 steps; pqn_rnn_*: the GRU
+network, FAST_BPTT and PALLAS_BPTT on, the window of MEMORY_WINDOW +
+NUM_STEPS steps):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
-   lambda targets, minibatch steps) is wrapped with a device synchronize
-   before and after, so the phases add up to the run's wall time (the syncs
-   cost a little overlap, which the total shows); a rollout's calls are
-   split into training and eval chunks (the calls at EPS_TEST), and the eval
-   chunks' share of the wall is printed;
+   lambda targets, minibatch steps; for the recurrent trainer the rollouts,
+   the minibatch steps and, inside them, the train-mode forward, the
+   closure-form targets and the GRU scan kernels) is wrapped with a device
+   synchronize before and after, so the top-level phases add up to the
+   run's wall time (the syncs cost a little overlap, which the total shows;
+   the inner phases' syncs lengthen the minibatch steps they sit in); a
+   rollout's calls are split into training and eval calls (those at
+   EPS_TEST), and the eval's share of the wall is printed;
 2. the device's busy share: torch.profiler over a short run without eval,
    summed kernel time over the wall time of the profiled run.
 
@@ -26,6 +34,7 @@ Prints one JSON object.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -45,14 +54,17 @@ ROLLOUTS = (
 def main() -> int:
     import torch
 
-    from purejaxql_torch.algo import pqn
+    from purejaxql_torch.algo import pqn, pqn_rnn
     from purejaxql_torch.core.config import compose
+    from purejaxql_torch.ops import gru_scan
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--alg", default="pqn_cartpole")
     ap.add_argument("--env", default=None, help="ENV_NAME (default: the YAML's)")
     ap.add_argument("--steps", type=int, default=200_000)
     ap.add_argument("--profile-updates", type=int, default=5)
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="a config override, repeatable (e.g. ALG_NAME=pqn)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a GPU")
@@ -62,7 +74,7 @@ def main() -> int:
     ).stdout.strip()
 
     # ---- 1. phase wall times ------------------------------------------------
-    env = [f"ENV_NAME={args.env}"] if args.env else []
+    env = ([f"ENV_NAME={args.env}"] if args.env else []) + args.set
     config = compose(
         alg=args.alg,
         overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", *env],
@@ -75,15 +87,18 @@ def main() -> int:
     totals = defaultdict(float)
     counts = defaultdict(int)
 
-    def timed(name, fn):
+    def timed(name, fn, eps_arg=None):
+        # wraps() copies a kernel wrapper's launch counter, which the wrapped
+        # function then increments through its module's name for it
+        @functools.wraps(fn)
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            if name in ROLLOUTS:
-                phase = "eval" if a[1] == eval_eps else "train"
-                key = f"{name}_{phase}_B{a[3].shape[-1]}"
+            if eps_arg is not None:
+                phase = "eval" if a[eps_arg] == eval_eps else "train"
+                key = f"{name}_{phase}"
             else:
                 key = name
             totals[key] += time.perf_counter() - t0
@@ -92,20 +107,30 @@ def main() -> int:
 
         return wrapper
 
-    originals = {n: getattr(pqn, n) for n in (*ROLLOUTS, "log_replay", "lambda_returns", "learn_minibatch")}
-    for name, fn in originals.items():
-        setattr(pqn, name, timed(name, fn))
-    train = pqn.make_train(config)
+    recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
+    trainer = pqn_rnn if recurrent else pqn
+    if recurrent:  # (module, name, the epsilon's argument index)
+        patches = [(pqn_rnn, "rnn_rollout", 5), (pqn_rnn, "learn_minibatch", None),
+                   (pqn_rnn, "rnn_train_q_values", None), (pqn_rnn, "lambda_returns_closure", None),
+                   (gru_scan, "gru_scan_fwd", None), (gru_scan, "gru_scan_bwd", None)]
+    else:
+        patches = [(pqn, n, 1) for n in ROLLOUTS]
+        patches += [(pqn, n, None) for n in ("log_replay", "lambda_returns", "learn_minibatch")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, eps_arg in patches:
+        setattr(mod, name, timed(name, getattr(mod, name), eps_arg))
+    train = trainer.make_train(config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for name, fn in originals.items():
-        setattr(pqn, name, fn)
+    for mod, name, fn in originals:
+        setattr(mod, name, fn)
     ts = out["runner_state"][0]
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
-    accounted = sum(totals.values())
+    inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd")
+    accounted = sum(v for k, v in totals.items() if k not in inner)
 
     # ---- 2. device busy share over a short run without eval -----------------
     n = args.profile_updates
@@ -115,7 +140,7 @@ def main() -> int:
         overrides=[f"TOTAL_TIMESTEPS={n * per_update}", f"TOTAL_TIMESTEPS_DECAY={n * per_update}",
                    "TEST_DURING_TRAINING=False", *env],
     )
-    ptrain = pqn.make_train(pconfig)
+    ptrain = trainer.make_train(pconfig)
     ptrain()  # warm-up: kernel build and load, allocator
     from torch.profiler import ProfilerActivity, profile
 
@@ -131,13 +156,11 @@ def main() -> int:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     result = {
         "card": card,
-        "config": {"alg": args.alg, "env": config["ENV_NAME"]},
+        "config": {"alg": args.alg, "env": config["ENV_NAME"], "set": args.set},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,
-            "eval_chunks_share_of_wall": sum(
-                v for k, v in totals.items() if "_eval_" in k
-            ) / wall,
+            "eval_share_of_wall": sum(v for k, v in totals.items() if k.endswith("_eval")) / wall,
         },
         "profile": {
             "updates": n, "wall_s": pwall, "device_busy_s": device_us / 1e6,

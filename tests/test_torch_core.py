@@ -38,6 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
         # pqn_minatar, chosen by the override as on the command line
         ["+alg=pqn_minatar", "DEVICE=cpu", "ENV_NAME=Breakout-MinAtar"],
         ["+alg=pqn_minatar", "PARITY=strict", "TOTAL_TIMESTEPS=5e5", "HIDDEN_SIZE=32"],
+        # the recurrent configs, on the CPU and under PARITY=strict
+        ["+alg=pqn_rnn_memory_chain", "DEVICE=cpu"],
+        ["+alg=pqn_rnn_cartpole", "PARITY=strict", "MEMORY_WINDOW=8"],
     ],
 )
 def test_compose_matches_jax(overrides):
@@ -47,7 +50,8 @@ def test_compose_matches_jax(overrides):
 
 
 def test_yaml_copies_equal_jax():
-    for rel in ("config.yaml", "alg/pqn_cartpole.yaml", "alg/pqn_minatar.yaml"):
+    for rel in ("config.yaml", "alg/pqn_cartpole.yaml", "alg/pqn_minatar.yaml",
+                "alg/pqn_rnn_cartpole.yaml", "alg/pqn_rnn_memory_chain.yaml"):
         mine = yaml.safe_load(open(ROOT / "purejaxql_torch" / "configs" / rel))
         ref = yaml.safe_load(open(ROOT / "purejaxql_tpu" / "configs" / rel))
         assert mine == ref, rel

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from purejaxql_torch.algo import pqn
+from purejaxql_torch.algo import pqn, pqn_rnn
 from purejaxql_torch.core.config import compose
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs.minatar.breakout import start_state
@@ -20,6 +20,7 @@ from purejaxql_torch.ops import asterix_rollout as ar
 from purejaxql_torch.ops import breakout_rollout as br
 from purejaxql_torch.ops import cartpole_rollout as cr
 from purejaxql_torch.ops import freeway_rollout as fr
+from purejaxql_torch.ops import gru_scan as gs
 from purejaxql_torch.ops import lambda_returns as lr
 from purejaxql_torch.ops import space_invaders_rollout as sr
 from purejaxql_torch.ops.minatar_rollout import minatar_weights
@@ -208,5 +209,79 @@ def test_tiny_minatar_train_on_the_card_launches_its_kernel(dev, env_name):
     mine = GAMES[env_name][0]
     assert mine.launches > n_updates
     assert all(fn.launches == 0 for fn in kernels if fn is not mine)
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+def _gru_inputs(dev, T, B, H, seed=0):
+    """The GRU scan's inputs from numpy: xi ~ N(0, 1), about 20 % resets, h0
+    ~ N(0, 0.25), an orthogonal W_h (the init's scale), b_hn ~ N(0, 0.01),
+    and random cotangents."""
+    rng = np.random.RandomState(seed)
+    q, _ = np.linalg.qr(rng.randn(3 * H, 3 * H))
+    arrays = (
+        rng.randn(T, B, 3 * H), (rng.rand(T, B, 1) > 0.2), 0.5 * rng.randn(B, H),
+        q[:H], 0.1 * rng.randn(H), rng.randn(T, B, H), rng.randn(B, H),
+    )
+    return [torch.tensor(np.asarray(a, np.float32), device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("T,B,H", [(132, 2, 256), (68, 2, 256), (32, 16, 128), (13, 3, 32)])
+def test_gru_scan_kernels_match_plain(dev, T, B, H):
+    """Forward outputs within 1e-5 of the twin; backward within 1e-4
+    absolute and relative (the kernels sum in another order)."""
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _gru_inputs(dev, T, B, H)
+    got = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+    want = gs.gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    hprev = torch.cat([h0[None], want[0][:-1]])
+    res = (keep, hprev, w_h, *want[1:])
+    got = gs.gru_scan_bwd(*res, g_y, g_hT)
+    want = gs.gru_scan_bwd_plain(*res, g_y, g_hT)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_gru_scan_autograd_matches_plain_loop(dev):
+    """Gradients of sum(sin(y)) + sum(h_T) through GRUScan against autograd
+    through the twin's forward loop, at the MemoryChain trainer's shape."""
+    xi, keep, h0, w_h, b_hn, _, _ = _gru_inputs(dev, 132, 2, 256, seed=1)
+    grads = []
+    for use_kernel in (True, False):
+        args = [a.clone().requires_grad_(i != 1) for i, a in enumerate((xi, keep, h0, w_h, b_hn))]
+        if use_kernel:
+            h_T, y = gs.GRUScan.apply(*args)
+        else:
+            y = gs.gru_scan_fwd_plain(*args)[0]
+            h_T = y[-1]
+        (torch.sin(y).sum() + h_T.sum()).backward()
+        grads.append([a.grad for i, a in enumerate(args) if i != 1])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_gru_scan_wrappers_reject_bad_inputs(dev):
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _gru_inputs(dev, 8, 2, 32)
+    with pytest.raises(ValueError, match="float32"):
+        gs.gru_scan_fwd(xi.double(), keep, h0, w_h, b_hn)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.gru_scan_fwd(xi, keep, h0, w_h.t().contiguous().t(), b_hn)
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.gru_scan_bwd(keep, g_y, w_h, g_y, g_y, g_y, g_y, g_y, g_hT[:, :16])
+
+
+def test_tiny_rnn_train_on_the_card_launches_both_kernels(dev):
+    config = compose(
+        alg="pqn_rnn_memory_chain",
+        overrides=["TOTAL_TIMESTEPS=8192", "TOTAL_TIMESTEPS_DECAY=8192", "TEST_NUM_STEPS=64"],
+    )
+    assert config["FAST_BPTT"] is True and config["PALLAS_BPTT"] is True
+    for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns):
+        fn.launches = 0
+    out = pqn_rnn.make_train(config)()
+    grad_steps = 8192 // 128 // 32 * 4 * 16
+    assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == grad_steps
+    assert lr.lambda_returns.launches == 0
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()
