@@ -10,8 +10,10 @@ Phases, each ending the run with a non-zero exit if it fails:
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
    trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
-   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on), and the
-   GRU scan's forward and backward kernels (and autograd through them);
+   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on), the GRU
+   scan's forward and backward kernels (and autograd through them), and the
+   Pendulum actor-critic rollout (PRNG off and on, at the trainer's shape and
+   at one that forces resets);
 4. check the rollout kernels' random streams by their statistics;
 5. train pqn_cartpole at full width (H 256, 32 envs x 64 steps, 16
    minibatches x 4 epochs, greedy eval 128 envs x 500 steps) for 200k env
@@ -27,6 +29,10 @@ Phases, each ending the run with a non-zero exit if it fails:
    128 envs x 64 steps) through the GRU scan kernels and check that it
    remembers; the FF trainer on the same config must not; then
    pqn_rnn_cartpole at full width for 16 updates;
+6e. train pqn_pendulum at full width (actor and two critics H 256, 64 envs x
+   32 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every
+   10 % of the run) for 400k env steps through the Pendulum kernel and check
+   that its best greedy eval beats -500;
 7. time each kernel and its twin with CUDA events at the trainers' shapes;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
@@ -53,6 +59,13 @@ ASTERIX_STEPS = 500_000
 SHORT_STEPS = 16 * 32 * 128  # 16 updates of Freeway and of SpaceInvaders
 MEMORY_STEPS = 100_000  # pqn_rnn_memory_chain.yaml's TOTAL_TIMESTEPS: 24 updates
 RNN_CARTPOLE_STEPS = 16 * 64 * 32  # 16 updates of pqn_rnn_cartpole
+PENDULUM_STEPS = 400_000  # tests/test_pqn_ac.py::test_ac_learns_pendulum's length
+# the best greedy eval return the Pendulum run must beat (the same test's
+# gate; random play is about -1300)
+PENDULUM_GATE = -500.0
+# the Pendulum kernel at the trainer's shape (T, B, H, max_steps) and at one
+# that forces resets
+PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10))
 # the last-3 mean greedy eval return on MemoryChain: above MEMORY_GATE for the
 # recurrent trainer, below FF_GATE for the feedforward one
 # (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
@@ -66,6 +79,7 @@ ASTERIX_GATE = 0.8
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "gru_scan_fwd", "gru_scan_bwd",
+    "pendulum_ac_rollout",
 )
 # the Breakout run and check as recorded on an H100 before its CNN moved into
 # csrc/minatar_cnn.cuh (PERF.md): the last-10 mean return, the last greedy
@@ -145,6 +159,36 @@ def gru_bwd_bound_ms(T: int, B: int, H: int):
     dW_h term (the same size) and ~20 operations per unit."""
     nbytes = 4 * (T * B + 6 * T * B * H + B * H + 3 * H * H + T * B * 3 * H + B * H + 3 * H * H + H)
     return _bound(nbytes, T * (2 * 2 * B * H * 3 * H + 20 * B * H))
+
+
+def pendulum_bound_ms(T: int, B: int, H: int):
+    """Reads the three MLPs' weights and the (3, B), (1, B) state once and
+    writes obs, u, greedy, value, reward, done, the final obs and state; per
+    env step the actor (3 -> H -> H -> 1) and two critics (4 -> H -> H -> 1),
+    2 flops per MAC plus biases, two LayerNorms with relu a network (~8 per
+    unit), and ~100 operations of noise, Philox and physics."""
+    weights = 4 * (3 * (7 * H + H * H + 1) + 3 * H + 2 * 4 * H)
+    nbytes = weights + 2 * 4 * 4 * B + 4 * T * B * 8 + 4 * 3 * B
+    mlp = lambda n_in: 2 * n_in * H + 2 * H * H + 2 * H + 3 * H + 1 + 16 * H  # noqa: E731
+    return _bound(nbytes, T * B * (mlp(3) + 2 * mlp(4) + 100))
+
+
+def pendulum_inputs(B: int, H: int, seed: int, dev):
+    """The kernel's weights from a seeded actor and two-critic ensemble, and
+    states with theta in [-pi, pi), theta_dot in [-8, 8] and times in [0, 200)."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.models.actor_critic import Actor, CriticEnsemble
+    from purejaxql_torch.ops.pendulum_rollout import pendulum_ac_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    actor = Actor(3, 1, 2.0, 0.0, [H, H], generator=gen).to(dev)
+    critics = CriticEnsemble(2, 3, 1, [H, H], generator=gen).to(dev)
+    r = np.random.RandomState(seed)
+    stf = np.stack([r.uniform(-np.pi, np.pi, B), r.uniform(-8, 8, B), np.zeros(B)]).astype(np.float32)
+    sti = r.randint(0, 200, (1, B)).astype(np.int32)
+    return pendulum_ac_weights(actor, critics), torch.tensor(stf, device=dev), torch.tensor(sti, device=dev)
 
 
 def gru_inputs(T: int, B: int, H: int, seed: int, dev):
@@ -375,6 +419,7 @@ def main() -> int:
         from purejaxql_torch import cli
         from purejaxql_torch.core.checkpoint import load_params
         from purejaxql_torch.core.config import compose
+        from purejaxql_torch.envs.classic.pendulum import PendulumParams
         from purejaxql_torch.envs.minatar.breakout import start_state
         from purejaxql_torch.models.cnn import CNNQNetwork
         from purejaxql_torch.models.qnet import QNetwork
@@ -385,6 +430,7 @@ def main() -> int:
         from purejaxql_torch.ops import freeway_rollout as fr
         from purejaxql_torch.ops import gru_scan as gs
         from purejaxql_torch.ops import lambda_returns as lr
+        from purejaxql_torch.ops import pendulum_rollout as pr
         from purejaxql_torch.ops import space_invaders_rollout as sr
         from purejaxql_torch.ops.minatar_rollout import minatar_weights
     except ImportError as e:
@@ -404,6 +450,7 @@ def main() -> int:
         "space_invaders_rollout": sr.space_invaders_rollout,
         "gru_scan_fwd": gs.gru_scan_fwd,
         "gru_scan_bwd": gs.gru_scan_bwd,
+        "pendulum_ac_rollout": pr.pendulum_ac_rollout,
     }
 
     # ---- 1. the card -------------------------------------------------------
@@ -604,6 +651,32 @@ def main() -> int:
           f"max |err| / (1e-4 + 1e-4 |plain|) {a_rel:.3g} (must be <= 1)")
     check(a_rel <= 1.0, f"autograd through GRUScan disagrees with the plain loop: {a_rel}")
 
+    # ---- 3f. the Pendulum actor-critic rollout vs plain, PRNG off and on --------
+    # done and time equal; every float within 1e-4 (the MLPs sum in another
+    # order than the twin's matmuls, and the pendulum carries the gap along)
+    pend_names = ("obs", "u", "greedy", "value", "reward", "done", "final_obs", "stf", "sti")
+    pend_inputs = {}
+    for pT, pB, pH, p_max in PENDULUM_SHAPES:
+        (aw, cw), stf, sti = pendulum_inputs(pB, pH, pB, dev)
+        pend_inputs[(pT, pB, pH)] = (aw, cw, stf, sti)
+        for use_prng in (False, True):
+            got = pr.pendulum_ac_rollout(11, 0.8, aw, cw, stf, sti, pT, use_prng=use_prng, max_steps=p_max)
+            want = pr.pendulum_rollout_plain(11, 0.8, aw, cw, stf, sti, pT, use_prng=use_prng, max_steps=p_max)
+            torch.cuda.synchronize()
+            for name, g, w in zip(pend_names, got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype, f"pendulum_ac_rollout: {name} shape or dtype")
+            for name in ("done", "sti"):
+                i = pend_names.index(name)
+                check(torch.equal(got[i], want[i]), f"pendulum_ac_rollout T={pT} B={pB} prng={use_prng}: {name} differs")
+            errs = {n: (g - w).abs().max().item() for n, g, w in zip(pend_names, got, want) if n not in ("done", "sti")}
+            resets, clipped = int(want[5].sum()), (want[1].abs() == 2).float().mean().item()
+            print(f"pendulum_ac_rollout T={pT} B={pB} H={pH} max_steps={p_max} prng={use_prng}: done/time equal "
+                  f"({resets} resets, {100 * clipped:.1f} % of actions clipped), max|err| "
+                  f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (tolerance 1e-4)")
+            check(resets > 0, "pendulum_ac_rollout: no env reset in the comparison")
+            check(max(errs.values()) <= 1e-4, f"pendulum_ac_rollout disagrees with its twin: {errs}")
+            errors["pendulum_ac_rollout"] = max(errors.get("pendulum_ac_rollout", 0.0), max(errs.values()))
+
     # ---- 4. PRNG-on statistics -----------------------------------------------
     B, T = 128, 64
     stf0, sti0 = reset_states(B, 7)
@@ -710,6 +783,38 @@ def main() -> int:
     check(bool(torch.equal(cars.car_timer, cars.car_speed.abs())) and bool((cars.pos == 9).all()),
           "freeway: a reset's timers or chicken are wrong")
     check(not torch.equal(resets[0].car_x, resets[1].car_x), "freeway: different seeds gave the same resets")
+
+    # Pendulum noise and resets: z recovered from u - greedy where greedy is
+    # far enough from the bounds that no draw within 6 std is clipped (an
+    # unbiased selection), by its mean and variance; reset draws by their
+    # range, mean and variance (every step resets at max_steps 1)
+    aw, cw, stf, sti = pend_inputs[(32, 64, 256)]
+    noise = 0.05
+    o = pr.pendulum_ac_rollout(21, noise, aw, cw, stf, sti, 200, linspace_noise=False)
+    far = o[2].abs() < 2 - 12 * noise
+    z = ((o[1] - o[2]) / (2 * noise))[far]
+    n_z = z.numel()
+    print(f"pendulum noise: z mean {z.mean().item():.4f} variance {z.var().item():.4f} over {n_z} draws "
+          f"(expect 0 and 1; bounds {4 / n_z ** 0.5:.4f}, {4 * (2 / n_z) ** 0.5:.4f})")
+    check(n_z > 2000 and abs(z.mean().item()) < 4 / n_z ** 0.5 and abs(z.var().item() - 1) < 4 * (2 / n_z) ** 0.5,
+          "pendulum noise is not N(0, 1)")
+    lad = pr.pendulum_ac_rollout(21, noise, aw, cw, stf, sti, 1)
+    z0 = ((o[1] - o[2]) / (2 * noise))[0, :, 0]
+    zl = ((lad[1] - lad[2]) / (2 * noise))[0, :, 0]
+    ladder_err = (zl - z0 * torch.arange(64, device=dev) / 63)[far[0, :, 0]].abs().max().item()
+    print(f"pendulum ladder: env b's noise is z * b / 63 within {ladder_err:.3g}")
+    check(ladder_err < 1e-3, "pendulum: the noise ladder does not scale env b by b / (B - 1)")
+    robs = pr.pendulum_ac_rollout(22, 0.0, aw, cw, stf, sti, 200, max_steps=1)[0][1:]
+    th, thd = torch.atan2(robs[..., 1], robs[..., 0]), robs[..., 2]
+    print(f"pendulum resets: theta in [{th.min().item():.4f}, {th.max().item():.4f}] mean {th.mean().item():.4f} "
+          f"var {th.var().item():.4f} (pi^2/3 = 3.2899); theta_dot in [{thd.min().item():.4f}, "
+          f"{thd.max().item():.4f}] mean {thd.mean().item():.4f} var {thd.var().item():.4f} (1/3), over {thd.numel()}")
+    check(thd.min() >= -1 and thd.max() < 1 and abs(thd.mean().item()) < 0.025 and abs(thd.var().item() - 1 / 3) < 0.02
+          and abs(th.mean().item()) < 0.07 and abs(th.var().item() / 3.2899 - 1) < 0.04, "pendulum reset draws")
+    other = pr.pendulum_ac_rollout(23, noise, aw, cw, stf, sti, 200, linspace_noise=False)
+    robs2 = pr.pendulum_ac_rollout(24, 0.0, aw, cw, stf, sti, 200, max_steps=1)[0][1:]
+    check(not torch.equal(other[1], o[1]) and not torch.equal(robs, robs2), "pendulum: different seeds gave the same stream")
+    print("pendulum: different seeds give different streams")
 
     # ---- 5. train pqn_cartpole at full width through the kernels ---------------
     save_path = os.path.join(root, "build", "chip_smoke_models")
@@ -838,6 +943,47 @@ def main() -> int:
     print(json.dumps({"rnn_cartpole_run": {"env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
                                            "launches": launches_rc, "card": card}}))
 
+    # ---- 6e. the actor-critic trainer on Pendulum-v1 ------------------------------
+    outs, wall, launches_pd = train(
+        cli, compose, "pqn_pendulum", PENDULUM_STEPS, save_path, counters, policy=("FUSED_ROLLOUT",),
+    )
+    pcfg = compose(alg="pqn_pendulum")
+    pd_updates = PENDULUM_STEPS // pcfg["NUM_STEPS"] // pcfg["NUM_ENVS"]
+    n_evals = 1 + pd_updates // max(1, int(pd_updates * pcfg["TEST_INTERVAL"]))
+    # an eval runs the episode limit (the trainer's TEST_NUM_STEPS default) in NUM_STEPS chunks
+    eval_steps = pcfg.get("TEST_NUM_STEPS", PendulumParams().max_steps_in_episode)
+    pd_launches = pd_updates + n_evals * -(-eval_steps // pcfg["NUM_STEPS"])
+    ts = outs["runner_state"][0]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    evals = m["test/returned_episode_returns"]
+    pd_best = float(evals.max())
+    print(
+        f"train pendulum (pqn_ac): {ts['actor'].timesteps} env steps in {wall:.2f} s wall "
+        f"({ts['actor'].timesteps / wall:.0f} env-steps/s, eval included); launches {launches_pd}; greedy eval "
+        f"returns at each eval {[round(float(v), 1) for v in evals[:: max(1, int(pd_updates * 0.1))]]}; "
+        f"best {pd_best:.2f}"
+    )
+    check(ts["actor"].timesteps == pd_updates * pcfg["NUM_STEPS"] * pcfg["NUM_ENVS"], "pendulum: wrong env-step count")
+    check(all(p.device.type == "cuda" for s in ts.values() for p in s.network.parameters()),
+          "pendulum: a parameter is not on cuda")
+    check(launches_pd["lambda_returns"] == pd_updates,
+          f"pendulum: lambda_returns launched {launches_pd['lambda_returns']} times, expected {pd_updates}")
+    check(launches_pd["pendulum_ac_rollout"] == pd_launches,
+          f"pendulum: its rollout kernel launched {launches_pd['pendulum_ac_rollout']} times, expected {pd_launches}")
+    others = {k: v for k, v in launches_pd.items() if k not in ("lambda_returns", "pendulum_ac_rollout") and v}
+    check(not others, f"pendulum: another kernel launched: {others}")
+    check(all(np.isfinite(m[k]).all() for k in ("value_loss", "loss_actor", "returned_episode_returns")),
+          "pendulum: non-finite metrics")
+    check(pd_best > PENDULUM_GATE, f"the actor-critic trainer did not learn Pendulum: best greedy eval {pd_best} <= {PENDULUM_GATE}")
+    saved = load_params(os.path.join(save_path, "Pendulum-v1", "pqn_ac_Pendulum-v1_seed0.safetensors"))
+    check(tuple(saved["actor"]["Dense_0"]["kernel"].shape) == (3, 256)
+          and tuple(saved["critic"]["Dense_1"]["kernel"].shape) == (2, 256, 256)
+          and tuple(saved["critic"]["LayerNorm_0"]["scale"].shape) == (2, 256),
+          "pendulum: saved params have the wrong flax tree")
+    print(json.dumps({"pendulum_run": {"env_steps_per_s": ts["actor"].timesteps / wall, "wall_s": wall,
+                                       "best_eval_return": pd_best, "gate": PENDULUM_GATE,
+                                       "launches": launches_pd, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for shape in ((64, 32), (32, 128)):
@@ -879,9 +1025,18 @@ def main() -> int:
             print(json.dumps({"timing": name, "shape": dict(zip("TBH", shape)), "ms": k_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
 
+    aw, cw, stf, sti = pend_inputs[(32, 64, 256)]
+    k_ms = cuda_time_ms(lambda: pr.pendulum_ac_rollout(3, 0.5, aw, cw, stf, sti, 32), 50)
+    p_ms = cuda_time_ms(lambda: pr.pendulum_rollout_plain(3, 0.5, aw, cw, stf, sti, 32), 3, warmup=1)
+    b_ms, b_by = pendulum_bound_ms(32, 64, 256)
+    timings["pendulum_ac_rollout"] = (k_ms, p_ms, b_ms, b_by)
+    print(json.dumps({"timing": "pendulum_ac_rollout", "shape": {"T": 32, "B": 64, "H": 256}, "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
+
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
-    # lambda returns' from the Asterix run, the GRU scan's from MemoryChain)
+    # lambda returns' from the Asterix run, the GRU scan's from MemoryChain,
+    # the Pendulum rollout's from the Pendulum run)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -901,6 +1056,8 @@ def main() -> int:
          "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132", launches_mc),
         ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",
          "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132", launches_mc),
+        ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
+         "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

@@ -2,11 +2,15 @@
 
     python -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_rnn_memory_chain [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_pendulum [KEY=val ...]
 
-The trainer is picked by the config's ALG_NAME: ``pqn`` (algo/pqn.py) or
-``pqn_rnn*`` (algo/pqn_rnn.py). Runs on the GPU unless DEVICE=cpu is given. Prints "Training took ...",
-writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors`` (flax wire format) and
-``<run>_config.yaml``, and replays the metrics into the LOG_JSONL file.
+The trainer is picked by the config's ALG_NAME: ``pqn`` (algo/pqn.py),
+``pqn_rnn*`` (algo/pqn_rnn.py) or ``pqn_ac`` / ``pqn_playground``
+(algo/pqn_ac.py). Runs on the GPU unless DEVICE=cpu is given. Prints
+"Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
+(flax wire format; the actor-critic family's as one tree ``{"actor": ...,
+"critic": ...}``) and ``<run>_config.yaml``, and replays the metrics into the
+LOG_JSONL file.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import time
 
 def _select_make_train(config):
     """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40
-    picks it: ``pqn`` or ``pqn_rnn*``; the other families are not ported."""
+    picks it: ``pqn``, ``pqn_rnn*`` or ``pqn_ac`` / ``pqn_playground``; the
+    other families (pqn_craftax, pqn_vdn*, pqn_host) are not ported."""
     name = str(config.get("ALG_NAME", "pqn"))
     if name == "pqn":
         from purejaxql_torch.algo.pqn import make_train
@@ -26,7 +31,13 @@ def _select_make_train(config):
     if name.startswith("pqn_rnn"):
         from purejaxql_torch.algo.pqn_rnn import make_train
         return make_train
-    raise SystemExit(f"ALG_NAME '{name}' is not ported yet (pqn and pqn_rnn only)")
+    if name in ("pqn_ac", "pqn_playground"):
+        from purejaxql_torch.algo.pqn_ac import make_train
+        return make_train
+    raise SystemExit(
+        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_rnn, pqn_ac; still to port: "
+        "pqn_craftax, pqn_vdn, pqn_host)"
+    )
 
 
 def single_run(config):
@@ -47,11 +58,15 @@ def single_run(config):
 
     t0 = time.time()
     outs = train()
-    # reading a metric waits for the device to finish the run
-    float(outs["metrics"]["td_loss"][-1])
+    # reading a metric waits for the device to finish the run; every family
+    # reports the Log wrappers' episode returns
+    float(outs["metrics"]["returned_episode_returns"][-1])
     dt = time.time() - t0
+    # the actor-critic family keeps a dict of train states, its counters on
+    # the actor (purejaxql_tpu/cli.py:95-100)
     train_state = outs["runner_state"][0]
-    total = train_state.timesteps
+    counter_state = train_state["actor"] if isinstance(train_state, dict) else train_state
+    total = counter_state.timesteps
     print(
         f"Training took {dt:.2f}s — {total} env steps "
         f"({total / dt:.0f} steps/s aggregate)."
@@ -62,7 +77,11 @@ def single_run(config):
     if config.get("SAVE_PATH"):
         save_dir = os.path.join(config["SAVE_PATH"], env_name)
         run_name = f"{config.get('ALG_NAME', 'pqn')}_{env_name}_seed{config['SEED']}"
-        save_run(train_state.network, config, save_dir, run_name)
+        if isinstance(train_state, dict):
+            modules = {name: state.network for name, state in train_state.items()}
+        else:
+            modules = train_state.network
+        save_run(modules, config, save_dir, run_name)
         print(f"Saved params to {save_dir}/")
     return outs
 

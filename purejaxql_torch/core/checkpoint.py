@@ -10,17 +10,21 @@ package loads in the other. Full-state resume (``save_state`` /
 Names: a torch parameter ``CNN_0.Conv_0.weight`` is the flax leaf
 ``params/CNN_0/Conv_0/kernel``; nested modules map level for level.
 
-Layouts, told apart by the weight's rank: a flax ``Dense.kernel`` is
-(in, out) and a torch ``Linear.weight`` is (out, in); a flax ``Conv.kernel``
-is HWIO and a torch conv weight is OIHW; flax's ``scale`` (rank 1) is
-torch's ``weight``. Batch statistics live in a separate flax collection
-(``batch_stats``: ``mean``, ``var``) and in the modules' buffers here.
+Layouts: flax's ``scale`` of a ``LayerNorm_i`` or ``BatchNorm_i`` is torch's
+``weight``, whatever its rank; any other weight is told apart by its rank: a
+flax ``Dense.kernel`` is (in, out) and a torch ``Linear.weight`` is
+(out, in); a rank-3 kernel is a member-stacked Dense, (M, in, out) in flax
+and (M, out, in) here, the leading axis moved as a batch axis (flax's
+vmapped critic ensemble, models/actor_critic.py); a flax ``Conv.kernel`` is
+HWIO and a torch conv weight is OIHW. Batch statistics live in a separate
+flax collection (``batch_stats``: ``mean``, ``var``) and in the modules'
+buffers here; stacked ones keep their member axis in both.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -66,14 +70,19 @@ def load_params(filename: str) -> Dict:
     return _unflatten(load_file(filename))
 
 
-def _to_flax_leaf(leaf: str, a: np.ndarray):
-    """(flax leaf name, array in flax layout) of a torch parameter."""
+def _is_norm(module: str) -> bool:
+    return module.rsplit(".", 1)[-1].startswith(("LayerNorm_", "BatchNorm_"))
+
+
+def _to_flax_leaf(module: str, leaf: str, a: np.ndarray):
+    """(flax leaf name, array in flax layout) of a torch parameter of the
+    (dotted) module name."""
     if leaf != "weight":
         return leaf, a
-    if a.ndim == 1:
+    if a.ndim == 1 or _is_norm(module):
         return "scale", a
-    if a.ndim == 2:  # Linear (out, in) -> Dense (in, out)
-        return "kernel", np.ascontiguousarray(a.T)
+    if a.ndim in (2, 3):  # Linear (out, in) -> Dense (in, out), per member if stacked
+        return "kernel", np.ascontiguousarray(np.swapaxes(a, -1, -2))
     if a.ndim == 4:  # conv OIHW -> HWIO
         return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     raise ValueError(f"no flax layout for a rank-{a.ndim} weight")
@@ -85,8 +94,8 @@ def _from_flax_leaf(leaf: str, t: torch.Tensor):
         return "weight", t
     if leaf != "kernel":
         return leaf, t
-    if t.dim() == 2:  # Dense (in, out) -> Linear (out, in)
-        return "weight", t.T.contiguous()
+    if t.dim() in (2, 3):  # Dense (in, out) -> Linear (out, in), per member if stacked
+        return "weight", t.transpose(-1, -2).contiguous()
     if t.dim() == 4:  # conv HWIO -> OIHW
         return "weight", t.permute(3, 2, 0, 1).contiguous()
     raise ValueError(f"no torch layout for a rank-{t.dim()} kernel")
@@ -99,7 +108,7 @@ def params_to_flax(module: torch.nn.Module) -> Dict[str, Dict]:
     batch_stats: Dict[str, Any] = {}
     for name, p in module.named_parameters():
         mod, leaf = name.rsplit(".", 1)
-        flax_leaf, a = _to_flax_leaf(leaf, p.detach().cpu().numpy())
+        flax_leaf, a = _to_flax_leaf(mod, leaf, p.detach().cpu().numpy())
         params[f"{mod}.{flax_leaf}"] = a
     for name, b in module.named_buffers():
         batch_stats[name] = b.detach().cpu().numpy()
@@ -129,15 +138,21 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def save_run(
-    module: torch.nn.Module, config: Dict[str, Any], save_dir: str, run_name: str
+    modules: Union[torch.nn.Module, Mapping[str, torch.nn.Module]],
+    config: Dict[str, Any],
+    save_dir: str,
+    run_name: str,
 ) -> str:
     """Save the params (flax wire format) and a config snapshot, in the JAX
     package's single-seed layout: ``<run_name>.safetensors`` and
-    ``<run_name>_config.yaml``."""
+    ``<run_name>_config.yaml``. A dict of modules (the actor-critic family's
+    ``{"actor": ..., "critic": ...}``) is saved as one tree with a top level
+    per module, as purejaxql_tpu/cli.py saves it."""
     os.makedirs(save_dir, exist_ok=True)
     save_config(config, os.path.join(save_dir, f"{run_name}_config.yaml"))
-    save_params(
-        params_to_flax(module)["params"],
-        os.path.join(save_dir, f"{run_name}.safetensors"),
-    )
+    if isinstance(modules, torch.nn.Module):
+        params = params_to_flax(modules)["params"]
+    else:
+        params = {name: params_to_flax(m)["params"] for name, m in modules.items()}
+    save_params(params, os.path.join(save_dir, f"{run_name}.safetensors"))
     return save_dir

@@ -111,11 +111,17 @@ FUSED_GAMES = (
 
 
 def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
-    """Mirror of the trainer's FUSED_ROLLOUT constraint checks
-    (algo/pqn.py), plus the single-seed requirement."""
+    """Mirror of the trainers' FUSED_ROLLOUT constraint checks (algo/pqn.py,
+    algo/pqn_ac.py:fused_ac_eligible), plus the single-seed requirement
+    (purejaxql_tpu/core/config.py:113-143)."""
+    if config.get("NUM_SEEDS", 1) != 1:
+        return False
+    if str(config.get("ALG_NAME", "pqn")) in ("pqn_ac", "pqn_playground"):
+        from purejaxql_torch.algo.pqn_ac import fused_ac_eligible
+
+        return fused_ac_eligible(config)
     return (
-        config.get("NUM_SEEDS", 1) == 1
-        and str(config.get("ALG_NAME", "pqn")) == "pqn"
+        str(config.get("ALG_NAME", "pqn")) == "pqn"
         and config.get("ENV_NAME") in FUSED_GAMES
         and not config.get("USE_OPTIMISTIC_RESETS", False)
         and not config.get("BATCH_ENV", False)
@@ -131,7 +137,9 @@ def resolve_fast_paths(
     """GPU default-performance policy.
 
     On a ``cuda`` run, turn on FUSED_ROLLOUT and EVAL_EARLY_EXIT for an
-    eligible feedforward config, as the JAX package does on a TPU, and
+    eligible feedforward config, as the JAX package does on a TPU, FUSED_ROLLOUT
+    alone for an eligible actor-critic one (``pqn_ac``, ``pqn_playground``:
+    the Pendulum kernel), and
     FAST_BPTT for a ``pqn_rnn*`` config that ``ops/fast_rnn.py:
     supports_fast_bptt`` accepts (purejaxql_tpu/core/config.py:203-208),
     with PALLAS_BPTT beside it for a GRU stack. The JAX policy leaves
@@ -161,7 +169,7 @@ def resolve_fast_paths(
 
     if _fused_rollout_eligible(config):
         _default("FUSED_ROLLOUT", True)
-        if config["FUSED_ROLLOUT"]:
+        if config["FUSED_ROLLOUT"] and str(config.get("ALG_NAME", "pqn")) == "pqn":
             _default("EVAL_EARLY_EXIT", True)
     elif str(config.get("ALG_NAME", "pqn")).startswith("pqn_rnn"):
         from purejaxql_torch.ops.fast_rnn import supports_fast_bptt

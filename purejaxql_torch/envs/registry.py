@@ -13,6 +13,7 @@ from typing import Callable, Dict, Tuple
 from purejaxql_torch.envs.base import Environment
 from purejaxql_torch.envs.classic.cartpole import CartPole
 from purejaxql_torch.envs.classic.memory_chain import MemoryChain
+from purejaxql_torch.envs.classic.pendulum import Pendulum
 from purejaxql_torch.envs.minatar.asterix import MinAsterix
 from purejaxql_torch.envs.minatar.breakout import MinBreakout
 from purejaxql_torch.envs.minatar.freeway import MinFreeway
@@ -21,6 +22,7 @@ from purejaxql_torch.envs.minatar.space_invaders import MinSpaceInvaders
 _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "CartPole-v1": CartPole,
     "MemoryChain-bsuite": MemoryChain,
+    "Pendulum-v1": Pendulum,
     "Asterix-MinAtar": MinAsterix,
     "Breakout-MinAtar": MinBreakout,
     "Freeway-MinAtar": MinFreeway,

@@ -16,7 +16,10 @@ game reads its words in this order:
   10 spawn direction, 11 gold;
 - Freeway: 0 coin, 1 random action, 2-9 lane speeds, 10-17 lane
   directions, 18-25 reset x of each car;
-- SpaceInvaders: 0 coin, 1 random action.
+- SpaceInvaders: 0 coin, 1 random action;
+- Pendulum AC: 0 and 1 the Box-Muller pair of the exploration noise
+  (u1 = ((w0 >> 8) + 1) / 2^24 in (0, 1], u2 = (w1 >> 8) / 2^24), 2 the
+  reset theta, 3 the reset theta_dot: one call, counter (t, b, 0, 0).
 
 A word is used through its top 24 bits (``w >> 8``), as the TPU kernels use
 their hardware PRNG's words.

@@ -8,23 +8,28 @@
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 --set TEST_NUM_STEPS=64
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 \
         --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
+    python scripts/profile_torch_train.py --alg pqn_pendulum --steps 400000    # actor-critic
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
 steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
 2 epochs, greedy eval 128 envs x up to 1000 steps; pqn_rnn_*: the GRU
 network, FAST_BPTT and PALLAS_BPTT on, the window of MEMORY_WINDOW +
-NUM_STEPS steps):
+NUM_STEPS steps; pqn_pendulum: actor and two critics H 256, 64 envs x 32
+steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every 10 %):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
    the minibatch steps and, inside them, the train-mode forward, the
-   closure-form targets and the GRU scan kernels) is wrapped with a device
+   closure-form targets and the GRU scan kernels; for the actor-critic
+   trainer the fused rollout, the LogVec replay, the lambda targets, the
+   critic step, the actor step and the eval's episode sums) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
    rollout's calls are split into training and eval calls (those at
-   EPS_TEST), and the eval's share of the wall is printed;
+   EPS_TEST, or at noise 0 for the actor-critic trainer), and the eval's
+   share of the wall is printed;
 2. the device's busy share: torch.profiler over a short run without eval,
    summed kernel time over the wall time of the profiled run.
 
@@ -54,7 +59,7 @@ ROLLOUTS = (
 def main() -> int:
     import torch
 
-    from purejaxql_torch.algo import pqn, pqn_rnn
+    from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn
     from purejaxql_torch.core.config import compose
     from purejaxql_torch.ops import gru_scan
 
@@ -80,10 +85,12 @@ def main() -> int:
         overrides=[f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", *env],
     )
     # a rollout kernel serves training and the eval chunks; the eval's calls
-    # are those at EPS_TEST, below every training epsilon (>= EPS_FINISH)
-    eval_eps = config["EPS_TEST"]
-    if not eval_eps < config["EPS_FINISH"]:
-        raise SystemExit("EPS_TEST must be below EPS_FINISH to tell eval calls from training calls")
+    # are those at EPS_TEST, below every training epsilon (>= EPS_FINISH), or
+    # for the actor-critic trainer at noise 0, below every training noise
+    actor_critic = config["ALG_NAME"] in ("pqn_ac", "pqn_playground")
+    eval_eps, floor = (0.0, config["NOISE_FINISH"]) if actor_critic else (config["EPS_TEST"], config["EPS_FINISH"])
+    if not eval_eps < floor:
+        raise SystemExit("the eval's epsilon (noise) must be below the training one to tell their calls apart")
     totals = defaultdict(float)
     counts = defaultdict(int)
 
@@ -108,8 +115,11 @@ def main() -> int:
         return wrapper
 
     recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
-    trainer = pqn_rnn if recurrent else pqn
-    if recurrent:  # (module, name, the epsilon's argument index)
+    trainer = pqn_rnn if recurrent else pqn_ac if actor_critic else pqn
+    if actor_critic:  # (module, name, the noise's argument index)
+        patches = [(pqn_ac, "fused_pendulum_rollout", 1), (pqn_ac, "eval_episode_metrics", None)]
+        patches += [(pqn_ac, n, None) for n in ("log_vec_replay", "lambda_returns", "critic_step", "actor_step")]
+    elif recurrent:  # (module, name, the epsilon's argument index)
         patches = [(pqn_rnn, "rnn_rollout", 5), (pqn_rnn, "learn_minibatch", None),
                    (pqn_rnn, "rnn_train_q_values", None), (pqn_rnn, "lambda_returns_closure", None),
                    (gru_scan, "gru_scan_fwd", None), (gru_scan, "gru_scan_bwd", None)]
@@ -128,6 +138,7 @@ def main() -> int:
     for mod, name, fn in originals:
         setattr(mod, name, fn)
     ts = out["runner_state"][0]
+    ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
     inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd")
     accounted = sum(v for k, v in totals.items() if k not in inner)
@@ -160,7 +171,7 @@ def main() -> int:
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,
-            "eval_share_of_wall": sum(v for k, v in totals.items() if k.endswith("_eval")) / wall,
+            "eval_share_of_wall": sum(v for k, v in totals.items() if "eval" in k) / wall,
         },
         "profile": {
             "updates": n, "wall_s": pwall, "device_busy_s": device_us / 1e6,

@@ -51,7 +51,7 @@ def test_compose_matches_jax(overrides):
 
 def test_yaml_copies_equal_jax():
     for rel in ("config.yaml", "alg/pqn_cartpole.yaml", "alg/pqn_minatar.yaml",
-                "alg/pqn_rnn_cartpole.yaml", "alg/pqn_rnn_memory_chain.yaml"):
+                "alg/pqn_rnn_cartpole.yaml", "alg/pqn_rnn_memory_chain.yaml", "alg/pqn_pendulum.yaml"):
         mine = yaml.safe_load(open(ROOT / "purejaxql_torch" / "configs" / rel))
         ref = yaml.safe_load(open(ROOT / "purejaxql_tpu" / "configs" / rel))
         assert mine == ref, rel

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from purejaxql_torch.algo import pqn, pqn_rnn
+from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn
 from purejaxql_torch.core.config import compose
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs.minatar.breakout import start_state
+from purejaxql_torch.models.actor_critic import Actor, CriticEnsemble
 from purejaxql_torch.models.cnn import CNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork
 from purejaxql_torch.ops import asterix_rollout as ar
@@ -22,6 +23,7 @@ from purejaxql_torch.ops import cartpole_rollout as cr
 from purejaxql_torch.ops import freeway_rollout as fr
 from purejaxql_torch.ops import gru_scan as gs
 from purejaxql_torch.ops import lambda_returns as lr
+from purejaxql_torch.ops import pendulum_rollout as pr
 from purejaxql_torch.ops import space_invaders_rollout as sr
 from purejaxql_torch.ops.minatar_rollout import minatar_weights
 
@@ -285,3 +287,72 @@ def test_tiny_rnn_train_on_the_card_launches_both_kernels(dev):
     assert lr.lambda_returns.launches == 0
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+def _pendulum_inputs(dev, B, H, seed=0):
+    """Kernel weights of a seeded actor and two-critic ensemble, and states
+    with theta in [-pi, pi), theta_dot in [-8, 8] and times in [0, 200)."""
+    gen = torch.Generator().manual_seed(seed)
+    actor = Actor(3, 1, 2.0, 0.0, [H, H], generator=gen).to(dev)
+    critics = CriticEnsemble(2, 3, 1, [H, H], generator=gen).to(dev)
+    r = np.random.RandomState(seed)
+    stf = np.stack([r.uniform(-np.pi, np.pi, B), r.uniform(-8, 8, B), np.zeros(B)]).astype(np.float32)
+    sti = r.randint(0, 200, (1, B)).astype(np.int32)
+    return pr.pendulum_ac_weights(actor, critics), torch.tensor(stf, device=dev), torch.tensor(sti, device=dev)
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("T,B,H,max_steps", [(32, 64, 256, 200), (40, 16, 64, 10)])
+def test_pendulum_kernel_matches_plain(dev, T, B, H, max_steps, use_prng):
+    """The training shape and one that forces resets: done and time equal,
+    every float output within 1e-4 of the twin (the MLPs sum in another
+    order; on an H100 the largest gap seen is 1.5e-5, on the reward)."""
+    (aw, cw), stf, sti = _pendulum_inputs(dev, B, H)
+    got = pr.pendulum_ac_rollout(11, 0.8, aw, cw, stf, sti, T, use_prng=use_prng, max_steps=max_steps)
+    want = pr.pendulum_rollout_plain(11, 0.8, aw, cw, stf, sti, T, use_prng=use_prng, max_steps=max_steps)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, i
+        if i in (5, 8):
+            assert torch.equal(g, w), i
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    assert want[5].any()
+
+
+def test_pendulum_wrapper_rejects_bad_inputs(dev):
+    (aw, cw), stf, sti = _pendulum_inputs(dev, 8, 64)
+    with pytest.raises(ValueError, match="hidden size"):
+        pr.pendulum_ac_rollout(0, 0.1, _pendulum_inputs(dev, 8, 48)[0][0], cw, stf, sti, 4)
+    with pytest.raises(ValueError, match="int32"):
+        pr.pendulum_ac_rollout(0, 0.1, aw, cw, stf, sti.long(), 4)
+    with pytest.raises(ValueError, match="NUM_CRITICS=2"):
+        pr.pendulum_ac_rollout(0, 0.1, aw, cw[:10], stf, sti, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        pr.pendulum_ac_rollout(0, 0.1, aw, _pendulum_inputs(dev, 8, 32)[0][1], stf, sti, 4)
+    shifted = torch.empty(aw[4].numel() + 1, device=dev)[1:].view_as(aw[4])
+    shifted.copy_(aw[4])
+    with pytest.raises(ValueError, match="aligned"):
+        pr.pendulum_ac_rollout(0, 0.1, aw[:4] + (shifted,) + aw[5:], cw, stf, sti, 4)
+
+
+def test_tiny_pendulum_train_on_the_card_launches_both_kernels(dev):
+    config = compose(
+        alg="pqn_pendulum",
+        overrides=[
+            "TOTAL_TIMESTEPS=8192", "TEST_NUM_STEPS=64", "TEST_INTERVAL=0.5",
+            "ENV_KWARGS={'max_steps_in_episode': 50}",
+        ],
+    )
+    assert config["FUSED_ROLLOUT"] is True
+    for fn in (pr.pendulum_ac_rollout, lr.lambda_returns, cr.cartpole_rollout):
+        fn.launches = 0
+    out = pqn_ac.make_train(config)()
+    n_updates = 8192 // 32 // 64
+    assert lr.lambda_returns.launches == n_updates
+    # one launch per update and two per eval (64 steps in 32-step chunks)
+    assert pr.pendulum_ac_rollout.launches == n_updates + 2 * (1 + n_updates // 2)
+    assert cr.cartpole_rollout.launches == 0
+    for state in out["runner_state"][0].values():
+        assert all(p.is_cuda for p in state.network.parameters())
+    assert torch.isfinite(out["metrics"]["value_loss"]).all()
+    assert torch.isfinite(out["metrics"]["test/returned_episode_returns"]).all()
