@@ -10,11 +10,13 @@ Phases, each ending the run with a non-zero exit if it fails:
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
    trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
-   Asterix, Freeway and SpaceInvaders rollouts (PRNG off and on), the GRU
+   Asterix, Freeway, SpaceInvaders and Seaquest rollouts (PRNG off and on;
+   Seaquest also at a shape that forces resets), the GRU
    scan's forward and backward kernels (and autograd through them), and the
    Pendulum actor-critic rollout (PRNG off and on, at the trainer's shape and
    at one that forces resets);
-4. check the rollout kernels' random streams by their statistics;
+4. check the rollout kernels' random streams by their statistics (Seaquest:
+   the coin, and one step of 8192 envs that fire, are shot at and spawn);
 5. train pqn_cartpole at full width (H 256, 32 envs x 64 steps, 16
    minibatches x 4 epochs, greedy eval 128 envs x 500 steps) for 200k env
    steps through the CLI's entry point, with the launch counters zeroed just
@@ -23,7 +25,9 @@ Phases, each ending the run with a non-zero exit if it fails:
    32 minibatches x 2 epochs, greedy eval 128 envs x up to max_steps) the
    same way: Breakout-MinAtar for 500k env steps and Asterix-MinAtar (the
    YAML's default game, no ENV_NAME) for 500k, each checked for learning,
-   then Freeway-MinAtar and SpaceInvaders-MinAtar for 16 updates each;
+   then Freeway-MinAtar and SpaceInvaders-MinAtar for 16 updates each, and
+   Seaquest-MinAtar for 500k, its launches within the range its eval allows
+   and checked against its gate;
 6d. train pqn_rnn_memory_chain at its full config (GRU H 256, 32 envs x 128
    steps, window 4, 16 minibatches x 4 epochs, 1e5 env steps, greedy eval
    128 envs x 64 steps) through the GRU scan kernels and check that it
@@ -56,6 +60,7 @@ PEAK_F32_FLOP_PER_S = 67e12
 TRAIN_STEPS = 200_000
 BREAKOUT_STEPS = 500_000
 ASTERIX_STEPS = 500_000
+SEAQUEST_STEPS = 500_000
 SHORT_STEPS = 16 * 32 * 128  # 16 updates of Freeway and of SpaceInvaders
 MEMORY_STEPS = 100_000  # pqn_rnn_memory_chain.yaml's TOTAL_TIMESTEPS: 24 updates
 RNN_CARTPOLE_STEPS = 16 * 64 * 32  # 16 updates of pqn_rnn_cartpole
@@ -76,10 +81,12 @@ GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128))
 # the mean of the last 10 training returns the Asterix run must beat:
 # tests/test_torch_asterix.py::test_asterix_learns
 ASTERIX_GATE = 0.8
+# the same for Seaquest: tests/test_torch_seaquest.py::test_seaquest_learns
+SEAQUEST_GATE = 0.2
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
-    "freeway_rollout", "space_invaders_rollout", "gru_scan_fwd", "gru_scan_bwd",
-    "pendulum_ac_rollout",
+    "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
+    "gru_scan_bwd", "pendulum_ac_rollout",
 )
 # the Breakout run and check as recorded on an H100 before its CNN moved into
 # csrc/minatar_cnn.cuh (PERF.md): the last-10 mean return, the last greedy
@@ -209,13 +216,18 @@ def gru_inputs(T: int, B: int, H: int, seed: int, dev):
 
 # per game: (channels, state ints per env, game operations per env step):
 # Breakout's (8, B) matrix and brick map, Asterix's (48, B), Freeway's
-# (32, B), SpaceInvaders' (16, B) and three maps; SpaceInvaders' rules touch
-# every cell a few times, the others' a few slots or lanes
+# (32, B), SpaceInvaders' (16, B) and three maps, Seaquest's (128, B);
+# SpaceInvaders' rules touch every cell a few times, the others' a few slots
+# or lanes. Seaquest's, counted from csrc/seaquest_rollout.cu: its 1,000
+# plane cells written once and its 28 pool entities added onto them with a
+# clamp (~1,100), the rules over the five pools (hits 12 x 4 pairs ~400,
+# moves, shots, spawns, collisions ~500): about 2,000
 GAME_SHAPES = {
     "breakout_rollout": (4, 8 + 100, 50),
     "asterix_rollout": (4, 48, 100),
     "freeway_rollout": (7, 32, 100),
     "space_invaders_rollout": (6, 16 + 300, 1000),
+    "seaquest_rollout": (10, 128, 2000),
 }
 
 
@@ -381,14 +393,49 @@ def space_invaders_states(B: int, seed: int):
     return tuple(torch.cat([x, y], -1).contiguous() for x, y in zip(a, b))
 
 
-def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, eps=0.1):
+def seaquest_states(B: int, seed: int):
+    """Seaquest states that meet every rule: half at an episode's start,
+    half on random boards (the sub anywhere, either way round, oxygen from
+    empty to full, 0-6 divers on board, every pool thinly filled with its
+    timers about to fire, subs about to shoot, spawns and surfacing due,
+    times near the limit)."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.envs.minatar.seaquest import SeaquestParams, SeaquestState, start_state
+    from purejaxql_torch.ops.seaquest_rollout import state_matrix_from_seaquest
+
+    r = np.random.RandomState(seed)
+    n = B - B // 2
+    cols = {
+        "sub_x": r.randint(0, 10, n), "sub_y": r.choice([0, 0, 1, 2, 4, 8], n), "sub_or": r.randint(0, 2, n),
+        "oxygen": r.choice([0, 1, 2, 57, 199, 200], n), "divers": r.randint(0, 7, n),
+        "shot_timer": r.randint(0, 3, n), "spawn_timer": r.randint(0, 3, n),
+        "diver_spawn_timer": r.randint(0, 3, n), "move_interval": r.randint(1, 6, n),
+        "surfaced": r.rand(n) < 0.5, "terminal": np.zeros(n, bool), "time": r.randint(0, 1000, n),
+    }
+    for p, k in (("f", 8), ("s", 4), ("fb", 4), ("eb", 4), ("d", 4)):
+        cols[f"{p}_exists"] = r.rand(n, k) < 0.4
+        cols[f"{p}_x"] = r.randint(0, 10, (n, k))
+        cols[f"{p}_y"] = r.randint(0, 9, (n, k)) if p in ("fb", "eb") else r.randint(1, 9, (n, k))
+        cols[f"{p}_dir"] = r.choice([-1, 1], (n, k))
+        if p in ("f", "s", "d"):
+            cols[f"{p}_timer"] = r.randint(0, 3, (n, k))
+    cols["s_shot_timer"] = r.randint(0, 4, (n, 4))
+    rand = SeaquestState(**{k: torch.tensor(v if v.dtype == bool else v.astype(np.int32)) for k, v in cols.items()})
+    st = torch.cat([state_matrix_from_seaquest(start_state(B // 2, SeaquestParams(), "cpu")),
+                    state_matrix_from_seaquest(rand)], 1)
+    return (st.contiguous(),)
+
+
+def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, eps=0.1, **kw):
     """One kernel call against its twin on the same inputs: every output
     equal but Q, within 1e-4. Returns (max |Q error|, resets, reward sum,
     non-greedy actions)."""
     import torch
 
-    got = kernel(seed, eps, weights, *states, T, use_prng=use_prng)
-    want = plain(seed, eps, weights, *states, T, use_prng=use_prng)
+    got = kernel(seed, eps, weights, *states, T, use_prng=use_prng, **kw)
+    want = plain(seed, eps, weights, *states, T, use_prng=use_prng, **kw)
     torch.cuda.synchronize()
     mism = (got[1] != want[1]).nonzero()
     if len(mism):
@@ -431,6 +478,7 @@ def main() -> int:
         from purejaxql_torch.ops import gru_scan as gs
         from purejaxql_torch.ops import lambda_returns as lr
         from purejaxql_torch.ops import pendulum_rollout as pr
+        from purejaxql_torch.ops import seaquest_rollout as sq
         from purejaxql_torch.ops import space_invaders_rollout as sr
         from purejaxql_torch.ops.minatar_rollout import minatar_weights
     except ImportError as e:
@@ -448,6 +496,7 @@ def main() -> int:
         "asterix_rollout": ar.asterix_rollout,
         "freeway_rollout": fr.freeway_rollout,
         "space_invaders_rollout": sr.space_invaders_rollout,
+        "seaquest_rollout": sq.seaquest_rollout,
         "gru_scan_fwd": gs.gru_scan_fwd,
         "gru_scan_bwd": gs.gru_scan_bwd,
         "pendulum_ac_rollout": pr.pendulum_ac_rollout,
@@ -584,13 +633,14 @@ def main() -> int:
         q_err = max(q_err, err)
     errors["breakout_rollout"] = q_err
 
-    # ---- 3d. Asterix, Freeway and SpaceInvaders rollouts vs plain, PRNG off and on --
+    # ---- 3d. Asterix, Freeway, SpaceInvaders and Seaquest rollouts vs plain, PRNG off and on --
     games = {  # kernel, twin, states, channels, actions, what a reward is
         "asterix_rollout": (ar.asterix_rollout, ar.asterix_rollout_plain, asterix_states, 4, 5, "gold"),
         "freeway_rollout": (fr.freeway_rollout, fr.freeway_rollout_plain, freeway_states, 7, 3, "crossings"),
         "space_invaders_rollout": (
             sr.space_invaders_rollout, sr.space_invaders_rollout_plain, space_invaders_states, 6, 4, "kills",
         ),
+        "seaquest_rollout": (sq.seaquest_rollout, sq.seaquest_rollout_plain, seaquest_states, 10, 6, "kills and cash-ins"),
     }
     game_inputs = {}
     for i, (name, (kernel, plain, make_states, gC, gA, scores)) in enumerate(games.items()):
@@ -610,6 +660,20 @@ def main() -> int:
             check(rew > 0 or name == "freeway_rollout", f"{name}: nothing scored in the comparison")
             q_err = max(q_err, err)
         errors[name] = q_err
+    # Seaquest at a small shape whose time limit resets every env four times
+    sq_small = tuple(x.to(dev) for x in seaquest_states(16, 11))
+    for use_prng in (False, True):
+        err, n_done, rew, n_random = compare_minatar(
+            "seaquest_rollout", sq.seaquest_rollout, sq.seaquest_rollout_plain, game_inputs["seaquest_rollout"][0],
+            sq_small, 40, use_prng, max_steps=9,
+        )
+        print(
+            f"seaquest_rollout B=16 T=40 max_steps=9 prng={use_prng}: obs/actions/rewards/dones/state equal "
+            f"({n_done} resets, {rew:.1f} reward, {n_random} non-greedy actions), max|q err| {err:.3g} "
+            f"(tolerance 1e-4)"
+        )
+        check(n_done >= 4 * 16, "seaquest_rollout: fewer resets than the time limit forces")
+        errors["seaquest_rollout"] = max(errors["seaquest_rollout"], err)
 
     # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
     # forward within 1e-5; backward within 1e-4 absolute and relative: the
@@ -709,7 +773,8 @@ def main() -> int:
     check(not torch.equal(bobs1, bobs2) and not torch.equal(bact, bact2), "breakout: different seeds gave the same stream")
     print("breakout: different seeds give different streams")
 
-    for name, expect in (("asterix_rollout", 0.24), ("freeway_rollout", 0.2), ("space_invaders_rollout", 0.225)):
+    for name, expect in (("asterix_rollout", 0.24), ("freeway_rollout", 0.2), ("space_invaders_rollout", 0.225),
+                         ("seaquest_rollout", 0.25)):
         kernel, gA = games[name][0], games[name][4]
         gweights, gstates = game_inputs[name]
         _, gact, _, _, gq, *_ = kernel(99, 0.3, gweights, *gstates, BT)
@@ -783,6 +848,93 @@ def main() -> int:
     check(bool(torch.equal(cars.car_timer, cars.car_speed.abs())) and bool((cars.pos == 9).all()),
           "freeway: a reset's timers or chicken are wrong")
     check(not torch.equal(resets[0].car_x, resets[1].car_x), "freeway: different seeds gave the same resets")
+
+    # Seaquest's draws: one step of 8192 envs with the sub on the surface and
+    # its greedy action fire (the head's bias raised), each pool's free slots
+    # at random, nothing moving (the lane timers held), every sub about to
+    # shoot and both spawn timers due: in every env one friendly bullet, one
+    # enemy bullet, one fish or sub and one diver appear, nothing collides
+    from purejaxql_torch.envs.minatar.seaquest import SeaquestParams
+    from purejaxql_torch.envs.minatar.seaquest import start_state as seaquest_start
+
+    r = np.random.RandomState(6)
+    rows = torch.arange(NB)
+
+    def taken(n, one_taken=False):
+        """A random set of occupied slots with at least one free (and, when
+        asked, at least one occupied)."""
+        occ = r.rand(NB, n) < 0.5
+        free = r.randint(0, n, NB)
+        occ[np.arange(NB), free] = False
+        if one_taken:
+            occ[np.arange(NB), (free + r.randint(1, n, NB)) % n] = True
+        return torch.tensor(occ)
+
+    i32n = lambda a: torch.tensor(np.asarray(a, np.int32))  # noqa: E731
+    sq0 = seaquest_start(NB, SeaquestParams(), "cpu")
+    sq0.f_exists, sq0.s_exists, sq0.d_exists = taken(8), taken(4, one_taken=True), taken(4)
+    sq0.fb_exists, sq0.eb_exists = taken(4), taken(4)
+    for pool, n in (("f", 8), ("s", 4), ("d", 4)):
+        setattr(sq0, f"{pool}_x", i32n(r.randint(0, 10, (NB, n))))
+        setattr(sq0, f"{pool}_y", i32n(r.randint(1, 9, (NB, n))))
+        setattr(sq0, f"{pool}_dir", i32n(r.choice([-1, 1], (NB, n))))
+        setattr(sq0, f"{pool}_timer", torch.full((NB, n), 100, dtype=torch.int32))
+    sq0.s_shot_timer = torch.ones(NB, 4, dtype=torch.int32)
+    sq0.fb_x, sq0.eb_x = torch.full((NB, 4), 5, dtype=torch.int32), torch.full((NB, 4), 5, dtype=torch.int32)
+    sq0.eb_y = i32n(r.randint(1, 9, (NB, 4)))
+    sq0.eb_dir, sq0.fb_dir = i32n(r.choice([-1, 1], (NB, 4))), i32n(r.choice([-1, 1], (NB, 4)))
+    sq0.spawn_timer, sq0.diver_spawn_timer = torch.ones(NB, dtype=torch.int32), torch.ones(NB, dtype=torch.int32)
+    sq_st0 = sq.state_matrix_from_seaquest(sq0).to(dev)
+    qweights = list(game_inputs["seaquest_rollout"][0])
+    qweights[9] = qweights[9].clone()
+    qweights[9][5] += 1e3  # greedy: fire
+    spawned = []
+    for seed in (7, 8):
+        out = sq.seaquest_rollout(seed, 0.0, qweights, sq_st0, 1)
+        check(bool((out[1] == 5).all()) and not bool(out[3].any()), "seaquest: the draw step did not fire or ended")
+        spawned.append(sq.seaquest_from_state_matrix(out[6].cpu()))
+    after = spawned[0]
+    new = {p: getattr(after, f"{p}_exists") & ~getattr(sq0, f"{p}_exists") for p in ("fb", "eb", "f", "s", "d")}
+    for p, want_one in (("fb", 1), ("eb", 1), ("d", 1)):
+        check(bool((new[p].sum(1) == want_one).all()), f"seaquest: not exactly one new {p} in every env")
+    check(bool((new["f"].sum(1) + new["s"].sum(1) == 1).all()), "seaquest: not exactly one new fish or sub")
+    shooter = (sq0.s_exists & (sq0.s_exists.cumsum(1) == 1)).int().argmax(1)
+    eb_slot = new["eb"].int().argmax(1)
+    check(bool(torch.equal(after.eb_x[rows, eb_slot], sq0.s_x[rows, shooter])
+               and torch.equal(after.eb_y[rows, eb_slot], sq0.s_y[rows, shooter])),
+          "seaquest: the enemy bullet is not where the first sub is")
+    is_sub = new["s"].any(1)
+    e_slot = torch.where(is_sub, new["s"].int().argmax(1), new["f"].int().argmax(1))
+    e_x = torch.where(is_sub, after.s_x[rows, e_slot.clamp(max=3)], after.f_x[rows, e_slot])
+    e_y = torch.where(is_sub, after.s_y[rows, e_slot.clamp(max=3)], after.f_y[rows, e_slot])
+    d_slot = new["d"].int().argmax(1)
+    check(bool(torch.equal(after.d_y[rows, d_slot], e_y) and torch.equal(after.d_x[rows, d_slot], e_x)),
+          "seaquest: the diver's lane or edge is not the enemy's")
+    lane_share = torch.bincount(e_y, minlength=9)[1:].float() / NB
+    right = (e_x == 0).float().mean().item()
+    sub_share = is_sub.float().mean().item()
+    slot_dev = 0.0
+    for p, picked, free, cond in (
+        ("fb", new["fb"], ~sq0.fb_exists, None), ("eb", new["eb"], ~sq0.eb_exists, None),
+        ("f", new["f"], ~sq0.f_exists, ~is_sub), ("s", new["s"], ~sq0.s_exists, is_sub),
+        ("d", new["d"], ~sq0.d_exists, None),
+    ):
+        if cond is not None:
+            picked, free = picked[cond], free[cond]
+        freef = free.float()
+        expect = (freef / freef.sum(1, keepdim=True)).sum(0)
+        counts = picked.float().sum(0)
+        slot_dev = max(slot_dev, ((counts - expect).abs() / expect.sqrt()).max().item())
+    print(
+        f"seaquest draws: lanes 1-8 {[round(v, 4) for v in lane_share.tolist()]} (expect 0.125 each), "
+        f"from the left {right:.4f} (expect 0.5), a sub {sub_share:.4f} (expect 1/3); per-slot spawn count off "
+        f"the uniform-over-free-slots expectation by at most {slot_dev:.2f} standard deviations over five pools "
+        f"and {NB} envs"
+    )
+    check((lane_share - 0.125).abs().max().item() < 0.02 and abs(right - 0.5) < 0.02 and abs(sub_share - 1 / 3) < 0.02,
+          "seaquest spawn shares")
+    check(slot_dev < 5.0, f"seaquest: spawned slots not uniform over the free slots ({slot_dev} sd)")
+    check(not torch.equal(spawned[0].f_exists, spawned[1].f_exists), "seaquest: different seeds gave the same spawns")
 
     # Pendulum noise and resets: z recovered from u - greedy where greedy is
     # far enough from the bounds that no draw within 6 std is clipped (an
@@ -874,6 +1026,30 @@ def main() -> int:
     # ends before the 2500-step limit, so early exit cuts none of them
     check(short_launches["freeway_rollout"]["freeway_rollout"] == 16 + 17 * 79,
           f"freeway: {short_launches['freeway_rollout']['freeway_rollout']} launches, expected {16 + 17 * 79}")
+
+    # ---- 6c'. Seaquest at full width, 500k steps --------------------------------
+    # launches: one a update, and per eval (one before training, one every 5 %
+    # of the run) one a 32-step chunk until every env has ended an episode,
+    # at most 1000 / 32 -> 32 chunks
+    outs, wall, launches_sq = train(
+        cli, compose, "pqn_minatar", SEAQUEST_STEPS, save_path, counters, extra=["ENV_NAME=Seaquest-MinAtar"],
+    )
+    sq_updates = SEAQUEST_STEPS // 32 // 128
+    sq_evals = 1 + sq_updates // max(1, int(sq_updates * 0.05))
+    sq_last10, sq_eval = check_run(
+        "seaquest", outs, wall, launches_sq, sq_updates, 32 * 128, "seaquest_rollout", SEAQUEST_GATE
+    )
+    lo, hi = sq_updates + sq_evals, sq_updates + sq_evals * -(-1000 // 32)
+    check(lo <= launches_sq["seaquest_rollout"] <= hi,
+          f"seaquest: {launches_sq['seaquest_rollout']} rollout launches, outside [{lo}, {hi}]")
+    saved = load_params(os.path.join(save_path, "Seaquest-MinAtar", "pqn_Seaquest-MinAtar_seed0.safetensors"))
+    check(tuple(saved["CNN_0"]["Conv_0"]["kernel"].shape) == (3, 3, 10, 16),
+          "seaquest: saved conv kernel has the wrong shape")
+    check(tuple(saved["Dense_0"]["kernel"].shape) == (128, 6), "seaquest: saved head has the wrong shape")
+    print(json.dumps({"seaquest_run": {"env_steps_per_s": outs["runner_state"][0].timesteps / wall, "wall_s": wall,
+                                       "last10_return": sq_last10, "last_eval_return": sq_eval,
+                                       "gate": SEAQUEST_GATE, "launches": launches_sq,
+                                       "launch_range": [lo, hi], "card": card}}))
 
     # ---- 6d. the recurrent trainer on MemoryChain, the FF contrast, CartPole ----
     outs, wall, launches_mc = train(
@@ -1002,7 +1178,8 @@ def main() -> int:
         print(json.dumps({"timing": "cartpole_rollout", "shape": {"T": 64, "B": B, "H": H}, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
     game_inputs["breakout_rollout"] = (bweights, (st0, brick0))
     games["breakout_rollout"] = (br.breakout_rollout, br.breakout_rollout_plain, None, 4, BA, None)
-    for name in ("breakout_rollout", "asterix_rollout", "freeway_rollout", "space_invaders_rollout"):
+    for name in ("breakout_rollout", "asterix_rollout", "freeway_rollout", "space_invaders_rollout",
+                 "seaquest_rollout"):
         kernel, plain, _, gC, gA, _ = games[name]
         gweights, gstates = game_inputs[name]
         k_ms = cuda_time_ms(lambda: kernel(3, 0.1, gweights, *gstates, BT), 50)
@@ -1052,6 +1229,8 @@ def main() -> int:
         ("space_invaders_rollout", "purejaxql_torch/csrc/space_invaders_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:1276", "space_invaders_rollout",
          short_launches["space_invaders_rollout"]),
+        ("seaquest_rollout", "purejaxql_torch/csrc/seaquest_rollout.cu",
+         "purejaxql_tpu/ops/pallas_rollout.py:1689", "seaquest_rollout", launches_sq),
         ("gru_scan_fwd", "purejaxql_torch/csrc/gru_scan_fwd.cu",
          "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132", launches_mc),
         ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",

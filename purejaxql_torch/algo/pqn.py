@@ -1,8 +1,8 @@
 """FF-PQN trainer for feedforward Q-networks.
 
 Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork
-(CartPole-v1) and the MinAtar CNN (Asterix-, Breakout-, Freeway- and
-SpaceInvaders-MinAtar). Each update: a
+(CartPole-v1) and the MinAtar CNN (Asterix-, Breakout-, Freeway-, Seaquest-
+and SpaceInvaders-MinAtar). Each update: a
 NUM_STEPS rollout over NUM_ENVS envs (epsilon-greedy on the current params),
 Q(lambda) targets, NUM_EPOCHS epochs of NUM_MINIBATCHES minibatch steps of
 clip + RAdam on the 0.5 * MSE TD loss, the update metrics, and every
@@ -20,7 +20,9 @@ Two rollout paths:
 - FUSED_ROLLOUT (pqn.py:342-406): the whole rollout in one launch of the
   game's kernel (`fused_game_rollout`: ops/cartpole_rollout.py and the
   MinAtar games' ops/<game>_rollout.py), with the Log wrapper's episode
-  statistics replayed from the (reward, done) streams afterwards.
+  statistics replayed from the (reward, done) streams afterwards, summed in
+  step order as the JAX trainer sums them (Seaquest's rewards are not
+  integers).
 
 The lambda targets always go through `ops.lambda_returns.lambda_returns`,
 the CUDA kernel on the GPU; PALLAS_RETURNS is accepted and changes nothing.
@@ -43,6 +45,8 @@ from purejaxql_torch.algo.exploration import eps_greedy_batch
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     episode_mean_metrics,
+    eval_episode_metrics,
+    running_episode_sums,
     test_interval_updates,
 )
 from purejaxql_torch.algo.types import Transition
@@ -76,6 +80,11 @@ from purejaxql_torch.ops.freeway_rollout import (
 )
 from purejaxql_torch.ops.lambda_returns import lambda_returns
 from purejaxql_torch.ops.minatar_rollout import minatar_weights
+from purejaxql_torch.ops.seaquest_rollout import (
+    seaquest_from_state_matrix,
+    seaquest_rollout,
+    state_matrix_from_seaquest,
+)
 from purejaxql_torch.ops.space_invaders_rollout import (
     space_invaders_from_state_matrix,
     space_invaders_rollout,
@@ -95,10 +104,27 @@ _NOT_PORTED = {
 
 # games whose kernel, as its TPU kernel, keeps its env params built in but
 # max_steps: the CartPole physics, Asterix's cadences and `ramping`,
-# SpaceInvaders' cooldowns and reset march interval (pallas_rollout.py:469-472,
-# 860, 1473-1474); the Breakout and Freeway kernels take all of their env's
-# params
-_BUILT_IN_PARAMS = ("CartPole-v1", "Asterix-MinAtar", "SpaceInvaders-MinAtar")
+# SpaceInvaders' cooldowns and reset march interval, Seaquest's six
+# (pallas_rollout.py:469-472, 860, 1473-1474, 2031-2037); the Breakout and
+# Freeway kernels take all of their env's params
+_BUILT_IN_PARAMS = ("CartPole-v1", "Asterix-MinAtar", "SpaceInvaders-MinAtar", "Seaquest-MinAtar")
+
+
+def fused_ff_eligible(config: Dict[str, Any]) -> bool:
+    """The configs the FF trainer's fused rollout runs, which the cuda
+    policy (core/config.py) fuses and ``_check_supported`` accepts: a game
+    with a rollout kernel, layer_norm and NORM_INPUT=False, CartPole with a
+    2-layer MLP, and for a game whose kernel keeps its env params built in,
+    no ENV_KWARGS but max_steps_in_episode, which every kernel takes."""
+    env_name = config.get("ENV_NAME")
+    return (
+        env_name in FUSED_GAMES
+        and config.get("NORM_TYPE") == "layer_norm"
+        and not config.get("NORM_INPUT", False)
+        and (env_name != "CartPole-v1" or config.get("NUM_LAYERS", 2) == 2)
+        and (env_name not in _BUILT_IN_PARAMS
+             or set(config.get("ENV_KWARGS") or {}) <= {"max_steps_in_episode"})
+    )
 
 
 def _check_supported(config: Dict[str, Any]) -> None:
@@ -111,20 +137,14 @@ def _check_supported(config: Dict[str, Any]) -> None:
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
-    env_name = config["ENV_NAME"]
-    if config.get("FUSED_ROLLOUT", False) and (
-        env_name not in FUSED_GAMES
-        or config.get("NORM_TYPE") != "layer_norm"
-        or config.get("NORM_INPUT", False)
-        or (env_name == "CartPole-v1" and config.get("NUM_LAYERS", 2) != 2)
-        or (env_name in _BUILT_IN_PARAMS and config.get("ENV_KWARGS"))
-    ):
+    if config.get("FUSED_ROLLOUT", False) and not fused_ff_eligible(config):
         raise ValueError(
             "FUSED_ROLLOUT supports CartPole-v1 with a 2-layer MLP and the MinAtar "
-            "games Asterix, Breakout, Freeway and SpaceInvaders with the MinAtar CNN, "
-            "all with layer_norm and NORM_INPUT=False; CartPole, Asterix and "
-            "SpaceInvaders with their default env params (ENV_KWARGS empty): "
-            "ops/cartpole_rollout.py, ops/<game>_rollout.py"
+            "games Asterix, Breakout, Freeway, Seaquest and SpaceInvaders with the MinAtar "
+            "CNN, all with layer_norm and NORM_INPUT=False; for CartPole, Asterix, "
+            "Seaquest and SpaceInvaders no ENV_KWARGS but max_steps_in_episode (their "
+            "kernels keep the other env params built in): ops/cartpole_rollout.py, "
+            "ops/<game>_rollout.py"
         )
 
 
@@ -183,6 +203,12 @@ def fused_game_rollout(env_name, seed, eps, weights, env_state, num_steps, env_p
             max_steps=max_steps, player_speed=env_params.player_speed,
         )
         return (*streams, freeway_from_state_matrix(st))
+    if env_name == "Seaquest-MinAtar":
+        *streams, st = seaquest_rollout(
+            seed, eps, weights, state_matrix_from_seaquest(env_state), num_steps,
+            max_steps=max_steps,
+        )
+        return (*streams, seaquest_from_state_matrix(st))
     if env_name == "SpaceInvaders-MinAtar":
         *streams, st, alien, fmap, emap = space_invaders_rollout(
             seed, eps, weights, *state_matrix_from_space_invaders(env_state), num_steps,
@@ -196,35 +222,14 @@ def fused_game_rollout(env_name, seed, eps, weights, env_state, num_steps, env_p
     return (*streams, breakout_from_state_matrix(st, brick))
 
 
-def episode_running_stats(
-    rew: torch.Tensor,
-    done: torch.Tensor,
-    ep_return0: torch.Tensor,
-    ep_length0: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Running return and length of each env's episode after every step of a
-    (T, E) reward/done stream, continuing episodes that entered the stream
-    at (ep_return0, ep_length0): what the Log wrapper's carry computes step
-    by step (pqn.py:371-386, 721-731), done as prefix sums instead of a T-step
-    loop. Exact for integer-valued rewards."""
-    T = rew.shape[0]
-    steps = torch.arange(T, device=rew.device)[:, None].expand_as(rew)
-    last_done = torch.where(done, steps, -1).cummax(0).values
-    prev_done = torch.cat([torch.full_like(last_done[:1], -1), last_done[:-1]])
-    started = prev_done >= 0
-    cum_r = rew.cumsum(0)
-    base_r = torch.where(
-        started, cum_r.gather(0, prev_done.clamp(min=0)), -ep_return0.expand_as(rew)
-    )
-    base_l = torch.where(started, prev_done + 1, -ep_length0.to(steps.dtype).expand_as(rew))
-    return cum_r - base_r, (steps + 1 - base_l).to(torch.int32)
-
-
 def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.Tensor):
     """The Log wrapper's infos and end state over a (T, E) stream of rewards
-    and done flags from the fused rollout (pqn.py:371-405)."""
-    ner, nel = episode_running_stats(
-        rew, done, log_state.episode_returns, log_state.episode_lengths
+    and done flags from the fused rollout (pqn.py:371-405): the running
+    sums in step order, as the JAX replay's scan adds them (exact for the
+    float rewards of Seaquest's cash-ins), the returned values of the last
+    episode to end held between ends."""
+    ner, nel, ep_r, ep_l = running_episode_sums(
+        rew, done.float(), log_state.episode_returns, log_state.episode_lengths
     )
     T = rew.shape[0]
     steps = torch.arange(T, device=rew.device)[:, None].expand_as(rew)
@@ -234,7 +239,6 @@ def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.T
     ret_r = torch.where(ended, ner.gather(0, idx), log_state.returned_episode_returns)
     ret_l = torch.where(ended, nel.gather(0, idx), log_state.returned_episode_lengths)
     timestep = log_state.timestep + 1 + steps.to(torch.int32)
-    not_done = ~done[-1]
     infos = {
         "returned_episode_returns": ret_r,
         "returned_episode_lengths": ret_l,
@@ -243,8 +247,8 @@ def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.T
     }
     new_state = wrappers.LogEnvState(
         env_state=log_state.env_state,
-        episode_returns=ner[-1] * not_done,
-        episode_lengths=nel[-1] * not_done,
+        episode_returns=ep_r,
+        episode_lengths=ep_l,
         returned_episode_returns=ret_r[-1],
         returned_episode_lengths=ret_l[-1],
         timestep=timestep[-1],
@@ -403,14 +407,7 @@ def make_train(
                             break
                 rews = rews.reshape(-1, n_test)[:n_test_steps]
                 dones = dones.reshape(-1, n_test)[:n_test_steps]
-                zero = torch.zeros(n_test, device=device)
-                ner, nel = episode_running_stats(rews, dones, zero, zero)
-                infos = {
-                    "returned_episode_returns": ner,
-                    "returned_episode_lengths": nel.float(),
-                    "returned_episode": dones,
-                }
-                return episode_mean_metrics(infos)
+                return eval_episode_metrics(rews, dones.float())
 
             obs, state = log_env.reset(dev_gen, n_test, env_params)
             infos = []

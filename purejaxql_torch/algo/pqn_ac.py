@@ -46,7 +46,8 @@ import torch
 from purejaxql_torch.algo.exploration import gaussian_noise_ladder
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
-    episode_mean_metrics,
+    eval_episode_metrics,
+    running_episode_sums,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import _draw_seed, stack_metrics
@@ -159,23 +160,6 @@ def fused_pendulum_rollout(seed, noise_std, weights, env_state, num_steps, max_s
     return (*streams, pendulum_from_state_matrix(stf, sti))
 
 
-def running_episode_sums(rew, done, ep_return0, ep_length0):
-    """Each env's running episode return and length after every step of a
-    (T, E) reward / done (0/1 float) stream, and the carry after the last
-    step, zeroed where an episode ended. Summed in step order, exact for
-    float rewards: the carries of pqn_ac.py's ``_log_replay`` (:323-336) and
-    of its fused eval's ``_ep`` (:652-662)."""
-    ep_r, ep_l = ep_return0, ep_length0
-    rets, lens = [], []
-    for r, dn in zip(rew, done):
-        ner, nel = ep_r + r, ep_l + 1
-        keep = 1.0 - dn
-        rets.append(ner)
-        lens.append(nel)
-        ep_r, ep_l = ner * keep, nel * keep.to(nel.dtype)
-    return torch.stack(rets), torch.stack(lens), ep_r, ep_l
-
-
 def log_vec_replay(state: wrappers.LogVecState, rew: torch.Tensor, done: torch.Tensor):
     """LogVec's infos and end state over a (T, E) stream of raw rewards and
     0/1 float done flags from the fused rollout (pqn_ac.py:323-381): the
@@ -206,19 +190,6 @@ def log_vec_replay(state: wrappers.LogVecState, rew: torch.Tensor, done: torch.T
         returned_episode_returns=rr, returned_episode_lengths=rl, timestep=state.timestep + T,
     )
     return new_state, infos
-
-
-def eval_episode_metrics(rew: torch.Tensor, done: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The fused greedy eval's metrics from its (T, E) reward and 0/1 done
-    streams (pqn_ac.py:652-669): every episode's return and length from a
-    zero start, averaged over the steps that end one."""
-    zero = torch.zeros(rew.shape[1], device=rew.device)
-    ner, nel, _, _ = running_episode_sums(rew, done, zero, zero)
-    return episode_mean_metrics({
-        "returned_episode_returns": ner,
-        "returned_episode_lengths": nel,
-        "returned_episode": done.bool(),
-    })
 
 
 def actor_step(

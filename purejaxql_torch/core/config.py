@@ -103,16 +103,18 @@ def compose(
 
 # Envs whose whole rollout this package runs as one kernel
 # (ops/cartpole_rollout.py, ops/<game>_rollout.py), as the JAX package's
-# policy lists them (purejaxql_tpu/core/config.py:107-110) less Seaquest.
+# policy lists them (purejaxql_tpu/core/config.py:107-110).
 FUSED_GAMES = (
     "CartPole-v1", "Asterix-MinAtar", "Breakout-MinAtar", "Freeway-MinAtar",
-    "SpaceInvaders-MinAtar",
+    "Seaquest-MinAtar", "SpaceInvaders-MinAtar",
 )
 
 
 def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
-    """Mirror of the trainers' FUSED_ROLLOUT constraint checks (algo/pqn.py,
-    algo/pqn_ac.py:fused_ac_eligible), plus the single-seed requirement
+    """The trainers' own FUSED_ROLLOUT predicates (algo/pqn.py:
+    fused_ff_eligible, algo/pqn_ac.py:fused_ac_eligible), so that the policy
+    never turns on a rollout the trainer refuses, plus the single-seed
+    requirement and the FF options the fused path does not run
     (purejaxql_tpu/core/config.py:113-143)."""
     if config.get("NUM_SEEDS", 1) != 1:
         return False
@@ -120,14 +122,13 @@ def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
         from purejaxql_torch.algo.pqn_ac import fused_ac_eligible
 
         return fused_ac_eligible(config)
+    from purejaxql_torch.algo.pqn import fused_ff_eligible
+
     return (
         str(config.get("ALG_NAME", "pqn")) == "pqn"
-        and config.get("ENV_NAME") in FUSED_GAMES
         and not config.get("USE_OPTIMISTIC_RESETS", False)
         and not config.get("BATCH_ENV", False)
-        and config.get("NORM_TYPE") == "layer_norm"
-        and not config.get("NORM_INPUT", False)
-        and (config.get("ENV_NAME") != "CartPole-v1" or config.get("NUM_LAYERS", 2) == 2)
+        and fused_ff_eligible(config)
     )
 
 

@@ -17,6 +17,7 @@ from purejaxql_torch.envs.classic.pendulum import Pendulum
 from purejaxql_torch.envs.minatar.asterix import MinAsterix
 from purejaxql_torch.envs.minatar.breakout import MinBreakout
 from purejaxql_torch.envs.minatar.freeway import MinFreeway
+from purejaxql_torch.envs.minatar.seaquest import MinSeaquest
 from purejaxql_torch.envs.minatar.space_invaders import MinSpaceInvaders
 
 _REGISTRY: Dict[str, Callable[..., Environment]] = {
@@ -26,6 +27,7 @@ _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "Asterix-MinAtar": MinAsterix,
     "Breakout-MinAtar": MinBreakout,
     "Freeway-MinAtar": MinFreeway,
+    "Seaquest-MinAtar": MinSeaquest,
     "SpaceInvaders-MinAtar": MinSpaceInvaders,
 }
 

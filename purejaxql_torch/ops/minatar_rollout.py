@@ -2,11 +2,12 @@
 plain forward, the plain rollout loop and the kernel launch.
 
 Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_pack_cnn_params`,
-`_cnn_forward` and `_call_game_kernel`. Each game's module
+`_cnn_forward` and `_call_game_kernel`. Each of the five games' modules
 (``ops/breakout_rollout.py``, ``ops/asterix_rollout.py``,
-``ops/freeway_rollout.py``, ``ops/space_invaders_rollout.py``) adds its
-state matrices, its random draws and its kernel, ``csrc/<game>_rollout.cu``,
-whose CNN is ``csrc/minatar_cnn.cuh``.
+``ops/freeway_rollout.py``, ``ops/space_invaders_rollout.py``,
+``ops/seaquest_rollout.py``) adds its state matrices, its random draws and
+its kernel, ``csrc/<game>_rollout.cu``, whose CNN is
+``csrc/minatar_cnn.cuh``.
 
 Every game's kernel has one C entry point of the same shape:
 ``<game>_rollout_f32(10 weight pointers, the state inputs, obs, act, rew,

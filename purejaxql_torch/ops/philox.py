@@ -17,6 +17,12 @@ game reads its words in this order:
 - Freeway: 0 coin, 1 random action, 2-9 lane speeds, 10-17 lane
   directions, 18-25 reset x of each car;
 - SpaceInvaders: 0 coin, 1 random action;
+- Seaquest (29 words in 8 calls, the TPU kernel's draw order,
+  pallas_rollout.py:1734-1750): 0 coin, 1 random action, 2-5 the
+  friendly-bullet slot scores, 6-9 the enemy-bullet slot scores, 10-17 the
+  fish slot scores, 18-21 the enemy-sub slot scores, 22-25 the diver slot
+  scores, 26 the lane ((w >> 8) % 8 + 1), 27 the direction ((w >> 8) & 1:
+  from the left, moving right), 28 is_sub (unit24 < 1/3);
 - Pendulum AC: 0 and 1 the Box-Muller pair of the exploration noise
   (u1 = ((w0 >> 8) + 1) / 2^24 in (0, 1], u2 = (w1 >> 8) / 2^24), 2 the
   reset theta, 3 the reset theta_dot: one call, counter (t, b, 0, 0).

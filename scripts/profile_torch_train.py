@@ -5,6 +5,7 @@
     python scripts/profile_torch_train.py --alg pqn_minatar --steps 500000   # Asterix
     python scripts/profile_torch_train.py --alg pqn_minatar --env Breakout-MinAtar --steps 500000
     python scripts/profile_torch_train.py --alg pqn_minatar --env Freeway-MinAtar --steps 65536
+    python scripts/profile_torch_train.py --alg pqn_minatar --env Seaquest-MinAtar --steps 500000
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 --set TEST_NUM_STEPS=64
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 \
         --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
@@ -52,7 +53,7 @@ sys.path.insert(0, ROOT)
 
 ROLLOUTS = (
     "cartpole_rollout", "asterix_rollout", "breakout_rollout", "freeway_rollout",
-    "space_invaders_rollout",
+    "space_invaders_rollout", "seaquest_rollout",
 )
 
 

@@ -100,19 +100,48 @@ def test_cuda_policy(capsys):
 def test_cuda_policy_breakout():
     """On cuda the policy fuses the rollout and eval of every MinAtar game
     the port has a kernel for, Breakout and the YAML's default game
-    (Asterix) among them; Seaquest is not eligible and stays unknown to the
-    port's registry."""
-    for game in ("Asterix", "Breakout", "Freeway", "SpaceInvaders"):
+    (Asterix) among them; an env the port has not ported (Acrobot) is not
+    eligible and stays unknown to the port's registry."""
+    for game in ("Asterix", "Breakout", "Freeway", "Seaquest", "SpaceInvaders"):
         cfg = tconfig.compose(alg="pqn_minatar", overrides=[f"ENV_NAME={game}-MinAtar"])
         assert cfg["FUSED_ROLLOUT"] is True and cfg["EVAL_EARLY_EXIT"] is True, game
     assert "FUSED_ROLLOUT" not in tconfig.compose(
         alg="pqn_minatar", overrides=["ENV_NAME=Breakout-MinAtar", "NORM_INPUT=True"]
     )
-    cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Seaquest-MinAtar"])
+    cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Acrobot-v1"])
     assert "FUSED_ROLLOUT" not in cfg and "EVAL_EARLY_EXIT" not in cfg
     with pytest.raises(ValueError, match="Unknown env"):
         make_env(cfg["ENV_NAME"])
     assert tconfig.compose(alg="pqn_minatar")["ENV_NAME"] == "Asterix-MinAtar"
+
+
+@pytest.mark.parametrize(
+    "alg,overrides,fused",
+    [
+        ("pqn_cartpole", ["ENV_KWARGS={'max_steps_in_episode': 200}"], True),
+        ("pqn_cartpole", ["ENV_KWARGS={'gravity': 9.0}"], False),
+        ("pqn_minatar", ["ENV_KWARGS={'ramping': False}"], False),
+        ("pqn_minatar", ["ENV_KWARGS={'max_steps_in_episode': 300, 'init_spawn_speed': 8}"], False),
+        ("pqn_minatar", ["ENV_NAME=Seaquest-MinAtar", "ENV_KWARGS={'max_steps_in_episode': 300}"], True),
+        ("pqn_minatar", ["ENV_NAME=Seaquest-MinAtar", "ENV_KWARGS={'max_oxygen': 100}"], False),
+    ],
+)
+def test_cuda_policy_fuses_only_what_the_trainer_builds(alg, overrides, fused):
+    """The cuda policy and the FF trainer share one predicate
+    (algo/pqn.py:fused_ff_eligible): with ENV_KWARGS on a game whose kernel
+    keeps its env params built in (CartPole, Asterix, Seaquest), the policy
+    fuses the rollout only where max_steps_in_episode alone is set, which
+    every kernel takes; the trainer then builds the config it composed, and
+    refuses FUSED_ROLLOUT where the policy left it off."""
+    from purejaxql_torch.algo import pqn
+
+    cfg = tconfig.compose(alg=alg, overrides=overrides)
+    assert cfg.get("FUSED_ROLLOUT", False) is fused
+    assert pqn.fused_ff_eligible(cfg) is fused
+    pqn.make_train(cfg, device="cpu")
+    if not fused:
+        with pytest.raises(ValueError, match="ENV_KWARGS"):
+            pqn.make_train({**cfg, "FUSED_ROLLOUT": True}, device="cpu")
 
 
 def test_compose_errors():

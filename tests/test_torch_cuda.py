@@ -24,6 +24,7 @@ from purejaxql_torch.ops import freeway_rollout as fr
 from purejaxql_torch.ops import gru_scan as gs
 from purejaxql_torch.ops import lambda_returns as lr
 from purejaxql_torch.ops import pendulum_rollout as pr
+from purejaxql_torch.ops import seaquest_rollout as sq
 from purejaxql_torch.ops import space_invaders_rollout as sr
 from purejaxql_torch.ops.minatar_rollout import minatar_weights
 
@@ -157,6 +158,7 @@ def test_tiny_breakout_train_on_the_card_launches_both_kernels(dev):
 GAMES = {
     "Asterix-MinAtar": (ar.asterix_rollout, ar.asterix_rollout_plain, ar.state_matrix_from_asterix, 4, 5),
     "Freeway-MinAtar": (fr.freeway_rollout, fr.freeway_rollout_plain, fr.state_matrix_from_freeway, 7, 3),
+    "Seaquest-MinAtar": (sq.seaquest_rollout, sq.seaquest_rollout_plain, sq.state_matrix_from_seaquest, 10, 6),
     "SpaceInvaders-MinAtar": (
         sr.space_invaders_rollout, sr.space_invaders_rollout_plain, sr.state_matrix_from_space_invaders, 6, 4,
     ),
@@ -191,6 +193,22 @@ def test_minatar_kernel_matches_plain(dev, env_name, use_prng):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
         else:
             assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+def test_seaquest_kernel_matches_plain_through_resets(dev, use_prng):
+    """B 64, T 40, max_steps 9: every env resets at least four times, so the
+    reset and the spawns after it are compared too; integer outputs, the
+    observations and the (128, B) state equal, Q-values within 1e-4."""
+    weights, states = _game_inputs(dev, "Seaquest-MinAtar", B=64)
+    got = sq.seaquest_rollout(7, 0.3, weights, *states, 40, use_prng=use_prng, max_steps=9)
+    want = sq.seaquest_rollout_plain(7, 0.3, weights, *states, 40, use_prng=use_prng, max_steps=9)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 4:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(g, w), i
+    assert (want[3].sum(0) >= 4).all()
 
 
 @pytest.mark.parametrize("env_name", sorted(GAMES))

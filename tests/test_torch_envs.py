@@ -109,7 +109,7 @@ def test_registry():
     assert params.max_steps_in_episode == 50 and env.action_space(params).n == 2
     assert env.observation_space(params).shape == (4,)
     with pytest.raises(ValueError, match="Unknown env"):
-        tmake("Seaquest-MinAtar")
+        tmake("Acrobot-v1")
 
 
 # ---- Breakout-MinAtar ------------------------------------------------------------

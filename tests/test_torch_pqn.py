@@ -195,6 +195,83 @@ def test_log_replay_matches_log_wrapper():
         assert torch.equal(getattr(got_state, k), getattr(state, k)), k
 
 
+def _float_stream(T=40, E=6, seed=0):
+    """Seaquest-like rewards: kills (0-2) and now and then a cash-in of
+    oxygen * 0.1f, with episode ends; env 0 never ends inside the stream."""
+    r = np.random.RandomState(seed)
+    rew = r.randint(0, 3, (T, E)).astype(np.float32)
+    cash = r.rand(T, E) < 0.2
+    rew[cash] += r.randint(0, 201, cash.sum()).astype(np.float32) * np.float32(0.1)
+    done = r.rand(T, E) < 0.12
+    done[:, 0] = False
+    return rew, done
+
+
+def _jax_log_replay(carry, rew, done):
+    """The JAX trainer's fused replay, pqn.py:371-397, as a scan."""
+
+    def step(carry, rd):
+        ep_r, ep_l, ret_r, ret_l, ts = carry
+        r, dn = rd
+        ner, nel = ep_r + r, ep_l + 1
+        nd = (1 - dn).astype(ner.dtype)
+        nd_i = (1 - dn).astype(jnp.int32)
+        ret_r = ret_r * nd + ner * dn
+        ret_l = ret_l * nd_i + nel * dn.astype(jnp.int32)
+        ts = ts + 1
+        info = {"returned_episode_returns": ret_r, "returned_episode_lengths": ret_l, "timestep": ts,
+                "returned_episode": dn.astype(bool)}
+        return (ner * nd, nel * nd_i, ret_r, ret_l, ts), info
+
+    return jax.lax.scan(step, carry, (jnp.asarray(rew), jnp.asarray(done, jnp.float32)))
+
+
+def test_log_replay_sums_float_rewards_in_step_order_as_jax():
+    """On a stream of float rewards (Seaquest's cash-ins), entered
+    mid-episode: the fused path's replay gives the JAX trainer's replay scan
+    infos and end state exactly, since both add in step order (prefix sums
+    differ in the last bits)."""
+    rew, done = _float_stream()
+    E = rew.shape[1]
+    r = np.random.RandomState(1)
+    ep_r, ret_r = (r.randint(0, 40, E) * np.float32(0.1)).astype(np.float32), r.rand(E).astype(np.float32)
+    ep_l, ret_l, ts = (r.randint(0, 50, E).astype(np.int32) for _ in range(3))
+    start = twrappers.LogEnvState(None, *(torch.tensor(x) for x in (ep_r, ep_l, ret_r, ret_l, ts)))
+    got_state, got = pqn.log_replay(start, torch.tensor(rew), torch.tensor(done))
+    (w_ep_r, w_ep_l, w_ret_r, w_ret_l, w_ts), want = _jax_log_replay(
+        tuple(jnp.asarray(x) for x in (ep_r, ep_l, ret_r, ret_l, ts)), rew, done)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+    for k, v in (("episode_returns", w_ep_r), ("episode_lengths", w_ep_l), ("returned_episode_returns", w_ret_r),
+                 ("returned_episode_lengths", w_ret_l), ("timestep", w_ts)):
+        np.testing.assert_array_equal(getattr(got_state, k).numpy(), np.asarray(v), err_msg=k)
+    assert done[:, 1:].any(0).all() and (rew != np.round(rew)).any()
+
+
+def test_fused_eval_sums_float_rewards_as_jax():
+    """The fused eval's episode sums (algo/metrics.py:eval_episode_metrics)
+    on float rewards: every episode's return from a zero start as the JAX
+    eval's ``_ep`` scan sums it (pqn.py:721-736), exactly, and their mean over
+    the episode ends."""
+    rew, done = _float_stream(seed=2)
+
+    def ep(carry, rd):
+        ep_r, ep_l = carry
+        r, dn = rd
+        ner, nel = ep_r + r, ep_l + 1
+        keep = 1.0 - dn
+        return (ner * keep, nel * keep), (ner, nel)
+
+    zero = jnp.zeros(rew.shape[1], jnp.float32)
+    _, (ner, nel) = jax.lax.scan(ep, (zero, zero), (jnp.asarray(rew), jnp.asarray(done, jnp.float32)))
+    zero_t = torch.zeros(rew.shape[1])
+    got_r, got_l, _, _ = pqn.running_episode_sums(torch.tensor(rew), torch.tensor(done).float(), zero_t, zero_t)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(ner))
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(nel))
+    m = pqn.eval_episode_metrics(torch.tensor(rew), torch.tensor(done).float())
+    assert m["returned_episode_returns"].item() == pytest.approx(float(np.asarray(ner)[done].mean()), rel=1e-6)
+
+
 @pytest.mark.parametrize("early_exit,expected", [(False, 22 / 3), (True, 6.0)])
 def test_fused_eval_chunks_and_early_exit(monkeypatch, early_exit, expected):
     """As tests/test_ops.py pins the JAX package's fused eval: with a stub
@@ -232,7 +309,7 @@ def test_unsupported_options_raise():
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
         pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
     with pytest.raises(ValueError, match="Unknown env"):
-        pqn.make_train(tiny_config(ENV_NAME="Seaquest-MinAtar"))
+        pqn.make_train(tiny_config(ENV_NAME="Acrobot-v1"))
     if not torch.cuda.is_available():
         # the GPU is the default device, and its absence is an error
         with pytest.raises(RuntimeError, match="no CUDA device"):
