@@ -14,9 +14,12 @@ Phases, each ending the run with a non-zero exit if it fails:
    Seaquest also at a shape that forces resets), the GRU
    scan's forward and backward kernels (and autograd through them), and the
    Pendulum actor-critic rollout (PRNG off and on, at the trainer's shape and
-   at one that forces resets);
-4. check the rollout kernels' random streams by their statistics (Seaquest:
-   the coin, and one step of 8192 envs that fire, are shot at and spawn);
+   at one that forces resets), and the epsilon-greedy kernel (bit for bit, at
+   the Craftax trainer's shape and two others, at eps 0, 0.3 and 1, with a
+   tied and a NaN row);
+4. check the kernels' random streams by their statistics (Seaquest: the
+   coin, and one step of 8192 envs that fire, are shot at and spawn;
+   epsilon-greedy: P(random), a uniform histogram at eps 1);
 5. train pqn_cartpole at full width (H 256, 32 envs x 64 steps, 16
    minibatches x 4 epochs, greedy eval 128 envs x 500 steps) for 200k env
    steps through the CLI's entry point, with the launch counters zeroed just
@@ -37,6 +40,13 @@ Phases, each ending the run with a non-zero exit if it fails:
    32 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every
    10 % of the run) for 400k env steps through the Pendulum kernel and check
    that its best greedy eval beats -500;
+6f. train pqn_craftax at full width (Forager, H 1024 x 4 with an input
+   BatchRenorm, 1024 envs x 1 step, optimistic resets at ratio 16, 1-step
+   TD) for 2^21 env steps: every action of the training rollout from the
+   epsilon-greedy kernel (one launch an update), no other kernel, finite
+   metrics, episodes ending, and the done-masked returns of its last 10 %
+   printed (no learning bar: at this length learned and LR=0 runs do not
+   separate, PERF.md section 7);
 7. time each kernel and its twin with CUDA events at the trainers' shapes;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
@@ -83,10 +93,17 @@ GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128))
 ASTERIX_GATE = 0.8
 # the same for Seaquest: tests/test_torch_seaquest.py::test_seaquest_learns
 SEAQUEST_GATE = 0.2
+# pqn_craftax's run: 2,048 updates of 1024 envs x 1 step (the YAML's 1e9 cut
+# to this length). It has no learning bar: on an H100, one of four learned
+# seeds of this length ends above random play, three end with the LR=0 runs
+# (scripts/craftax_learning_bar.py, PERF.md sections 2 and 7)
+CRAFTAX_STEPS = 2**21
+# the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
+EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
-    "gru_scan_bwd", "pendulum_ac_rollout",
+    "gru_scan_bwd", "pendulum_ac_rollout", "eps_greedy",
 )
 # the Breakout run and check as recorded on an H100 before its CNN moved into
 # csrc/minatar_cnn.cuh (PERF.md): the last-10 mean return, the last greedy
@@ -180,6 +197,23 @@ def pendulum_bound_ms(T: int, B: int, H: int):
     return _bound(nbytes, T * B * (mlp(3) + 2 * mlp(4) + 100))
 
 
+def eps_greedy_bound_ms(E: int, A: int):
+    """Reads the (E, A) float32 Q-matrix once and writes E int64 actions; one
+    compare an element and ~100 integer operations of Philox a row."""
+    return _bound(4 * E * A + 8 * E, E * A + 100 * E)
+
+
+def craftax_bar_metric(metrics):
+    """The metric a Craftax learning bar would read: the mean of the done-masked
+    returned_episode_returns over the last 10 % of updates, counting only the
+    updates in which an episode ended (a done-masked mean is 0 where none
+    did), and that count."""
+    n = len(metrics["returned_episode_returns"])
+    returns = metrics["returned_episode_returns"][n - n // 10:]
+    ended = metrics["returned_episode"][n - n // 10:] > 0
+    return float(returns[ended].mean()), int(ended.sum())
+
+
 def pendulum_inputs(B: int, H: int, seed: int, dev):
     """The kernel's weights from a seeded actor and two-critic ensemble, and
     states with theta in [-pi, pi), theta_dot in [-8, 8] and times in [0, 200)."""
@@ -235,8 +269,9 @@ def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()
           policy=("FUSED_ROLLOUT", "EVAL_EARLY_EXIT")):
     """One full-width run through the CLI's entry point, with every launch
     counter zeroed just before it and read just after it; the flags in
-    ``policy`` must have been turned on by the config's cuda policy. Returns
-    (outputs, seconds, launches by kernel)."""
+    ``policy`` must have been turned on by the config's cuda policy (a flag
+    name for True, or a (flag, value) pair). Returns (outputs, seconds,
+    launches by kernel)."""
     import torch
 
     jsonl = os.path.join(save_path, "train.jsonl")
@@ -249,7 +284,8 @@ def train(cli, compose, alg: str, steps: int, save_path: str, counters, extra=()
             f"SAVE_PATH={save_path}", f"LOG_JSONL={jsonl}", *extra,
         ],
     )
-    check(all(config.get(flag) is True for flag in policy),
+    expected = [flag if isinstance(flag, tuple) else (flag, True) for flag in policy]
+    check(all(config.get(k) == v and type(config.get(k)) is type(v) for k, v in expected),
           f"{alg}: the cuda policy did not turn on {policy}")
     for fn in counters.values():
         fn.launches = 0
@@ -474,6 +510,7 @@ def main() -> int:
         from purejaxql_torch.ops import breakout_rollout as br
         from purejaxql_torch.ops import build
         from purejaxql_torch.ops import cartpole_rollout as cr
+        from purejaxql_torch.ops import eps_greedy as eg
         from purejaxql_torch.ops import freeway_rollout as fr
         from purejaxql_torch.ops import gru_scan as gs
         from purejaxql_torch.ops import lambda_returns as lr
@@ -500,6 +537,7 @@ def main() -> int:
         "gru_scan_fwd": gs.gru_scan_fwd,
         "gru_scan_bwd": gs.gru_scan_bwd,
         "pendulum_ac_rollout": pr.pendulum_ac_rollout,
+        "eps_greedy": eg.eps_greedy,
     }
 
     # ---- 1. the card -------------------------------------------------------
@@ -741,6 +779,33 @@ def main() -> int:
             check(max(errs.values()) <= 1e-4, f"pendulum_ac_rollout disagrees with its twin: {errs}")
             errors["pendulum_ac_rollout"] = max(errors.get("pendulum_ac_rollout", 0.0), max(errs.values()))
 
+    # ---- 3g. the epsilon-greedy kernel vs plain: bit for bit ----------------------
+    def eps_q(E, A, seed):
+        """Half-integer Q-values (ties in most rows), row 0 tied for the
+        maximum at two indices, row 1 holding a NaN."""
+        r = np.random.RandomState(seed)
+        qv = (np.round(r.randn(E, A) * 2) / 2).astype(np.float32)
+        qv[0, [A // 2, A - 1]] = 9.0
+        qv[1, A - 1] = np.nan
+        return torch.tensor(qv, device=dev)
+
+    eps_inputs = {}
+    for E, A in EPS_GREEDY_SHAPES:
+        qv = eps_inputs[(E, A)] = eps_q(E, A, E + A)
+        n_random = 0
+        for eps in (0.0, 0.3, 1.0):
+            for seed in (3, 2**62 + 5):
+                got, want = eg.eps_greedy(seed, qv, eps), eg.eps_greedy_plain(seed, qv, eps)
+                torch.cuda.synchronize()
+                check(got.dtype == torch.int64 and torch.equal(got, want),
+                      f"eps_greedy ({E}, {A}) eps {eps} seed {seed}: kernel and twin differ")
+                n_random += int((got != qv.argmax(-1)).sum())
+        check(int(eg.eps_greedy(3, qv, 0.0)[0]) == A // 2 and int(eg.eps_greedy(3, qv, 0.0)[1]) == A - 1,
+              "eps_greedy: the tie or the NaN row took the wrong greedy action")
+        print(f"eps_greedy (E, A) = ({E}, {A}): actions equal to the twin's at eps 0, 0.3, 1 and two seeds "
+              f"({n_random} non-greedy), the tie row takes index {A // 2}, the NaN row index {A - 1}")
+    errors["eps_greedy"] = 0.0
+
     # ---- 4. PRNG-on statistics -----------------------------------------------
     B, T = 128, 64
     stf0, sti0 = reset_states(B, 7)
@@ -935,6 +1000,26 @@ def main() -> int:
           "seaquest spawn shares")
     check(slot_dev < 5.0, f"seaquest: spawned slots not uniform over the free slots ({slot_dev} sd)")
     check(not torch.equal(spawned[0].f_exists, spawned[1].f_exists), "seaquest: different seeds gave the same spawns")
+
+    # epsilon-greedy on the card: P(action != greedy) = eps (A - 1) / A within 4
+    # standard deviations over 64 seeds of 1024 envs, every action's count at
+    # eps 1 within 4 standard deviations of uniform, other seeds other actions
+    qg = torch.zeros(1024, 34, device=dev)
+    qg[:, 5] = 1.0
+    for eps in (0.1, 0.5):
+        acts = torch.cat([eg.eps_greedy(s, qg, eps) for s in range(64)])
+        p, n = eps * 33 / 34, acts.numel()
+        got = (acts != 5).float().mean().item()
+        print(f"eps_greedy P(act != greedy) at eps {eps}: {got:.4f} (expect {p:.4f}, 4 sd {4 * (p * (1 - p) / n) ** 0.5:.4f})")
+        check(abs(got - p) < 4 * (p * (1 - p) / n) ** 0.5, f"eps_greedy P(random) at eps {eps}: {got}")
+    acts = torch.cat([eg.eps_greedy(s, qg, 1.0) for s in range(64)])
+    counts = torch.bincount(acts, minlength=34).float()
+    mean = acts.numel() / 34
+    dev_sd = ((counts - mean).abs() / (mean * (1 - 1 / 34)) ** 0.5).max().item()
+    print(f"eps_greedy at eps 1: 34 action counts off uniform by at most {dev_sd:.2f} standard deviations")
+    check(dev_sd < 4, "eps_greedy: random actions are not uniform")
+    check((eg.eps_greedy(1, qg, 1.0) != eg.eps_greedy(2, qg, 1.0)).float().mean().item() > 0.9,
+          "eps_greedy: different seeds gave the same actions")
 
     # Pendulum noise and resets: z recovered from u - greedy where greedy is
     # far enough from the bounds that no draw within 6 std is clipped (an
@@ -1160,6 +1245,37 @@ def main() -> int:
                                        "best_eval_return": pd_best, "gate": PENDULUM_GATE,
                                        "launches": launches_pd, "card": card}}))
 
+    # ---- 6f. pqn_craftax at full width: Forager, every action from eps_greedy -----
+    outs, wall, launches_cx = train(
+        cli, compose, "pqn_craftax", CRAFTAX_STEPS, save_path, counters, policy=(("EXPLORATION_KERNEL", "pallas"),),
+    )
+    ccfg = compose(alg="pqn_craftax")
+    cx_updates = CRAFTAX_STEPS // ccfg["NUM_STEPS"] // ccfg["NUM_ENVS"]
+    ts = outs["runner_state"][0]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    cx_metric, cx_ended = craftax_bar_metric(m)
+    cx_rate = ts.timesteps / wall
+    print(
+        f"train craftax (pqn_craftax, Forager): {ts.timesteps} env steps in {wall:.2f} s wall "
+        f"({cx_rate:.0f} env-steps/s on {card}); launches {launches_cx}; done-masked returned_episode_returns "
+        f"over the last 10 % ({cx_ended} updates with an episode end): {cx_metric:.4f} (no bar); "
+        f"achievement_count there {float(m['achievement_count'][-cx_updates // 10:].mean()):.3f}"
+    )
+    check(launches_cx["eps_greedy"] == cx_updates,
+          f"craftax: eps_greedy launched {launches_cx['eps_greedy']} times, expected {cx_updates}")
+    others = {k: v for k, v in launches_cx.items() if k != "eps_greedy" and v}
+    check(not others, f"craftax: a returns or rollout kernel launched: {others}")
+    check(ts.timesteps == CRAFTAX_STEPS, "craftax: wrong env-step count")
+    check(all(p.device.type == "cuda" for p in ts.network.parameters()), "craftax: a parameter is not on cuda")
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax: non-finite td_loss or qvals")
+    check(cx_ended > 0 and np.isfinite(cx_metric), "craftax: no episode ended in the last 10 % of the run")
+    saved = load_params(os.path.join(save_path, "Craftax-Symbolic-v1", "pqn_craftax_Craftax-Symbolic-v1_seed0.safetensors"))
+    check(tuple(saved["Dense_0"]["kernel"].shape) == (2883, 1024) and tuple(saved["Dense_4"]["kernel"].shape) == (1024, 34)
+          and tuple(saved["BatchRenorm_0"]["scale"].shape) == (2883,), "craftax: saved params have the wrong flax tree")
+    print(json.dumps({"craftax_run": {"env_steps_per_s": cx_rate, "wall_s": wall, "bar_metric": cx_metric,
+                                      "updates_with_an_end": cx_ended,
+                                      "launches": launches_cx, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for shape in ((64, 32), (32, 128)):
@@ -1210,10 +1326,20 @@ def main() -> int:
     print(json.dumps({"timing": "pendulum_ac_rollout", "shape": {"T": 32, "B": 64, "H": 256}, "ms": k_ms,
                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
 
+    qv = eps_inputs[EPS_GREEDY_SHAPES[0]]
+    k_ms = cuda_time_ms(lambda: eg.eps_greedy(3, qv, 0.1), 200)
+    p_ms = cuda_time_ms(lambda: eg.eps_greedy_plain(3, qv, 0.1), 20)
+    a_ms = cuda_time_ms(lambda: torch.argmax(qv, -1), 200)
+    b_ms, b_by = eps_greedy_bound_ms(*EPS_GREEDY_SHAPES[0])
+    timings["eps_greedy"] = (k_ms, p_ms, b_ms, b_by)
+    # torch.argmax computes only the greedy half, so it is no library time for the kernel
+    print(json.dumps({"timing": "eps_greedy", "shape": dict(zip("EA", EPS_GREEDY_SHAPES[0])), "ms": k_ms,
+                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "argmax_ms": a_ms, "library_ms": None}))
+
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
     # lambda returns' from the Asterix run, the GRU scan's from MemoryChain,
-    # the Pendulum rollout's from the Pendulum run)
+    # the Pendulum rollout's from the Pendulum run, eps_greedy's from Craftax)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -1237,6 +1363,8 @@ def main() -> int:
          "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132", launches_mc),
         ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
+        ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
+         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_cx),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

@@ -2,6 +2,9 @@
 
 - ``eps_greedy_batch``: per env, a uniform coin below eps picks a uniform
   random action, else the greedy one (first index wins ties);
+- ``make_eps_greedy``: the unfused rollout's epsilon-greedy as the config's
+  EXPLORATION_KERNEL picks it, the hand-written kernel (``ops/eps_greedy.py``)
+  or ``eps_greedy_batch``;
 - ``gaussian_noise_ladder`` (exploration.py:62-85): additive Gaussian noise
   for a deterministic continuous policy, env i of E at std
   i / (E - 1) * noise_std, so some envs always exploit and others always
@@ -10,9 +13,11 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Callable, Dict, Union
 
 import torch
+
+from purejaxql_torch.ops.eps_greedy import eps_greedy
 
 
 def eps_greedy_batch(
@@ -27,6 +32,28 @@ def eps_greedy_batch(
         0, n_actions, (n_envs,), generator=generator, device=q_vals.device
     )
     return torch.where(coin, random_actions, greedy)
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """A kernel seed from a host generator (no device sync)."""
+    return int(torch.randint(0, 2**62, (1,), generator=generator))
+
+
+def make_eps_greedy(
+    config: Dict[str, Any], generator: torch.Generator, seed_generator: torch.Generator
+) -> Callable[[torch.Tensor, float], torch.Tensor]:
+    """The unfused rollout's ``(q_vals, eps) -> actions``. EXPLORATION_KERNEL
+    "pallas", the JAX package's spelling of its opt-in kernel
+    (purejaxql_tpu/ops/pallas_explore.py:9, docs/PARITY.md:77), picks the
+    hand-written kernel, seeded from the host ``seed_generator`` each call;
+    unset, ``eps_greedy_batch`` draws from ``generator``. Either way the
+    random stream is not the JAX package's (ROADMAP.md, "held against")."""
+    kind = config.get("EXPLORATION_KERNEL")
+    if kind == "pallas":
+        return lambda q_vals, eps: eps_greedy(draw_seed(seed_generator), q_vals, eps)
+    if kind in (None, False, ""):
+        return lambda q_vals, eps: eps_greedy_batch(generator, q_vals, eps)
+    raise ValueError(f"EXPLORATION_KERNEL={kind!r}: expected 'pallas' or unset")
 
 
 def gaussian_noise_ladder(

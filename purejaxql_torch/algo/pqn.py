@@ -1,12 +1,23 @@
 """FF-PQN trainer for feedforward Q-networks.
 
 Port of purejaxql_tpu/algo/pqn.py `make_train` for the MLP QNetwork
-(CartPole-v1) and the MinAtar CNN (Asterix-, Breakout-, Freeway-, Seaquest-
-and SpaceInvaders-MinAtar). Each update: a
-NUM_STEPS rollout over NUM_ENVS envs (epsilon-greedy on the current params),
-Q(lambda) targets, NUM_EPOCHS epochs of NUM_MINIBATCHES minibatch steps of
-clip + RAdam on the 0.5 * MSE TD loss, the update metrics, and every
-TEST_INTERVAL of the run a greedy eval.
+(CartPole-v1, and the craftax family's ``pqn_craftax`` on Forager) and the
+MinAtar CNN (Asterix-, Breakout-, Freeway-, Seaquest- and
+SpaceInvaders-MinAtar). Each update: a NUM_STEPS rollout over NUM_ENVS envs
+(epsilon-greedy on the current params), Q(lambda) targets, NUM_EPOCHS epochs
+of NUM_MINIBATCHES minibatch steps of clip + RAdam on the 0.5 * MSE TD loss,
+the update metrics, and every TEST_INTERVAL of the run a greedy eval.
+
+With Q_LAMBDA=False (the craftax family) the targets are 1-step TD,
+computed inside each minibatch step from one train-mode forward on
+cat(obs, next_obs) (pqn.py:515-534): the batch norms' statistics run over
+both halves, and no returns kernel runs. DONE_MASKED_INFO_METRICS averages
+the env infos over the steps that end an episode (pqn.py:601-610).
+
+Envs (``build_env``, pqn.py:50-107): the Log-wrapped env ("split" mode), or
+in the batched modes that env inside ``OptimisticResetVecEnv``
+(USE_OPTIMISTIC_RESETS, with OPTIMISTIC_RESET_RATIO) or ``BatchEnv``
+(BATCH_ENV).
 
 Where the JAX package scans, this trainer loops in Python; it keeps host
 syncs out of the update loop: counters and schedules are host integers and
@@ -15,8 +26,10 @@ only sync is the fused eval's early-exit test, once per chunk.
 
 Two rollout paths:
 
-- unfused (pqn.py:321-340): network forward, `eps_greedy_batch` and the
-  Log-wrapped env step, one env step at a time;
+- unfused (pqn.py:321-340): network forward, epsilon-greedy and the env
+  step, one env step at a time; EXPLORATION_KERNEL="pallas" takes the
+  actions from the epsilon-greedy kernel (``algo/exploration.py:
+  make_eps_greedy``, ``ops/eps_greedy.py``), else from `eps_greedy_batch`;
 - FUSED_ROLLOUT (pqn.py:342-406): the whole rollout in one launch of the
   game's kernel (`fused_game_rollout`: ops/cartpole_rollout.py and the
   MinAtar games' ops/<game>_rollout.py), with the Log wrapper's episode
@@ -26,6 +39,7 @@ Two rollout paths:
 
 The lambda targets always go through `ops.lambda_returns.lambda_returns`,
 the CUDA kernel on the GPU; PALLAS_RETURNS is accepted and changes nothing.
+The eval's epsilon-greedy is `eps_greedy_batch`, as the JAX trainer's.
 
 Line references ``pqn.py:N`` in this module are to purejaxql_tpu/algo/pqn.py.
 
@@ -41,7 +55,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from purejaxql_torch.algo.exploration import eps_greedy_batch
+from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     episode_mean_metrics,
@@ -94,10 +108,9 @@ from purejaxql_torch.utils.platform import resolve_device
 
 # options of the JAX trainer that later slices port; asking for one raises
 _NOT_PORTED = {
-    "BATCH_ENV": "BATCH_ENV",
-    "USE_OPTIMISTIC_RESETS": "optimistic resets",
     "FAST_TARGETS": "FAST_TARGETS",
-    "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
+    "RESET_BANK": "RESET_BANK",
+    "SKIP_NOOP_PERMUTE": "SKIP_NOOP_PERMUTE",
     "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
 }
 
@@ -128,12 +141,10 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
 
 
 def _check_supported(config: Dict[str, Any]) -> None:
-    if str(config.get("ALG_NAME", "pqn")) != "pqn":
-        raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not ported yet")
+    if str(config.get("ALG_NAME", "pqn")) not in ("pqn", "pqn_craftax"):
+        raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an FF-PQN config")
     if config.get("NUM_SEEDS", 1) != 1:
         raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
-    if not config.get("Q_LAMBDA", True):
-        raise NotImplementedError("Q_LAMBDA=False (1-step TD) is not ported yet")
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
@@ -149,11 +160,25 @@ def _check_supported(config: Dict[str, Any]) -> None:
 
 
 def build_env(config: Dict[str, Any]):
-    """The env of the config, its params and its Log-wrapped form
-    (pqn.py:50-107, "split" mode, the only one ported): ``(log_env, env,
-    env_params)``. Shared with the recurrent trainer."""
-    env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
-    return wrappers.Log(env), env, env_params
+    """``(train_env, test_env, env, env_params)`` (pqn.py:50-107): the env
+    of the config wrapped in Log ("split" mode), or that inside
+    ``OptimisticResetVecEnv`` (USE_OPTIMISTIC_RESETS) or ``BatchEnv``
+    (BATCH_ENV) at NUM_ENVS for training and TEST_NUM_ENVS for the eval.
+    Shared with the recurrent trainer, which runs the split mode."""
+    env_kwargs = dict(config.get("ENV_KWARGS") or {})
+    if config.get("LOG_ACHIEVEMENTS", False):
+        env_kwargs["log_achievements"] = True
+    env, env_params = make_env(config["ENV_NAME"], **env_kwargs)
+    log_env = wrappers.Log(env)
+    if config.get("USE_OPTIMISTIC_RESETS", False):
+        def batched(n):
+            return wrappers.OptimisticResetVecEnv(log_env, n, min(config["OPTIMISTIC_RESET_RATIO"], n))
+    elif config.get("BATCH_ENV", False):
+        def batched(n):
+            return wrappers.BatchEnv(log_env, n)
+    else:
+        return log_env, log_env, env, env_params
+    return batched(config["NUM_ENVS"]), batched(config["TEST_NUM_ENVS"]), env, env_params
 
 
 def stack_metrics(history):
@@ -164,11 +189,6 @@ def stack_metrics(history):
         values = [m[k] for m in history]
         stacked[k] = torch.stack(values) if torch.is_tensor(values[0]) else torch.tensor(values)
     return stacked
-
-
-def _draw_seed(generator: torch.Generator) -> int:
-    """A kernel seed from the host generator (no device sync)."""
-    return int(torch.randint(0, 2**62, (1,), generator=generator))
 
 
 def fused_weights(env_name: str, network: torch.nn.Module):
@@ -256,19 +276,10 @@ def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.T
     return new_state, infos
 
 
-def learn_minibatch(
-    network: torch.nn.Module,
-    optimizer: ClipRAdam,
-    obs: torch.Tensor,
-    action: torch.Tensor,
-    target: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One minibatch step (pqn.py:492-553): a train-mode forward (the batch
-    norms update their running statistics, even the unused input norm), the
-    0.5 * MSE TD loss on the taken actions, and clip + RAdam on every
+def _td_step(optimizer: ClipRAdam, q_vals: torch.Tensor, action: torch.Tensor, target: torch.Tensor):
+    """The 0.5 * MSE TD loss on the taken actions and clip + RAdam on every
     parameter (zero gradients for the unused ones, as jax.grad gives).
     Returns the loss and the chosen Q-values, detached."""
-    q_vals = network(obs, train=True)
     chosen = q_vals.gather(1, action[:, None]).squeeze(1)
     loss = 0.5 * torch.square(chosen - target).mean()
     grads = torch.autograd.grad(
@@ -276,6 +287,39 @@ def learn_minibatch(
     )
     optimizer.step(grads)
     return loss.detach(), chosen.detach()
+
+
+def learn_minibatch(
+    network: torch.nn.Module,
+    optimizer: ClipRAdam,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    target: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One minibatch step on given targets (pqn.py:492-553): a train-mode
+    forward (the batch norms update their running statistics, even the
+    unused input norm), then ``_td_step``."""
+    return _td_step(optimizer, network(obs, train=True), action, target)
+
+
+def learn_minibatch_td(
+    network: torch.nn.Module,
+    optimizer: ClipRAdam,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    next_obs: torch.Tensor,
+    reward: torch.Tensor,
+    done: torch.Tensor,
+    gamma: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One minibatch step of 1-step TD (pqn.py:515-534): one train-mode
+    forward on cat(obs, next_obs), so the batch norms' statistics (and a
+    BatchRenorm's step count) run once over both halves; the target
+    r + (1 - done) * gamma * max_a Q(s', a) with Q(s') detached; then
+    ``_td_step``."""
+    q_vals, q_next = network(torch.cat([obs, next_obs]), train=True).chunk(2)
+    target = reward + (1 - done.float()) * gamma * q_next.detach().max(-1).values
+    return _td_step(optimizer, q_vals, action, target)
 
 
 def make_train(
@@ -292,7 +336,7 @@ def make_train(
     _check_supported(config)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
-    log_env, env, env_params = build_env(config)
+    train_env, test_env, env, env_params = build_env(config)
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
@@ -302,6 +346,8 @@ def make_train(
     rew_scale = config.get("REW_SCALE", 1.0)
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     use_fused = config.get("FUSED_ROLLOUT", False)
+    use_q_lambda = config.get("Q_LAMBDA", True)
+    done_masked = config.get("DONE_MASKED_INFO_METRICS", False)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     eps_scheduler = epsilon_schedule(
         config["EPS_START"],
@@ -313,18 +359,19 @@ def make_train(
         host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
         network = make_q_network(config, action_dim, obs_shape, generator=host_gen)
         network = network.to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(_draw_seed(host_gen))
+        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         optimizer = make_optimizer(
             network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
         )
         train_state = PQNTrainState(network, optimizer)
         env_name = config["ENV_NAME"]
+        explore = make_eps_greedy(config, dev_gen, host_gen)
 
         def rollout(obs, log_state):
             eps = eps_scheduler(train_state.n_updates)
             if use_fused:
                 obs_seq, act, rew, done_i, q_seq, final_obs, env_state = fused_game_rollout(
-                    env_name, _draw_seed(host_gen), eps, fused_weights(env_name, network),
+                    env_name, draw_seed(host_gen), eps, fused_weights(env_name, network),
                     log_state.env_state, n_steps, env_params,
                 )
                 done = done_i.bool()
@@ -344,8 +391,8 @@ def make_train(
             with torch.no_grad():
                 for _ in range(n_steps):
                     q_vals = network(obs, train=False)
-                    action = eps_greedy_batch(dev_gen, q_vals, eps)
-                    new_obs, log_state, reward, done, info = log_env.step(
+                    action = explore(q_vals, eps)
+                    new_obs, log_state, reward, done, info = train_env.step(
                         dev_gen, log_state, action, env_params
                     )
                     steps.append((obs, action, rew_scale * reward, done, new_obs, q_vals, info))
@@ -356,23 +403,23 @@ def make_train(
             return obs, log_state, transitions, infos
 
         def learn(transitions, targets):
+            # the lambda targets, or for 1-step TD the fields its targets come from
             n = n_steps * n_envs
-            obs = transitions.obs.reshape(n, *obs_shape)
-            action = transitions.action.reshape(n)
-            targets = targets.reshape(n)
+            leaves = (
+                (transitions.obs, transitions.action, targets) if use_q_lambda else
+                (transitions.obs, transitions.action, transitions.next_obs, transitions.reward, transitions.done)
+            )
+            leaves = [x.reshape(n, *x.shape[2:]) for x in leaves]
             losses, qvals = [], []
             for _ in range(n_epochs):
-                # one permutation per epoch, shared by every leaf and the targets
+                # one permutation per epoch, shared by every leaf
                 perm = torch.randperm(n, generator=dev_gen, device=device)
-                batches = zip(
-                    obs[perm].reshape(n_minibatches, -1, *obs_shape),
-                    action[perm].reshape(n_minibatches, -1),
-                    targets[perm].reshape(n_minibatches, -1),
-                )
-                for mb_obs, mb_action, mb_target in batches:
-                    loss, chosen = learn_minibatch(
-                        network, optimizer, mb_obs, mb_action, mb_target
-                    )
+                batches = zip(*(x[perm].reshape(n_minibatches, -1, *x.shape[1:]) for x in leaves))
+                for mb in batches:
+                    if use_q_lambda:
+                        loss, chosen = learn_minibatch(network, optimizer, *mb)
+                    else:
+                        loss, chosen = learn_minibatch_td(network, optimizer, *mb, config["GAMMA"])
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
@@ -382,14 +429,14 @@ def make_train(
         def get_test_metrics() -> Dict[str, torch.Tensor]:
             n_test = config["TEST_NUM_ENVS"]
             n_test_steps = config["TEST_NUM_STEPS"]
-            _, test_state = log_env.reset(dev_gen, n_test, env_params)
+            _, test_state = test_env.reset(dev_gen, n_test, env_params)
             if use_fused:
                 # the greedy rollout through the same kernel in NUM_STEPS
                 # chunks; with EVAL_EARLY_EXIT it stops once every env has
                 # finished an episode, and unexecuted steps count as not done
                 chunk = n_steps
                 n_chunks = -(-n_test_steps // chunk)
-                seed0 = _draw_seed(host_gen)
+                seed0 = draw_seed(host_gen)
                 weights = fused_weights(env_name, network)
                 env_state = test_state.env_state
                 rews = torch.zeros(n_chunks, chunk, n_test, device=device)
@@ -409,34 +456,36 @@ def make_train(
                 dones = dones.reshape(-1, n_test)[:n_test_steps]
                 return eval_episode_metrics(rews, dones.float())
 
-            obs, state = log_env.reset(dev_gen, n_test, env_params)
+            obs, state = test_env.reset(dev_gen, n_test, env_params)
             infos = []
             for _ in range(n_test_steps):
                 q_vals = network(obs, train=False)
                 action = eps_greedy_batch(dev_gen, q_vals, config["EPS_TEST"])
-                obs, state, _, _, info = log_env.step(dev_gen, state, action, env_params)
+                obs, state, _, _, info = test_env.step(dev_gen, state, action, env_params)
                 infos.append(info)
             return episode_mean_metrics(
                 {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
             )
 
         test_metrics = get_test_metrics() if test_during_training else {}
-        obs, log_state = log_env.reset(dev_gen, n_envs, env_params)
+        obs, log_state = train_env.reset(dev_gen, n_envs, env_params)
         history = []
         for _ in range(config["NUM_UPDATES"]):
             obs, log_state, transitions, infos = rollout(obs, log_state)
             train_state.timesteps += n_steps * n_envs * timestep_scale
 
-            with torch.no_grad():
-                last_q = network(transitions.next_obs[-1], train=False).max(-1).values
-                targets = lambda_returns(
-                    last_q,
-                    transitions.reward,
-                    transitions.done.float(),
-                    transitions.q_val.max(-1).values,
-                    config["GAMMA"],
-                    config["LAMBDA"],
-                )
+            targets = None
+            if use_q_lambda:
+                with torch.no_grad():
+                    last_q = network(transitions.next_obs[-1], train=False).max(-1).values
+                    targets = lambda_returns(
+                        last_q,
+                        transitions.reward,
+                        transitions.done.float(),
+                        transitions.q_val.max(-1).values,
+                        config["GAMMA"],
+                        config["LAMBDA"],
+                    )
             td_loss, qvals = learn(transitions, targets)
             train_state.n_updates += 1
 
@@ -447,7 +496,13 @@ def make_train(
                 "td_loss": td_loss,
                 "qvals": qvals,
             }
-            metrics.update({k: v.float().mean() for k, v in infos.items()})
+            if done_masked:
+                # the infos at episode ends only, a mean weighted by returned_episode
+                ended = infos["returned_episode"].float()
+                denom = ended.sum().clamp(min=1.0)
+                metrics.update({k: (v.float() * ended).sum() / denom for k, v in infos.items()})
+            else:
+                metrics.update({k: v.float().mean() for k, v in infos.items()})
             if test_during_training:
                 if train_state.n_updates % test_interval_updates(config) == 0:
                     test_metrics = get_test_metrics()

@@ -43,14 +43,14 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from purejaxql_torch.algo.exploration import gaussian_noise_ladder
+from purejaxql_torch.algo.exploration import draw_seed, gaussian_noise_ladder
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     eval_episode_metrics,
     running_episode_sums,
     test_interval_updates,
 )
-from purejaxql_torch.algo.pqn import _draw_seed, stack_metrics
+from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import linear_schedule
 from purejaxql_torch.core.train_state import PQNTrainState
@@ -329,7 +329,7 @@ def make_train(
             norm_type=config["NORM_TYPE"], init_scale=config.get("CRITIC_INIT_SCALE", 1.0),
             generator=host_gen,
         ).to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(_draw_seed(host_gen))
+        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         train_state = {
             "actor": PQNTrainState(actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr)),
             "critic": PQNTrainState(
@@ -352,7 +352,7 @@ def make_train(
             noise_std = noise_scheduler(actor_state.n_updates)
             if use_fused:
                 obs_seq, u, greedy, value, rew, done, final_obs, raw_state = fused_pendulum_rollout(
-                    _draw_seed(host_gen), noise_std, pendulum_ac_weights(actor, critics),
+                    draw_seed(host_gen), noise_std, pendulum_ac_weights(actor, critics),
                     env_state.env_state, n_steps, max_steps, config.get("LINSPACE_NOISE", True),
                 )
                 transitions = ACTransition(
@@ -406,7 +406,7 @@ def make_train(
                 n_chunks = -(-n_test_steps // n_steps)
                 _, test_state = env.reset(dev_gen, n_test, env_params)
                 raw_state = test_state.env_state
-                seed0 = _draw_seed(host_gen)
+                seed0 = draw_seed(host_gen)
                 weights = pendulum_ac_weights(actor, critics)
                 rews, dones = [], []
                 for i in range(n_chunks):

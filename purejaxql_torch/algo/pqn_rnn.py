@@ -32,13 +32,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from purejaxql_torch.algo.exploration import eps_greedy_batch
+from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     episode_mean_metrics,
     test_interval_updates,
 )
-from purejaxql_torch.algo.pqn import _NOT_PORTED, _draw_seed, build_env, stack_metrics
+from purejaxql_torch.algo.pqn import _NOT_PORTED, build_env, stack_metrics
 from purejaxql_torch.algo.returns import lambda_returns_closure
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core.config import derive_pqn_schedule_keys
@@ -50,7 +50,15 @@ from purejaxql_torch.models.rnn import RNNQNetwork
 from purejaxql_torch.ops.fast_rnn import fast_rnn_train_forward, supports_fast_bptt
 from purejaxql_torch.utils.platform import resolve_device
 
-_NOT_PORTED_RNN = {**_NOT_PORTED, "RESET_BANK": "RESET_BANK"}
+# the FF trainer's batched modes, done-masked metrics and the epsilon-greedy
+# kernel are not wired into the recurrent trainer yet
+_NOT_PORTED_RNN = {
+    **_NOT_PORTED,
+    "BATCH_ENV": "BATCH_ENV",
+    "USE_OPTIMISTIC_RESETS": "optimistic resets",
+    "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
+    "EXPLORATION_KERNEL": "EXPLORATION_KERNEL in the recurrent rollout",
+}
 
 
 def _check_supported(config: Dict[str, Any]) -> None:
@@ -193,7 +201,7 @@ def make_train(
     _check_supported(config)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
-    log_env, env, env_params = build_env(config)
+    log_env, _, env, env_params = build_env(config)
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
@@ -217,7 +225,7 @@ def make_train(
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
         host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
         network = make_rnn_q_network(config, action_dim, obs_shape, generator=host_gen).to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(_draw_seed(host_gen))
+        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         optimizer = make_optimizer(
             network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
         )

@@ -3,8 +3,10 @@
     python -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_rnn_memory_chain [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_pendulum [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_craftax [KEY=val ...]
 
-The trainer is picked by the config's ALG_NAME: ``pqn`` (algo/pqn.py),
+The trainer is picked by the config's ALG_NAME: ``pqn`` and ``pqn_craftax``
+(algo/pqn.py),
 ``pqn_rnn*`` (algo/pqn_rnn.py) or ``pqn_ac`` / ``pqn_playground``
 (algo/pqn_ac.py). Runs on the GPU unless DEVICE=cpu is given. Prints
 "Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
@@ -22,10 +24,11 @@ import time
 
 def _select_make_train(config):
     """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40
-    picks it: ``pqn``, ``pqn_rnn*`` or ``pqn_ac`` / ``pqn_playground``; the
-    other families (pqn_craftax, pqn_vdn*, pqn_host) are not ported."""
+    picks it: ``pqn`` / ``pqn_craftax``, ``pqn_rnn*`` or ``pqn_ac`` /
+    ``pqn_playground``; the other families (pqn_vdn*, pqn_host) are not
+    ported."""
     name = str(config.get("ALG_NAME", "pqn"))
-    if name == "pqn":
+    if name in ("pqn", "pqn_craftax"):
         from purejaxql_torch.algo.pqn import make_train
         return make_train
     if name.startswith("pqn_rnn"):
@@ -35,8 +38,8 @@ def _select_make_train(config):
         from purejaxql_torch.algo.pqn_ac import make_train
         return make_train
     raise SystemExit(
-        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_rnn, pqn_ac; still to port: "
-        "pqn_craftax, pqn_vdn, pqn_host)"
+        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_craftax, pqn_rnn, pqn_ac; still to "
+        "port: pqn_vdn, pqn_host)"
     )
 
 

@@ -10,15 +10,17 @@ package loads in the other. Full-state resume (``save_state`` /
 Names: a torch parameter ``CNN_0.Conv_0.weight`` is the flax leaf
 ``params/CNN_0/Conv_0/kernel``; nested modules map level for level.
 
-Layouts: flax's ``scale`` of a ``LayerNorm_i`` or ``BatchNorm_i`` is torch's
-``weight``, whatever its rank; any other weight is told apart by its rank: a
+Layouts: flax's ``scale`` of a ``LayerNorm_i``, ``BatchNorm_i`` or
+``BatchRenorm_i`` is torch's ``weight``, whatever its rank; any other weight is told apart by its rank: a
 flax ``Dense.kernel`` is (in, out) and a torch ``Linear.weight`` is
 (out, in); a rank-3 kernel is a member-stacked Dense, (M, in, out) in flax
 and (M, out, in) here, the leading axis moved as a batch axis (flax's
 vmapped critic ensemble, models/actor_critic.py); a flax ``Conv.kernel`` is
 HWIO and a torch conv weight is OIHW. Batch statistics live in a separate
-flax collection (``batch_stats``: ``mean``, ``var``) and in the modules'
-buffers here; stacked ones keep their member axis in both.
+flax collection (``batch_stats``: ``mean``, ``var``, and a BatchRenorm's
+``r_max``, ``d_max`` and int32 ``steps`` as well) and in the modules' buffers
+here, under the same leaf names; stacked ones keep their member axis in
+both.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def load_params(filename: str) -> Dict:
 
 
 def _is_norm(module: str) -> bool:
-    return module.rsplit(".", 1)[-1].startswith(("LayerNorm_", "BatchNorm_"))
+    return module.rsplit(".", 1)[-1].startswith(("LayerNorm_", "BatchNorm_", "BatchRenorm_"))
 
 
 def _to_flax_leaf(module: str, leaf: str, a: np.ndarray):

@@ -35,15 +35,21 @@ def select_env(done: torch.Tensor, on_true: torch.Tensor, on_false: torch.Tensor
     return torch.where(mask, on_true, on_false)
 
 
+def map_state(fn, *states):
+    """``fn`` over the tensors of one or more state dataclasses of the same
+    layout, into nested dataclasses (a wrapper's state holds its env's)."""
+    first = states[0]
+    if not dataclasses.is_dataclass(first):
+        return fn(*states)
+    return dataclasses.replace(
+        first,
+        **{f.name: map_state(fn, *(getattr(s, f.name) for s in states)) for f in dataclasses.fields(first)},
+    )
+
+
 def select_state(done: torch.Tensor, on_true, on_false):
     """Per-env select between two state dataclasses of (E, ...) tensors."""
-    return dataclasses.replace(
-        on_false,
-        **{
-            f.name: select_env(done, getattr(on_true, f.name), getattr(on_false, f.name))
-            for f in dataclasses.fields(on_false)
-        },
-    )
+    return map_state(lambda t, f: select_env(done, t, f), on_true, on_false)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +118,15 @@ class Wrapper(Environment):
 
     def step(self, generator, state, action, params=None):
         return self._env.step(generator, state, action, params)
+
+    def reset_env(self, generator, num_envs, params):
+        return self._env.reset_env(generator, num_envs, params)
+
+    def step_draws(self, generator, num_envs):
+        return self._env.step_draws(generator, num_envs)
+
+    def step_env(self, state, action, params, draws):
+        return self._env.step_env(state, action, params, draws)
 
     @property
     def default_params(self):

@@ -14,6 +14,7 @@ from purejaxql_torch.envs.base import Environment
 from purejaxql_torch.envs.classic.cartpole import CartPole
 from purejaxql_torch.envs.classic.memory_chain import MemoryChain
 from purejaxql_torch.envs.classic.pendulum import Pendulum
+from purejaxql_torch.envs.gridworld.forager import Forager
 from purejaxql_torch.envs.minatar.asterix import MinAsterix
 from purejaxql_torch.envs.minatar.breakout import MinBreakout
 from purejaxql_torch.envs.minatar.freeway import MinFreeway
@@ -29,6 +30,10 @@ _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "Freeway-MinAtar": MinFreeway,
     "Seaquest-MinAtar": MinSeaquest,
     "SpaceInvaders-MinAtar": MinSpaceInvaders,
+    "Forager-v0": Forager,
+    # the reference's name for the craftax workload resolves to Forager, as in
+    # purejaxql_tpu/envs/registry.py:231-236
+    "Craftax-Symbolic-v1": Forager,
 }
 
 

@@ -7,7 +7,11 @@ wrappers the ported trainers use:
   counted per env in ``info["nan_events"]``;
 - ``LogVec`` (:691-742): ``Log`` for the continuous-control stack, with a
   scalar step counter and the raw reward as ``info["original_reward"]``;
-- ``ClipAction`` (:527-537): clip continuous actions to the box.
+- ``ClipAction`` (:527-537): clip continuous actions to the box;
+- ``BatchEnv`` (:139-158): the env at a fixed number of envs;
+- ``OptimisticResetVecEnv`` (:214-280): auto-reset that makes only
+  num_envs / reset_ratio fresh states a step and routes them to the done
+  envs, for an env whose reset is expensive (Forager's worldgen).
 
 ``VecEnv`` has no counterpart: an env here already steps a whole batch. The
 other wrappers (the observation and reward normalizers among them) come with
@@ -21,7 +25,7 @@ from typing import Any
 
 import torch
 
-from purejaxql_torch.envs.base import Wrapper
+from purejaxql_torch.envs.base import Wrapper, map_state, select_env, select_state
 
 
 @dataclass
@@ -35,19 +39,34 @@ class LogEnvState:
 
 
 class Log(Wrapper):
-    """Accumulate per-episode return/length; emit them in `info` on done."""
+    """Accumulate per-episode return/length; emit them in `info` on done.
 
-    def reset(self, generator, num_envs, params=None):
-        obs, env_state = self._env.reset(generator, num_envs, params)
+    ``reset``/``step`` wrap the env's auto-resetting pair; ``reset_env``/
+    ``step_env`` wrap its raw pair (wrappers.py:106-136), so that
+    ``OptimisticResetVecEnv`` can manage the resets of a Log-wrapped env.
+    """
+
+    @staticmethod
+    def _start(obs, env_state):
+        num_envs = obs.shape[0]
         zero_f = torch.zeros(num_envs, device=obs.device)
         zero_i = torch.zeros(num_envs, dtype=torch.int32, device=obs.device)
-        state = LogEnvState(env_state, zero_f, zero_i, zero_f, zero_i, zero_i)
-        return obs, state
+        return obs, LogEnvState(env_state, zero_f, zero_i, zero_f, zero_i, zero_i)
+
+    def reset(self, generator, num_envs, params=None):
+        return self._start(*self._env.reset(generator, num_envs, params))
+
+    def reset_env(self, generator, num_envs, params):
+        return self._start(*self._env.reset_env(generator, num_envs, params))
 
     def step(self, generator, state, action, params=None):
-        obs, env_state, reward, done, info = self._env.step(
-            generator, state.env_state, action, params
-        )
+        return self._account(state, *self._env.step(generator, state.env_state, action, params))
+
+    def step_env(self, state, action, params, draws):
+        return self._account(state, *self._env.step_env(state.env_state, action, params, draws))
+
+    @staticmethod
+    def _account(state, obs, env_state, reward, done, info):
         new_episode_return = state.episode_returns + reward
         new_episode_length = state.episode_lengths + 1
         done_f = done.to(new_episode_return.dtype)
@@ -69,6 +88,79 @@ class Log(Wrapper):
         info["returned_episode_lengths"] = state.returned_episode_lengths
         info["timestep"] = state.timestep
         info["returned_episode"] = done
+        return obs, state, reward, done, info
+
+
+class BatchEnv(Wrapper):
+    """The env at a fixed ``num_envs`` (wrappers.py:139-158). An env here
+    already steps a batch, so this only pins its size for the trainer's
+    batched mode; reset and step auto-reset as the env does."""
+
+    def __init__(self, env, num_envs: int):
+        super().__init__(env)
+        self.num_envs = num_envs
+
+    def reset(self, generator, num_envs=None, params=None):
+        if num_envs not in (None, self.num_envs):
+            raise ValueError(f"BatchEnv holds {self.num_envs} envs, asked for {num_envs}")
+        return self._env.reset(generator, self.num_envs, params)
+
+
+def reset_slot_map(being_reset: torch.Tensor, num_envs: int, reset_ratio: int) -> torch.Tensor:
+    """Which of the num_envs / reset_ratio fresh states each env takes
+    (wrappers.py:254-262): env i the slot i // reset_ratio, and the sampled
+    envs ``being_reset`` (num_resets of them) slots 0, 1, ... of their own."""
+    num_resets = num_envs // reset_ratio
+    slots = torch.arange(num_resets, device=being_reset.device)
+    index = slots.repeat_interleave(reset_ratio)
+    index[being_reset] = slots
+    return index
+
+
+def sample_being_reset(generator: torch.Generator, done: torch.Tensor, num_resets: int) -> torch.Tensor:
+    """num_resets distinct envs, done ones first, by Gumbel top-k over
+    log(done): the sampling without replacement weighted by ``done`` of the
+    JAX wrapper's ``jax.random.choice(p=done, replace=False)``. Every done env
+    is taken when at most num_resets are done, and only done ones when more
+    are; ``torch.multinomial`` would raise on both of those cases' edges (too
+    few nonzero weights, all weights zero)."""
+    u = torch.rand(done.shape, generator=generator, device=done.device).clamp_(min=torch.finfo(torch.float32).tiny)
+    scores = torch.log(done.float()) - torch.log(-torch.log(u))
+    return torch.topk(scores, num_resets).indices
+
+
+class OptimisticResetVecEnv(Wrapper):
+    """Auto-reset with shared resets (wrappers.py:214-280): a step makes only
+    num_envs / reset_ratio fresh states and routes them to the done envs, so
+    an expensive reset (Forager's worldgen) costs 1 / reset_ratio of one per
+    env. Every env gets slot i // reset_ratio, and up to num_resets sampled
+    done envs a slot of their own; every done env is reset, those beyond
+    num_resets on a shared slot. Wraps an env's raw ``reset_env``/
+    ``step_env`` (a Log-wrapped env's)."""
+
+    def __init__(self, env, num_envs: int, reset_ratio: int):
+        super().__init__(env)
+        if num_envs % reset_ratio != 0:
+            raise ValueError("reset_ratio must divide num_envs")
+        self.num_envs = num_envs
+        self.reset_ratio = reset_ratio
+        self.num_resets = num_envs // reset_ratio
+
+    def reset(self, generator, num_envs=None, params=None):
+        if num_envs not in (None, self.num_envs):
+            raise ValueError(f"OptimisticResetVecEnv holds {self.num_envs} envs, asked for {num_envs}")
+        params = self.default_params if params is None else params
+        return self._env.reset_env(generator, self.num_envs, params)
+
+    def step(self, generator, state, action, params=None):
+        params = self.default_params if params is None else params
+        draws = self._env.step_draws(generator, self.num_envs)
+        obs_st, state_st, reward, done, info = self._env.step_env(state, action, params, draws)
+        obs_re, state_re = self._env.reset_env(generator, self.num_resets, params)
+        being_reset = sample_being_reset(generator, done, self.num_resets)
+        index = reset_slot_map(being_reset, self.num_envs, self.reset_ratio)
+        obs = select_env(done, obs_re[index], obs_st)
+        state = select_state(done, map_state(lambda x: x[index], state_re), state_st)
         return obs, state, reward, done, info
 
 

@@ -1,8 +1,9 @@
 """Model factory: choose the Q-network from the config and the obs shape.
 
-Port of purejaxql_tpu/models/factory.py for the MLP family, the MinAtar
-CNN (ARCH ``cnn``, or an observation of rank 3 or more) and the GRU
-recurrent network (``make_rnn_q_network``). The Nature trunk, BatchRenorm,
+Port of purejaxql_tpu/models/factory.py for the MLP family, with the JAX
+package's per-family norms (``resolve_norms``: BatchRenorm for the craftax
+family), the MinAtar CNN (ARCH ``cnn``, or an observation of rank 3 or more)
+and the GRU recurrent network (``make_rnn_q_network``). The Nature trunk,
 BF16_COMPUTE, LSTM cells and dueling heads come with later slices and raise
 here.
 """
@@ -43,16 +44,16 @@ def make_q_network(
     arch = config.get("ARCH") or ("cnn" if len(obs_shape) >= 3 else "mlp")
     if config.get("BF16_COMPUTE", False):
         raise NotImplementedError("BF16_COMPUTE is not ported yet")
-    if config.get("INPUT_NORM_TYPE", "batch_norm") != "batch_norm":
-        raise NotImplementedError("INPUT_NORM_TYPE other than batch_norm is not ported yet")
     if arch == "mlp":
+        norm_type, input_norm_type = resolve_norms(config)
         return QNetwork(
             obs_dim=int(obs_shape[0]),
             action_dim=action_dim,
             hidden_size=config.get("HIDDEN_SIZE", 128),
             num_layers=config.get("NUM_LAYERS", 2),
-            norm_type=config["NORM_TYPE"],
+            norm_type=norm_type,
             norm_input=config.get("NORM_INPUT", False),
+            input_norm_type=input_norm_type,
             generator=generator,
         )
     if arch == "cnn":

@@ -1,14 +1,17 @@
 """Normalization-aware MLP Q-network.
 
 Port of purejaxql_tpu/models/qnet.py: Dense -> norm -> relu stacks with a
-NORM_TYPE switch (layer_norm | batch_norm | none), and a BatchNorm over the
-input that is always instantiated, as a dummy when norm_input=False, so the
-parameter tree is identical across configs.
+NORM_TYPE switch (layer_norm | batch_norm | batch_renorm | none), and an
+input norm (``input_norm_type``: BatchNorm, or BatchRenorm for the craftax
+family) that is always instantiated and called, as a dummy when
+norm_input=False, so the parameter tree is identical across configs and the
+dummy's statistics move in train mode as flax's do.
 
 Flax conventions are kept so that weights cross between the packages
 unchanged (core/checkpoint.py):
 
-- submodules carry flax's auto-names (``BatchNorm_0``, ``Dense_0``,
+- submodules carry flax's auto-names, counted per class in call order
+  (``BatchNorm_0`` or ``BatchRenorm_0`` for the input norm, ``Dense_0``,
   ``LayerNorm_0``, ...);
 - Dense kernels start lecun-normal (truncated at two standard deviations)
   with zero biases, not torch's kaiming-uniform;
@@ -26,6 +29,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from purejaxql_torch.models.batch_renorm import BatchRenorm
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
 # whose std is corrected for the truncation at +-2 std
@@ -105,6 +110,9 @@ class BatchNorm(nn.Module):
         return _normalize(x, mean, var, self.eps, self.weight, self.bias)
 
 
+_NORMS = {"batch_norm": ("BatchNorm", BatchNorm), "batch_renorm": ("BatchRenorm", BatchRenorm)}
+
+
 class QNetwork(nn.Module):
     def __init__(
         self,
@@ -114,35 +122,52 @@ class QNetwork(nn.Module):
         num_layers: int = 2,
         norm_type: str = "layer_norm",
         norm_input: bool = False,
+        input_norm_type: str = "batch_norm",
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if norm_type not in ("layer_norm", "batch_norm", "none"):
+        if norm_type not in ("layer_norm", "batch_norm", "batch_renorm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
+        if input_norm_type not in _NORMS:
+            raise ValueError(f"unsupported INPUT_NORM_TYPE '{input_norm_type}'")
         self.action_dim = action_dim
         self.num_layers = num_layers
         self.norm_type = norm_type
         self.norm_input = norm_input
-        self.BatchNorm_0 = BatchNorm(obs_dim)
+        counts = {}
+
+        def add(kind, module):
+            name = f"{kind}_{counts.get(kind, 0)}"
+            counts[kind] = counts.get(kind, 0) + 1
+            self.add_module(name, module)
+            return name
+
+        kind, cls = _NORMS[input_norm_type]
+        self.input_norm = add(kind, cls(obs_dim))
+        self.layers = []
         width = obs_dim
-        for i in range(num_layers):
-            self.add_module(f"Dense_{i}", dense(width, hidden_size, generator))
+        for _ in range(num_layers):
+            dense_name = add("Dense", dense(width, hidden_size, generator))
             if norm_type == "layer_norm":
-                self.add_module(f"LayerNorm_{i}", LayerNorm(hidden_size))
-            elif norm_type == "batch_norm":
-                self.add_module(f"BatchNorm_{i + 1}", BatchNorm(hidden_size))
+                norm_name = add("LayerNorm", LayerNorm(hidden_size))
+            elif norm_type in _NORMS:
+                kind, cls = _NORMS[norm_type]
+                norm_name = add(kind, cls(hidden_size))
+            else:
+                norm_name = None
+            self.layers.append((dense_name, norm_name))
             width = hidden_size
-        self.add_module(f"Dense_{num_layers}", dense(width, action_dim, generator))
+        self.head = add("Dense", dense(width, action_dim, generator))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        normed = self.BatchNorm_0(x, train)
+        normed = getattr(self, self.input_norm)(x, train)
         if self.norm_input:
             x = normed
-        for i in range(self.num_layers):
-            x = getattr(self, f"Dense_{i}")(x)
+        for dense_name, norm_name in self.layers:
+            x = getattr(self, dense_name)(x)
             if self.norm_type == "layer_norm":
-                x = getattr(self, f"LayerNorm_{i}")(x)
-            elif self.norm_type == "batch_norm":
-                x = getattr(self, f"BatchNorm_{i + 1}")(x, train)
+                x = getattr(self, norm_name)(x)
+            elif norm_name is not None:
+                x = getattr(self, norm_name)(x, train)
             x = torch.relu(x)
-        return getattr(self, f"Dense_{self.num_layers}")(x)
+        return getattr(self, self.head)(x)

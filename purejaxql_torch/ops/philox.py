@@ -25,7 +25,10 @@ game reads its words in this order:
   from the left, moving right), 28 is_sub (unit24 < 1/3);
 - Pendulum AC: 0 and 1 the Box-Muller pair of the exploration noise
   (u1 = ((w0 >> 8) + 1) / 2^24 in (0, 1], u2 = (w1 >> 8) / 2^24), 2 the
-  reset theta, 3 the reset theta_dot: one call, counter (t, b, 0, 0).
+  reset theta, 3 the reset theta_dot: one call, counter (t, b, 0, 0);
+- epsilon-greedy (``ops/eps_greedy.py``, one step, t = 0): 0 the coin, 1 the
+  random action ((w >> 8) % A), of the call with counter (0, e, 0, 0) for
+  env e, a fresh seed each call.
 
 A word is used through its top 24 bits (``w >> 8``), as the TPU kernels use
 their hardware PRNG's words.

@@ -10,6 +10,7 @@
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 \
         --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
     python scripts/profile_torch_train.py --alg pqn_pendulum --steps 400000    # actor-critic
+    python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -17,14 +18,19 @@ steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
 2 epochs, greedy eval 128 envs x up to 1000 steps; pqn_rnn_*: the GRU
 network, FAST_BPTT and PALLAS_BPTT on, the window of MEMORY_WINDOW +
 NUM_STEPS steps; pqn_pendulum: actor and two critics H 256, 64 envs x 32
-steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every 10 %):
+steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every 10 %;
+pqn_craftax: Forager, H 1024 x 4 with an input BatchRenorm, 1024 envs x 1
+step, optimistic resets at ratio 16, 1-step TD on one minibatch, no eval):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
    the minibatch steps and, inside them, the train-mode forward, the
    closure-form targets and the GRU scan kernels; for the actor-critic
    trainer the fused rollout, the LogVec replay, the lambda targets, the
-   critic step, the actor step and the eval's episode sums) is wrapped with a device
+   critic step, the actor step and the eval's episode sums; for pqn_craftax
+   the env step of the optimistic-reset wrapper and, inside it, the Forager
+   step and the worldgen of its 64 fresh worlds, the epsilon-greedy kernel
+   and the 1-step-TD minibatch step) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
@@ -60,8 +66,10 @@ ROLLOUTS = (
 def main() -> int:
     import torch
 
-    from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn
+    from purejaxql_torch.algo import exploration, pqn, pqn_ac, pqn_rnn
     from purejaxql_torch.core.config import compose
+    from purejaxql_torch.envs import wrappers
+    from purejaxql_torch.envs.gridworld.forager import Forager
     from purejaxql_torch.ops import gru_scan
 
     ap = argparse.ArgumentParser()
@@ -117,7 +125,11 @@ def main() -> int:
 
     recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
     trainer = pqn_rnn if recurrent else pqn_ac if actor_critic else pqn
-    if actor_critic:  # (module, name, the noise's argument index)
+    if config["ALG_NAME"] == "pqn_craftax":  # the wrapper's env step, and its parts inside it
+        patches = [(wrappers.OptimisticResetVecEnv, "step", None), (Forager, "step_env", None),
+                   (Forager, "reset_env", None), (exploration, "eps_greedy", None),
+                   (pqn, "learn_minibatch_td", None)]
+    elif actor_critic:  # (module, name, the noise's argument index)
         patches = [(pqn_ac, "fused_pendulum_rollout", 1), (pqn_ac, "eval_episode_metrics", None)]
         patches += [(pqn_ac, n, None) for n in ("log_vec_replay", "lambda_returns", "critic_step", "actor_step")]
     elif recurrent:  # (module, name, the epsilon's argument index)
@@ -141,7 +153,8 @@ def main() -> int:
     ts = out["runner_state"][0]
     ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
-    inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd")
+    inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd", "step_env",
+             "reset_env")
     accounted = sum(v for k, v in totals.items() if k not in inner)
 
     # ---- 2. device busy share over a short run without eval -----------------

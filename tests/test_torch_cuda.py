@@ -20,6 +20,7 @@ from purejaxql_torch.models.qnet import QNetwork
 from purejaxql_torch.ops import asterix_rollout as ar
 from purejaxql_torch.ops import breakout_rollout as br
 from purejaxql_torch.ops import cartpole_rollout as cr
+from purejaxql_torch.ops import eps_greedy as eg
 from purejaxql_torch.ops import freeway_rollout as fr
 from purejaxql_torch.ops import gru_scan as gs
 from purejaxql_torch.ops import lambda_returns as lr
@@ -374,3 +375,49 @@ def test_tiny_pendulum_train_on_the_card_launches_both_kernels(dev):
         assert all(p.is_cuda for p in state.network.parameters())
     assert torch.isfinite(out["metrics"]["value_loss"]).all()
     assert torch.isfinite(out["metrics"]["test/returned_episode_returns"]).all()
+
+
+def _eps_q(dev, E, A, seed):
+    """Q-values with ties (half-integers), one row holding a tie for the
+    maximum at two indices and one a NaN."""
+    rng = np.random.RandomState(seed)
+    q = (np.round(rng.randn(E, A) * 2) / 2).astype(np.float32)
+    q[0, [A // 2, A - 1]] = 9.0
+    q[1, A - 1] = np.nan
+    return torch.tensor(q, device=dev)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("E,A", [(1024, 34), (1000, 34), (512, 6), (37, 1), (3, 70)])
+def test_eps_greedy_kernel_matches_plain(dev, E, A, eps):
+    q = _eps_q(dev, E, A, E + A)
+    for seed in (0, 12345, 2**62 + 7, 2**64 - 1):
+        got = eg.eps_greedy(seed, q, eps)
+        assert got.dtype == torch.int64 and got.shape == (E,)
+        assert torch.equal(got, eg.eps_greedy_plain(seed, q, eps)), seed
+
+
+def test_eps_greedy_wrapper_rejects_bad_inputs(dev):
+    q = torch.zeros(8, 4, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        eg.eps_greedy(1, q.T, 0.1)
+    with pytest.raises(ValueError, match="float32"):
+        eg.eps_greedy(1, q.double(), 0.1)
+    with pytest.raises(ValueError, match="seed"):
+        eg.eps_greedy(-1, q, 0.1)
+
+
+def test_tiny_pqn_craftax_on_the_card_launches_eps_greedy(dev):
+    """pqn_craftax through the cuda policy: one eps_greedy launch per update
+    (1 step a rollout), no returns or rollout kernel."""
+    config = compose(alg="pqn_craftax", overrides=[
+        "TOTAL_TIMESTEPS=4096", "TOTAL_TIMESTEPS_DECAY=4096", "NUM_ENVS=128", "HIDDEN_SIZE=64", "NUM_LAYERS=2",
+    ])
+    assert config["EXPLORATION_KERNEL"] == "pallas"
+    for fn in (eg.eps_greedy, lr.lambda_returns, cr.cartpole_rollout):
+        fn.launches = 0
+    out = pqn.make_train(config)()
+    assert eg.eps_greedy.launches == 4096 // 128
+    assert lr.lambda_returns.launches == cr.cartpole_rollout.launches == 0
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()

@@ -302,8 +302,10 @@ def test_fused_eval_chunks_and_early_exit(monkeypatch, early_exit, expected):
 
 
 def test_unsupported_options_raise():
-    for kw in ({"NUM_SEEDS": 2}, {"Q_LAMBDA": False}, {"BATCH_ENV": True},
-               {"USE_OPTIMISTIC_RESETS": True}, {"FAST_TARGETS": True}):
+    # Q_LAMBDA=False, BATCH_ENV and USE_OPTIMISTIC_RESETS are ported now
+    # (tests/test_torch_craftax.py); these are not
+    for kw in ({"NUM_SEEDS": 2}, {"RESET_BANK": 256}, {"SKIP_NOOP_PERMUTE": True},
+               {"FAST_TARGETS": True}, {"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_vdn"}):
         with pytest.raises(NotImplementedError):
             pqn.make_train(tiny_config(**kw))
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
