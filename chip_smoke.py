@@ -12,7 +12,9 @@ Phases, each ending the run with a non-zero exit if it fails:
    trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
    Asterix, Freeway, SpaceInvaders and Seaquest rollouts (PRNG off and on;
    Seaquest also at a shape that forces resets), the GRU
-   scan's forward and backward kernels (and autograd through them), and the
+   scan's forward and backward cluster kernels at five shapes, each with its
+   launch plan and the kernels' register and spill counts (and autograd
+   through them), and the
    Pendulum actor-critic rollout (PRNG off and on, at the trainer's shape and
    at one that forces resets), and the epsilon-greedy kernel (bit for bit, at
    the Craftax trainer's shape and two others, at eps 0, 0.3 and 1, with a
@@ -47,7 +49,8 @@ Phases, each ending the run with a non-zero exit if it fails:
    metrics, episodes ending, and the done-masked returns of its last 10 %
    printed (no learning bar: at this length learned and LR=0 runs do not
    separate, PERF.md section 7);
-7. time each kernel and its twin with CUDA events at the trainers' shapes;
+7. time each kernel and its twin with CUDA events at the trainers' shapes,
+   and torch.nn.GRU (cuDNN) beside the GRU scan as a yardstick;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
 
@@ -86,8 +89,9 @@ PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10))
 # (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
 MEMORY_GATE, FF_GATE = 0.8, 0.5
 # the GRU scan at the trainers' shapes (T = MEMORY_WINDOW + NUM_STEPS, B =
-# NUM_ENVS / NUM_MINIBATCHES, H) and one with more than one block
-GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128))
+# NUM_ENVS / NUM_MINIBATCHES, H), then at shapes of several clusters and at
+# the largest H whose W_h slice stays in shared memory (a cluster of 16)
+GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128), (20, 40, 256), (9, 2, 512))
 # the mean of the last 10 training returns the Asterix run must beat:
 # tests/test_torch_asterix.py::test_asterix_learns
 ASTERIX_GATE = 0.8
@@ -201,6 +205,34 @@ def eps_greedy_bound_ms(E: int, A: int):
     """Reads the (E, A) float32 Q-matrix once and writes E int64 actions; one
     compare an element and ~100 integer operations of Philox a row."""
     return _bound(4 * E * A + 8 * E, E * A + 100 * E)
+
+
+def kernel_resources(log_text: str):
+    """{mangled kernel name: (registers, spill store bytes)} from nvcc's
+    -Xptxas -v output."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name] = [None, int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def gru_instance(resources, kernel: str, *template_args: int):
+    """(registers, spill bytes) of one template instance of a GRU scan kernel:
+    R, then the bools (slice in shared memory, slice in registers)."""
+    key = f"{kernel}ILi{template_args[0]}E" + "".join(f"Lb{int(a)}E" for a in template_args[1:]) + "E"
+    hits = [v for k, v in resources.items() if key in k]
+    return hits[0] if hits else (None, None)
 
 
 def craftax_bar_metric(metrics):
@@ -716,6 +748,10 @@ def main() -> int:
     # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
     # forward within 1e-5; backward within 1e-4 absolute and relative: the
     # kernels sum the products in another order than the twins' matmuls
+    gru_resources = {
+        name: kernel_resources(build.library_path(name).with_suffix(".log").read_text())
+        for name in ("gru_scan_fwd", "gru_scan_bwd")
+    }
     gru_inputs_by_shape = {}
     for i, shape in enumerate(GRU_SHAPES):
         xi, keep, h0, w_h, b_hn, g_y, g_hT = gru_inputs(*shape, 10 + i, dev)
@@ -730,10 +766,18 @@ def main() -> int:
         torch.cuda.synchronize()
         b_err = max((g - w).abs().max().item() for g, w in zip(got, want))
         b_rel = max(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max().item() for g, w in zip(got, want))
+        plan = gs.scan_plan(*shape[1:])
+        # the template instance each kernel launches: <R, slice in shared memory, in registers>
+        args = (plan.rows, plan.resident and not plan.registers, plan.registers)
+        f_res = gru_instance(gru_resources["gru_scan_fwd"], "gru_scan_fwd_kernel", *args)
+        b_res = gru_instance(gru_resources["gru_scan_bwd"], "gru_scan_bwd_kernel", *args)
         print(
-            f"gru_scan (T, B, H) = {shape} ({(shape[1] + 7) // 8} block(s)): forward max|err| {f_err:.3g} "
-            f"(tolerance 1e-5); backward max|err| {b_err:.3g}, max |err| / (1e-4 + 1e-4 |plain|) "
-            f"{b_rel:.3g} (must be <= 1); resets {int((keep == 0).sum())}"
+            f"gru_scan (T, B, H) = {shape}: plan C {plan.cluster}, U {plan.units}, R {plan.rows}, "
+            f"{plan.clusters} cluster(s), {plan.threads} threads, W_h resident {plan.resident}, "
+            f"shared bytes fwd {plan.fwd_bytes} bwd {plan.bwd_bytes}, slice in registers {plan.registers}; "
+            f"registers / spill bytes fwd {f_res[0]} / {f_res[1]}, bwd {b_res[0]} / {b_res[1]}; "
+            f"forward max|err| {f_err:.3g} (tolerance 1e-5); backward max|err| {b_err:.3g}, "
+            f"max |err| / (1e-4 + 1e-4 |plain|) {b_rel:.3g} (must be <= 1); resets {int((keep == 0).sum())}"
         )
         check(f_err <= 1e-5, f"gru_scan_fwd disagrees with its twin at {shape}: {f_err}")
         check(b_rel <= 1.0, f"gru_scan_bwd disagrees with its twin at {shape}: {b_err}")
@@ -1317,6 +1361,23 @@ def main() -> int:
             timings[f"{name}_T{shape[0]}"] = (k_ms, p_ms, b_ms, b_by)
             print(json.dumps({"timing": name, "shape": dict(zip("TBH", shape)), "ms": k_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
+    # a yardstick, not library_ms: cuDNN's GRU has no resets and does its own
+    # input projection, and the port never calls it
+    T, B, H = GRU_SHAPES[0]
+    cudnn_gru = torch.nn.GRU(H, H).to(dev)
+    x_seq = torch.randn(T, B, H, device=dev)
+    h_init = torch.randn(1, B, H, device=dev)
+    with torch.no_grad():
+        c_fwd = cuda_time_ms(lambda: cudnn_gru(x_seq, h_init), 50)
+    x_grad = x_seq.clone().requires_grad_(True)
+
+    def cudnn_fwd_bwd():
+        ys, h_last = cudnn_gru(x_grad, h_init)
+        (ys.sum() + h_last.sum()).backward()
+
+    c_fb = cuda_time_ms(cudnn_fwd_bwd, 50)
+    print(json.dumps({"timing": "torch.nn.GRU (cuDNN)", "shape": dict(zip("TBH", GRU_SHAPES[0])),
+                      "cudnn_gru_ms": {"fwd": c_fwd, "fwd_bwd": c_fb}}))
 
     aw, cw, stf, sti = pend_inputs[(32, 64, 256)]
     k_ms = cuda_time_ms(lambda: pr.pendulum_ac_rollout(3, 0.5, aw, cw, stf, sti, 32), 50)

@@ -247,7 +247,17 @@ def _gru_inputs(dev, T, B, H, seed=0):
     return [torch.tensor(np.asarray(a, np.float32), device=dev) for a in arrays]
 
 
-@pytest.mark.parametrize("T,B,H", [(132, 2, 256), (68, 2, 256), (32, 16, 128), (13, 3, 32)])
+# the trainers' shapes (the slice in registers), several clusters, ragged
+# rows and units (B 3 of R 4; H 130: CTAs of 17 units, the slice in shared
+# memory, and a last one of 11; H 200: of 13 and a last one of 5), the
+# largest H with the slice in shared memory, and one read from L2
+GRU_CARD_SHAPES = [
+    (132, 2, 256), (68, 2, 256), (32, 16, 128), (13, 3, 32), (20, 40, 256), (7, 3, 96),
+    (7, 3, 130), (7, 3, 200), (9, 2, 512), (5, 3, 1024),
+]
+
+
+@pytest.mark.parametrize("T,B,H", GRU_CARD_SHAPES)
 def test_gru_scan_kernels_match_plain(dev, T, B, H):
     """Forward outputs within 1e-5 of the twin; backward within 1e-4
     absolute and relative (the kernels sum in another order)."""
@@ -262,6 +272,54 @@ def test_gru_scan_kernels_match_plain(dev, T, B, H):
     want = gs.gru_scan_bwd_plain(*res, g_y, g_hT)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T,B,H", [(132, 2, 256), (20, 40, 256), (9, 2, 512)])
+def test_gru_scan_kernels_repeat_bit_for_bit(dev, T, B, H):
+    """Two launches of each kernel on the same inputs give the same bits:
+    every sum has a fixed order and there are no atomics."""
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _gru_inputs(dev, T, B, H, seed=2)
+    first, second = (gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    res = (keep, torch.cat([h0[None], first[0][:-1]]), w_h, *first[1:])
+    first, second = (gs.gru_scan_bwd(*res, g_y, g_hT) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_gru_scan_bwd_is_one_cluster_with_no_copy_of_w_h(dev):
+    """At the MemoryChain trainer's shape the plan is one cluster of 16 CTAs
+    with W_h resident, and the backward allocates its four outputs and
+    nothing else: no transposed W_h, no dc scratch, no partial sums."""
+    T, B, H = 132, 2, 256
+    plan = gs.scan_plan(B, H)
+    assert (plan.cluster, plan.units, plan.rows, plan.clusters) == (16, 16, 2, 1)
+    assert plan.resident and plan.registers
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _gru_inputs(dev, T, B, H, seed=3)
+    y, r, z, n, c = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+    res = (keep, torch.cat([h0[None], y[:-1]]), w_h, r, z, n, c)
+    gs.gru_scan_bwd(*res, g_y, g_hT)  # built and warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dxi, dh0, dw_h, db_hn = gs.gru_scan_bwd(*res, g_y, g_hT)
+    torch.cuda.synchronize()
+    outs = (dxi, dh0, dw_h, db_hn)
+    sizes = sum(-(-o.untyped_storage().nbytes() // 512) * 512 for o in outs)
+    assert torch.cuda.max_memory_allocated(dev) - before == sizes
+    assert dw_h.untyped_storage().nbytes() == 4 * H * 3 * H
+    assert db_hn.untyped_storage().nbytes() == 4 * H
+
+
+def test_gru_scan_refused_launch_raises(dev, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    xi, keep, h0, w_h, b_hn, _, _ = _gru_inputs(dev, 4, 2, 256)
+    plan = gs.scan_plan(2, 256)._replace(fwd_bytes=300_000)
+    monkeypatch.setattr(gs, "scan_plan", lambda B, H: plan)
+    before = gs.gru_scan_fwd.launches
+    with pytest.raises(RuntimeError, match="gru_scan_fwd kernel launch failed"):
+        gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+    assert gs.gru_scan_fwd.launches == before
 
 
 def test_gru_scan_autograd_matches_plain_loop(dev):

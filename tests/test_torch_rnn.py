@@ -258,6 +258,30 @@ def test_gru_scan_bwd_plain_matches_pallas_interpret_and_autograd():
     assert torch.isfinite(args[3].grad).all()
 
 
+@pytest.mark.parametrize("B", [1, 2, 3, 16, 96])
+@pytest.mark.parametrize("H", [32, 96, 128, 256, 512, 1024])
+def test_gru_scan_plan_covers_every_unit_and_row(H, B):
+    """The kernels' launch plan: every hidden unit has one owner CTA and
+    every row one cluster, clusters of at most 16 CTAs within a CTA's 227
+    KB of shared memory, W_h resident up to H 512, a warp per 2 units."""
+    plan = tgs.scan_plan(B, H)
+    assert plan.cluster in (1, 2, 4, 8, 16)
+    # CTA c owns units [c U, min(H, (c + 1) U))
+    owners = [(c * plan.units, min(plan.units, H - c * plan.units)) for c in range(plan.cluster)]
+    assert all(n >= 1 for _, n in owners)
+    units = [u for first, n in owners for u in range(first, first + n)]
+    assert units == list(range(H))
+    assert plan.rows in (1, 2, 4, 8) and plan.clusters == -(-B // plan.rows)
+    rows = [b for k in range(plan.clusters) for b in range(k * plan.rows, min(B, (k + 1) * plan.rows))]
+    assert rows == list(range(B))
+    assert plan.smem_bytes <= 232_448
+    assert plan.resident == (H <= 512)
+    assert plan.threads == 32 * min(-(-plan.units // 2), 32) and plan.threads <= 1024
+    assert plan.registers == (H <= 256)
+    if (B, H) == (2, 256):
+        assert (plan.cluster, plan.units, plan.rows, plan.clusters) == (16, 16, 2, 1)
+
+
 KW = dict(num_layers=2, num_rnn_layers=2, action_dim=A, add_last_action=True, norm_input=True)
 
 
