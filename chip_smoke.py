@@ -11,12 +11,15 @@ Phases, each ending the run with a non-zero exit if it fails:
 3. hold each kernel against its plain PyTorch twin on the card, at the
    trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
    Asterix, Freeway, SpaceInvaders and Seaquest rollouts (PRNG off and on;
-   Seaquest also at a shape that forces resets), the GRU
+   Seaquest also at a shape that forces resets; Freeway's cluster kernel
+   also at a ragged shape, with its plan and register counts), the GRU
    scan's forward and backward cluster kernels at five shapes, each with its
    launch plan and the kernels' register and spill counts (and autograd
    through them), and the
-   Pendulum actor-critic rollout (PRNG off and on, at the trainer's shape and
-   at one that forces resets), and the epsilon-greedy kernel (bit for bit, at
+   Pendulum actor-critic cluster rollout (PRNG off and on, at the trainer's
+   shape, at one that forces resets and at a ragged one whose W2 slices are
+   read from L2, each with its plan and register counts), and the
+   epsilon-greedy kernel (bit for bit, at
    the Craftax trainer's shape and two others, at eps 0, 0.3 and 1, with a
    tied and a NaN row);
 4. check the kernels' random streams by their statistics (Seaquest: the
@@ -81,9 +84,12 @@ PENDULUM_STEPS = 400_000  # tests/test_pqn_ac.py::test_ac_learns_pendulum's leng
 # the best greedy eval return the Pendulum run must beat (the same test's
 # gate; random play is about -1300)
 PENDULUM_GATE = -500.0
-# the Pendulum kernel at the trainer's shape (T, B, H, max_steps) and at one
-# that forces resets
-PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10))
+# the Pendulum kernel at the trainer's shape (T, B, H, max_steps), at one
+# that forces resets, and at ragged groups with the W2 slices read from L2
+PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10), (12, 100, 1024, 5))
+# the Freeway kernel at ragged clusters (T, B, H, max_steps); the trainer's
+# shape is phase 3d's
+FREEWAY_RAGGED = (24, 37, 256, 9)
 # the last-3 mean greedy eval return on MemoryChain: above MEMORY_GATE for the
 # recurrent trainer, below FF_GATE for the feedforward one
 # (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
@@ -227,12 +233,17 @@ def kernel_resources(log_text: str):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def named_instance(resources, key: str):
+    """(registers, spill bytes) of the kernel whose mangled name holds key."""
+    hits = [v for k, v in resources.items() if key in k]
+    return hits[0] if hits else (None, None)
+
+
 def gru_instance(resources, kernel: str, *template_args: int):
     """(registers, spill bytes) of one template instance of a GRU scan kernel:
     R, then the bools (slice in shared memory, slice in registers)."""
     key = f"{kernel}ILi{template_args[0]}E" + "".join(f"Lb{int(a)}E" for a in template_args[1:]) + "E"
-    hits = [v for k, v in resources.items() if key in k]
-    return hits[0] if hits else (None, None)
+    return named_instance(resources, key)
 
 
 def craftax_bar_metric(metrics):
@@ -745,6 +756,29 @@ def main() -> int:
         check(n_done >= 4 * 16, "seaquest_rollout: fewer resets than the time limit forces")
         errors["seaquest_rollout"] = max(errors["seaquest_rollout"], err)
 
+    # Freeway's cluster kernel: its plan and registers, and a ragged shape
+    # (clusters with CTAs past the last env, H 256) that resets every env
+    fw_resources = kernel_resources(build.library_path("freeway_rollout").with_suffix(".log").read_text())
+    fT, fB, fH, f_max = FREEWAY_RAGGED
+    for plan_shape in ((BB, BH), (fB, fH)):
+        plan = fr.freeway_plan(*plan_shape)
+        # the template instance it launches: <C>
+        fw_res = named_instance(fw_resources, f"freeway_rollout_kernelILi{plan.cluster}E")
+        print(f"freeway_rollout (B, H) = {plan_shape}: plan C {plan.cluster}, {plan.clusters} cluster(s), "
+              f"{plan.columns} dense columns a CTA (the weight on chip), {plan.chunks} chunks, {plan.threads} threads, "
+              f"shared bytes {plan.smem_bytes}; registers / spill bytes {fw_res[0]} / {fw_res[1]}")
+    fnet = CNNQNetwork((10, 10, 7), 3, hidden_size=fH, generator=torch.Generator().manual_seed(21)).to(dev)
+    f_states = tuple(x.to(dev) for x in freeway_states(fB, 21))
+    for use_prng in (False, True):
+        err, n_done, rew, n_random = compare_minatar(
+            "freeway_rollout", fr.freeway_rollout, fr.freeway_rollout_plain, minatar_weights(fnet), f_states, fT,
+            use_prng, max_steps=f_max,
+        )
+        print(f"freeway_rollout B={fB} T={fT} H={fH} max_steps={f_max} prng={use_prng}: obs/actions/rewards/dones/"
+              f"state equal ({n_done} resets, {n_random} non-greedy actions), max|q err| {err:.3g} (tolerance 1e-4)")
+        check(n_done >= 2 * fB, "freeway_rollout: fewer resets than the time limit forces")
+        errors["freeway_rollout"] = max(errors["freeway_rollout"], err)
+
     # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
     # forward within 1e-5; backward within 1e-4 absolute and relative: the
     # kernels sum the products in another order than the twins' matmuls
@@ -802,9 +836,17 @@ def main() -> int:
     # order than the twin's matmuls, and the pendulum carries the gap along)
     pend_names = ("obs", "u", "greedy", "value", "reward", "done", "final_obs", "stf", "sti")
     pend_inputs = {}
+    pend_resources = kernel_resources(build.library_path("pendulum_ac_rollout").with_suffix(".log").read_text())
     for pT, pB, pH, p_max in PENDULUM_SHAPES:
         (aw, cw), stf, sti = pendulum_inputs(pB, pH, pB, dev)
         pend_inputs[(pT, pB, pH)] = (aw, cw, stf, sti)
+        plan = pr.pendulum_plan(pB, pH)
+        # the template instance it launches: <resident, G, a lane's units (8 at H 256, else 0)>
+        nu = 8 if plan.resident and pH == 256 else 0
+        p_res = named_instance(pend_resources, f"pendulum_ac_rollout_kernelILb{int(plan.resident)}ELi{plan.group}ELi{nu}E")
+        print(f"pendulum_ac_rollout (B, H) = {(pB, pH)}: plan C {plan.cluster}, G {plan.group}, {plan.clusters} "
+              f"cluster(s), {plan.units} units a CTA, W2 slices resident {plan.resident}, {plan.threads} threads, "
+              f"shared bytes {plan.smem_bytes}; registers / spill bytes {p_res[0]} / {p_res[1]}")
         for use_prng in (False, True):
             got = pr.pendulum_ac_rollout(11, 0.8, aw, cw, stf, sti, pT, use_prng=use_prng, max_steps=p_max)
             want = pr.pendulum_rollout_plain(11, 0.8, aw, cw, stf, sti, pT, use_prng=use_prng, max_steps=p_max)

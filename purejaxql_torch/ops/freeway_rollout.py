@@ -8,7 +8,10 @@ env steps for B envs: the 7 observation planes, the MinAtar CNN forward,
 greedy argmax (first index wins ties), the epsilon coin and a uniform random
 action, the Freeway rules and the reset on the time limit.
 
-The kernel is ``csrc/freeway_rollout.cu``. ``freeway_rollout_plain`` runs
+The kernel is ``csrc/freeway_rollout.cu``, on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (the plan: ``freeway_plan``, one cluster of C
+CTAs per C envs, each CTA holding 1 / C of the dense weight in shared
+memory for the whole launch). ``freeway_rollout_plain`` runs
 the env's own batched step (envs/minatar/freeway.py) with the kernel's
 Philox words 0-25 (``ops/philox.py``): the coin, the random action, the
 lane speeds a score would draw (1 + word mod 5), their directions (bit 8:
@@ -43,6 +46,7 @@ from purejaxql_torch.ops import minatar_rollout
 from purejaxql_torch.ops.philox import step_words, unit24
 
 ROWS = 32
+CHANNELS = 7
 _SCALARS = ("pos", "move_timer", "time")
 _LANE_FIELDS = ("car_x", "car_timer", "car_speed")
 _ENV = MinFreeway()
@@ -107,14 +111,20 @@ def freeway_rollout(
     if st0.device.type != "cuda":
         raise ValueError(f"freeway_rollout: unsupported device {st0.device}")
     out = minatar_rollout.launch(
-        "freeway_rollout", 7, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng,
-        (max_steps, player_speed),
+        "freeway_rollout", CHANNELS, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng,
+        (max_steps, player_speed), plan=freeway_plan,
     )
     freeway_rollout.launches += 1
     return out
 
 
 freeway_rollout.launches = 0
+
+
+def freeway_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
+    """The kernel's launch plan for B envs of H units
+    (``minatar_rollout.cluster_plan`` at Freeway's 7 channels)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, cluster)
 
 
 def state_matrix_from_freeway(state: FreewayState) -> torch.Tensor:

@@ -7,18 +7,23 @@ Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_pack_cnn_params`,
 ``ops/freeway_rollout.py``, ``ops/space_invaders_rollout.py``,
 ``ops/seaquest_rollout.py``) adds its state matrices, its random draws and
 its kernel, ``csrc/<game>_rollout.cu``, whose CNN is
-``csrc/minatar_cnn.cuh``.
+``csrc/minatar_cnn.cuh`` (one block an env), or for Freeway the cluster CNN
+of ``csrc/minatar_cluster.cuh``.
 
 Every game's kernel has one C entry point of the same shape:
 ``<game>_rollout_f32(10 weight pointers, the state inputs, obs, act, rew,
 done, q, final_obs, the state outputs, T, B, H, A, seed, eps, use_prng,
 the game's int parameters, stream)``, returning the launch's cudaError_t.
+A kernel on the cluster CNN (``csrc/minatar_cluster.cuh``; Freeway) takes
+its plan's cluster size and shared bytes before the stream
+(``cluster_plan``, ``ClusterPlan.ints``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+import functools
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +34,78 @@ from purejaxql_torch.ops.cartpole_rollout import layer_norm_relu
 
 MAX_ACTIONS = 8
 CONV_FEATURES, FLAT = 16, 1024  # 16 maps of 8x8
+CELLS = 100  # the 10 x 10 board
+
+# shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+THREADS = 256  # a CTA: a thread per conv pixel and feature quad
+# the cluster size the plan takes: on an H100 at (T 32, B 128, H 128)
+# Freeway's kernel ran 0.472, 0.246 and 0.243 ms at C 4, 8 and 16
+# (scripts/time_rollouts.py, PERF.md section 6)
+PLAN_CLUSTER = 16
+
+
+class ClusterPlan(NamedTuple):
+    """How a rollout on the cluster CNN (csrc/minatar_cluster.cuh) splits a
+    launch (``cluster_plan``)."""
+
+    cluster: int  # C CTAs a cluster, C envs a cluster, one env a CTA
+    clusters: int  # ceil(B / C); the last one's CTAs past B own no env
+    columns: int  # F = 1024 / C: the dense weight's columns a CTA holds
+    chunks: int  # the partial sums' chunks of the F columns: a thread a unit quad, env half and chunk
+    threads: int  # a CTA
+    smem_bytes: int  # dynamic shared memory a CTA
+
+    @property
+    def ints(self) -> Tuple[int, int]:
+        """What the C entry point takes before the stream."""
+        return self.cluster, self.smem_bytes
+
+
+def _chunks(H: int, C: int) -> int:
+    """Chunks of a CTA's columns in the partial sums: a thread a unit quad,
+    a half of the cluster's envs (all where C is 1) and a chunk."""
+    return THREADS // (H // 4 * min(2, C))
+
+
+def cluster_smem_bytes(channels: int, H: int, C: int) -> int:
+    """csrc/minatar_cluster.cuh `smem_floats` in bytes: the mbarriers, the W
+    slice (F x H), two slots of the envs' conv-output slices (2 x 1024) and
+    of the partial sums received (2 x C x H), the chunks' sums (chunks x C
+    x H), the planes and their active cells, the conv taps, conv bias and
+    LN1, the dense bias, LN2 and the head (11 H + 8), a scan scratch and the
+    Q-values."""
+    planes = -(-CELLS * channels // 4) * 4
+    floats = (
+        8 + (FLAT // C) * H + 2 * FLAT + 2 * C * H + _chunks(H, C) * C * H + 2 * planes + 8
+        + 9 * channels * CONV_FEATURES + 48 + 11 * H + 8 + MAX_ACTIONS
+    )
+    return 4 * floats
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(B: int, H: int, channels: int, cluster: Optional[int] = None) -> ClusterPlan:
+    """The launch plan of a MinAtar rollout on the cluster CNN for B envs of
+    H units (H a multiple of 32 in [32, 256]) at ``channels`` planes.
+
+    C is PLAN_CLUSTER; ``cluster`` overrides it (for timing). Every CTA
+    holds its 1 / C of the dense weight in shared memory for the whole
+    launch; no H the wrappers accept needs more than 227 KB at C 16. Raises
+    if the forced cluster does not fit."""
+    if B < 1 or H % 32 or not 32 <= H <= THREADS:
+        raise ValueError(f"cluster_plan: B must be positive and H a multiple of 32 in [32, 256], got {B}, {H}")
+    if cluster is None:
+        cluster = PLAN_CLUSTER
+    elif cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster_plan: cluster must be one of {CLUSTER_SIZES}, got {cluster}")
+    smem = cluster_smem_bytes(channels, H, cluster)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"cluster_plan: a cluster of {cluster} at H {H} needs {smem} bytes of shared memory")
+    return ClusterPlan(
+        cluster=cluster, clusters=-(-B // cluster), columns=FLAT // cluster, chunks=_chunks(H, cluster),
+        threads=THREADS, smem_bytes=smem,
+    )
 
 
 def minatar_weights(network) -> Tuple[torch.Tensor, ...]:
@@ -112,14 +189,17 @@ def _check(name: str, weights, channels: int, state_ins) -> Tuple[int, int, int]
 
 
 def launch(name: str, channels: int, seed: int, eps: float, weights, state_ins, num_steps: int,
-           use_prng: bool, game_ints: Sequence[int]):
+           use_prng: bool, game_ints: Sequence[int], plan: Optional[Callable] = None):
     """Launch ``csrc/<name>.cu`` on CUDA tensors. ``state_ins`` is a list of
     (shape without B, int32 tensor (*shape, B)); the state outputs have the
-    same shapes. Returns (obs (T,B,10,10,C), act (T,B) int32, rew (T,B),
-    done (T,B) int32, q (T,B,A), final_obs (B,10,10,C), *state outputs)."""
+    same shapes. ``plan(B, H)``, for a kernel on the cluster CNN, gives the
+    ClusterPlan whose ints follow the game's. Returns (obs (T,B,10,10,C),
+    act (T,B) int32, rew (T,B), done (T,B) int32, q (T,B,A), final_obs
+    (B,10,10,C), *state outputs)."""
     if num_steps < 1:
         raise ValueError(f"{name}: num_steps must be >= 1")
     H, A, B = _check(name, weights, channels, state_ins)
+    plan_ints = plan(B, H).ints if plan is not None else ()
     T, dev = num_steps, weights[0].device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -135,11 +215,11 @@ def launch(name: str, channels: int, seed: int, eps: float, weights, state_ins, 
     n_ptrs = 10 + 2 * len(state_ins) + len(outs)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [
         ctypes.c_uint64, ctypes.c_float, ctypes.c_int,
-    ] + [ctypes.c_int] * len(game_ints) + [ctypes.c_void_p]
+    ] + [ctypes.c_int] * (len(game_ints) + len(plan_ints)) + [ctypes.c_void_p]
     ptrs = [x.data_ptr() for x in (*weights, *(x for _, x in state_ins), *outs, *state_outs)]
     with torch.cuda.device(dev):
         err = fn(
-            *ptrs, T, B, H, A, seed, eps, int(use_prng), *game_ints,
+            *ptrs, T, B, H, A, seed, eps, int(use_prng), *game_ints, *plan_ints,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, name)

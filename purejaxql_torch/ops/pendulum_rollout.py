@@ -25,7 +25,10 @@ Randomness: one Philox4x32-10 call per step and env, counter (t, env, 0, 0)
 r and r'. ``use_prng=False`` is the TPU kernel's deterministic mode: z = 0
 and resets to zeros.
 
-The kernel is ``csrc/pendulum_ac_rollout.cu``; ``pendulum_rollout_plain`` is
+The kernel is ``csrc/pendulum_ac_rollout.cu``, a thread-block cluster per
+group of envs with each CTA holding its rows of the three W2s in shared
+memory for the whole rollout (the plan: ``pendulum_plan``);
+``pendulum_rollout_plain`` is
 the same function in PyTorch, in the kernel's formulas (the floor-mod angle,
 the stds as b * (noise / (B - 1))), which the env (envs/classic/pendulum.py)
 and the unfused trainer write as the JAX env and trainer do.
@@ -42,8 +45,9 @@ float32 [theta, theta_dot, last_u] and sti (1, B) int32 time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +61,86 @@ from purejaxql_torch.ops.philox import step_words, unit24
 # (pallas_rollout.py:2127-2130; envs/classic/pendulum.py PendulumParams)
 MAX_SPEED, MAX_TORQUE, DT, G, M, L = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
 TWO_PI = 2.0 * math.pi
+
+# shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+THREADS = 256  # a CTA: 8 warps, a warp an env of the cluster's group
+MAX_GROUP = THREADS // 32
+SMS = 132  # an H100 SXM's SMs: the plan sizes the groups to fill them
+# the cluster size the plan takes: on an H100 at (T 32, B 64, H 256) the
+# kernel ran 0.736, 0.567 and 0.459 ms at C 4, 8 and 16
+# (scripts/time_rollouts.py, PERF.md section 6)
+PLAN_CLUSTER = 16
+
+
+class PendulumPlan(NamedTuple):
+    """How the kernel splits a launch (``pendulum_plan``)."""
+
+    cluster: int  # C CTAs a cluster
+    group: int  # G envs a cluster (a warp an env): 1, 2, 4 or 8
+    clusters: int  # ceil(B / G); the last group's envs past B are computed, not written
+    units: int  # U = H / C: the layer-2 units (rows of each W2) a CTA owns
+    resident: bool  # the three W2 slices held in shared memory for the whole launch
+    threads: int  # a CTA
+    smem_bytes: int  # dynamic shared memory a CTA
+
+    @property
+    def ints(self) -> Tuple[int, int, int, int]:
+        """What the C entry point takes before the stream."""
+        return self.cluster, self.group, int(self.resident), self.smem_bytes
+
+
+def _split(rows: int, H: int) -> int:
+    """Threads a row of a layer-2 product takes (csrc/pendulum_ac_rollout.cu
+    split_of)."""
+    ks = 1
+    while ks < 32 and 2 * ks * rows <= THREADS and 8 * ks <= H:
+        ks *= 2
+    return ks
+
+
+def pendulum_smem_bytes(H: int, C: int, G: int, resident: bool) -> int:
+    """csrc/pendulum_ac_rollout.cu `smem_floats` in bytes: two mbarriers,
+    the three W2 slices (U rows of H floats, padded for the critics' pass)
+    where resident, layer-1 activations (2, G, H), the staging blocks of the
+    two exchanges (G x U and 2 x G x U, each padded to 4 floats), C
+    received blocks of each, and a gather table (H ints)."""
+    U = H // C
+    ks = _split(2 * U, H)
+    stride = H + (0 if ks >= 8 else 4 * ks)
+    blocks = -(-G * U // 4) * 4 + -(-2 * G * U // 4) * 4
+    return 4 * (4 + (3 * U * stride if resident else 0) + 2 * G * H + blocks * (1 + C) + H)
+
+
+@functools.lru_cache(maxsize=None)
+def pendulum_plan(B: int, H: int, cluster: Optional[int] = None) -> PendulumPlan:
+    """The kernel's launch plan for B envs of H units (H a multiple of 32 in
+    [32, 1024]).
+
+    C is PLAN_CLUSTER (``cluster`` overrides it, for timing). G, a power of
+    two (a template of the kernel), is the smallest that fills the card's
+    SMs with clusters (at most 8), halved until the CTA fits in 227 KB with
+    its W2 slices resident; where even one env does not fit them (H > 512
+    at C 16), the slices are read from L2 every step and G is halved until
+    the rest fits."""
+    if B < 1 or H % 32 or not 32 <= H <= 1024:
+        raise ValueError(f"pendulum_plan: B must be positive and H a multiple of 32 in [32, 1024], got {B}, {H}")
+    C = PLAN_CLUSTER if cluster is None else cluster
+    if C not in CLUSTER_SIZES or 2 * (H // C) > THREADS:
+        raise ValueError(f"pendulum_plan: cluster {C} at H {H}: must be one of {CLUSTER_SIZES}, H / C <= 128")
+    group = min(MAX_GROUP, 1 << (-(-B // max(1, SMS // C)) - 1).bit_length())
+    for resident in (True, False):
+        G = group
+        while G > 1 and pendulum_smem_bytes(H, C, G, resident) > SMEM_LIMIT:
+            G //= 2
+        smem = pendulum_smem_bytes(H, C, G, resident)
+        if smem <= SMEM_LIMIT:
+            return PendulumPlan(
+                cluster=C, group=G, clusters=-(-B // G), units=H // C, resident=resident, threads=THREADS,
+                smem_bytes=smem,
+            )
+    raise ValueError(f"pendulum_plan: H {H} does not fit a CTA's shared memory at C {C}")
 
 
 def _mlp2(x: torch.Tensor, w: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -205,14 +289,14 @@ def pendulum_ac_rollout(
     fn = lib.pendulum_ac_rollout_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
-        ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     weight_ptrs = (ctypes.c_void_p * 30)(*(w.data_ptr() for w in (*actor_w, *critic_w)))
     with torch.cuda.device(stf0.device):
         err = fn(
             ctypes.addressof(weight_ptrs), stf0.data_ptr(), sti0.data_ptr(),
             *(x.data_ptr() for x in outs), T, B, H, seed, noise_std, int(use_prng), max_steps,
-            int(linspace_noise), torch.cuda.current_stream().cuda_stream,
+            int(linspace_noise), *pendulum_plan(B, H).ints, torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, "pendulum_ac_rollout")
     pendulum_ac_rollout.launches += 1

@@ -680,3 +680,26 @@ def test_ac_learns_pendulum():
     config = compose(alg="pqn_pendulum", overrides=["DEVICE=cpu", "TOTAL_TIMESTEPS=400000"])
     tr = pqn_ac.make_train(config)()["metrics"]["test/returned_episode_returns"]
     assert tr.max() > -500, tr
+
+
+@pytest.mark.parametrize("H", list(range(32, 1025, 32)))
+@pytest.mark.parametrize("B", [1, 3, 64, 100, 128, 130])
+def test_pendulum_plan_covers_every_env_and_unit(B, H):
+    """The kernel's launch plan: clusters of at most 16 CTAs, each over a
+    group of at most 8 envs, so every env has one cluster (whose CTA 0
+    writes it); CTA c owns layer-2 units [c U, (c + 1) U) of each MLP, so
+    every hidden unit has one owner; a CTA within 227 KB of shared memory;
+    the W2 slices held on chip for H <= 512 and read from L2 above."""
+    plan = tpr.pendulum_plan(B, H)
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.threads == 256
+    assert plan.group in (1, 2, 4, 8) and plan.clusters == -(-B // plan.group)
+    envs = [k * plan.group + g for k in range(plan.clusters) for g in range(plan.group)]
+    assert envs[:B] == list(range(B)) and len(envs) - B < plan.group
+    units = [c * plan.units + j for c in range(plan.cluster) for j in range(plan.units)]
+    assert units == list(range(H)) and 2 * plan.units <= 256
+    assert plan.smem_bytes <= 232_448
+    assert plan.resident == (H <= 512)
+    if plan.resident:
+        assert plan.smem_bytes >= 4 * 3 * plan.units * H  # the three W2 slices
+    if (B, H) == (64, 256):
+        assert (plan.cluster, plan.group, plan.clusters) == (16, 8, 8)

@@ -166,11 +166,13 @@ GAMES = {
 }
 
 
-def _game_inputs(dev, env_name, B=128):
-    """The game's kernel weights (H 128) and states after 40 steps of random
-    play through the twin from a reset."""
+def _game_inputs(dev, env_name, B=128, hidden=128):
+    """The game's kernel weights (H 128 unless given) and states after 40
+    steps of random play through the twin from a reset."""
     _, plain, to_matrix, channels, actions = GAMES[env_name]
-    net = CNNQNetwork((10, 10, channels), actions, hidden_size=128, generator=torch.Generator().manual_seed(B)).to(dev)
+    net = CNNQNetwork(
+        (10, 10, channels), actions, hidden_size=hidden, generator=torch.Generator().manual_seed(B),
+    ).to(dev)
     weights = minatar_weights(net)
     env, params = make_env(env_name)
     _, state = env.reset(torch.Generator(device=dev).manual_seed(0), B, params)
@@ -194,6 +196,52 @@ def test_minatar_kernel_matches_plain(dev, env_name, use_prng):
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
         else:
             assert torch.equal(g, w), i
+
+
+def _assert_minatar_equal(got, want):
+    """Every output equal but the Q-values (index 4), within 1e-4."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 4:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+        else:
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("B,H", [(3, 32), (37, 256), (130, 32), (130, 256), (37, 96)])
+def test_freeway_kernel_matches_plain_at_ragged_shapes(dev, B, H, use_prng):
+    """Clusters with CTAs past the last env (B not a multiple of the plan's
+    C) and the narrowest and widest H, with max_steps 9 so that every env
+    resets: the twin's integer outputs, observations and state, Q within
+    1e-4."""
+    plan = fr.freeway_plan(B, H)
+    assert B % plan.cluster and plan.clusters == -(-B // plan.cluster)
+    weights, states = _game_inputs(dev, "Freeway-MinAtar", B=B, hidden=H)
+    got = fr.freeway_rollout(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    want = fr.freeway_rollout_plain(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    _assert_minatar_equal(got, want)
+    assert (want[3].sum(0) >= 2).all()
+
+
+def test_freeway_kernel_repeats_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits: every sum has a
+    fixed order (the partial sums added in rank order) and no atomics."""
+    weights, states = _game_inputs(dev, "Freeway-MinAtar", B=130)
+    first, second = (fr.freeway_rollout(9, 0.3, weights, *states, 32) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_freeway_refused_launch_raises(dev, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    weights, states = _game_inputs(dev, "Freeway-MinAtar", B=16)
+    plan = fr.freeway_plan(16, 128)._replace(smem_bytes=300_000)
+    monkeypatch.setattr(fr, "freeway_plan", lambda B, H: plan)
+    before = fr.freeway_rollout.launches
+    with pytest.raises(RuntimeError, match="freeway_rollout kernel launch failed"):
+        fr.freeway_rollout(0, 0.1, weights, *states, 4)
+    assert fr.freeway_rollout.launches == before
 
 
 @pytest.mark.parametrize("use_prng", [False, True])
@@ -378,12 +426,21 @@ def _pendulum_inputs(dev, B, H, seed=0):
     return pr.pendulum_ac_weights(actor, critics), torch.tensor(stf, device=dev), torch.tensor(sti, device=dev)
 
 
+# the training shape, one that forces resets, a single env, ragged groups,
+# the largest H whose W2 slices stay in shared memory (512) and H 1024,
+# whose slices are read from L2
+PENDULUM_CARD_SHAPES = [
+    (32, 64, 256, 200), (40, 16, 64, 10), (20, 1, 256, 7), (20, 100, 256, 7), (20, 1, 512, 7),
+    (20, 100, 512, 7), (12, 1, 1024, 5), (12, 100, 1024, 5),
+]
+
+
 @pytest.mark.parametrize("use_prng", [False, True])
-@pytest.mark.parametrize("T,B,H,max_steps", [(32, 64, 256, 200), (40, 16, 64, 10)])
+@pytest.mark.parametrize("T,B,H,max_steps", PENDULUM_CARD_SHAPES)
 def test_pendulum_kernel_matches_plain(dev, T, B, H, max_steps, use_prng):
-    """The training shape and one that forces resets: done and time equal,
-    every float output within 1e-4 of the twin (the MLPs sum in another
-    order; on an H100 the largest gap seen is 1.5e-5, on the reward)."""
+    """Done and time equal, every float output within 1e-4 of the twin (the
+    MLPs sum in another order; on an H100 the largest gap seen is 3.5e-5,
+    on the reward)."""
     (aw, cw), stf, sti = _pendulum_inputs(dev, B, H)
     got = pr.pendulum_ac_rollout(11, 0.8, aw, cw, stf, sti, T, use_prng=use_prng, max_steps=max_steps)
     want = pr.pendulum_rollout_plain(11, 0.8, aw, cw, stf, sti, T, use_prng=use_prng, max_steps=max_steps)
@@ -394,6 +451,27 @@ def test_pendulum_kernel_matches_plain(dev, T, B, H, max_steps, use_prng):
         else:
             torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
     assert want[5].any()
+
+
+def test_pendulum_kernel_repeats_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits on both paths:
+    every sum has a fixed order and no atomics."""
+    for B, H in ((64, 256), (3, 1024)):
+        (aw, cw), stf, sti = _pendulum_inputs(dev, B, H, seed=2)
+        first, second = (pr.pendulum_ac_rollout(4, 0.8, aw, cw, stf, sti, 16, max_steps=9) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (B, H)
+
+
+def test_pendulum_refused_launch_raises(dev, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    (aw, cw), stf, sti = _pendulum_inputs(dev, 8, 64)
+    plan = pr.pendulum_plan(8, 64)._replace(smem_bytes=300_000)
+    monkeypatch.setattr(pr, "pendulum_plan", lambda B, H: plan)
+    before = pr.pendulum_ac_rollout.launches
+    with pytest.raises(RuntimeError, match="pendulum_ac_rollout kernel launch failed"):
+        pr.pendulum_ac_rollout(0, 0.1, aw, cw, stf, sti, 4)
+    assert pr.pendulum_ac_rollout.launches == before
 
 
 def test_pendulum_wrapper_rejects_bad_inputs(dev):
