@@ -11,8 +11,10 @@ Phases, each ending the run with a non-zero exit if it fails:
 3. hold each kernel against its plain PyTorch twin on the card, at the
    trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
    Asterix, Freeway, SpaceInvaders and Seaquest rollouts (PRNG off and on;
-   Seaquest also at a shape that forces resets; Freeway's cluster kernel
-   also at a ragged shape, with its plan and register counts), the GRU
+   Seaquest also at a shape that forces resets; the three kernels on the
+   cluster CNN, Asterix, Freeway and Seaquest, also at a ragged shape, each
+   with its plans, register counts and the clusters the card places at
+   once; Seaquest also through its cash-ins), the GRU
    scan's forward and backward cluster kernels at five shapes, each with its
    launch plan and the kernels' register and spill counts (and autograd
    through them), and the
@@ -87,9 +89,9 @@ PENDULUM_GATE = -500.0
 # the Pendulum kernel at the trainer's shape (T, B, H, max_steps), at one
 # that forces resets, and at ragged groups with the W2 slices read from L2
 PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10), (12, 100, 1024, 5))
-# the Freeway kernel at ragged clusters (T, B, H, max_steps); the trainer's
-# shape is phase 3d's
-FREEWAY_RAGGED = (24, 37, 256, 9)
+# the kernels on the cluster CNN (Asterix, Freeway, Seaquest) at ragged
+# clusters (T, B, H, max_steps); the trainer's shape is phase 3d's
+CLUSTER_RAGGED = (24, 37, 256, 9)
 # the last-3 mean greedy eval return on MemoryChain: above MEMORY_GATE for the
 # recurrent trainer, below FF_GATE for the feedforward one
 # (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
@@ -510,7 +512,7 @@ def seaquest_states(B: int, seed: int):
 def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, eps=0.1, **kw):
     """One kernel call against its twin on the same inputs: every output
     equal but Q, within 1e-4. Returns (max |Q error|, resets, reward sum,
-    non-greedy actions)."""
+    non-greedy actions, rewards that are not whole: Seaquest's cash-ins)."""
     import torch
 
     got = kernel(seed, eps, weights, *states, T, use_prng=use_prng, **kw)
@@ -533,7 +535,7 @@ def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, 
     check(err <= 1e-4, f"{name} prng={use_prng}: q err {err} > 1e-4")
     n_done, rew = int(want[3].sum()), float(want[2].sum())
     n_random = int((want[1].long() != want[4].argmax(-1)).sum())
-    return err, n_done, rew, n_random
+    return err, n_done, rew, n_random, int((want[2] != want[2].floor()).sum())
 
 
 def main() -> int:
@@ -557,6 +559,7 @@ def main() -> int:
         from purejaxql_torch.ops import freeway_rollout as fr
         from purejaxql_torch.ops import gru_scan as gs
         from purejaxql_torch.ops import lambda_returns as lr
+        from purejaxql_torch.ops import minatar_rollout
         from purejaxql_torch.ops import pendulum_rollout as pr
         from purejaxql_torch.ops import seaquest_rollout as sq
         from purejaxql_torch.ops import space_invaders_rollout as sr
@@ -701,7 +704,7 @@ def main() -> int:
     q_err = 0.0
     breakout_resets = {}
     for use_prng in (False, True):
-        err, n_done, n_rew, n_random = compare_minatar(
+        err, n_done, n_rew, n_random, _ = compare_minatar(
             "breakout_rollout", br.breakout_rollout, br.breakout_rollout_plain, bweights, (st0, brick0), BT, use_prng
         )
         breakout_resets[use_prng] = n_done
@@ -731,7 +734,7 @@ def main() -> int:
         game_inputs[name] = (gweights, gstates)
         q_err = 0.0
         for use_prng in (False, True):
-            err, n_done, rew, n_random = compare_minatar(name, kernel, plain, gweights, gstates, BT, use_prng)
+            err, n_done, rew, n_random, _ = compare_minatar(name, kernel, plain, gweights, gstates, BT, use_prng)
             print(
                 f"{name} B={BB} T={BT} prng={use_prng}: obs/actions/rewards/dones/state equal "
                 f"({n_done} resets, {rew:.0f} {scores}, {n_random} non-greedy actions), "
@@ -744,7 +747,7 @@ def main() -> int:
     # Seaquest at a small shape whose time limit resets every env four times
     sq_small = tuple(x.to(dev) for x in seaquest_states(16, 11))
     for use_prng in (False, True):
-        err, n_done, rew, n_random = compare_minatar(
+        err, n_done, rew, n_random, _ = compare_minatar(
             "seaquest_rollout", sq.seaquest_rollout, sq.seaquest_rollout_plain, game_inputs["seaquest_rollout"][0],
             sq_small, 40, use_prng, max_steps=9,
         )
@@ -755,29 +758,53 @@ def main() -> int:
         )
         check(n_done >= 4 * 16, "seaquest_rollout: fewer resets than the time limit forces")
         errors["seaquest_rollout"] = max(errors["seaquest_rollout"], err)
+    # Seaquest's cash-ins: the trainer-shape states with six divers on board,
+    # one row under the surface and not surfaced, oxygen 1-128; random actions
+    # (eps 1) take about a sixth of the envs up, to a reward of kills +
+    # oxygen * 0.1f
+    cash = sq.seaquest_from_state_matrix(game_inputs["seaquest_rollout"][1][0].cpu())
+    cash.divers[:], cash.sub_y[:] = 6, 1
+    cash.oxygen[:] = torch.arange(BB) % 199 + 1  # mostly not a multiple of 10: a reward that is not whole
+    cash.surfaced, cash.terminal = torch.zeros_like(cash.surfaced), torch.zeros_like(cash.terminal)
+    err, n_done, rew, n_random, n_cash = compare_minatar(
+        "seaquest_rollout", sq.seaquest_rollout, sq.seaquest_rollout_plain, game_inputs["seaquest_rollout"][0],
+        (sq.state_matrix_from_seaquest(cash).to(dev),), 2, True, eps=1.0,
+    )
+    print(f"seaquest_rollout B={BB} T=2 six divers under the surface: obs/actions/rewards/dones/state equal "
+          f"({n_cash} cash-ins, {rew:.1f} reward), max|q err| {err:.3g} (tolerance 1e-4)")
+    check(n_cash > 0, "seaquest_rollout: no cash-in in the cash-in check")
+    errors["seaquest_rollout"] = max(errors["seaquest_rollout"], err)
 
-    # Freeway's cluster kernel: its plan and registers, and a ragged shape
-    # (clusters with CTAs past the last env, H 256) that resets every env
-    fw_resources = kernel_resources(build.library_path("freeway_rollout").with_suffix(".log").read_text())
-    fT, fB, fH, f_max = FREEWAY_RAGGED
-    for plan_shape in ((BB, BH), (fB, fH)):
-        plan = fr.freeway_plan(*plan_shape)
-        # the template instance it launches: <C>
-        fw_res = named_instance(fw_resources, f"freeway_rollout_kernelILi{plan.cluster}E")
-        print(f"freeway_rollout (B, H) = {plan_shape}: plan C {plan.cluster}, {plan.clusters} cluster(s), "
-              f"{plan.columns} dense columns a CTA (the weight on chip), {plan.chunks} chunks, {plan.threads} threads, "
-              f"shared bytes {plan.smem_bytes}; registers / spill bytes {fw_res[0]} / {fw_res[1]}")
-    fnet = CNNQNetwork((10, 10, 7), 3, hidden_size=fH, generator=torch.Generator().manual_seed(21)).to(dev)
-    f_states = tuple(x.to(dev) for x in freeway_states(fB, 21))
-    for use_prng in (False, True):
-        err, n_done, rew, n_random = compare_minatar(
-            "freeway_rollout", fr.freeway_rollout, fr.freeway_rollout_plain, minatar_weights(fnet), f_states, fT,
-            use_prng, max_steps=f_max,
-        )
-        print(f"freeway_rollout B={fB} T={fT} H={fH} max_steps={f_max} prng={use_prng}: obs/actions/rewards/dones/"
-              f"state equal ({n_done} resets, {n_random} non-greedy actions), max|q err| {err:.3g} (tolerance 1e-4)")
-        check(n_done >= 2 * fB, "freeway_rollout: fewer resets than the time limit forces")
-        errors["freeway_rollout"] = max(errors["freeway_rollout"], err)
+    # the kernels on the cluster CNN (Asterix, Freeway, Seaquest): each plan
+    # with its registers and spills and the clusters the card places at once,
+    # and a ragged shape (clusters with CTAs past the last env, H 256) that
+    # resets every env
+    rT, rB, rH, r_max = CLUSTER_RAGGED
+    for i, (name, plan_fn) in enumerate((
+        ("asterix_rollout", ar.asterix_plan), ("freeway_rollout", fr.freeway_plan),
+        ("seaquest_rollout", sq.seaquest_plan),
+    )):
+        kernel, plain, make_states, gC, gA, _ = games[name]
+        resources = kernel_resources(build.library_path(name).with_suffix(".log").read_text())
+        for plan_shape in ((BB, BH), (rB, rH)):
+            plan = plan_fn(*plan_shape)
+            # the template instance it launches: <C>
+            regs, spill = named_instance(resources, f"{name}_kernelILi{plan.cluster}E")
+            print(f"{name} (B, H) = {plan_shape}: plan C {plan.cluster}, {plan.clusters} cluster(s), "
+                  f"{plan.columns} dense columns a CTA (the weight on chip), {plan.chunks} chunks, {plan.threads} "
+                  f"threads, shared bytes {plan.smem_bytes}, {minatar_rollout.active_clusters(name, plan)} "
+                  f"clusters placed at once; registers / spill bytes {regs} / {spill}")
+        rnet = CNNQNetwork((10, 10, gC), gA, hidden_size=rH, generator=torch.Generator().manual_seed(21 + i)).to(dev)
+        r_states = tuple(x.to(dev) for x in make_states(rB, 21 + i))
+        for use_prng in (False, True):
+            err, n_done, rew, n_random, _ = compare_minatar(
+                name, kernel, plain, minatar_weights(rnet), r_states, rT, use_prng, max_steps=r_max,
+            )
+            print(f"{name} B={rB} T={rT} H={rH} max_steps={r_max} prng={use_prng}: obs/actions/rewards/dones/"
+                  f"state equal ({n_done} resets, {rew:.1f} reward, {n_random} non-greedy actions), max|q err| "
+                  f"{err:.3g} (tolerance 1e-4)")
+            check(n_done >= 2 * rB, f"{name}: fewer resets than the time limit forces")
+            errors[name] = max(errors[name], err)
 
     # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
     # forward within 1e-5; backward within 1e-4 absolute and relative: the

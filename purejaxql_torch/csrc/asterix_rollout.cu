@@ -9,21 +9,29 @@
 // planes, the shared `_cnn_forward`, and the TPU's hardware PRNG. None of
 // that layout carries over.
 //
-// Bound on an H100: the CNN forward is most of the work, as in the Breakout
-// kernel (about 3.5e5 flops per env step at H = 128; the game's rules are a
-// few hundred integer operations), so the bound is operations; in practice
-// the kernel is bound by latency, T dependent steps of barriers with the
-// 512 KiB dense weight read from L2 at every step (minatar_cnn.cuh).
+// What bounded the old design: one block of 256 threads per env ran the CNN
+// of minatar_cnn.cuh, whose dense layer read the whole 512 KiB dense weight
+// (H 128) from L2 at every step of every env, 64 MiB a step at the
+// trainer's B 128: 0.43-0.49 ms a launch (T 32), 20-23x the operation bound
+// (the conv's taps and the dense layer's 2 x 1024 x H flops an env step),
+// with the rules on one thread.
 //
-// Design (simple and right first): one block of 256 threads per env. Each
-// step the block builds the 4 planes (player, enemy, trail, gold) in shared
-// memory and writes them out, threads 0-2 draw the step's 12 Philox words,
-// the block runs the MinAtar CNN of minatar_cnn.cuh, and thread 0 runs the
-// argmax (first index wins ties), the epsilon coin and the Asterix rules on
-// the 8 slots in the order of asterix.py:79-196 (spawn, player move,
-// collide, entity move, collide, ramp), then the deterministic reset. The
-// game is integer logic, so kernel and plain twin agree exactly on
-// everything but the Q-values' last bits.
+// Design: the CNN of minatar_cluster.cuh, as the Freeway kernel runs it. A
+// thread-block cluster of C CTAs takes C envs, one env a CTA; each CTA holds
+// 1 / C of the dense weight in shared memory for the whole launch, and the
+// CTAs trade the conv outputs' slices and the dense layer's partial sums
+// through distributed shared memory. The plan (ops/asterix_rollout.py
+// `asterix_plan`) takes C 16: on an H100 at (T 32, B 128, H 128) C 4, 8 and
+// 16 ran 0.453, 0.241 and 0.244 ms (scripts/time_rollouts.py), the one
+// block an env 0.43 in the same call. Each step a CTA with an env builds the 4
+// planes (player, enemy, trail, gold) in shared memory and writes them out
+// (a thread a cell), threads 0-2 draw the step's 12 Philox words, the
+// cluster runs the CNN, and warp 0 runs the argmax (first index wins ties),
+// the epsilon coin and the Asterix rules in the order of asterix.py:79-196
+// (spawn, player move, collide, entity move, collide, ramp) with lane k
+// taking slot k, then the deterministic reset. The game is integer logic,
+// so kernel and plain twin agree exactly on everything but the Q-values'
+// last bits.
 //
 // Randomness: Philox4x32-10 (philox.cuh), counter (step, env, k, 0) for
 // k = 0, 1, 2: word 0 the coin, 1 the random action, 2-9 the slot scores,
@@ -37,12 +45,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "minatar_cnn.cuh"
+#include "minatar_cluster.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using namespace minatar;
+using namespace minatar_cluster;
 
 constexpr int kChannels = 4;  // player, enemy, trail, gold
 constexpr int kObs = kCells * kChannels;
@@ -60,47 +69,45 @@ enum {
   kRampIndex, kTime, kTerm,
   kExists = 10, kX = 18, kLR = 26, kGold = 34, kUsedRows = 42, kStateRows = 48
 };
+// the ints the kernel keeps in the env's CTA (Smem::game): the used state
+// rows, then the step's Philox words (ops/asterix_rollout.py GAME_INTS)
+constexpr int kWords = round4(kUsedRows);
+constexpr int kGameInts = 56;
+static_assert(kGameInts == kWords + 4 * kCalls, "the state rows and the Philox words");
 
 // The observation of a state as (row, col, channel) planes, into shared
-// memory and out to `out` (asterix.py get_obs).
+// memory and out to `out` (asterix.py get_obs): a thread a cell, its 4
+// channels in one 16-byte store each.
 __device__ void build_planes(float* planes, float* __restrict__ out, const int* s) {
-  for (int k = threadIdx.x; k < kObs; k += blockDim.x) {
-    const int cell = k / kChannels, ch = k - cell * kChannels;
-    const int r = cell / kSide, c = cell - r * kSide;
-    bool on = false;
-    if (ch == 0) {
-      on = r == s[kPY] && c == s[kPX];
-    } else if (r >= 1 && r <= kSlots && s[kExists + r - 1]) {
-      const int slot = r - 1, x = s[kX + slot];
-      const bool gold = s[kGold + slot] != 0;
-      if (ch == 1) {
-        on = !gold && c == x;
-      } else if (ch == 2) {  // the trail: the cell the entity came from
-        on = c == min(max(x + (s[kLR + slot] ? -1 : 1), 0), kSide - 1);
-      } else {
-        on = gold && c == x;
-      }
-    }
-    planes[k] = on ? 1.0f : 0.0f;
-    out[k] = on ? 1.0f : 0.0f;
+  const int cell = threadIdx.x;
+  if (cell >= kCells) return;
+  const int r = cell / kSide, c = cell - r * kSide;
+  const bool player = r == s[kPY] && c == s[kPX];
+  bool enemy = false, trail = false, gold = false;
+  if (r >= 1 && r <= kSlots && s[kExists + r - 1]) {
+    const int slot = r - 1, x = s[kX + slot];
+    const bool g = s[kGold + slot] != 0;
+    enemy = !g && c == x;
+    gold = g && c == x;
+    trail = c == min(max(x + (s[kLR + slot] ? -1 : 1), 0), kSide - 1);  // the cell it came from
   }
+  const float4 v = make_float4(player ? 1.0f : 0.0f, enemy ? 1.0f : 0.0f, trail ? 1.0f : 0.0f, gold ? 1.0f : 0.0f);
+  reinterpret_cast<float4*>(planes)[cell] = v;
+  reinterpret_cast<float4*>(out)[cell] = v;
 }
 
-// The player touches the entities on its cell: gold scores, an enemy ends
-// the episode; either way the entity is gone (asterix.py:123-133).
-__device__ __forceinline__ void collide(int* s, int px, int py, int& reward, int& terminal) {
-  for (int k = 0; k < kSlots; ++k) {
-    if (s[kExists + k] && s[kX + k] == px && k + 1 == py) {
-      if (s[kGold + k]) {
-        ++reward;
-      } else {
-        terminal = 1;
-      }
-      s[kExists + k] = 0;
-    }
-  }
+// The player touches the entity on its cell (lane k holds slot k, on row
+// k + 1): gold scores, an enemy ends the episode; either way it is gone
+// (asterix.py:123-133).
+__device__ __forceinline__ void collide(bool slot, int k, int& exists, int x, int gold, int px, int py,
+                                        int& reward, int& terminal) {
+  const bool hit = slot && exists && x == px && k + 1 == py;
+  reward += __popc(__ballot_sync(0xffffffffu, hit && gold));
+  terminal |= __any_sync(0xffffffffu, hit && !gold) ? 1 : 0;
+  if (hit) exists = 0;
 }
 
+template <int KC>
 __global__ void __launch_bounds__(kThreads) asterix_rollout_kernel(
     CnnWeights wts, const int* __restrict__ st0, float* __restrict__ obs_out,
     int* __restrict__ act_out, float* __restrict__ rew_out,
@@ -108,120 +115,140 @@ __global__ void __launch_bounds__(kThreads) asterix_rollout_kernel(
     float* __restrict__ final_obs, int* __restrict__ st_out, int T, int B,
     int H, int A, uint32_t key0, uint32_t key1, float eps, int use_prng,
     int max_steps) {
-  extern __shared__ __align__(16) float smem[];
-  const CnnSmem m = cnn_smem<kChannels>(smem, H);
-  __shared__ int s[kUsedRows];
-  __shared__ uint32_t words[4 * kCalls];
+  extern __shared__ float4 smem4[];
+  const Place p = place_of(B, H, A, T);
+  const Smem m = smem_layout<kChannels>(reinterpret_cast<float*>(smem4), H, p.C);
+  int* s = m.game;
+  uint32_t* words = reinterpret_cast<uint32_t*>(m.game + kWords);
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  load_conv<kChannels>(m, wts);
-  if (tid < kUsedRows) s[tid] = st0[tid * B + b];
-  __syncthreads();
+  const int b = p.b, tid = threadIdx.x;
+  if (p.live && tid < kUsedRows) s[tid] = st0[tid * B + b];
+  load_and_arm<kChannels>(m, wts, p);
+  unsigned parity = 0;  // bit i: the phase of mbarrier i to wait for
 
   for (int t = 0; t < T; ++t) {
     const long tb = (long)t * B + b;
-    build_planes(m.planes, obs_out + tb * kObs, s);
-    if (use_prng) step_words<kCalls>(words, t, b, key0, key1);
-    __syncthreads();
-    q_values<kChannels>(m, wts, H, A);
+    if (p.live) {
+      build_planes(m.planes, obs_out + tb * kObs, s);
+      if (use_prng) step_words<kCalls>(words, t, b, key0, key1);
+      __syncthreads();
+    }
+    cluster_q_values<kChannels, KC>(m, wts, p, t, parity);
+    if (!p.live) continue;
 
-    if (tid == 0) {
-      const int greedy = greedy_action(m.q, q_out + tb * A, A);
-      float u = 1.0f, score[kSlots];
+    if (tid < 32) {
+      // warp 0: the argmax, the epsilon coin and the rules, lane k < 8
+      // taking slot k
+      const int k = tid;
+      const bool slot = k < kSlots;
+      const int greedy = greedy_of(m, A);
+      if (k < A) q_out[tb * A + k] = m.q[k];
+      float u = 1.0f, score = (float)k;
       int rand_act = 0, lr = 0, gold = 0;
-      for (int k = 0; k < kSlots; ++k) score[k] = (float)k;
       if (use_prng) {
         u = unit24(words[0]);
         rand_act = (int)((words[1] >> 8) % (uint32_t)A);
-        for (int k = 0; k < kSlots; ++k) score[k] = unit24(words[2 + k]);
+        if (slot) score = unit24(words[2 + k]);
         lr = (int)((words[10] >> 8) & 1u);
         gold = unit24(words[11]) < (1.0f / 3.0f) ? 1 : 0;
       }
       const int action = u < eps ? rand_act : greedy;
+      int exists = slot ? s[kExists + k] : 0, x = slot ? s[kX + k] : 0;
+      int e_lr = slot ? s[kLR + k] : 0, e_gold = slot ? s[kGold + k] : 0;
+      const int spawn_speed = s[kSpawnSpeed], spawn_timer0 = s[kSpawnTimer], move_speed = s[kMoveSpeed];
+      const int move_timer0 = s[kMoveTimer], ramp_timer0 = s[kRampTimer], ramp_index0 = s[kRampIndex];
+      int terminal = s[kTerm];
+      const int time = s[kTime] + 1;
 
       // spawn into the free slot with the highest score, the first on ties
-      const int spawn_speed = s[kSpawnSpeed], move_speed = s[kMoveSpeed];
-      const bool do_spawn = s[kSpawnTimer] == 0;
-      int slot = -1;
-      for (int k = 0; k < kSlots; ++k) {
-        if (!s[kExists + k] && (slot < 0 || score[k] > score[slot])) slot = k;
+      const bool free = slot && !exists;
+      float best = free ? score : -1.0f;
+#pragma unroll
+      for (int o = 1; o < kSlots; o <<= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, o));
+      const unsigned picks = __ballot_sync(0xffffffffu, free && score == best);
+      const bool do_spawn = spawn_timer0 == 0;
+      if (do_spawn && picks && k == __ffs(picks) - 1) {
+        exists = 1;
+        x = lr ? 0 : kSide - 1;
+        e_lr = lr;
+        e_gold = gold;
       }
-      if (do_spawn && slot >= 0) {
-        s[kExists + slot] = 1;
-        s[kX + slot] = lr ? 0 : kSide - 1;
-        s[kLR + slot] = lr;
-        s[kGold + slot] = gold;
-      }
-      const int spawn_timer = do_spawn ? spawn_speed : s[kSpawnTimer] - 1;
+      const int spawn_timer = do_spawn ? spawn_speed : spawn_timer0 - 1;
 
       // player move (actions: noop, left, up, right, down)
       const int px = min(max(s[kPX] + (action == 3) - (action == 1), 0), kSide - 1);
       const int py = min(max(s[kPY] + (action == 4) - (action == 2), 1), kSlots);
-      int reward = 0, terminal = s[kTerm];
-      collide(s, px, py, reward, terminal);
+      int reward = 0;
+      collide(slot, k, exists, x, e_gold, px, py, reward, terminal);
 
       // entity move: one column on the move timer; off the board, gone
-      const bool do_move = s[kMoveTimer] == 0;
-      for (int k = 0; k < kSlots; ++k) {
-        if (do_move && s[kExists + k]) {
-          const int nx = s[kX + k] + (s[kLR + k] ? 1 : -1);
-          if (nx < 0 || nx > kSide - 1) s[kExists + k] = 0;
-          s[kX + k] = min(max(nx, 0), kSide - 1);
-        }
+      const bool do_move = move_timer0 == 0;
+      if (slot && do_move && exists) {
+        const int nx = x + (e_lr ? 1 : -1);
+        if (nx < 0 || nx > kSide - 1) exists = 0;
+        x = min(max(nx, 0), kSide - 1);
       }
-      const int move_timer = do_move ? move_speed : s[kMoveTimer] - 1;
-      collide(s, px, py, reward, terminal);
+      const int move_timer = do_move ? move_speed : move_timer0 - 1;
+      collide(slot, k, exists, x, e_gold, px, py, reward, terminal);
 
       // ramping, from the cadences the step started with
-      const int ramp_timer0 = s[kRampTimer], ramp_index0 = s[kRampIndex];
       const bool can_ramp = spawn_speed > 1 || move_speed > 1;
       const bool do_ramp = can_ramp && ramp_timer0 <= 0;
       const bool ramp_move = do_ramp && ramp_index0 % 2 == 1 && move_speed > 1;
       const bool ramp_spawn = do_ramp && ramp_index0 % 2 == 0 && spawn_speed > 1;
-
-      const int time = s[kTime] + 1;
       const bool done = terminal != 0 || time >= max_steps;
-      act_out[tb] = action;
-      rew_out[tb] = (float)reward;
-      done_out[tb] = done ? 1 : 0;
-      if (done) {  // the deterministic reset (asterix.py:60-77)
-        s[kPX] = 5;
-        s[kPY] = 5;
-        s[kSpawnSpeed] = s[kSpawnTimer] = kInitSpawn;
-        s[kMoveSpeed] = s[kMoveTimer] = kInitMove;
-        s[kRampTimer] = kRampInterval;
-        s[kRampIndex] = 0;
-        s[kTerm] = 0;
-        s[kTime] = 0;
-        for (int k = kExists; k < kUsedRows; ++k) s[k] = 0;
-      } else {
-        s[kPX] = px;
-        s[kPY] = py;
-        s[kSpawnSpeed] = spawn_speed - (ramp_spawn ? 1 : 0);
-        s[kSpawnTimer] = spawn_timer;
-        s[kMoveSpeed] = move_speed - (ramp_move ? 1 : 0);
-        s[kMoveTimer] = move_timer;
-        s[kRampTimer] = do_ramp ? kRampInterval : ramp_timer0 - (can_ramp ? 1 : 0);
-        s[kRampIndex] = ramp_index0 + (do_ramp ? 1 : 0);
+      __syncwarp();
+      if (slot) {  // the deterministic reset (asterix.py:60-77) clears every slot
+        s[kExists + k] = done ? 0 : exists;
+        s[kX + k] = done ? 0 : x;
+        s[kLR + k] = done ? 0 : e_lr;
+        s[kGold + k] = done ? 0 : e_gold;
+      }
+      if (k == 0) {
+        act_out[tb] = action;
+        rew_out[tb] = (float)reward;
+        done_out[tb] = done ? 1 : 0;
+        s[kPX] = done ? 5 : px;
+        s[kPY] = done ? 5 : py;
+        s[kSpawnSpeed] = done ? kInitSpawn : spawn_speed - (ramp_spawn ? 1 : 0);
+        s[kSpawnTimer] = done ? kInitSpawn : spawn_timer;
+        s[kMoveSpeed] = done ? kInitMove : move_speed - (ramp_move ? 1 : 0);
+        s[kMoveTimer] = done ? kInitMove : move_timer;
+        s[kRampTimer] = done || do_ramp ? kRampInterval : ramp_timer0 - (can_ramp ? 1 : 0);
+        s[kRampIndex] = done ? 0 : ramp_index0 + (do_ramp ? 1 : 0);
         s[kTerm] = 0;  // a terminal step is done
-        s[kTime] = time;
+        s[kTime] = done ? 0 : time;
       }
     }
     __syncthreads();
   }
 
-  build_planes(m.planes, final_obs + (long)b * kObs, s);
-  if (tid < kStateRows) st_out[tid * B + b] = tid < kUsedRows ? s[tid] : 0;
+  if (p.live) {
+    build_planes(m.planes, final_obs + (long)b * kObs, s);
+    if (tid < kStateRows) st_out[tid * B + b] = tid < kUsedRows ? s[tid] : 0;
+  }
+  finish_launch();
+}
+
+// the kernel's instance for a cluster of C (1, 2, 4, 8 or 16)
+decltype(&asterix_rollout_kernel<1>) kernel_for(int C) {
+  return C == 16 ? asterix_rollout_kernel<16>
+       : C == 8  ? asterix_rollout_kernel<8>
+       : C == 4  ? asterix_rollout_kernel<4>
+       : C == 2  ? asterix_rollout_kernel<2>
+                 : asterix_rollout_kernel<1>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block of 256 threads per env on `stream`; returns the
-// launch's cudaError_t (0 on success). The wrapper checks shapes: H a
-// multiple of 32 in [32, 256], 1 <= A <= 8, the dense weight 16-byte
-// aligned.
+// Launches ceil(B / cluster) clusters of `cluster` CTAs of 256 threads,
+// `smem_bytes` of dynamic shared memory each (the plan of
+// ops/asterix_rollout.py asterix_plan), on `stream`; returns a cudaError_t
+// (0 on success). A plan the card refuses returns its error; nothing
+// retries. The wrapper checks shapes: H a multiple of 32 in [32, 256],
+// 1 <= A <= 8, the dense weight 16-byte aligned.
 int asterix_rollout_f32(const float* conv_w, const float* conv_b,
                         const float* ln1_scale, const float* ln1_bias,
                         const float* dense_w, const float* dense_b,
@@ -231,15 +258,24 @@ int asterix_rollout_f32(const float* conv_w, const float* conv_b,
                         float* rew_out, int* done_out, float* q_out,
                         float* final_obs, int* st_out, int T, int B, int H,
                         int A, unsigned long long seed, float eps,
-                        int use_prng, int max_steps, void* stream) {
+                        int use_prng, int max_steps, int cluster,
+                        int smem_bytes, void* stream) {
+  const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16;
+  if (!cluster_ok || H % 32 || H < 32 || H > kThreads || A < 1 || A > kMaxActions ||
+      smem_bytes < 4 * smem_floats(kChannels, H, cluster, kGameInts))
+    return (int)cudaErrorInvalidValue;
   const CnnWeights wts{conv_w, conv_b, ln1_scale, ln1_bias, dense_w,
                        dense_b, ln2_scale, ln2_bias, head_w, head_b};
-  const size_t smem = cnn_smem_floats(kChannels, H) * sizeof(float);
-  asterix_rollout_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      wts, st0, obs_out, act_out, rew_out, done_out, q_out, final_obs, st_out,
-      T, B, H, A, (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
-      eps, use_prng, max_steps);
-  return (int)cudaGetLastError();
+  return launch_clusters(kernel_for(cluster), cluster, (B + cluster - 1) / cluster, kThreads, smem_bytes,
+                         (cudaStream_t)stream, wts, st0, obs_out, act_out, rew_out, done_out, q_out,
+                         final_obs, st_out, T, B, H, A, (uint32_t)(seed & 0xffffffffull),
+                         (uint32_t)(seed >> 32), eps, use_prng, max_steps);
+}
+
+// How many clusters of `cluster` CTAs with `smem_bytes` each the card
+// places at once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int asterix_rollout_active_clusters(int cluster, int smem_bytes) {
+  return active_clusters(kernel_for(cluster), cluster, kThreads, smem_bytes);
 }
 
 const char* asterix_rollout_error_string(int err) {

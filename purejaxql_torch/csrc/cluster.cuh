@@ -105,6 +105,45 @@ __device__ __forceinline__ void cluster_start() {
   cg::this_cluster().sync();
 }
 
+// `kernel` set up for clusters of C CTAs with `smem` bytes of dynamic
+// shared memory each, and `cfg` (whose attribute is `attr`) for `clusters`
+// of them on `stream`; returns a cudaError_t.
+template <typename... Params>
+cudaError_t cluster_config(void (*kernel)(Params...), int C, int clusters, int threads, int smem,
+                           cudaStream_t stream, cudaLaunchAttribute* attr, cudaLaunchConfig_t& cfg) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of C CTAs with `smem` bytes each the card places at
+// once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t.
+template <typename... Params>
+int active_clusters(void (*kernel)(Params...), int C, int threads, int smem) {
+  (void)cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(kernel, C, 1, threads, smem, 0, attr, cfg);
+  int active = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
 // Launch `kernel` as clusters of C CTAs, `clusters` of them, with `smem`
 // bytes of dynamic shared memory each. A cluster the card cannot place
 // (size, shared memory, cudaOccupancyMaxActiveClusters = 0) returns its
@@ -116,24 +155,10 @@ int launch_clusters(void (*kernel)(Params...), int C, int clusters, int threads,
   // its own runtime, so nothing else clears it; a fault on the device is
   // sticky and comes back from the launch)
   (void)cudaGetLastError();
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (C > 8) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * C);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(kernel, C, clusters, threads, smem, stream, attr, cfg);
+  if (err != cudaSuccess) return (int)err;
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;

@@ -60,6 +60,11 @@ constexpr int kCalls = 7;     // Philox calls per step: 28 words, 26 used
 
 // rows of the (32, B) state matrix
 enum { kPos, kMoveTimer, kTime, kX = 3, kTimer = 11, kSpeed = 19, kUsedRows = 27, kStateRows = 32 };
+// the ints the kernel keeps in the plan's block (Smem::game): none, its
+// state and Philox words are static shared arrays (ops/freeway_rollout.py
+// GAME_INTS; in the block they ran 1.4 % slower on an H100,
+// scripts/time_rollouts.py)
+constexpr int kGameInts = 0;
 
 __device__ __forceinline__ int wrap(int x) { return x < 0 ? kSide - 1 : (x > kSide - 1 ? 0 : x); }
 
@@ -121,14 +126,7 @@ __global__ void __launch_bounds__(kThreads) freeway_rollout_kernel(
       // Freeway rules, lane k < 8 taking car lane k
       const int k = tid;
       const bool car = k < kLanes;
-      int greedy = 0;
-      float best = m.q[0];
-      for (int a = 1; a < A; ++a) {
-        if (m.q[a] > best) {
-          best = m.q[a];
-          greedy = a;
-        }
-      }
+      const int greedy = greedy_of(m, A);
       if (k < A) q_out[tb * A + k] = m.q[k];
       float u = 1.0f;
       int rand_act = 0, speed = 3, dir = 1, reset_x = 0;
@@ -202,6 +200,15 @@ __global__ void __launch_bounds__(kThreads) freeway_rollout_kernel(
   finish_launch();
 }
 
+// the kernel's instance for a cluster of C (1, 2, 4, 8 or 16)
+decltype(&freeway_rollout_kernel<1>) kernel_for(int C) {
+  return C == 16 ? freeway_rollout_kernel<16>
+       : C == 8  ? freeway_rollout_kernel<8>
+       : C == 4  ? freeway_rollout_kernel<4>
+       : C == 2  ? freeway_rollout_kernel<2>
+                 : freeway_rollout_kernel<1>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -225,19 +232,20 @@ int freeway_rollout_f32(const float* conv_w, const float* conv_b,
                         int cluster, int smem_bytes, void* stream) {
   const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16;
   if (!cluster_ok || H % 32 || H < 32 || H > kThreads || A < 1 || A > kMaxActions ||
-      smem_bytes < 4 * smem_floats(kChannels, H, cluster))
+      smem_bytes < 4 * smem_floats(kChannels, H, cluster, kGameInts))
     return (int)cudaErrorInvalidValue;
   const CnnWeights wts{conv_w, conv_b, ln1_scale, ln1_bias, dense_w,
                        dense_b, ln2_scale, ln2_bias, head_w, head_b};
-  auto kernel = cluster == 16 ? freeway_rollout_kernel<16>
-              : cluster == 8  ? freeway_rollout_kernel<8>
-              : cluster == 4  ? freeway_rollout_kernel<4>
-              : cluster == 2  ? freeway_rollout_kernel<2>
-                              : freeway_rollout_kernel<1>;
-  return launch_clusters(kernel, cluster, (B + cluster - 1) / cluster, kThreads, smem_bytes,
+  return launch_clusters(kernel_for(cluster), cluster, (B + cluster - 1) / cluster, kThreads, smem_bytes,
                          (cudaStream_t)stream, wts, st0, obs_out, act_out, rew_out, done_out, q_out,
                          final_obs, st_out, T, B, H, A, (uint32_t)(seed & 0xffffffffull),
                          (uint32_t)(seed >> 32), eps, use_prng, max_steps, player_speed);
+}
+
+// How many clusters of `cluster` CTAs with `smem_bytes` each the card
+// places at once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int freeway_rollout_active_clusters(int cluster, int smem_bytes) {
+  return active_clusters(kernel_for(cluster), cluster, kThreads, smem_bytes);
 }
 
 const char* freeway_rollout_error_string(int err) {

@@ -71,17 +71,19 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 __host__ __device__ constexpr int halves_of(int C) { return C > 1 ? 2 : 1; }
 __host__ __device__ constexpr int chunks_of(int H, int C) { return kThreads / (H / 4 * halves_of(C)); }
 
-// Floats of dynamic shared memory a CTA takes at kCh channels, H units and
-// a cluster of C (ops/minatar_rollout.py cluster_smem_bytes / 4), in
-// blocks of multiples of 4 floats: 8 (the four mbarriers), the W slice
-// transposed (F x H), two slots of the envs' conv-output slices (2 x 1024)
-// and of the partial sums received (2 x C x H), the chunks' sums (chunks x
-// C x H), the planes and their active cells (100 kCh each, and 4), the conv
-// taps, the conv bias and LN1 scale and bias (48), the dense bias, LN2
-// scale and bias and the head (11 H + 8), a scan scratch (4) and q (8).
-__host__ __device__ inline int smem_floats(int kCh, int H, int C) {
+// Floats of dynamic shared memory a CTA takes at kCh channels, H units, a
+// cluster of C and `game_ints` ints of the game's own (ops/minatar_rollout.py
+// cluster_smem_bytes / 4), in blocks of multiples of 4 floats: 8 (the four
+// mbarriers), the W slice transposed (F x H), two slots of the envs'
+// conv-output slices (2 x 1024) and of the partial sums received (2 x C x
+// H), the chunks' sums (chunks x C x H), the planes and their active cells
+// (100 kCh each, and 4), the conv taps, the conv bias and LN1 scale and
+// bias (48), the dense bias, LN2 scale and bias and the head (11 H + 8), a
+// scan scratch (4), q (8) and the game's ints (its state, its Philox words
+// and what its planes read; Freeway keeps its own in static shared memory).
+__host__ __device__ inline int smem_floats(int kCh, int H, int C, int game_ints) {
   return 8 + (kFlat / C) * H + 2 * kFlat + 2 * C * H + chunks_of(H, C) * C * H + 2 * round4(kCells * kCh) + 4 +
-         9 * kCh * kFeatures + 48 + 11 * H + 8 + 4 + kMaxActions;
+         9 * kCh * kFeatures + 48 + 11 * H + 8 + 4 + kMaxActions + round4(game_ints);
 }
 
 struct Smem {
@@ -101,6 +103,7 @@ struct Smem {
   float* head_w;             // [8][H]
   float* head_b;             // [8]
   float* q;                  // [8]
+  int* game;                 // [game ints]: the env's state, Philox words and the like
 };
 
 // Where the CTA runs: its cluster of C, its rank, the envs of the cluster
@@ -129,6 +132,7 @@ __device__ __forceinline__ Smem smem_layout(float* base, int H, int C) {
   m.head_w = m.ln2_bias + H;
   m.head_b = m.head_w + 8 * H;
   m.q = m.head_b + 8;
+  m.game = reinterpret_cast<int*>(m.q + kMaxActions);
   return m;
 }
 
@@ -361,6 +365,20 @@ for (int e = 0; e < n; ++e) {
     if (lane == 0) m.q[warp] = q + m.head_b[warp];
   }
   __syncthreads();
+}
+
+// The greedy action of the Q-values in m.q (first index wins ties), on any
+// thread of the env's CTA after cluster_q_values.
+__device__ __forceinline__ int greedy_of(const Smem& m, int A) {
+  int greedy = 0;
+  float best = m.q[0];
+  for (int a = 1; a < A; ++a) {
+    if (m.q[a] > best) {
+      best = m.q[a];
+      greedy = a;
+    }
+  }
+  return greedy;
 }
 
 // After the last step: no CTA leaves while a remote store may still reach

@@ -9,24 +9,36 @@
 // planes (`_pool_mask`, `_seaquest_planes`), the shared `_cnn_forward`, and
 // the TPU's hardware PRNG. None of that layout carries over.
 //
-// Bound on an H100: the CNN forward is most of the work, as in the other
-// MinAtar kernels (about 3.7e5 flops per env step at C = 10, H = 128; the
-// game's rules a few hundred integer operations over the five pools), so the
-// bound is operations; in practice the kernel is bound by latency, T
-// dependent steps of barriers with the 512 KiB dense weight read from L2 at
-// every step (minatar_cnn.cuh).
+// What bounded the old design: one block of 256 threads per env ran the CNN
+// of minatar_cnn.cuh, whose dense layer read the whole 512 KiB dense weight
+// (H 128) from L2 at every step of every env, 64 MiB a step at the
+// trainer's B 128: about 0.55 ms a launch (T 32), 20x the operation bound
+// (the conv's taps at 10 channels and the dense layer's 2 x 1024 x H flops
+// an env step), with the rules over the five pools on one thread.
 //
-// Design (simple and right first): one block of 256 threads per env. Each
-// step the block builds the 10 planes in shared memory, one cell and channel
-// per thread (each pool's entities counted on the cell, then clamped to 1,
-// as `_pool_mask` adds before the clamp), writes them out, threads 0-7 draw
-// the step's 29 Philox words, the block runs the MinAtar CNN of
-// minatar_cnn.cuh, and thread 0 runs the argmax (first index wins ties), the
-// epsilon coin and the Seaquest rules on the pools (4-8 slots each: a
-// barrier between rule phases would cost more than the rules) in the order
-// of seaquest.py:153-353, then the deterministic reset. The game is integer
-// logic but for the cash-in, so kernel and plain twin agree exactly on
-// everything but the Q-values' last bits.
+// Design: the CNN of minatar_cluster.cuh, as the Freeway kernel runs it. A
+// thread-block cluster of C CTAs takes C envs, one env a CTA; each CTA holds
+// 1 / C of the dense weight in shared memory for the whole launch, and the
+// CTAs trade the conv outputs' slices and the dense layer's partial sums
+// through distributed shared memory. The plan (ops/seaquest_rollout.py
+// `seaquest_plan`) takes C 16, which keeps a CTA under the 113 KB at which
+// two CTAs share an SM: on an H100 at (T 32, B 128, H 128) C 4, 8 and 16
+// ran 0.518, 0.457 (a CTA of 118,768 bytes, one an SM: 15 clusters of 8 at
+// once for the 16) and 0.283 ms (scripts/time_rollouts.py), the one block
+// an env 0.555 in the same call. Each step a CTA with an env builds the 10
+// planes in shared memory and writes them out, a thread a cell (each pool's
+// entities counted on the cell, then clamped to 1, as `_pool_mask` adds
+// before the clamp: a cell is on where any slot's cell code is it),
+// threads 0-7 draw the step's 29 Philox words, the cluster runs the CNN, and
+// warp 0 runs the argmax (first index wins ties), the epsilon coin and the
+// Seaquest rules in the order of seaquest.py:153-353, then the
+// deterministic reset. The warp
+// holds a pool slot a lane (below); the per-slot moves run on every lane at
+// once, and the phases where pools meet keep their order: the fire, the
+// bullets' and the lane entities' moves, the enemy shot, the hits, the
+// `_first_free` spawns, the pick-ups and collisions, oxygen and the
+// cash-in. The game is integer logic but for the cash-in, so kernel and
+// plain twin agree exactly on everything but the Q-values' last bits.
 //
 // Randomness: Philox4x32-10 (philox.cuh), counter (step, env, k, 0) for
 // k = 0 .. 7: word 0 the coin, 1 the random action, 2-5 the friendly-bullet
@@ -48,13 +60,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "minatar_cnn.cuh"
+#include "minatar_cluster.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using namespace minatar;
+using namespace minatar_cluster;
 
+constexpr unsigned kAll = 0xffffffffu;
 constexpr int kChannels = 10;
 constexpr int kObs = kCells * kChannels;
 constexpr int kCalls = 8;  // Philox calls per step: 32 words, 29 used
@@ -80,14 +94,21 @@ enum {
   kStateRows = 128
 };
 constexpr int kNFish = 8, kNPool = 4;
+enum { kE, kX, kY, kDir, kTimer, kShot };  // a pool's fields: field f of slot k is row base + f * n + k
 
-// A pool of n slots: field f of slot k is row base + f * n + k.
-struct Pool {
-  int* s;
-  int base, n;
-  __device__ int& at(int field, int k) const { return s[base + field * n + k]; }
-};
-enum { kE, kX, kY, kDir, kTimer, kShot };
+// The rules' warp holds a pool slot a lane: lanes 0-7 the fish, 8-11 the
+// enemy subs, 12-15 the friendly bullets, 16-19 the enemy bullets, 20-23 the
+// divers; 24-31 hold none. Each pool's lanes are aligned to its size, so a
+// reduction over a pool stays in its lanes.
+enum { kLFish = 0, kLSubs = 8, kLFb = 12, kLEb = 16, kLDiver = 20, kSlotLanes = 24 };
+// The planes read each slot's cell (row * 10 + col, -1 where the slot is
+// empty), a lane's each, then the friendly bullets' trail cells.
+constexpr int kCodes = kSlotLanes + kNPool;
+// the ints the kernel keeps in the env's CTA (Smem::game): the state rows,
+// the step's Philox words and the cells (ops/seaquest_rollout.py GAME_INTS)
+constexpr int kWordsAt = kStateRows, kCodesAt = kWordsAt + 4 * kCalls;
+constexpr int kGameInts = 188;
+static_assert(kGameInts == kCodesAt + kCodes, "the state rows, the Philox words and the cells");
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
@@ -97,254 +118,119 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// Live entities of a pool on cell (r, c), at (x + dx, y) with x clamped
-// after the shift (the trail channel) when `trail`.
-__device__ __forceinline__ int count_on(const int* s, int base, int n, int r, int c, bool trail) {
-  int count = 0;
-  for (int k = 0; k < n; ++k) {
-    if (!s[base + k]) continue;
-    int x = s[base + n + k];
-    if (trail) x = clampi(x - s[base + 3 * n + k], 0, kSide - 1);
-    count += (s[base + 2 * n + k] == r && x == c) ? 1 : 0;
-  }
-  return count;
+// the plane of cell code l: fish, subs, friendly bullets, enemy bullets,
+// divers, then the friendly bullets' trails
+__host__ __device__ constexpr int channel_of(int l) {
+  return l < kLSubs ? 6 : l < kLFb ? 4 : l < kLEb ? 2 : l < kLDiver ? 5 : l < kSlotLanes ? 7 : 3;
 }
 
 // The observation of a state as (row, col, channel) planes, into shared
-// memory and out to `out` (seaquest.py get_obs).
+// memory and out to `out` (seaquest.py get_obs): a thread a cell.
 __device__ void build_planes(float* planes, float* __restrict__ out, const int* s) {
-  for (int k = threadIdx.x; k < kObs; k += blockDim.x) {
-    const int cell = k / kChannels, ch = k - cell * kChannels;
-    const int r = cell / kSide, c = cell - r * kSide;
-    int on = 0;
-    switch (ch) {
-      case 0:  // the sub's front cell
-        on = r == s[kSY] && c == s[kSX];
-        break;
-      case 1:  // its back cell, behind it, clamped to the board
-        on = r == s[kSY] && c == clampi(s[kSX] + (s[kSOr] == 1 ? -1 : 1), 0, kSide - 1);
-        break;
-      case 2: on = count_on(s, kFBullet, kNPool, r, c, false); break;
-      case 3: on = count_on(s, kFBullet, kNPool, r, c, true); break;
-      case 4: on = count_on(s, kSubs, kNPool, r, c, false); break;
-      case 5: on = count_on(s, kEBullet, kNPool, r, c, false); break;
-      case 6: on = count_on(s, kFish, kNFish, r, c, false); break;
-      case 7: on = count_on(s, kDiver, kNPool, r, c, false); break;
-      case 8:  // the oxygen gauge on row 9
-        on = r == kSide - 1 && c < clampi(floor_div(s[kOxygen] * 10, kMaxOxygen), 0, 9);
-        break;
-      default:  // the divers on board, row 9
-        on = r == kSide - 1 && c < s[kDivers];
-    }
-    const float v = on > 0 ? 1.0f : 0.0f;
-    planes[k] = v;
-    out[k] = v;
+  const int cell = threadIdx.x;
+  if (cell >= kCells) return;
+  const int r = cell / kSide, c = cell - r * kSide;
+  bool on[kChannels];
+  on[0] = r == s[kSY] && c == s[kSX];  // the sub's front cell
+  // its back cell, behind it, clamped to the board
+  on[1] = r == s[kSY] && c == clampi(s[kSX] + (s[kSOr] == 1 ? -1 : 1), 0, kSide - 1);
+#pragma unroll
+  for (int ch = 2; ch < 8; ++ch) on[ch] = false;
+  const int4* code = reinterpret_cast<const int4*>(s + kCodesAt);
+#pragma unroll
+  for (int q = 0; q < kCodes / 4; ++q) {
+    const int4 v = code[q];
+    on[channel_of(4 * q)] |= v.x == cell;
+    on[channel_of(4 * q + 1)] |= v.y == cell;
+    on[channel_of(4 * q + 2)] |= v.z == cell;
+    on[channel_of(4 * q + 3)] |= v.w == cell;
+  }
+  // the oxygen gauge and the divers on board, row 9
+  on[8] = r == kSide - 1 && c < clampi(floor_div(s[kOxygen] * 10, kMaxOxygen), 0, 9);
+  on[9] = r == kSide - 1 && c < s[kDivers];
+  float2* p2 = reinterpret_cast<float2*>(planes + cell * kChannels);
+  float2* o2 = reinterpret_cast<float2*>(out + cell * kChannels);
+#pragma unroll
+  for (int i = 0; i < kChannels / 2; ++i) {
+    const float2 v = make_float2(on[2 * i] ? 1.0f : 0.0f, on[2 * i + 1] ? 1.0f : 0.0f);
+    p2[i] = v;
+    o2[i] = v;
   }
 }
 
-// `_first_free`: the free slot with the highest of (free ? score : -1), the
-// first on ties, or -1 where that maximum is an occupied slot's; `any_free`
-// says whether any slot is free.
-__device__ __forceinline__ int first_free(const Pool& p, const float* score, bool& any_free) {
-  float best = -2.0f;
-  for (int k = 0; k < p.n; ++k) best = fmaxf(best, p.at(kE, k) ? -1.0f : score[k]);
-  any_free = false;
-  int slot = -1;
-  for (int k = 0; k < p.n; ++k) {
-    if (p.at(kE, k)) continue;
-    any_free = true;
-    if (slot < 0 && score[k] == best) slot = k;
-  }
-  return slot;
+// A lane's pool slot: the pool's first state row (-1 for none), its slot
+// count, the slot, and the Philox word of the slot's score.
+struct Slot {
+  int base, n, k, word;
+};
+
+__device__ __forceinline__ Slot slot_of(int lane) {
+  if (lane < kLSubs) return {kFish, kNFish, lane - kLFish, 10 + lane - kLFish};
+  if (lane < kLFb) return {kSubs, kNPool, lane - kLSubs, 18 + lane - kLSubs};
+  if (lane < kLEb) return {kFBullet, kNPool, lane - kLFb, 2 + lane - kLFb};
+  if (lane < kLDiver) return {kEBullet, kNPool, lane - kLEb, 6 + lane - kLEb};
+  if (lane < kSlotLanes) return {kDiver, kNPool, lane - kLDiver, 22 + lane - kLDiver};
+  return {-1, kNFish, 0, 0};
 }
 
-// Lane entities step on their cadence and leave off the board
-// (seaquest.py:88-96); every slot's timer runs, live or not.
-__device__ __forceinline__ void move_lane(const Pool& p, int interval) {
-  for (int k = 0; k < p.n; ++k) {
-    const bool do_move = p.at(kTimer, k) <= 0;
-    const int nx = p.at(kX, k) + ((do_move && p.at(kE, k)) ? p.at(kDir, k) : 0);
-    if (do_move && (nx < 0 || nx > kSide - 1)) p.at(kE, k) = 0;
-    p.at(kX, k) = clampi(nx, 0, kSide - 1);
-    p.at(kTimer, k) = do_move ? interval : p.at(kTimer, k) - 1;
-  }
+// A slot's fields (timer: fish, subs and divers; shot: subs).
+struct Entity {
+  int e, x, y, dir, timer, shot;
+};
+
+__device__ __forceinline__ bool timed(int lane) { return lane < kLFb || (lane >= kLDiver && lane < kSlotLanes); }
+__device__ __forceinline__ bool is_sub_lane(int lane) { return lane >= kLSubs && lane < kLFb; }
+
+__device__ __forceinline__ Entity load_entity(const int* s, const Slot& sl, int lane) {
+  Entity en{0, 0, 0, 0, 0, 0};
+  if (sl.base < 0) return en;
+  const int* f = s + sl.base + sl.k;
+  en.e = f[kE * sl.n];
+  en.x = f[kX * sl.n];
+  en.y = f[kY * sl.n];
+  en.dir = f[kDir * sl.n];
+  if (timed(lane)) en.timer = f[kTimer * sl.n];
+  if (is_sub_lane(lane)) en.shot = f[kShot * sl.n];
+  return en;
 }
 
-__device__ __forceinline__ void place(const Pool& p, int k, int x, int y, int dir) {
-  p.at(kE, k) = 1;
-  p.at(kX, k) = x;
-  p.at(kY, k) = y;
-  p.at(kDir, k) = dir;
+// The slot's fields into the state, and its cells into the planes' codes.
+__device__ __forceinline__ void store_entity(int* s, const Slot& sl, int lane, const Entity& en) {
+  if (sl.base < 0) return;
+  int* f = s + sl.base + sl.k;
+  f[kE * sl.n] = en.e;
+  f[kX * sl.n] = en.x;
+  f[kY * sl.n] = en.y;
+  f[kDir * sl.n] = en.dir;
+  if (timed(lane)) f[kTimer * sl.n] = en.timer;
+  if (is_sub_lane(lane)) f[kShot * sl.n] = en.shot;
+  int* code = s + kCodesAt;
+  code[lane] = en.e ? en.y * kSide + en.x : -1;
+  if (lane >= kLFb && lane < kLEb) code[kSlotLanes + sl.k] = en.e ? en.y * kSide + clampi(en.x - en.dir, 0, kSide - 1) : -1;
 }
 
-__device__ __forceinline__ bool any_at(const Pool& p, int x, int y) {
-  for (int k = 0; k < p.n; ++k) {
-    if (p.at(kE, k) && p.at(kX, k) == x && p.at(kY, k) == y) return true;
+// `_first_free` in every pool at once: bit l of the result is set where
+// lane l holds a free slot whose score is the highest of (free ? score : -1)
+// over its pool (none where that maximum is an occupied slot's); the spawn
+// takes the first of them (`takes`). `free_bits` gets the free slots.
+__device__ __forceinline__ unsigned free_picks(bool free, float score, int n, unsigned& free_bits) {
+  float best = free ? score : -1.0f;
+#pragma unroll
+  for (int o = 1; o < kNFish; o <<= 1) {
+    const float other = __shfl_xor_sync(kAll, best, o);
+    if (o < n) best = fmaxf(best, other);
   }
-  return false;
+  free_bits = __ballot_sync(kAll, free);
+  return __ballot_sync(kAll, free && score == best);
 }
 
-// The deterministic reset (seaquest.py:114-150).
-__device__ void reset_state(int* s) {
-  for (int k = 0; k < kStateRows; ++k) s[k] = 0;
-  s[kSX] = 5;
-  s[kSOr] = 1;
-  s[kOxygen] = kMaxOxygen;
-  s[kSpawnTimer] = kSpawnSpeed;
-  s[kDiverTimer] = kDiverSpawnSpeed;
-  s[kMoveInt] = kMoveInterval;
-  s[kSurfaced] = 1;
-  for (int k = 0; k < kNFish; ++k) s[kFish + kDir * kNFish + k] = 1;
-  for (int k = 0; k < kNPool; ++k) {
-    s[kSubs + kDir * kNPool + k] = 1;
-    s[kSubs + kShot * kNPool + k] = kEnemyShotInterval;
-    s[kFBullet + kDir * kNPool + k] = 1;
-    s[kEBullet + kDir * kNPool + k] = 1;
-    s[kDiver + kDir * kNPool + k] = 1;
-  }
+// whether lane's slot is the first of its pool's picks (`pool` the pool's lanes)
+__device__ __forceinline__ bool takes(unsigned picks, unsigned pool, int lane) {
+  const unsigned mine = picks & pool;
+  return mine != 0 && __ffs(mine) - 1 == lane;
 }
 
-// One step of the rules on the state `s` (seaquest.py:153-353) for `action`
-// with the step's draws; returns the reward and sets `done`, then resets a
-// finished env.
-__device__ float step(int* s, int action, const float* sc_fb, const float* sc_eb,
-                      const float* sc_fish, const float* sc_sub, const float* sc_diver,
-                      int lane, int lr, int is_sub, int max_steps, bool& done) {
-  const Pool fish{s, kFish, kNFish}, subs{s, kSubs, kNPool};
-  const Pool fb{s, kFBullet, kNPool}, eb{s, kEBullet, kNPool}, dv{s, kDiver, kNPool};
-
-  // player (actions: noop, left, up, right, down, fire)
-  const int sub_x = clampi(s[kSX] + (action == 3) - (action == 1), 0, 9);
-  const int sub_y = clampi(s[kSY] + (action == 4) - (action == 2), 0, 8);
-  const int sub_or = action == 1 ? 0 : action == 3 ? 1 : s[kSOr];
-
-  // fire: one friendly bullet from the sub's nose
-  bool free_fb;
-  const int fb_slot = first_free(fb, sc_fb, free_fb);
-  const bool do_fire = action == 5 && s[kShotTimer] == 0 && free_fb;
-  if (do_fire && fb_slot >= 0) place(fb, fb_slot, sub_x, sub_y, sub_or == 1 ? 1 : -1);
-  const int shot_timer = do_fire ? kShotCoolDown : max(s[kShotTimer] - 1, 0);
-
-  // bullets move every step; off the board, gone
-  const Pool bullets[2] = {fb, eb};
-  for (const Pool& p : bullets) {
-    for (int k = 0; k < kNPool; ++k) {
-      if (!p.at(kE, k)) continue;
-      const int nx = p.at(kX, k) + p.at(kDir, k);
-      if (nx < 0 || nx > kSide - 1) p.at(kE, k) = 0;
-      p.at(kX, k) = clampi(nx, 0, kSide - 1);
-    }
-  }
-
-  // lane entities on their cadence, the divers at half the pace
-  const int mvi = s[kMoveInt];
-  move_lane(fish, mvi);
-  move_lane(subs, mvi);
-  move_lane(dv, 2 * mvi);
-
-  // the first sub whose shot timer ran out fires into a free bullet slot;
-  // only the timers of subs that exist run down
-  int shooter = -1;
-  for (int k = 0; k < kNPool; ++k) {
-    subs.at(kShot, k) -= subs.at(kE, k) ? 1 : 0;
-    if (shooter < 0 && subs.at(kE, k) && subs.at(kShot, k) <= 0) shooter = k;
-  }
-  bool free_eb;
-  const int eb_slot = first_free(eb, sc_eb, free_eb);
-  if (shooter >= 0 && free_eb) {
-    if (eb_slot >= 0) {
-      place(eb, eb_slot, subs.at(kX, shooter), subs.at(kY, shooter), subs.at(kDir, shooter));
-    }
-    subs.at(kShot, shooter) = kEnemyShotInterval;
-  }
-
-  // friendly bullets hit fish and subs (every bullet on a cell hits every
-  // enemy on it)
-  int kills = 0;
-  bool bullet_hit[kNPool] = {false, false, false, false};
-  const Pool enemies[2] = {fish, subs};
-  for (const Pool& p : enemies) {
-    for (int j = 0; j < p.n; ++j) {
-      if (!p.at(kE, j)) continue;
-      bool hit = false;
-      for (int i = 0; i < kNPool; ++i) {
-        if (fb.at(kE, i) && fb.at(kX, i) == p.at(kX, j) && fb.at(kY, i) == p.at(kY, j)) {
-          hit = true;
-          bullet_hit[i] = true;
-        }
-      }
-      if (hit) {
-        p.at(kE, j) = 0;
-        ++kills;
-      }
-    }
-  }
-  for (int i = 0; i < kNPool; ++i) {
-    if (bullet_hit[i]) fb.at(kE, i) = 0;
-  }
-
-  // spawns: an enemy on the spawn cadence, a diver on its own
-  const int edge_x = lr ? 0 : kSide - 1, edge_dir = lr ? 1 : -1;
-  int spawn_timer = s[kSpawnTimer] - 1;
-  const bool do_spawn = spawn_timer <= 0;
-  bool free_f, free_s;
-  const int f_slot = first_free(fish, sc_fish, free_f);
-  const int s_slot = first_free(subs, sc_sub, free_s);
-  if (do_spawn && !is_sub && free_f && f_slot >= 0) place(fish, f_slot, edge_x, lane, edge_dir);
-  if (do_spawn && is_sub && free_s && s_slot >= 0) place(subs, s_slot, edge_x, lane, edge_dir);
-  if (do_spawn) spawn_timer = kSpawnSpeed;
-  int diver_timer = s[kDiverTimer] - 1;
-  const bool do_dspawn = diver_timer <= 0;
-  bool free_d;
-  const int d_slot = first_free(dv, sc_diver, free_d);
-  if (do_dspawn && free_d && d_slot >= 0) place(dv, d_slot, edge_x, lane, edge_dir);
-  if (do_dspawn) diver_timer = kDiverSpawnSpeed;
-
-  // the sub picks up divers and meets enemies and their bullets
-  int divers = s[kDivers];
-  for (int k = 0; k < kNPool; ++k) {
-    if (dv.at(kE, k) && dv.at(kX, k) == sub_x && dv.at(kY, k) == sub_y) {
-      ++divers;
-      dv.at(kE, k) = 0;
-    }
-  }
-  divers = min(divers, 6);
-  const bool hit_enemy = any_at(fish, sub_x, sub_y) || any_at(subs, sub_x, sub_y) || any_at(eb, sub_x, sub_y);
-
-  // oxygen and surfacing: with no diver fatal, with six a cash-in
-  const bool underwater = sub_y > 0;
-  int oxygen = underwater ? s[kOxygen] - 1 : s[kOxygen];
-  const bool now_surfacing = !underwater && !s[kSurfaced];
-  const bool fatal = now_surfacing && divers == 0;
-  const bool cash_in = now_surfacing && divers == 6;
-  float reward = (float)kills;
-  if (cash_in) reward = reward + __fmul_rn((float)oxygen, 0.1f);
-  if (now_surfacing && !fatal) {
-    divers = cash_in ? 0 : divers - 1;
-    oxygen = kMaxOxygen;
-  }
-
-  const bool terminal = s[kTerm] || hit_enemy || fatal || oxygen < 0;
-  const int time = s[kTime] + 1;
-  done = terminal || time >= max_steps;
-  if (done) {
-    reset_state(s);
-  } else {
-    s[kSX] = sub_x;
-    s[kSY] = sub_y;
-    s[kSOr] = sub_or;
-    s[kOxygen] = oxygen;
-    s[kDivers] = divers;
-    s[kShotTimer] = shot_timer;
-    s[kSpawnTimer] = spawn_timer;
-    s[kDiverTimer] = diver_timer;
-    s[kSurfaced] = underwater ? 0 : 1;
-    s[kTerm] = 0;  // a terminal step is done
-    s[kTime] = time;
-  }
-  return reward;
-}
-
+template <int KC>
 __global__ void __launch_bounds__(kThreads) seaquest_rollout_kernel(
     CnnWeights wts, const int* __restrict__ st0, float* __restrict__ obs_out,
     int* __restrict__ act_out, float* __restrict__ rew_out,
@@ -352,66 +238,193 @@ __global__ void __launch_bounds__(kThreads) seaquest_rollout_kernel(
     float* __restrict__ final_obs, int* __restrict__ st_out, int T, int B,
     int H, int A, uint32_t key0, uint32_t key1, float eps, int use_prng,
     int max_steps) {
-  extern __shared__ __align__(16) float smem[];
-  const CnnSmem m = cnn_smem<kChannels>(smem, H);
-  __shared__ int s[kStateRows];
-  __shared__ uint32_t words[4 * kCalls];
+  extern __shared__ float4 smem4[];
+  const Place p = place_of(B, H, A, T);
+  const Smem m = smem_layout<kChannels>(reinterpret_cast<float*>(smem4), H, p.C);
+  int* s = m.game;
+  uint32_t* words = reinterpret_cast<uint32_t*>(m.game + kWordsAt);
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  load_conv<kChannels>(m, wts);
-  if (tid < kStateRows) s[tid] = st0[tid * B + b];
+  const int b = p.b, tid = threadIdx.x;
+  if (p.live && tid < kStateRows) s[tid] = st0[tid * B + b];
+  load_and_arm<kChannels>(m, wts, p);
+  unsigned parity = 0;  // bit i: the phase of mbarrier i to wait for
+  if (p.live && tid < 32) store_entity(s, slot_of(tid), tid, load_entity(s, slot_of(tid), tid));  // the cells
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const long tb = (long)t * B + b;
-    build_planes(m.planes, obs_out + tb * kObs, s);
-    if (use_prng) step_words<kCalls>(words, t, b, key0, key1);
-    __syncthreads();
-    q_values<kChannels>(m, wts, H, A);
+    if (p.live) {
+      build_planes(m.planes, obs_out + tb * kObs, s);
+      if (use_prng) step_words<kCalls>(words, t, b, key0, key1);
+      __syncthreads();
+    }
+    cluster_q_values<kChannels, KC>(m, wts, p, t, parity);
+    if (!p.live) continue;
 
-    if (tid == 0) {
-      const int greedy = greedy_action(m.q, q_out + tb * A, A);
-      // the slot scores of the five pools, in the word order: friendly
-      // bullets, enemy bullets, fish, subs, divers
-      float score[24];
-      float u = 1.0f;
-      int rand_act = 0, lane = 4, lr = 0, is_sub = 0;
+    if (tid < 32) {
+      // warp 0: the argmax, the epsilon coin and the rules, a slot a lane
+      const int lane = tid;
+      const Slot sl = slot_of(lane);
+      const bool has = sl.base >= 0;
+      const bool fish = lane < kLSubs, sub = is_sub_lane(lane), fb = lane >= kLFb && lane < kLEb;
+      const bool eb = lane >= kLEb && lane < kLDiver, diver = lane >= kLDiver && lane < kSlotLanes;
+      const unsigned pool = fish ? 0xffu << kLFish : (sub || fb || eb || diver) ? 0xfu << (lane & ~3) : 0u;
+      const int greedy = greedy_of(m, A);
+      if (lane < A) q_out[tb * A + lane] = m.q[lane];
+      float u = 1.0f, score = -(float)sl.k;
+      int rand_act = 0, row = 4, lr = 0, is_sub = 0;
       if (use_prng) {
         u = unit24(words[0]);
         rand_act = (int)((words[1] >> 8) % (uint32_t)A);
-        for (int k = 0; k < 24; ++k) score[k] = unit24(words[2 + k]);
-        lane = (int)((words[26] >> 8) % 8u) + 1;
+        if (has) score = unit24(words[sl.word]);
+        row = (int)((words[26] >> 8) % 8u) + 1;
         lr = (int)((words[27] >> 8) & 1u);
         is_sub = unit24(words[28]) < (1.0f / 3.0f) ? 1 : 0;
-      } else {
-        const int n[5] = {kNPool, kNPool, kNFish, kNPool, kNPool};
-        for (int p = 0, k = 0; p < 5; ++p) {
-          for (int i = 0; i < n[p]; ++i) score[k++] = -(float)i;
-        }
       }
       const int action = u < eps ? rand_act : greedy;
-      bool done;
-      const float reward = step(s, action, score, score + 4, score + 8, score + 16, score + 20,
-                                lane, lr, is_sub, max_steps, done);
-      act_out[tb] = action;
-      rew_out[tb] = reward;
-      done_out[tb] = done ? 1 : 0;
+      Entity en = load_entity(s, sl, lane);
+      const int shot_timer0 = s[kShotTimer], mvi = s[kMoveInt], divers0 = s[kDivers];
+      const int oxygen0 = s[kOxygen], surfaced = s[kSurfaced], term = s[kTerm];
+      const int spawn_timer1 = s[kSpawnTimer] - 1, diver_timer1 = s[kDiverTimer] - 1, time = s[kTime] + 1;
+
+      // player (actions: noop, left, up, right, down, fire)
+      const int sub_x = clampi(s[kSX] + (action == 3) - (action == 1), 0, 9);
+      const int sub_y = clampi(s[kSY] + (action == 4) - (action == 2), 0, 8);
+      const int sub_or = action == 1 ? 0 : action == 3 ? 1 : s[kSOr];
+
+      // fire: one friendly bullet from the sub's nose
+      unsigned free_bits;
+      unsigned picks = free_picks(has && !en.e, score, sl.n, free_bits);
+      const bool do_fire = action == 5 && shot_timer0 == 0 && (free_bits & (0xfu << kLFb));
+      if (do_fire && fb && takes(picks, pool, lane)) en = {1, sub_x, sub_y, sub_or == 1 ? 1 : -1, 0, 0};
+      const int shot_timer = do_fire ? kShotCoolDown : max(shot_timer0 - 1, 0);
+
+      // bullets move every step; off the board, gone
+      if ((fb || eb) && en.e) {
+        const int nx = en.x + en.dir;
+        if (nx < 0 || nx > kSide - 1) en.e = 0;
+        en.x = clampi(nx, 0, kSide - 1);
+      }
+
+      // lane entities step on their cadence and leave off the board
+      // (seaquest.py:88-96), the divers at half the pace; every slot's timer
+      // runs, live or not
+      if (timed(lane)) {
+        const bool do_move = en.timer <= 0;
+        const int nx = en.x + ((do_move && en.e) ? en.dir : 0);
+        if (do_move && (nx < 0 || nx > kSide - 1)) en.e = 0;
+        en.x = clampi(nx, 0, kSide - 1);
+        en.timer = do_move ? (diver ? 2 * mvi : mvi) : en.timer - 1;
+      }
+
+      // the first sub whose shot timer ran out fires into a free bullet slot;
+      // only the timers of subs that exist run down
+      if (sub) en.shot -= en.e ? 1 : 0;
+      const unsigned wants = __ballot_sync(kAll, sub && en.e && en.shot <= 0);
+      const int shooter = wants ? __ffs(wants) - 1 : 0;
+      const int sh_x = __shfl_sync(kAll, en.x, shooter), sh_y = __shfl_sync(kAll, en.y, shooter);
+      const int sh_dir = __shfl_sync(kAll, en.dir, shooter);
+      picks = free_picks(has && !en.e, score, sl.n, free_bits);
+      const bool enemy_shot = wants != 0 && (free_bits & (0xfu << kLEb)) != 0;
+      if (enemy_shot && eb && takes(picks, pool, lane)) en = {1, sh_x, sh_y, sh_dir, 0, 0};
+      if (enemy_shot && lane == shooter) en.shot = kEnemyShotInterval;
+
+      // friendly bullets hit fish and subs (every bullet on a cell hits every
+      // enemy on it): bit i of `hit`, bullet i on this enemy's cell
+      const int cell = en.e ? en.y * kSide + en.x : -1;
+      unsigned hit = 0;
+#pragma unroll
+      for (int i = 0; i < kNPool; ++i) {
+        const int bullet = __shfl_sync(kAll, cell, kLFb + i);
+        if ((fish || sub) && en.e && bullet == cell) hit |= 1u << i;
+      }
+      const unsigned bullets_hit = __reduce_or_sync(kAll, hit);
+      const int kills = __popc(__ballot_sync(kAll, hit != 0));
+      if (hit || (fb && ((bullets_hit >> sl.k) & 1u))) en.e = 0;
+
+      // spawns: an enemy on the spawn cadence, a diver on its own
+      const bool do_spawn = spawn_timer1 <= 0, do_dspawn = diver_timer1 <= 0;
+      picks = free_picks(has && !en.e, score, sl.n, free_bits);
+      const bool spawns = (fish && do_spawn && !is_sub) || (sub && do_spawn && is_sub) || (diver && do_dspawn);
+      if (spawns && takes(picks, pool, lane)) {
+        en.e = 1;
+        en.x = lr ? 0 : kSide - 1;
+        en.y = row;
+        en.dir = lr ? 1 : -1;
+      }
+
+      // the sub picks up divers and meets enemies and their bullets
+      const bool pick = diver && en.e && en.x == sub_x && en.y == sub_y;
+      int divers = min(divers0 + __popc(__ballot_sync(kAll, pick)), 6);
+      if (pick) en.e = 0;
+      const bool hit_enemy = __any_sync(kAll, (fish || sub || eb) && en.e && en.x == sub_x && en.y == sub_y);
+
+      // oxygen and surfacing: with no diver fatal, with six a cash-in
+      const bool underwater = sub_y > 0;
+      int oxygen = underwater ? oxygen0 - 1 : oxygen0;
+      const bool now_surfacing = !underwater && !surfaced;
+      const bool fatal = now_surfacing && divers == 0;
+      const bool cash_in = now_surfacing && divers == 6;
+      float reward = (float)kills;
+      if (cash_in) reward = reward + __fmul_rn((float)oxygen, 0.1f);
+      if (now_surfacing && !fatal) {
+        divers = cash_in ? 0 : divers - 1;
+        oxygen = kMaxOxygen;
+      }
+      const bool terminal = term || hit_enemy || fatal || oxygen < 0;
+      const bool done = terminal || time >= max_steps;
+
+      __syncwarp();
+      // the deterministic reset (seaquest.py:114-150)
+      if (done) en = {0, 0, 0, 1, 0, kEnemyShotInterval};
+      store_entity(s, sl, lane, en);
+      if (lane == 0) {
+        act_out[tb] = action;
+        rew_out[tb] = reward;
+        done_out[tb] = done ? 1 : 0;
+        s[kSX] = done ? 5 : sub_x;
+        s[kSY] = done ? 0 : sub_y;
+        s[kSOr] = done ? 1 : sub_or;
+        s[kOxygen] = done ? kMaxOxygen : oxygen;
+        s[kDivers] = done ? 0 : divers;
+        s[kShotTimer] = done ? 0 : shot_timer;
+        s[kSpawnTimer] = done ? kSpawnSpeed : do_spawn ? kSpawnSpeed : spawn_timer1;
+        s[kDiverTimer] = done ? kDiverSpawnSpeed : do_dspawn ? kDiverSpawnSpeed : diver_timer1;
+        s[kMoveInt] = done ? kMoveInterval : mvi;
+        s[kSurfaced] = done || !underwater ? 1 : 0;
+        s[kTerm] = 0;  // a terminal step is done
+        s[kTime] = done ? 0 : time;
+      }
     }
     __syncthreads();
   }
 
-  build_planes(m.planes, final_obs + (long)b * kObs, s);
-  if (tid < kStateRows) st_out[tid * B + b] = s[tid];
+  if (p.live) {
+    build_planes(m.planes, final_obs + (long)b * kObs, s);
+    if (tid < kStateRows) st_out[tid * B + b] = s[tid];
+  }
+  finish_launch();
+}
+
+// the kernel's instance for a cluster of C (1, 2, 4, 8 or 16)
+decltype(&seaquest_rollout_kernel<1>) kernel_for(int C) {
+  return C == 16 ? seaquest_rollout_kernel<16>
+       : C == 8  ? seaquest_rollout_kernel<8>
+       : C == 4  ? seaquest_rollout_kernel<4>
+       : C == 2  ? seaquest_rollout_kernel<2>
+                 : seaquest_rollout_kernel<1>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block of 256 threads per env on `stream`; returns the
-// launch's cudaError_t (0 on success). The wrapper checks shapes: H a
-// multiple of 32 in [32, 256], 1 <= A <= 8, the dense weight 16-byte
-// aligned.
+// Launches ceil(B / cluster) clusters of `cluster` CTAs of 256 threads,
+// `smem_bytes` of dynamic shared memory each (the plan of
+// ops/seaquest_rollout.py seaquest_plan), on `stream`; returns a cudaError_t
+// (0 on success). A plan the card refuses returns its error; nothing
+// retries. The wrapper checks shapes: H a multiple of 32 in [32, 256],
+// 1 <= A <= 8, the dense weight 16-byte aligned.
 int seaquest_rollout_f32(const float* conv_w, const float* conv_b,
                          const float* ln1_scale, const float* ln1_bias,
                          const float* dense_w, const float* dense_b,
@@ -421,15 +434,24 @@ int seaquest_rollout_f32(const float* conv_w, const float* conv_b,
                          float* rew_out, int* done_out, float* q_out,
                          float* final_obs, int* st_out, int T, int B, int H,
                          int A, unsigned long long seed, float eps,
-                         int use_prng, int max_steps, void* stream) {
+                         int use_prng, int max_steps, int cluster,
+                         int smem_bytes, void* stream) {
+  const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 || cluster == 16;
+  if (!cluster_ok || H % 32 || H < 32 || H > kThreads || A < 1 || A > kMaxActions ||
+      smem_bytes < 4 * smem_floats(kChannels, H, cluster, kGameInts))
+    return (int)cudaErrorInvalidValue;
   const CnnWeights wts{conv_w, conv_b, ln1_scale, ln1_bias, dense_w,
                        dense_b, ln2_scale, ln2_bias, head_w, head_b};
-  const size_t smem = cnn_smem_floats(kChannels, H) * sizeof(float);
-  seaquest_rollout_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      wts, st0, obs_out, act_out, rew_out, done_out, q_out, final_obs, st_out,
-      T, B, H, A, (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
-      eps, use_prng, max_steps);
-  return (int)cudaGetLastError();
+  return launch_clusters(kernel_for(cluster), cluster, (B + cluster - 1) / cluster, kThreads, smem_bytes,
+                         (cudaStream_t)stream, wts, st0, obs_out, act_out, rew_out, done_out, q_out,
+                         final_obs, st_out, T, B, H, A, (uint32_t)(seed & 0xffffffffull),
+                         (uint32_t)(seed >> 32), eps, use_prng, max_steps);
+}
+
+// How many clusters of `cluster` CTAs with `smem_bytes` each the card
+// places at once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int seaquest_rollout_active_clusters(int cluster, int smem_bytes) {
+  return active_clusters(kernel_for(cluster), cluster, kThreads, smem_bytes);
 }
 
 const char* seaquest_rollout_error_string(int err) {

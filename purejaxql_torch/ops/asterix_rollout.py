@@ -9,7 +9,10 @@ greedy argmax (first index wins ties), the epsilon coin and a uniform random
 action, the Asterix rules (spawn, player move, collide, entity move,
 collide, ramp) and the deterministic reset.
 
-The kernel is ``csrc/asterix_rollout.cu``. ``asterix_rollout_plain`` runs
+The kernel is ``csrc/asterix_rollout.cu``, on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (the plan: ``asterix_plan``, one cluster of C
+CTAs per C envs, each CTA holding 1 / C of the dense weight in shared
+memory for the whole launch). ``asterix_rollout_plain`` runs
 the env's own batched step (envs/minatar/asterix.py) with the kernel's
 Philox words 0-11 (``ops/philox.py``): the coin, the random action, a score
 per slot (the spawn takes the free slot with the highest, the first on
@@ -47,6 +50,10 @@ from purejaxql_torch.ops import minatar_rollout
 from purejaxql_torch.ops.philox import step_words, unit24
 
 ROWS = 48
+CHANNELS = 4
+# the ints the kernel keeps in each env's CTA: the 42 used state rows (44
+# with padding) and 12 Philox words (csrc/asterix_rollout.cu kGameInts)
+GAME_INTS = 56
 _SCALARS = ("player_x", "player_y", "spawn_speed", "spawn_timer", "move_speed", "move_timer",
             "ramp_timer", "ramp_index", "time", "terminal")
 _SLOT_FIELDS = ("e_exists", "e_x", "e_lr", "e_gold")
@@ -107,13 +114,21 @@ def asterix_rollout(
     if st0.device.type != "cuda":
         raise ValueError(f"asterix_rollout: unsupported device {st0.device}")
     out = minatar_rollout.launch(
-        "asterix_rollout", 4, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng, (max_steps,)
+        "asterix_rollout", CHANNELS, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng, (max_steps,),
+        plan=asterix_plan,
     )
     asterix_rollout.launches += 1
     return out
 
 
 asterix_rollout.launches = 0
+
+
+def asterix_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
+    """The kernel's launch plan for B envs of H units
+    (``minatar_rollout.cluster_plan`` at Asterix's 4 channels and its
+    GAME_INTS)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, GAME_INTS, cluster)
 
 
 def state_matrix_from_asterix(state: AsterixState) -> torch.Tensor:

@@ -47,6 +47,10 @@ from purejaxql_torch.ops.philox import step_words, unit24
 
 ROWS = 32
 CHANNELS = 7
+# the ints the kernel keeps in the plan's shared-memory block: none, its
+# state and Philox words are static shared arrays (csrc/freeway_rollout.cu
+# kGameInts)
+GAME_INTS = 0
 _SCALARS = ("pos", "move_timer", "time")
 _LANE_FIELDS = ("car_x", "car_timer", "car_speed")
 _ENV = MinFreeway()
@@ -123,8 +127,9 @@ freeway_rollout.launches = 0
 
 def freeway_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
     """The kernel's launch plan for B envs of H units
-    (``minatar_rollout.cluster_plan`` at Freeway's 7 channels)."""
-    return minatar_rollout.cluster_plan(B, H, CHANNELS, cluster)
+    (``minatar_rollout.cluster_plan`` at Freeway's 7 channels and its
+    GAME_INTS)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, GAME_INTS, cluster)
 
 
 def state_matrix_from_freeway(state: FreewayState) -> torch.Tensor:

@@ -7,16 +7,19 @@ Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_pack_cnn_params`,
 ``ops/freeway_rollout.py``, ``ops/space_invaders_rollout.py``,
 ``ops/seaquest_rollout.py``) adds its state matrices, its random draws and
 its kernel, ``csrc/<game>_rollout.cu``, whose CNN is
-``csrc/minatar_cnn.cuh`` (one block an env), or for Freeway the cluster CNN
-of ``csrc/minatar_cluster.cuh``.
+``csrc/minatar_cnn.cuh`` (one block an env; Breakout and SpaceInvaders), or
+for Asterix, Freeway and Seaquest the cluster CNN of
+``csrc/minatar_cluster.cuh``.
 
 Every game's kernel has one C entry point of the same shape:
 ``<game>_rollout_f32(10 weight pointers, the state inputs, obs, act, rew,
 done, q, final_obs, the state outputs, T, B, H, A, seed, eps, use_prng,
 the game's int parameters, stream)``, returning the launch's cudaError_t.
-A kernel on the cluster CNN (``csrc/minatar_cluster.cuh``; Freeway) takes
-its plan's cluster size and shared bytes before the stream
-(``cluster_plan``, ``ClusterPlan.ints``).
+A kernel on the cluster CNN (``csrc/minatar_cluster.cuh``) takes its
+plan's cluster size and shared bytes before the stream (``cluster_plan``,
+``ClusterPlan.ints``) and also exports
+``<game>_rollout_active_clusters(cluster, smem_bytes)``
+(``active_clusters``).
 """
 
 from __future__ import annotations
@@ -38,11 +41,16 @@ CELLS = 100  # the 10 x 10 board
 
 # shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB)
 SMEM_LIMIT = 232_448
+# the most a CTA may take for two CTAs to share an SM (228 KB, 1 KB of it
+# reserved a CTA): above it the card places 7 clusters of 16 at a time, not
+# 14, and the trainers' 8 clusters run in two waves (PERF.md section 6)
+TWO_CTAS_AN_SM = 113 * 1024
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 THREADS = 256  # a CTA: a thread per conv pixel and feature quad
-# the cluster size the plan takes: on an H100 at (T 32, B 128, H 128)
-# Freeway's kernel ran 0.472, 0.246 and 0.243 ms at C 4, 8 and 16
-# (scripts/time_rollouts.py, PERF.md section 6)
+# the cluster size the plan takes: on an H100 at (T 32, B 128, H 128) at C
+# 4, 8 and 16 Freeway's kernel ran 0.474, 0.248 and 0.244 ms, Asterix's
+# 0.453, 0.241 and 0.244, Seaquest's 0.518, 0.457 and 0.283 (at C 8 its
+# CTA is over TWO_CTAS_AN_SM) (scripts/time_rollouts.py, PERF.md section 6)
 PLAN_CLUSTER = 16
 
 
@@ -69,25 +77,30 @@ def _chunks(H: int, C: int) -> int:
     return THREADS // (H // 4 * min(2, C))
 
 
-def cluster_smem_bytes(channels: int, H: int, C: int) -> int:
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def cluster_smem_bytes(channels: int, H: int, C: int, game_ints: int) -> int:
     """csrc/minatar_cluster.cuh `smem_floats` in bytes: the mbarriers, the W
     slice (F x H), two slots of the envs' conv-output slices (2 x 1024) and
     of the partial sums received (2 x C x H), the chunks' sums (chunks x C
     x H), the planes and their active cells, the conv taps, conv bias and
-    LN1, the dense bias, LN2 and the head (11 H + 8), a scan scratch and the
-    Q-values."""
-    planes = -(-CELLS * channels // 4) * 4
+    LN1, the dense bias, LN2 and the head (11 H + 8), a scan scratch, the
+    Q-values and the game's ``game_ints`` ints (its state, Philox words and
+    what its planes read)."""
     floats = (
-        8 + (FLAT // C) * H + 2 * FLAT + 2 * C * H + _chunks(H, C) * C * H + 2 * planes + 8
-        + 9 * channels * CONV_FEATURES + 48 + 11 * H + 8 + MAX_ACTIONS
+        8 + (FLAT // C) * H + 2 * FLAT + 2 * C * H + _chunks(H, C) * C * H + 2 * _round4(CELLS * channels) + 8
+        + 9 * channels * CONV_FEATURES + 48 + 11 * H + 8 + MAX_ACTIONS + _round4(game_ints)
     )
     return 4 * floats
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_plan(B: int, H: int, channels: int, cluster: Optional[int] = None) -> ClusterPlan:
+def cluster_plan(B: int, H: int, channels: int, game_ints: int, cluster: Optional[int] = None) -> ClusterPlan:
     """The launch plan of a MinAtar rollout on the cluster CNN for B envs of
-    H units (H a multiple of 32 in [32, 256]) at ``channels`` planes.
+    H units (H a multiple of 32 in [32, 256]) at ``channels`` planes, with
+    ``game_ints`` ints of the game's own in the env's CTA.
 
     C is PLAN_CLUSTER; ``cluster`` overrides it (for timing). Every CTA
     holds its 1 / C of the dense weight in shared memory for the whole
@@ -99,7 +112,7 @@ def cluster_plan(B: int, H: int, channels: int, cluster: Optional[int] = None) -
         cluster = PLAN_CLUSTER
     elif cluster not in CLUSTER_SIZES:
         raise ValueError(f"cluster_plan: cluster must be one of {CLUSTER_SIZES}, got {cluster}")
-    smem = cluster_smem_bytes(channels, H, cluster)
+    smem = cluster_smem_bytes(channels, H, cluster, game_ints)
     if smem > SMEM_LIMIT:
         raise ValueError(f"cluster_plan: a cluster of {cluster} at H {H} needs {smem} bytes of shared memory")
     return ClusterPlan(
@@ -224,3 +237,17 @@ def launch(name: str, channels: int, seed: int, eps: float, weights, state_ins, 
         )
     build.check_launch(lib, err, name)
     return (*outs, *state_outs)
+
+
+def active_clusters(name: str, plan: ClusterPlan) -> int:
+    """How many clusters of ``plan`` the card places at once
+    (cudaOccupancyMaxActiveClusters, through ``<name>_active_clusters`` of
+    ``csrc/<name>.cu``). Raises if the query fails."""
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_active_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    active = fn(*plan.ints)
+    if active < 0:
+        build.check_launch(lib, -active, name)
+    return active

@@ -10,7 +10,10 @@ action, the Seaquest rules (player and shot, bullets, lane moves, the enemy
 shot, hits, spawns, collisions, oxygen and surfacing) and the deterministic
 reset.
 
-The kernel is ``csrc/seaquest_rollout.cu``. ``seaquest_rollout_plain`` runs
+The kernel is ``csrc/seaquest_rollout.cu``, on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (the plan: ``seaquest_plan``, one cluster of C
+CTAs per C envs, each CTA holding 1 / C of the dense weight in shared
+memory for the whole launch). ``seaquest_rollout_plain`` runs
 the env's own batched step (envs/minatar/seaquest.py) with the kernel's
 Philox words 0-28 (``ops/philox.py``): the coin, the random action, a score
 per slot of each of the five pools, the lane, the direction and whether an
@@ -57,6 +60,10 @@ from purejaxql_torch.ops.philox import step_words, unit24
 
 ROWS = 128
 WORDS = 29
+CHANNELS = 10
+# the ints the kernel keeps in each env's CTA: the 128 state rows, 32 Philox
+# words and the 28 cells its planes read (csrc/seaquest_rollout.cu kGameInts)
+GAME_INTS = 188
 _SCALARS = ("sub_x", "sub_y", "sub_or", "oxygen", "divers", "shot_timer", "spawn_timer",
             "diver_spawn_timer", "move_interval", "surfaced", "terminal", "time")
 # each pool's slot count and fields, in the order of the state matrix
@@ -135,13 +142,21 @@ def seaquest_rollout(
     if st0.device.type != "cuda":
         raise ValueError(f"seaquest_rollout: unsupported device {st0.device}")
     out = minatar_rollout.launch(
-        "seaquest_rollout", 10, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng, (max_steps,)
+        "seaquest_rollout", CHANNELS, seed, eps, weights, [((ROWS,), st0)], num_steps, use_prng, (max_steps,),
+        plan=seaquest_plan,
     )
     seaquest_rollout.launches += 1
     return out
 
 
 seaquest_rollout.launches = 0
+
+
+def seaquest_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
+    """The kernel's launch plan for B envs of H units
+    (``minatar_rollout.cluster_plan`` at Seaquest's 10 channels and its
+    GAME_INTS)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, GAME_INTS, cluster)
 
 
 def state_matrix_from_seaquest(state: SeaquestState) -> torch.Tensor:

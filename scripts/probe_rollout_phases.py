@@ -1,0 +1,180 @@
+#!/usr/bin/env python3
+"""Clock-probe the phases of a step of the MinAtar rollout kernels on the
+cluster CNN (csrc/asterix_rollout.cu, csrc/freeway_rollout.cu,
+csrc/seaquest_rollout.cu) on one GPU.
+
+    python scripts/probe_rollout_phases.py [--out FILE]
+
+The kernels in the tree carry no probe. This script copies
+purejaxql_torch/csrc/ to build/probe/, inserts clock64() marks at the
+phase boundaries of csrc/minatar_cluster.cuh and of each game's step loop
+(raising if a source no longer has the line a mark goes after), builds each
+patched kernel with the same nvcc flags, and runs it at the trainers' (T 32,
+B 128, H 128) with its plan, its outputs held against the twin. Thread 0 of
+the first CTA (an env's CTA) adds the cycles from one mark to the next into
+shared memory, so each phase's count is what that thread waits for it,
+barriers included. Prints the cycles a step of each phase, the patched and
+the tree's kernel's ms (CUDA events), and a summary object as the last line
+with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+PHASES = (
+    "step start", "planes and words", "active cells", "conv, LN1 and send", "wait for the conv slices",
+    "partial sums", "chunk sums and send", "wait for the partial sums", "LN2 and head", "rules",
+    "barrier after the rules",
+)
+PROBE_DEFS = """
+__device__ unsigned long long g_probe[16];
+static __shared__ long long probe_acc[16];
+static __shared__ long long probe_last;
+#define PROBE_ON (threadIdx.x == 0 && blockIdx.x == 0)
+#define PROBE(i) do { if (PROBE_ON) { const long long now_ = clock64(); probe_acc[i] += now_ - probe_last; probe_last = now_; } } while (0)
+#define PROBE_INIT() do { if (PROBE_ON) { for (int i_ = 0; i_ < 16; ++i_) probe_acc[i_] = 0; probe_last = clock64(); } } while (0)
+#define PROBE_FLUSH(T) do { if (PROBE_ON) { for (int i_ = 0; i_ < 15; ++i_) g_probe[i_] = probe_acc[i_]; g_probe[15] = (T); } } while (0)
+"""
+# (the line a mark goes after, the mark)
+HEADER_MARKS = (
+    ("namespace minatar_cluster {\n", PROBE_DEFS),
+    ("    active_cells<kCh>(m);\n", "    PROBE(2);\n"),
+    ("    st_async4(cluster_addr(dst, r), y, cluster_addr(smem_addr(&m.bars[slot]), r));\n", "    PROBE(3);\n"),
+    ("  wait_slot(m.bars, slot, parity);\n", "  PROBE(4);\n"),
+    ("red[(ch * KC + eh * KE + g) * QH + uq] = acc[g];\n  }\n  __syncthreads();\n", "  PROBE(5);\n"),
+    ("    st_async4(cluster_addr(dst, g), s, cluster_addr(smem_addr(&m.bars[2 + slot]), g));\n  }\n", "  PROBE(6);\n"),
+    ("  wait_slot(m.bars, 2 + slot, parity);\n", "  PROBE(7);\n"),
+    ("    if (lane == 0) m.q[warp] = q + m.head_b[warp];\n  }\n  __syncthreads();\n", "  PROBE(8);\n"),
+)
+GAME_MARKS = (
+    ("  load_and_arm<kChannels>(m, wts, p);\n", "  PROBE_INIT();\n"),
+    ("    const long tb = (long)t * B + b;\n", "    PROBE(0);\n"),
+    ("      __syncthreads();\n    }\n", "    PROBE(1);\n"),
+)
+# the step's rules end at its last barrier: mark 9 before it, 10 after
+RULES_END = "      }\n    }\n    __syncthreads();\n  }\n\n  if (p.live) {\n    build_planes(m.planes, final_obs"
+READ_FN = """
+extern "C" int probe_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, minatar_cluster::g_probe, 16 * sizeof(unsigned long long));
+}
+"""
+
+
+def insert_after(text: str, anchor: str, mark: str, where: str) -> str:
+    if text.count(anchor) != 1:
+        raise RuntimeError(f"{where}: the probe's anchor {anchor!r} is not there exactly once")
+    return text.replace(anchor, anchor + mark)
+
+
+def patched_sources(out_dir: str) -> None:
+    """csrc/ with the marks, into out_dir."""
+    src_dir = os.path.join(ROOT, "purejaxql_torch", "csrc")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(src_dir, out_dir)
+    path = os.path.join(out_dir, "minatar_cluster.cuh")
+    text = open(path).read()
+    for anchor, mark in HEADER_MARKS:
+        text = insert_after(text, anchor, mark, path)
+    open(path, "w").write(text)
+    for name in ("asterix_rollout", "freeway_rollout", "seaquest_rollout"):
+        path = os.path.join(out_dir, f"{name}.cu")
+        text = open(path).read()
+        for anchor, mark in GAME_MARKS:
+            text = insert_after(text, anchor, mark, path)
+        if text.count(RULES_END) != 1:
+            raise RuntimeError(f"{path}: the end of the step's rules is not where the probe expects it")
+        text = text.replace(RULES_END, RULES_END.replace(
+            "    }\n    __syncthreads();\n  }\n", "    }\n    PROBE(9);\n    __syncthreads();\n    PROBE(10);\n  }\n"))
+        text = text.replace("  finish_launch();\n", "  PROBE_FLUSH(T);\n  finish_launch();\n")
+        open(path, "w").write(text + READ_FN)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--out", default=None, help="also write the summary JSON here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("probe_rollout_phases: no GPU visible", file=sys.stderr)
+        return 1
+    import time_rollouts as tr
+
+    from purejaxql_torch.ops import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    probe_dir = os.path.join(ROOT, "build", "probe")
+    patched_sources(probe_dir)
+    dev = torch.device("cuda", 0)
+    T, B, H = tr.MINATAR_SHAPE
+    summary = {"card": card, "shape": dict(zip("TBH", tr.MINATAR_SHAPE)), "kernels": {}}
+    for name, (_, game, channels, _, game_ints, _) in tr.GAMES.items():
+        lib_path = os.path.join(probe_dir, f"{name}.so")
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", probe_dir, "-o", lib_path, os.path.join(probe_dir, f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the probed {name}.cu:\n{proc.stdout}{proc.stderr}")
+        lib = ctypes.CDLL(lib_path)
+        fn = getattr(lib, f"{name}_f32")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
+            ctypes.c_int
+        ] * (len(game_ints) + 2) + [ctypes.c_void_p]
+        module = tr.game_module(name)
+        plan = getattr(module, f"{game}_plan")(B, H)
+        weights, st = tr.minatar_inputs(name, B, H, dev)
+        f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+        A = weights[8].shape[0]
+        outs = (
+            torch.empty((T, B, 10, 10, channels), **f32), torch.empty((T, B), **i32), torch.empty((T, B), **f32),
+            torch.empty((T, B), **i32), torch.empty((T, B, A), **f32), torch.empty((B, 10, 10, channels), **f32),
+            torch.empty_like(st),
+        )
+
+        def probed():
+            err = fn(*(x.data_ptr() for x in (*weights, st, *outs)), T, B, H, A, 3, 0.1, 1, *game_ints, *plan.ints,
+                     torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+            return outs
+
+        q_err = tr.minatar_err(name, probed(), getattr(module, f"{name}_plain")(3, 0.1, weights, st, T))
+        probed_ms = tr.cuda_time_ms(probed, 100)
+        tree_ms = tr.cuda_time_ms(lambda: getattr(module, name)(3, 0.1, weights, st, T), 100)
+        probed()
+        torch.cuda.synchronize()
+        counts = (ctypes.c_ulonglong * 16)()
+        read = lib.probe_read
+        read.restype = ctypes.c_int
+        assert read(counts) == 0
+        per_step = {phase: counts[i] / counts[15] for i, phase in enumerate(PHASES)}
+        entry = {"cycles_a_step": per_step, "total": sum(per_step.values()), "probed_ms": probed_ms,
+                 "tree_ms": tree_ms, "max_abs_err": q_err, "plan": plan._asdict()}
+        print(json.dumps({name: entry}))
+        summary["kernels"][name] = entry
+    line = json.dumps(summary)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

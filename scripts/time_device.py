@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""The device time of the epsilon-greedy and lambda-returns kernels
+(csrc/eps_greedy.cu, csrc/lambda_returns.cu), apart from their wrappers'
+host time, on one GPU.
+
+    python scripts/time_device.py [--out FILE]
+
+Each kernel at its trainers' shapes: epsilon-greedy at (E 1024, A 34),
+pqn_craftax's NUM_ENVS and actions; the lambda returns at (T 32, E 128),
+pqn_minatar's, and (T 64, E 32), pqn_cartpole's. For each, over ITERS
+back-to-back calls of the wrapper:
+
+1. ``wrapper_ms``: CUDA events around the calls, divided by their count, as
+   chip_smoke.py times every kernel: the card waits on the host's Python,
+   allocation and ctypes path between launches;
+2. ``device_ms``: torch.profiler's CUDA time of the kernel, found by name,
+   divided by the launches it counted (null where the profiler saw none);
+3. ``graph_ms``: a CUDA graph that captured the same calls, replayed under
+   CUDA events: the launches back to back on the device with no host work
+   between them, so one launch's floor where the kernel is shorter.
+
+The outputs are held against the plain twin first. Prints one JSON line a
+kernel and shape, then a summary object as the last line with the card's
+name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+ITERS = 200
+EPS_GREEDY_SHAPE = (1024, 34)
+LAMBDA_SHAPES = ((32, 128), (64, 32))
+
+
+def events_ms(fn, iters: int) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled_ms(fn, pattern: str, iters: int):
+    """(mean CUDA time of the kernels whose name holds `pattern`, their
+    count, their names) from torch.profiler over `iters` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count, names = 0.0, 0, []
+    for e in prof.key_averages():
+        if pattern not in e.key or e.key.startswith("cuda"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            total_us += us
+            count += e.count
+            names.append(e.key)
+    return (total_us / 1000.0 / count if count else None), count, names
+
+
+def graph_ms(fn, iters: int) -> float:
+    """CUDA events around replays of a graph that captured `iters` calls."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return events_ms(graph.replay, 5) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--out", default=None, help="also write the summary JSON here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_device: no GPU visible", file=sys.stderr)
+        return 1
+    from purejaxql_torch.ops import eps_greedy as eg
+    from purejaxql_torch.ops import lambda_returns as lr
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    E, A = EPS_GREEDY_SHAPE
+    q = torch.randn(E, A, device=dev, generator=gen)
+    if not torch.equal(eg.eps_greedy(3, q, 0.1), eg.eps_greedy_plain(3, q, 0.1)):
+        raise AssertionError("eps_greedy differs from its twin")
+    cases.append(("eps_greedy", {"E": E, "A": A}, lambda: eg.eps_greedy(3, q, 0.1)))
+    for T, E in LAMBDA_SHAPES:
+        last_q, maxq = torch.randn(E, device=dev, generator=gen), torch.randn(T, E, device=dev, generator=gen)
+        rew = torch.randn(T, E, device=dev, generator=gen)
+        done = (torch.rand(T, E, device=dev, generator=gen) < 0.1).float()
+        got = lr.lambda_returns(last_q, rew, done, maxq, 0.99, 0.95)
+        torch.testing.assert_close(got, lr.lambda_returns_plain(last_q, rew, done, maxq, 0.99, 0.95), atol=1e-5, rtol=0)
+        cases.append((
+            "lambda_returns", {"T": T, "E": E},
+            lambda last_q=last_q, rew=rew, done=done, maxq=maxq: lr.lambda_returns(last_q, rew, done, maxq, 0.99, 0.95),
+        ))
+    rows = []
+    for name, shape, fn in cases:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        wrapper = events_ms(fn, ITERS)
+        device, count, names = profiled_ms(fn, name, ITERS)
+        row = {"kernel": name, "shape": shape, "wrapper_ms": wrapper, "device_ms": device,
+               "profiled_launches": count, "profiled_names": names, "graph_ms": graph_ms(fn, ITERS)}
+        print(json.dumps(row))
+        rows.append(row)
+    summary = json.dumps({"card": card, "iters": ITERS, "rows": rows})
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(summary + "\n")
+    print(summary)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Time the Freeway and Pendulum rollout kernels (csrc/freeway_rollout.cu,
-csrc/pendulum_ac_rollout.cu) on one GPU, with CUDA events, at the trainers'
-shapes.
+"""Time the rollout kernels on the cluster CNN and the Pendulum cluster
+rollout (csrc/freeway_rollout.cu, csrc/asterix_rollout.cu,
+csrc/seaquest_rollout.cu, csrc/pendulum_ac_rollout.cu) on one GPU, with
+CUDA events, at the trainers' shapes.
 
     python scripts/time_rollouts.py
     python scripts/time_rollouts.py --parent-csrc build/parent_csrc --out build/rollout_times.json
 
-1. each kernel through its wrapper at its trainer's shape, Freeway at
-   (T 32, B 128, H 128) and Pendulum at (T 32, B 64, H 256), its plan
-   printed and its outputs held against the twin first (Freeway: every
-   output but Q equal, Q within 1e-4; Pendulum: done and time equal, every
-   float within 1e-4);
-2. the same with the cluster forced to 4, 8 and 16 CTAs
-   (``freeway_plan(B, H, cluster)``, ``pendulum_plan(B, H, cluster)``);
-3. with ``--parent-csrc DIR``: the kernels of an earlier version, built
-   from DIR/freeway_rollout.cu (with DIR's headers) and
-   DIR/pendulum_ac_rollout.cu with the same nvcc flags and called through
-   that version's C entry points (one block per env, no plan), each held
-   against the twin and timed in turns with the current one: old, new,
-   new, old.
+1. each kernel through its wrapper at its trainer's shape, Freeway, Asterix
+   and Seaquest at (T 32, B 128, H 128) and Pendulum at (T 32, B 64, H
+   256), its plan printed and its outputs held against the twin first (the
+   MinAtar games: every output but Q equal, Q within 1e-4; Pendulum: done
+   and time equal, every float within 1e-4);
+2. the same with the cluster forced to 4, 8 and 16 CTAs (``<game>_plan(B,
+   H, cluster)``, ``pendulum_plan(B, H, cluster)``), with the clusters the
+   card places at once (cudaOccupancyMaxActiveClusters) for the MinAtar
+   games;
+3. with ``--parent-csrc DIR``: the MinAtar kernels of the earlier version,
+   built from DIR/<game>_rollout.cu with DIR's headers and the same nvcc
+   flags and called through that version's C entry points (Freeway on the
+   cluster CNN with its plan, Asterix and Seaquest one block per env, no
+   plan), each held against the twin and timed in turns with the current
+   one: old, new, new, old.
 
 Prints one JSON line per timing and one summary object as the last line,
 with the card's name and power limit.
@@ -36,9 +39,17 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-FREEWAY_SHAPE = (32, 128, 128)  # T, B, H: pqn_minatar's NUM_STEPS, NUM_ENVS, HIDDEN_SIZE
+MINATAR_SHAPE = (32, 128, 128)  # T, B, H: pqn_minatar's NUM_STEPS, NUM_ENVS, HIDDEN_SIZE
 PENDULUM_SHAPE = (32, 64, 256)  # pqn_pendulum's NUM_STEPS, NUM_ENVS, hidden sizes
 CLUSTERS = (4, 8, 16)
+# per game: the env, the wrapper's module name, channels, actions, the
+# game's int arguments after use_prng, and whether the earlier kernel took
+# a plan
+GAMES = {
+    "freeway_rollout": ("Freeway-MinAtar", "freeway", 7, 3, (2500, 3), True),
+    "asterix_rollout": ("Asterix-MinAtar", "asterix", 4, 5, (1000,), False),
+    "seaquest_rollout": ("Seaquest-MinAtar", "seaquest", 10, 6, (1000,), False),
+}
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -57,22 +68,29 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def freeway_inputs(B: int, H: int, dev):
-    """Seeded CNN weights and the states after 40 steps of random play
+def game_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"purejaxql_torch.ops.{name}")
+
+
+def minatar_inputs(name: str, B: int, H: int, dev):
+    """Seeded CNN weights and the state matrix after 40 steps of random play
     through the twin from a reset."""
     import torch
 
     from purejaxql_torch.envs import make as make_env
     from purejaxql_torch.models.cnn import CNNQNetwork
-    from purejaxql_torch.ops import freeway_rollout as fr
     from purejaxql_torch.ops.minatar_rollout import minatar_weights
 
-    net = CNNQNetwork((10, 10, 7), 3, hidden_size=H, generator=torch.Generator().manual_seed(B)).to(dev)
+    env_name, game, channels, actions = GAMES[name][:4]
+    module = game_module(name)
+    net = CNNQNetwork((10, 10, channels), actions, hidden_size=H, generator=torch.Generator().manual_seed(B)).to(dev)
     weights = minatar_weights(net)
-    env, params = make_env("Freeway-MinAtar")
+    env, params = make_env(env_name)
     _, state = env.reset(torch.Generator(device=dev).manual_seed(0), B, params)
-    st = fr.freeway_rollout_plain(3, 1.0, weights, fr.state_matrix_from_freeway(state), 40)[6]
-    return weights, st
+    st = getattr(module, f"state_matrix_from_{game}")(state)
+    return weights, getattr(module, f"{name}_plain")(3, 1.0, weights, st, 40)[6]
 
 
 def pendulum_inputs(B: int, H: int, dev):
@@ -94,13 +112,13 @@ def pendulum_inputs(B: int, H: int, dev):
     return aw, cw, torch.tensor(stf, device=dev), torch.tensor(sti, device=dev)
 
 
-def freeway_err(got, want) -> float:
+def minatar_err(name: str, got, want) -> float:
     """max |Q error|, or raises where any other output differs."""
     import torch
 
     for i, (g, w) in enumerate(zip(got, want)):
         if i != 4 and not torch.equal(g, w):
-            raise AssertionError(f"freeway output {i} differs from the twin")
+            raise AssertionError(f"{name} output {i} differs from the twin")
     return (got[4] - want[4]).abs().max().item()
 
 
@@ -114,19 +132,14 @@ def pendulum_err(got, want) -> float:
 
 
 def build_parent(src_dir: str):
-    """The earlier kernels' C entry points as ctypes functions, built into
-    build/parent_rollouts/."""
+    """The earlier MinAtar kernels' C entry points as ctypes functions, built
+    into build/parent_rollouts/."""
     from purejaxql_torch.ops import build
 
     out_dir = os.path.join(ROOT, "build", "parent_rollouts")
     os.makedirs(out_dir, exist_ok=True)
     fns = {}
-    for name, argtypes in (
-        ("freeway_rollout", [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
-         + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-        ("pendulum_ac_rollout", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
-         + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
-    ):
+    for name, (*_, game_ints, planned) in GAMES.items():
         lib_path = os.path.join(out_dir, f"{name}.so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", src_dir, "-o", lib_path, os.path.join(src_dir, f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -134,54 +147,45 @@ def build_parent(src_dir: str):
             raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n{proc.stdout}{proc.stderr}")
         fn = getattr(ctypes.CDLL(lib_path), f"{name}_f32")
         fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
+            ctypes.c_int
+        ] * (len(game_ints) + (2 if planned else 0)) + [ctypes.c_void_p]
         fns[name] = fn
     return fns
 
 
-def parent_calls(fns):
-    """The earlier wrappers' launch paths: the same outputs, allocated the
-    same way, without a plan."""
+def parent_call(fns, name: str):
+    """The earlier wrapper's launch path for `name`: the same outputs,
+    allocated the same way, with the current plan where that kernel took one
+    (the earlier Freeway's: the same cluster CNN layout)."""
     import torch
 
-    def freeway(seed, eps, weights, st0, T):
+    _, game, channels, _, game_ints, planned = GAMES[name]
+    module = game_module(name)
+
+    def call(seed, eps, weights, st0, T):
         B, H, A, dev = st0.shape[1], weights[4].shape[0], weights[8].shape[0], st0.device
         f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
         outs = (
-            torch.empty((T, B, 10, 10, 7), **f32), torch.empty((T, B), **i32), torch.empty((T, B), **f32),
-            torch.empty((T, B), **i32), torch.empty((T, B, A), **f32), torch.empty((B, 10, 10, 7), **f32),
-            torch.empty((32, B), **i32),
+            torch.empty((T, B, 10, 10, channels), **f32), torch.empty((T, B), **i32), torch.empty((T, B), **f32),
+            torch.empty((T, B), **i32), torch.empty((T, B, A), **f32), torch.empty((B, 10, 10, channels), **f32),
+            torch.empty_like(st0),
         )
-        err = fns["freeway_rollout"](
-            *(x.data_ptr() for x in (*weights, st0, *outs)), T, B, H, A, seed, eps, 1, 2500, 3,
+        plan_ints = getattr(module, f"{game}_plan")(B, H).ints if planned else ()
+        err = fns[name](
+            *(x.data_ptr() for x in (*weights, st0, *outs)), T, B, H, A, seed, eps, 1, *game_ints, *plan_ints,
             torch.cuda.current_stream().cuda_stream,
         )
         assert err == 0, err
         return outs
 
-    def pendulum(seed, noise, aw, cw, stf0, sti0, T):
-        B, H, dev = stf0.shape[1], aw[0].shape[0], stf0.device
-        f32 = dict(dtype=torch.float32, device=dev)
-        outs = (
-            torch.empty((T, B, 3), **f32), torch.empty((T, B, 1), **f32), torch.empty((T, B, 1), **f32),
-            torch.empty((T, B), **f32), torch.empty((T, B), **f32), torch.empty((T, B), **f32),
-            torch.empty((B, 3), **f32), torch.empty((3, B), **f32), torch.empty((1, B), dtype=torch.int32, device=dev),
-        )
-        ptrs = (ctypes.c_void_p * 30)(*(w.data_ptr() for w in (*aw, *cw)))
-        err = fns["pendulum_ac_rollout"](
-            ctypes.addressof(ptrs), stf0.data_ptr(), sti0.data_ptr(), *(x.data_ptr() for x in outs), T, B, H,
-            seed, noise, 1, 200, 1, torch.cuda.current_stream().cuda_stream,
-        )
-        assert err == 0, err
-        return outs
-
-    return freeway, pendulum
+    return call
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--parent-csrc", default=None,
-                    help="directory with an earlier freeway_rollout.cu, its headers and pendulum_ac_rollout.cu")
+                    help="directory with the earlier freeway, asterix and seaquest rollout sources and their headers")
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     args = ap.parse_args()
 
@@ -190,7 +194,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_rollouts: no GPU visible", file=sys.stderr)
         return 1
-    from purejaxql_torch.ops import freeway_rollout as fr
+    from purejaxql_torch.ops import minatar_rollout
     from purejaxql_torch.ops import pendulum_rollout as pr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,7 +204,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     dev = torch.device("cuda", 0)
-    old = parent_calls(build_parent(args.parent_csrc)) if args.parent_csrc else None
+    old = build_parent(args.parent_csrc) if args.parent_csrc else None
     summary = {"card": card, "kernels": {}, "clusters": {}, "parent": {}}
 
     def timed(label, fn, iters):
@@ -208,20 +212,26 @@ def main() -> int:
         print(json.dumps({"timing": label, "ms": ms}))
         return ms
 
-    T, B, H = FREEWAY_SHAPE
-    fw, fst = freeway_inputs(B, H, dev)
-    f_want = fr.freeway_rollout_plain(3, 0.1, fw, fst, T)
+    cases = []
+    T, B, H = MINATAR_SHAPE
+    for name, (_, game, *_) in GAMES.items():
+        module = game_module(name)
+        weights, st = minatar_inputs(name, B, H, dev)
+        want = getattr(module, f"{name}_plain")(3, 0.1, weights, st, T)
+        kernel = getattr(module, name)
+        cases.append((
+            name, module, f"{game}_plan", MINATAR_SHAPE,
+            lambda kernel=kernel, weights=weights, st=st: kernel(3, 0.1, weights, st, T),
+            lambda out, name=name, want=want: minatar_err(name, out, want),
+            (lambda call=parent_call(old, name), weights=weights, st=st: call(3, 0.1, weights, st, T)) if old else None,
+        ))
     P, PB, PH = PENDULUM_SHAPE
     aw, cw, stf, sti = pendulum_inputs(PB, PH, dev)
     p_want = pr.pendulum_rollout_plain(3, 0.5, aw, cw, stf, sti, P)
-    cases = (
-        ("freeway_rollout", fr, "freeway_plan", FREEWAY_SHAPE, lambda: fr.freeway_rollout(3, 0.1, fw, fst, T),
-         lambda out: freeway_err(out, f_want),
-         (lambda: old[0](3, 0.1, fw, fst, T)) if old else None),
-        ("pendulum_ac_rollout", pr, "pendulum_plan", PENDULUM_SHAPE,
-         lambda: pr.pendulum_ac_rollout(3, 0.5, aw, cw, stf, sti, P), lambda out: pendulum_err(out, p_want),
-         (lambda: old[1](3, 0.5, aw, cw, stf, sti, P)) if old else None),
-    )
+    cases.append((
+        "pendulum_ac_rollout", pr, "pendulum_plan", PENDULUM_SHAPE,
+        lambda: pr.pendulum_ac_rollout(3, 0.5, aw, cw, stf, sti, P), lambda out: pendulum_err(out, p_want), None,
+    ))
     for name, module, plan_name, shape, new_fn, err_of, old_fn in cases:
         b, h = shape[1:]
         plan = getattr(module, plan_name)(b, h)
@@ -231,10 +241,10 @@ def main() -> int:
         else:
             o_err = err_of(old_fn())
             # in turns: old, new, new, old
-            t_old1 = timed(f"earlier {name}", old_fn, 30)
+            t_old1 = timed(f"earlier {name}", old_fn, 100)
             t_new1 = timed(name, new_fn, 200)
             t_new2 = timed(name, new_fn, 200)
-            t_old2 = timed(f"earlier {name}", old_fn, 30)
+            t_old2 = timed(f"earlier {name}", old_fn, 100)
             entry["ms"] = [t_new1, t_new2]
             summary["parent"][name] = {"ms": [t_old1, t_old2], "max_abs_err": o_err}
         summary["kernels"][name] = entry
@@ -249,7 +259,10 @@ def main() -> int:
                 ms = timed(f"{name} C{C}", new_fn, 200)
             finally:
                 setattr(module, plan_name, chosen)
-            summary["clusters"][name][C] = {"plan": forced._asdict(), "ms": ms, "max_abs_err": err}
+            cell = {"plan": forced._asdict(), "ms": ms, "max_abs_err": err}
+            if name in GAMES:
+                cell["active_clusters"] = minatar_rollout.active_clusters(name, forced)
+            summary["clusters"][name][C] = cell
     line = json.dumps(summary)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

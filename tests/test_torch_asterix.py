@@ -14,6 +14,7 @@ import torch
 from torch_minatar_cases import (
     assert_same_step,
     assert_twin_matches_pallas,
+    check_cluster_plan,
     check_tiny_train,
     check_wrapper_on_cpu,
     cnn_pair,
@@ -296,6 +297,15 @@ def test_asterix_kernel_constants_are_the_default_params():
     assert built_in["kRampInterval"] == params.ramp_interval
     assert built_in["kInitSpawn"] == params.init_spawn_speed
     assert built_in["kInitMove"] == params.init_move_interval
+
+
+@pytest.mark.parametrize("H", list(range(32, 257, 32)))
+@pytest.mark.parametrize("B", [1, 3, 64, 100, 128, 130])
+def test_asterix_plan_covers_every_env_and_column(B, H):
+    """The Asterix kernel's launch plan: every env and dense column
+    owned once, the header's shared bytes with the kernel's own ints, C 16
+    and two CTAs an SM at H 128 (``check_cluster_plan``)."""
+    check_cluster_plan(tar.asterix_plan, B, H, 4, tar.GAME_INTS, "asterix_rollout.cu")
 
 
 def _train_500k(*overrides):

@@ -24,6 +24,7 @@ from purejaxql_torch.ops import eps_greedy as eg
 from purejaxql_torch.ops import freeway_rollout as fr
 from purejaxql_torch.ops import gru_scan as gs
 from purejaxql_torch.ops import lambda_returns as lr
+from purejaxql_torch.ops import minatar_rollout
 from purejaxql_torch.ops import pendulum_rollout as pr
 from purejaxql_torch.ops import seaquest_rollout as sq
 from purejaxql_torch.ops import space_invaders_rollout as sr
@@ -242,6 +243,84 @@ def test_freeway_refused_launch_raises(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="freeway_rollout kernel launch failed"):
         fr.freeway_rollout(0, 0.1, weights, *states, 4)
     assert fr.freeway_rollout.launches == before
+
+
+# the games whose kernels run on the cluster CNN besides Freeway: the
+# wrapper's module and its plan
+CLUSTER_GAMES = {
+    "Asterix-MinAtar": (ar, ar.asterix_rollout, ar.asterix_rollout_plain, "asterix_plan"),
+    "Seaquest-MinAtar": (sq, sq.seaquest_rollout, sq.seaquest_rollout_plain, "seaquest_plan"),
+}
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("B,H", [(3, 32), (37, 256), (130, 32), (130, 256), (37, 96)])
+@pytest.mark.parametrize("env_name", sorted(CLUSTER_GAMES))
+def test_asterix_and_seaquest_kernels_match_plain_at_ragged_shapes(dev, env_name, B, H, use_prng):
+    """Clusters with CTAs past the last env (B not a multiple of the plan's
+    C) and the narrowest and widest H, with max_steps 9 so that every env
+    resets: the twin's integer outputs (Seaquest's cash-ins among the
+    rewards), observations and state, Q within 1e-4."""
+    module, kernel, plain, plan_name = CLUSTER_GAMES[env_name]
+    plan = getattr(module, plan_name)(B, H)
+    assert B % plan.cluster and plan.clusters == -(-B // plan.cluster)
+    weights, states = _game_inputs(dev, env_name, B=B, hidden=H)
+    got = kernel(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    want = plain(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    _assert_minatar_equal(got, want)
+    assert (want[3].sum(0) >= 2).all()
+
+
+def test_seaquest_kernel_pays_cash_ins_as_the_twin(dev):
+    """Every env with six divers on board one row under the surface, not
+    surfaced, oxygen 1-128: random actions (eps 1) take about a sixth of them
+    up to a cash-in, kills + oxygen * 0.1f, a reward that is not whole; the
+    kernel's rewards and every other output as the twin's."""
+    weights, (st,) = _game_inputs(dev, "Seaquest-MinAtar")
+    cash = sq.seaquest_from_state_matrix(st)
+    cash.divers[:], cash.sub_y[:] = 6, 1
+    cash.oxygen[:] = torch.arange(128, device=dev) % 199 + 1
+    cash.surfaced, cash.terminal = torch.zeros_like(cash.surfaced), torch.zeros_like(cash.terminal)
+    st = sq.state_matrix_from_seaquest(cash)
+    got = sq.seaquest_rollout(7, 1.0, weights, st, 2)
+    want = sq.seaquest_rollout_plain(7, 1.0, weights, st, 2)
+    _assert_minatar_equal(got, want)
+    assert (want[2] != want[2].floor()).sum() > 0
+
+
+@pytest.mark.parametrize("env_name", sorted(CLUSTER_GAMES))
+def test_asterix_and_seaquest_kernels_repeat_bit_for_bit(dev, env_name):
+    """Two launches on the same inputs give the same bits: every sum has a
+    fixed order (the partial sums added in rank order) and no atomics."""
+    kernel = CLUSTER_GAMES[env_name][1]
+    weights, states = _game_inputs(dev, env_name, B=130)
+    first, second = (kernel(9, 0.3, weights, *states, 32) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("env_name", sorted(CLUSTER_GAMES))
+def test_asterix_and_seaquest_refused_launch_raises(dev, env_name, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    module, kernel, _, plan_name = CLUSTER_GAMES[env_name]
+    weights, states = _game_inputs(dev, env_name, B=16)
+    plan = getattr(module, plan_name)(16, 128)._replace(smem_bytes=300_000)
+    monkeypatch.setattr(module, plan_name, lambda B, H: plan)
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match=f"{kernel.__name__} kernel launch failed"):
+        kernel(0, 0.1, weights, *states, 4)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("env_name", sorted(CLUSTER_GAMES))
+def test_asterix_and_seaquest_plans_place_every_cluster_at_once(dev, env_name):
+    """At the trainer's (B 128, H 128) the plan's CTAs stay under the 113 KB
+    at which two share an SM, so the card places all 8 clusters of 16 at
+    once (cudaOccupancyMaxActiveClusters), not 7 in a first wave."""
+    module, kernel, _, plan_name = CLUSTER_GAMES[env_name]
+    plan = getattr(module, plan_name)(128, 128)
+    assert (plan.cluster, plan.clusters) == (16, 8)
+    assert minatar_rollout.active_clusters(kernel.__name__, plan) >= plan.clusters
 
 
 @pytest.mark.parametrize("use_prng", [False, True])

@@ -11,6 +11,7 @@ import torch
 from torch_minatar_cases import (
     assert_same_step,
     assert_twin_matches_pallas,
+    check_cluster_plan,
     check_cnn_matches_flax_and_crosses,
     check_tiny_train,
     check_wrapper_on_cpu,
@@ -244,16 +245,6 @@ def test_freeway_plan_covers_every_env_and_column(B, H):
     most 16 CTAs, one env a CTA, so every env has one owner CTA; CTA r of a
     cluster holds the dense weight's columns [r F, (r + 1) F), so every
     conv output (a column) has one owner and the whole dense weight sits on
-    chip; a CTA within 227 KB of shared memory."""
-    plan = tfr.freeway_plan(B, H)
-    assert plan.cluster in (1, 2, 4, 8, 16) and plan.threads == 256
-    owners = [(k, r) for k in range(plan.clusters) for r in range(plan.cluster) if k * plan.cluster + r < B]
-    assert [k * plan.cluster + r for k, r in owners] == list(range(B))
-    columns = [f for r in range(plan.cluster) for f in range(r * plan.columns, (r + 1) * plan.columns)]
-    assert columns == list(range(1024))
-    threads = plan.chunks * (H // 4) * min(2, plan.cluster)  # a unit quad, env half and chunk each
-    assert threads <= 256 < threads + (H // 4) * min(2, plan.cluster)
-    assert plan.smem_bytes <= 232_448
-    assert plan.smem_bytes >= 4 * H * plan.columns  # the dense weight's slice, resident
-    if (B, H) == (128, 128):
-        assert (plan.cluster, plan.clusters) == (16, 8)
+    chip; the header's shared bytes with the kernel's own ints, within 227
+    KB, and two CTAs an SM at H 128 (``check_cluster_plan``)."""
+    check_cluster_plan(tfr.freeway_plan, B, H, 7, tfr.GAME_INTS, "freeway_rollout.cu")

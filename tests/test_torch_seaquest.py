@@ -17,6 +17,7 @@ import torch
 from torch_minatar_cases import (
     ROLLOUT_NAMES,
     assert_same_step,
+    check_cluster_plan,
     check_cnn_matches_flax_and_crosses,
     check_tiny_train,
     check_wrapper_on_cpu,
@@ -414,6 +415,15 @@ def test_seaquest_kernel_constants_are_the_default_params():
     assert built_in["kMoveInterval"] == params.init_move_interval
     assert built_in["kShotCoolDown"] == params.shot_cool_down
     assert built_in["kEnemyShotInterval"] == params.enemy_shot_interval
+
+
+@pytest.mark.parametrize("H", list(range(32, 257, 32)))
+@pytest.mark.parametrize("B", [1, 3, 64, 100, 128, 130])
+def test_seaquest_plan_covers_every_env_and_column(B, H):
+    """The Seaquest kernel's launch plan: every env and dense column
+    owned once, the header's shared bytes with the kernel's own ints, C 16
+    and two CTAs an SM at H 128 (``check_cluster_plan``)."""
+    check_cluster_plan(tsr.seaquest_plan, B, H, 10, tsr.GAME_INTS, "seaquest_rollout.cu")
 
 
 def _train_500k(*overrides):

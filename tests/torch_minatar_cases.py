@@ -1,9 +1,13 @@
 """Helpers the MinAtar game tests of the port share (tests/test_torch_asterix.py,
-tests/test_torch_freeway.py, tests/test_torch_space_invaders.py): flax and
+tests/test_torch_freeway.py, tests/test_torch_seaquest.py,
+tests/test_torch_space_invaders.py): flax and
 port networks on the same weights, states in both packages, the comparison
-of a plain twin with its Pallas kernel, and the tiny trainer run."""
+of a plain twin with its Pallas kernel, the tiny trainer run, and the check
+of a cluster kernel's launch plan."""
 
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ from purejaxql_torch.core import checkpoint as tckpt
 from purejaxql_torch.core.config import compose
 from purejaxql_torch.models.cnn import CNNQNetwork as TCNNQNetwork
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_torch.ops import minatar_rollout as tmr
 from purejaxql_tpu.envs import make as jmake
 from purejaxql_tpu.models.cnn import CNNQNetwork as JCNNQNetwork
 
@@ -189,3 +194,44 @@ def check_wrapper_on_cpu(rollout, weights, states, channels, actions):
         assert "unsupported device" in str(e)
     else:
         raise AssertionError("a meta tensor was accepted")
+
+
+CSRC = pathlib.Path(tmr.__file__).parents[1] / "csrc"
+
+
+def header_smem_bytes(channels, H, C, game_ints):
+    """csrc/minatar_cluster.cuh `smem_floats` in bytes, its return expression
+    read from the header and evaluated with the header's constants."""
+    src = (CSRC / "minatar_cluster.cuh").read_text()
+    expr = re.search(r"inline int smem_floats\(int kCh, int H, int C, int game_ints\) \{\s*return (.*?);", src, re.S)
+    names = dict(
+        kFlat=1024, kCells=100, kFeatures=16, kMaxActions=8, kCh=channels, H=H, C=C, game_ints=game_ints,
+        round4=lambda n: (n + 3) // 4 * 4, chunks_of=lambda h, c: 256 // (h // 4 * (2 if c > 1 else 1)),
+    )
+    return 4 * eval("(" + expr.group(1).replace("/", "//") + ")", {}, names)
+
+
+def check_cluster_plan(plan_fn, B, H, channels, game_ints, source):
+    """A MinAtar kernel's launch plan on the cluster CNN (csrc/minatar_cluster.cuh):
+    clusters of at most 16 CTAs, one env a CTA, so every env has one owner
+    CTA; CTA r of a cluster holds the dense weight's columns [r F, (r + 1) F),
+    so every conv output (a column) has one owner and the whole dense weight
+    sits on chip; the shared bytes are the header's formula with the game's
+    ints as its kernel counts them (``kGameInts`` of ``source``), within 227
+    KB, and at H 128 within the 113 KB at which two CTAs share an SM."""
+    built_in = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", (CSRC / source).read_text())}
+    assert built_in["kGameInts"] == game_ints
+    plan = plan_fn(B, H)
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.threads == 256
+    owners = [(k, r) for k in range(plan.clusters) for r in range(plan.cluster) if k * plan.cluster + r < B]
+    assert [k * plan.cluster + r for k, r in owners] == list(range(B))
+    columns = [f for r in range(plan.cluster) for f in range(r * plan.columns, (r + 1) * plan.columns)]
+    assert columns == list(range(1024))
+    threads = plan.chunks * (H // 4) * min(2, plan.cluster)  # a unit quad, env half and chunk each
+    assert threads <= 256 < threads + (H // 4) * min(2, plan.cluster)
+    assert plan.smem_bytes == header_smem_bytes(channels, H, plan.cluster, game_ints) <= tmr.SMEM_LIMIT
+    assert plan.smem_bytes >= 4 * H * plan.columns  # the dense weight's slice, resident
+    if H == 128:
+        assert plan.cluster == 16 and plan.smem_bytes <= tmr.TWO_CTAS_AN_SM == 113 * 1024
+    if (B, H) == (128, 128):
+        assert (plan.cluster, plan.clusters) == (16, 8)
