@@ -17,12 +17,19 @@ the env infos over the steps that end an episode (pqn.py:601-610).
 Envs (``build_env``, pqn.py:50-107): the Log-wrapped env ("split" mode), or
 in the batched modes that env inside ``OptimisticResetVecEnv``
 (USE_OPTIMISTIC_RESETS, with OPTIMISTIC_RESET_RATIO) or ``BatchEnv``
-(BATCH_ENV).
+(BATCH_ENV); with ARCH ``mlp`` (or FLATTEN_OBS) an image observation is
+flattened under Log (``FlattenObservation``, pqn.py:64-68).
 
 Where the JAX package scans, this trainer loops in Python; it keeps host
 syncs out of the update loop: counters and schedules are host integers and
 floats, metrics stay device tensors and are stacked once at the end. The
-only sync is the fused eval's early-exit test, once per chunk.
+only sync is the fused eval's early-exit test, once per chunk. With
+COLLECT_METRICS=False (pqn.py:260, 638) no metrics are returned and the
+work that only feeds them is skipped (the fused rollout's Log replay, the
+unfused rollout's info stacks, the losses' means, the per-update dicts);
+the eval still runs, as its draws and the runner state's test metrics
+follow the JAX trainer, so the params are those of the same run with the
+metrics on.
 
 Two rollout paths:
 
@@ -127,14 +134,18 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
     """The configs the FF trainer's fused rollout runs, which the cuda
     policy (core/config.py) fuses and ``_check_supported`` accepts: a game
     with a rollout kernel, layer_norm and NORM_INPUT=False, CartPole with a
-    2-layer MLP, and for a game whose kernel keeps its env params built in,
-    no ENV_KWARGS but max_steps_in_episode, which every kernel takes."""
+    2-layer MLP, a MinAtar game with the MinAtar CNN on its planes (ARCH
+    unset or ``cnn``, no FLATTEN_OBS), and for a game whose kernel keeps its
+    env params built in, no ENV_KWARGS but max_steps_in_episode, which every
+    kernel takes."""
     env_name = config.get("ENV_NAME")
     return (
         env_name in FUSED_GAMES
         and config.get("NORM_TYPE") == "layer_norm"
         and not config.get("NORM_INPUT", False)
         and (env_name != "CartPole-v1" or config.get("NUM_LAYERS", 2) == 2)
+        and (env_name == "CartPole-v1"
+             or (config.get("ARCH") in (None, "cnn") and not config.get("FLATTEN_OBS", False)))
         and (env_name not in _BUILT_IN_PARAMS
              or set(config.get("ENV_KWARGS") or {}) <= {"max_steps_in_episode"})
     )
@@ -152,7 +163,7 @@ def _check_supported(config: Dict[str, Any]) -> None:
         raise ValueError(
             "FUSED_ROLLOUT supports CartPole-v1 with a 2-layer MLP and the MinAtar "
             "games Asterix, Breakout, Freeway, Seaquest and SpaceInvaders with the MinAtar "
-            "CNN, all with layer_norm and NORM_INPUT=False; for CartPole, Asterix, "
+            "CNN on their planes (ARCH unset or cnn, no FLATTEN_OBS), all with layer_norm and NORM_INPUT=False; for CartPole, Asterix, "
             "Seaquest and SpaceInvaders no ENV_KWARGS but max_steps_in_episode (their "
             "kernels keep the other env params built in): ops/cartpole_rollout.py, "
             "ops/<game>_rollout.py"
@@ -161,14 +172,20 @@ def _check_supported(config: Dict[str, Any]) -> None:
 
 def build_env(config: Dict[str, Any]):
     """``(train_env, test_env, env, env_params)`` (pqn.py:50-107): the env
-    of the config wrapped in Log ("split" mode), or that inside
-    ``OptimisticResetVecEnv`` (USE_OPTIMISTIC_RESETS) or ``BatchEnv``
-    (BATCH_ENV) at NUM_ENVS for training and TEST_NUM_ENVS for the eval.
+    of the config, inside ``FlattenObservation`` where FLATTEN_OBS asks for
+    it (by default for an MLP, ARCH ``mlp``) and its observations are not
+    flat already (pqn.py:64-68), wrapped in Log ("split"
+    mode), or that inside ``OptimisticResetVecEnv``
+    (USE_OPTIMISTIC_RESETS) or ``BatchEnv`` (BATCH_ENV) at NUM_ENVS for
+    training and TEST_NUM_ENVS for the eval. ``env`` is the env under Log.
     Shared with the recurrent trainer, which runs the split mode."""
     env_kwargs = dict(config.get("ENV_KWARGS") or {})
     if config.get("LOG_ACHIEVEMENTS", False):
         env_kwargs["log_achievements"] = True
     env, env_params = make_env(config["ENV_NAME"], **env_kwargs)
+    obs_shape = env.observation_space(env_params).shape
+    if config.get("FLATTEN_OBS", config.get("ARCH") == "mlp") and len(obs_shape) > 1:
+        env = wrappers.FlattenObservation(env)
     log_env = wrappers.Log(env)
     if config.get("USE_OPTIMISTIC_RESETS", False):
         def batched(n):
@@ -329,8 +346,8 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,); ``runner_state`` is (train_state, (obs, env_state),
-    test_metrics).
+    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False; ``runner_state``
+    is (train_state, (obs, env_state), test_metrics).
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
@@ -348,6 +365,7 @@ def make_train(
     use_fused = config.get("FUSED_ROLLOUT", False)
     use_q_lambda = config.get("Q_LAMBDA", True)
     done_masked = config.get("DONE_MASKED_INFO_METRICS", False)
+    collect_metrics = config.get("COLLECT_METRICS", True)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     eps_scheduler = epsilon_schedule(
         config["EPS_START"],
@@ -383,7 +401,9 @@ def make_train(
                     next_obs=torch.cat([obs_seq[1:], final_obs[None]]),
                     q_val=q_seq,
                 )
-                log_state, infos = log_replay(log_state, rew, done)
+                infos = None
+                if collect_metrics:
+                    log_state, infos = log_replay(log_state, rew, done)
                 log_state.env_state = env_state
                 return final_obs, log_state, transitions, infos
 
@@ -399,7 +419,7 @@ def make_train(
                     obs = new_obs
             fields = list(zip(*steps))
             transitions = Transition(*(torch.stack(f) for f in fields[:6]))
-            infos = {k: torch.stack([i[k] for i in fields[6]]) for k in fields[6][0]}
+            infos = {k: torch.stack([i[k] for i in fields[6]]) for k in fields[6][0]} if collect_metrics else None
             return obs, log_state, transitions, infos
 
         def learn(transitions, targets):
@@ -423,6 +443,8 @@ def make_train(
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
+            if not collect_metrics:
+                return None, None
             return torch.stack(losses).mean(), torch.stack(qvals).mean()
 
         @torch.no_grad()
@@ -488,6 +510,10 @@ def make_train(
                     )
             td_loss, qvals = learn(transitions, targets)
             train_state.n_updates += 1
+            if test_during_training and train_state.n_updates % test_interval_updates(config) == 0:
+                test_metrics = get_test_metrics()
+            if not collect_metrics:
+                continue
 
             metrics = {
                 "env_step": train_state.timesteps,
@@ -504,8 +530,6 @@ def make_train(
             else:
                 metrics.update({k: v.float().mean() for k, v in infos.items()})
             if test_during_training:
-                if train_state.n_updates % test_interval_updates(config) == 0:
-                    test_metrics = get_test_metrics()
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 

@@ -279,7 +279,9 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,); ``runner_state`` is ({"actor": PQNTrainState, "critic":
+    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False (pqn_ac.py:163,
+    611; the fused Log replay, the info stacks and the losses' means are
+    then skipped, the eval still runs); ``runner_state`` is ({"actor": PQNTrainState, "critic":
     PQNTrainState}, (obs, env_state), test_metrics), the counters on the
     actor's state.
     """
@@ -313,6 +315,7 @@ def make_train(
     rew_scale = config.get("REW_SCALE", 1.0)
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
+    collect_metrics = config.get("COLLECT_METRICS", True)
     max_steps = env_params.max_steps_in_episode
     action_scale = (act_high - act_low) / 2.0
     action_bias = (act_high + act_low) / 2.0
@@ -360,7 +363,9 @@ def make_train(
                     reward=rew_scale * rew, obs=obs_seq,
                     next_obs=torch.cat([obs_seq[1:], final_obs[None]]),
                 )
-                env_state, infos = log_vec_replay(env_state, rew, done)
+                infos = None
+                if collect_metrics:
+                    env_state, infos = log_vec_replay(env_state, rew, done)
                 env_state.env_state = raw_state
                 return final_obs, env_state, transitions, infos
 
@@ -372,7 +377,8 @@ def make_train(
                 infos.append(info)
                 obs = new_obs
             transitions = ACTransition(*(torch.stack(f) for f in zip(*steps)))
-            return obs, env_state, transitions, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+            infos = {k: torch.stack([i[k] for i in infos]) for k in infos[0]} if collect_metrics else None
+            return obs, env_state, transitions, infos
 
         def learn(transitions: ACTransition, targets: torch.Tensor):
             n = n_steps * n_envs
@@ -395,6 +401,8 @@ def make_train(
                     actor_losses.append(actor_loss)
                     actor_state.grad_steps += 1
                     critic_state.grad_steps += 1
+            if not collect_metrics:
+                return None, None
             return torch.stack(critic_losses).mean(), torch.stack(actor_losses).mean()
 
         @torch.no_grad()
@@ -453,6 +461,10 @@ def make_train(
             value_loss, actor_loss = learn(transitions, targets)
             actor_state.n_updates += 1
             actor_state.timesteps = actor_state.n_updates * n_envs * n_steps * timestep_scale
+            if test_during_training and actor_state.n_updates % test_interval_updates(config) == 0:
+                test_metrics = get_test_metrics()
+            if not collect_metrics:
+                continue
 
             metrics = {
                 "env_step": actor_state.timesteps,
@@ -465,8 +477,6 @@ def make_train(
             }
             metrics.update({k: v.float().mean() for k, v in infos.items()})
             if test_during_training:
-                if actor_state.n_updates % test_interval_updates(config) == 0:
-                    test_metrics = get_test_metrics()
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 

@@ -22,7 +22,11 @@ Line references ``pqn_rnn.py:N`` are to that module.
   greedy eval over TEST_NUM_STEPS steps from a zero carry (:415-452).
 
 As in the FF trainer, counters and schedules are host numbers and metrics
-stay device tensors until the end, so the update loop makes no host sync.
+stay device tensors until the end, so the update loop makes no host sync;
+with COLLECT_METRICS=False (:118, :413) no metrics are returned, and the
+losses' means and the per-update dicts are skipped (the eval still runs).
+ARCH defaults to ``mlp`` (:72), so an image observation is flattened
+(``algo/pqn.py:build_env``).
 """
 
 from __future__ import annotations
@@ -194,13 +198,15 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,); ``runner_state`` is (train_state, memory, (hidden, obs,
-    done, last_action, log_state), test_metrics).
+    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False;
+    ``runner_state`` is (train_state, memory, (hidden, obs, done,
+    last_action, log_state), test_metrics).
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
+    config.setdefault("ARCH", "mlp")  # the recurrent trunk is dense: flatten the observations
     log_env, _, env, env_params = build_env(config)
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
@@ -216,6 +222,7 @@ def make_train(
     rew_scale = config.get("REW_SCALE", 1.0)
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
+    collect_metrics = config.get("COLLECT_METRICS", True)
     eps_scheduler = epsilon_schedule(
         config["EPS_START"],
         config["EPS_FINISH"],
@@ -249,6 +256,8 @@ def make_train(
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
+            if not collect_metrics:
+                return None, None
             return torch.stack(losses).mean(), torch.stack(qvals).mean()
 
         def get_test_metrics() -> Dict[str, torch.Tensor]:
@@ -275,6 +284,10 @@ def make_train(
             )
             td_loss, qvals = learn(memory)
             train_state.n_updates += 1
+            if test_during_training and train_state.n_updates % test_interval_updates(config) == 0:
+                test_metrics = get_test_metrics()
+            if not collect_metrics:
+                continue
 
             metrics = {
                 "env_step": train_state.timesteps,
@@ -285,8 +298,6 @@ def make_train(
             }
             metrics.update({k: v.float().mean() for k, v in infos.items()})
             if test_during_training:
-                if train_state.n_updates % test_interval_updates(config) == 0:
-                    test_metrics = get_test_metrics()
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 

@@ -12,7 +12,7 @@ The trainer is picked by the config's ALG_NAME: ``pqn`` and ``pqn_craftax``
 "Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
 (flax wire format; the actor-critic family's as one tree ``{"actor": ...,
 "critic": ...}``) and ``<run>_config.yaml``, and replays the metrics into the
-LOG_JSONL file.
+LOG_JSONL file (none with COLLECT_METRICS=False, whose run returns none).
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ def _select_make_train(config):
 
 
 def single_run(config):
+    import torch
+
     from purejaxql_torch.core.checkpoint import save_run
     from purejaxql_torch.utils.logging import make_logger
 
@@ -61,20 +63,24 @@ def single_run(config):
 
     t0 = time.time()
     outs = train()
-    # reading a metric waits for the device to finish the run; every family
-    # reports the Log wrappers' episode returns
-    float(outs["metrics"]["returned_episode_returns"][-1])
-    dt = time.time() - t0
     # the actor-critic family keeps a dict of train states, its counters on
     # the actor (purejaxql_tpu/cli.py:95-100)
     train_state = outs["runner_state"][0]
     counter_state = train_state["actor"] if isinstance(train_state, dict) else train_state
+    # the counters are host integers: wait for the device to finish the run
+    # before the clock is read (the JAX CLI reads timesteps back from the
+    # device), with or without metrics
     total = counter_state.timesteps
+    device = next(counter_state.network.parameters()).device
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
     print(
         f"Training took {dt:.2f}s — {total} env steps "
         f"({total / dt:.0f} steps/s aggregate)."
     )
-    logger.log_history(outs["metrics"])
+    if outs["metrics"]:  # COLLECT_METRICS=False returns none (purejaxql_tpu/cli.py:108-111)
+        logger.log_history(outs["metrics"])
     logger.close()
 
     if config.get("SAVE_PATH"):

@@ -9,8 +9,8 @@
 // planes, the shared `_cnn_forward`, and the TPU's hardware PRNG. None of
 // that layout carries over.
 //
-// What bounded the old design: one block of 256 threads per env ran the CNN
-// of minatar_cnn.cuh, whose dense layer read the whole 512 KiB dense weight
+// What bounded the old design: one block of 256 threads per env ran the whole
+// CNN, whose dense layer read the whole 512 KiB dense weight
 // (H 128) from L2 at every step of every env, 64 MiB a step at the
 // trainer's B 128: 0.43-0.49 ms a launch (T 32), 20-23x the operation bound
 // (the conv's taps and the dense layer's 2 x 1024 x H flops an env step),
@@ -21,9 +21,8 @@
 // 1 / C of the dense weight in shared memory for the whole launch, and the
 // CTAs trade the conv outputs' slices and the dense layer's partial sums
 // through distributed shared memory. The plan (ops/asterix_rollout.py
-// `asterix_plan`) takes C 16: on an H100 at (T 32, B 128, H 128) C 4, 8 and
-// 16 ran 0.453, 0.241 and 0.244 ms (scripts/time_rollouts.py), the one
-// block an env 0.43 in the same call. Each step a CTA with an env builds the 4
+// `asterix_plan`) takes C 16 (ops/minatar_rollout.py PLAN_CLUSTER gives the
+// times behind the choice). Each step a CTA with an env builds the 4
 // planes (player, enemy, trail, gold) in shared memory and writes them out
 // (a thread a cell), threads 0-2 draw the step's 12 Philox words, the
 // cluster runs the CNN, and warp 0 runs the argmax (first index wins ties),

@@ -10,7 +10,7 @@
 // hardware PRNG. None of that layout carries over.
 //
 // What bounded the old design, and by how much: one block of 256 threads
-// per env ran the CNN of minatar_cnn.cuh, whose dense layer read the whole
+// per env ran the whole CNN, whose dense layer read the whole
 // 512 KiB dense weight (H 128) from L2 at every step of every env: 64 MiB a
 // step at the trainer's B 128, about 4.3 TB/s of L2 traffic at 0.50 ms a
 // launch (T 32), 20x the operation bound (0.0246 ms: the conv's 63 taps and
@@ -21,9 +21,8 @@
 // shared memory for the whole launch, and the CTAs trade the conv outputs'
 // slices and the dense layer's partial sums through distributed shared
 // memory, so the weight is read from L2 once a launch and not once a step
-// an env. The plan (ops/minatar_rollout.py `cluster_plan`) takes C 16: on
-// an H100 at (T 32, B 128, H 128) C 4, 8 and 16 ran 0.472, 0.246 and 0.243
-// ms (scripts/time_rollouts.py). Each step a CTA with an env builds the 7
+// an env. The plan (ops/minatar_rollout.py `cluster_plan`) takes C 16
+// (PLAN_CLUSTER there gives the times behind the choice). Each step a CTA with an env builds the 7
 // planes (chicken, car, speed 1-5) in shared memory and writes them out (a
 // thread a cell), threads 0-6 draw the step's 28 Philox words, the cluster
 // runs the CNN, and warp 0 runs the argmax (first index wins ties), the

@@ -1,19 +1,21 @@
-// The MinAtar CNN forward of a fused MinAtar rollout, run by a
+// The MinAtar CNN forward of every fused MinAtar rollout, run by a
 // thread-block cluster that keeps the dense weight on chip for the whole
-// launch. The same network as minatar_cnn.cuh (a 3x3 VALID conv from kCh
-// channels to 16, LayerNorm over the channels of each pixel and relu, a
-// dense layer from the 1024 conv outputs to H units, LayerNorm and relu,
-// the head to A Q-values), with the weights in the layout of
-// ops/minatar_rollout.py `minatar_weights`.
+// launch: a 3x3 VALID conv from kCh channels to 16, LayerNorm over the
+// channels of each pixel and relu, a dense layer from the 1024 conv outputs
+// to H units, LayerNorm and relu, the head to A Q-values.
 //
-// Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_cnn_forward`, which
-// every MinAtar TPU kernel shares.
+// Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_cnn_forward` and
+// `_pack_cnn_params`, which every MinAtar TPU kernel shares. The weights
+// come as ops/minatar_rollout.py `minatar_weights` lays them out: the conv
+// as a (9 kCh, 16) tap matrix with rows in the (di, dj, c) order and 1/255
+// folded in, the dense weight (H, 1024) with columns in flax's (i, j, f)
+// flatten order, the head unpadded (A, H).
 //
-// What bounded the one-block-per-env design (minatar_cnn.cuh): every step,
-// every block read the whole dense weight (H x 1024 floats, 512 KiB at H
-// 128) from L2, 64 MiB a step at the trainers' B 128, so the MinAtar
-// rollouts ran at about 4 TB/s of L2 traffic, 0.40-0.56 ms a launch
-// (T 32), 19-24x their operation bounds.
+// What bounded the earlier design, one block of 256 threads an env: every
+// step, every block read the whole dense weight (H x 1024
+// floats, 512 KiB at H 128) from L2, 64 MiB a step at the trainers' B 128,
+// so the MinAtar rollouts ran at about 4 TB/s of L2 traffic, 0.40-0.56 ms a
+// launch (T 32), 19-24x their operation bounds.
 //
 // The design here (the plan is ops/minatar_rollout.py `cluster_plan`): a
 // cluster of C CTAs takes C envs, one env a CTA (the last cluster may have
@@ -21,11 +23,12 @@
 // (r + 1) F), F = 1024 / C, which read the conv pixels [r P, (r + 1) P),
 // P = 64 / C: F x H floats in shared memory (transposed, a row a column),
 // loaded once a launch. Each step:
-//   1. each CTA with an env lists the active cells of its 0/1 planes and
-//      runs the conv and LN1 (a thread a pixel and 4 features); the conv
-//      sums the taps' weights at the active cells only, in tap order, the
-//      bits of the dense sum; each thread sends its 4 outputs to the CTA
-//      that holds their pixel (st.async of 16 bytes);
+//   1. each CTA with an env marks each cell's active channels of its 0/1
+//      planes (a bit mask a cell) and runs the conv and LN1 (a thread a
+//      pixel and 4 features); the conv sums the taps' weights at the
+//      active cells of the pixel's 3x3 window only, in tap order, the bits
+//      of the dense sum; each thread sends its 4 outputs to the CTA that
+//      holds their pixel (st.async of 16 bytes);
 //   2. each CTA, once the slices of all the cluster's envs are in, forms the
 //      partial sums of its F columns for every env and unit from shared
 //      memory: a thread a quad of units, half the envs and a chunk of the
@@ -52,8 +55,42 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "cluster.cuh"
-#include "minatar_cnn.cuh"
+
+namespace minatar {
+
+constexpr int kThreads = 256;
+constexpr int kSide = 10;                       // the board is 10 x 10
+constexpr int kCells = kSide * kSide;
+constexpr int kOut = kSide - 2;                 // VALID 3x3 conv: 8 x 8
+constexpr int kFeatures = 16;                   // conv channels
+constexpr int kFlat = kOut * kOut * kFeatures;  // 1024
+constexpr int kMaxActions = 8;
+constexpr float kLnEps = 1e-6f;
+
+struct CnnWeights {
+  const float* conv_w;
+  const float* conv_b;
+  const float* ln1_scale;
+  const float* ln1_bias;
+  const float* dense_w;
+  const float* dense_b;
+  const float* ln2_scale;
+  const float* ln2_bias;
+  const float* head_w;
+  const float* head_b;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace minatar
 
 namespace minatar_cluster {
 
@@ -76,14 +113,14 @@ __host__ __device__ constexpr int chunks_of(int H, int C) { return kThreads / (H
 // cluster_smem_bytes / 4), in blocks of multiples of 4 floats: 8 (the four
 // mbarriers), the W slice transposed (F x H), two slots of the envs'
 // conv-output slices (2 x 1024) and of the partial sums received (2 x C x
-// H), the chunks' sums (chunks x C x H), the planes and their active cells
-// (100 kCh each, and 4), the conv taps, the conv bias and LN1 scale and
-// bias (48), the dense bias, LN2 scale and bias and the head (11 H + 8), a
-// scan scratch (4), q (8) and the game's ints (its state, its Philox words
-// and what its planes read; Freeway keeps its own in static shared memory).
+// H), the chunks' sums (chunks x C x H), the planes (100 kCh) and each
+// cell's mask of active channels (100), the conv taps, the conv bias and
+// LN1 scale and bias (48), the dense bias, LN2 scale and bias and the head
+// (11 H + 8), q (8) and the game's ints (its state, its Philox words and
+// what its planes read; Freeway keeps its own in static shared memory).
 __host__ __device__ inline int smem_floats(int kCh, int H, int C, int game_ints) {
-  return 8 + (kFlat / C) * H + 2 * kFlat + 2 * C * H + chunks_of(H, C) * C * H + 2 * round4(kCells * kCh) + 4 +
-         9 * kCh * kFeatures + 48 + 11 * H + 8 + 4 + kMaxActions + round4(game_ints);
+  return 8 + (kFlat / C) * H + 2 * kFlat + 2 * C * H + chunks_of(H, C) * C * H + round4(kCells * kCh) + kCells +
+         9 * kCh * kFeatures + 48 + 11 * H + 8 + kMaxActions + round4(game_ints);
 }
 
 struct Smem {
@@ -93,8 +130,7 @@ struct Smem {
   float* pr;                 // [2][C][H]: slot, source CTA; this env's partial sums
   float* red;                // [chunks][C][H]: the chunks' partial sums
   float* planes;             // [100 kCh], (row, col, channel) order
-  int* cells;                // [100 kCh]: the planes' nonzero entries, (row << 16 | col << 8 | channel)
-  int* ncells;               // [4]: how many, and a scan scratch [4]
+  int* masks;                // [100]: each cell's active channels, bit c for channel c
   float* wconv;              // [9 kCh][16]
   float* vec;                // conv bias, LN1 scale, LN1 bias: [3][16]
   float* dense_b;            // [H]
@@ -122,9 +158,8 @@ __device__ __forceinline__ Smem smem_layout(float* base, int H, int C) {
   m.pr = m.h1r + 2 * kFlat;
   m.red = m.pr + 2 * C * H;
   m.planes = m.red + chunks_of(H, C) * C * H;
-  m.cells = reinterpret_cast<int*>(m.planes + round4(kCells * kCh));
-  m.ncells = m.cells + round4(kCells * kCh);
-  m.wconv = reinterpret_cast<float*>(m.ncells + 8);
+  m.masks = reinterpret_cast<int*>(m.planes + round4(kCells * kCh));
+  m.wconv = reinterpret_cast<float*>(m.masks + kCells);
   m.vec = m.wconv + 9 * kCh * kFeatures;
   m.dense_b = m.vec + 48;
   m.ln2_scale = m.dense_b + H;
@@ -188,36 +223,17 @@ __device__ void load_and_arm(const Smem& m, const CnnWeights& w, const Place& p)
   cluster_start();
 }
 
-// The nonzero entries of the planes (0/1 masks, 100 kCh), in (row, col,
-// channel) order, into m.cells, and their count into m.ncells[0]: a thread
-// a cell, a scan over the first 4 warps. Ends with a block barrier.
+// Each cell's active channels of the planes (0/1, 100 kCh) as a bit mask
+// into m.masks: a thread a cell. Ends with a block barrier.
 template <int kCh>
-__device__ void active_cells(const Smem& m) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  unsigned mask = 0;
+__device__ __forceinline__ void cell_masks(const Smem& m) {
+  const int tid = threadIdx.x;
   if (tid < kCells) {
+    unsigned mask = 0;
 #pragma unroll
     for (int c = 0; c < kCh; ++c) mask |= (m.planes[tid * kCh + c] != 0.0f ? 1u : 0u) << c;
+    m.masks[tid] = (int)mask;
   }
-  const int cnt = __popc(mask);
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (warp < 4 && lane == 31) m.ncells[4 + warp] = incl;
-  __syncthreads();
-  if (tid < kCells) {
-    int at = incl - cnt;
-    for (int w = 0; w < warp; ++w) at += m.ncells[4 + w];
-    const int r = tid / kSide, col = tid - r * kSide;
-#pragma unroll
-    for (int c = 0; c < kCh; ++c) {
-      if ((mask >> c) & 1u) m.cells[at++] = r << 16 | col << 8 | c;
-    }
-  }
-  if (tid == 0) m.ncells[0] = m.ncells[4] + m.ncells[5] + m.ncells[6] + m.ncells[7];
   __syncthreads();
 }
 
@@ -237,31 +253,26 @@ __device__ void cluster_q_values(const Smem& m, const CnnWeights& w, const Place
   if (p.live) {
     // conv 3x3 VALID: thread (pixel, feature quad), a sum a row of taps (the
     // bias in the first). The planes are 0/1, so the sum over the taps is the
-    // sum of the taps' weights at the active cells, taken in the same order
-    // (row, col, channel) as over all taps: the same bits as the dense sum.
-    active_cells<kCh>(m);
+    // sum of the taps' weights at the window's active cells, taken in the
+    // same order (row, col, channel) as over all taps: the same bits as the
+    // dense sum.
+    cell_masks<kCh>(m);
     const int pix = tid >> 2, fq = tid & 3;
     const int i = pix / kOut, j = pix - (pix / kOut) * kOut;
     const float4* w4 = reinterpret_cast<const float4*>(m.wconv) + fq;
-    float4 r0 = reinterpret_cast<const float4*>(m.vec)[fq];
-    float4 r1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), r2 = r1;
-    const int n = m.ncells[0];
-for (int e = 0; e < n; ++e) {
-      const int rc = m.cells[e];
-      const int di = (rc >> 16) - i, dj = ((rc >> 8) & 0xff) - j;
-      if ((unsigned)di < 3u && (unsigned)dj < 3u) {
-        const float4 wv = w4[((di * 3 + dj) * kCh + (rc & 0xff)) * (kFeatures / 4)];
-        if (di == 0) {
-          add4(r0, wv);
-        } else if (di == 1) {
-          add4(r1, wv);
-        } else {
-          add4(r2, wv);
+    float4 rows[3] = {reinterpret_cast<const float4*>(m.vec)[fq], make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                      make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+#pragma unroll
+    for (int di = 0; di < 3; ++di) {
+#pragma unroll
+      for (int dj = 0; dj < 3; ++dj) {
+        for (unsigned mk = (unsigned)m.masks[(i + di) * kSide + j + dj]; mk != 0; mk &= mk - 1) {
+          add4(rows[di], w4[((di * 3 + dj) * kCh + __ffs(mk) - 1) * (kFeatures / 4)]);
         }
       }
     }
-    const float4 a = make_float4((r0.x + r1.x) + r2.x, (r0.y + r1.y) + r2.y, (r0.z + r1.z) + r2.z,
-                                 (r0.w + r1.w) + r2.w);
+    const float4 a = make_float4((rows[0].x + rows[1].x) + rows[2].x, (rows[0].y + rows[1].y) + rows[2].y,
+                                 (rows[0].z + rows[1].z) + rows[2].z, (rows[0].w + rows[1].w) + rows[2].w);
     // LN1 over the pixel's 16 features (its 4 quads on adjacent lanes), relu
     float sum = (a.x + a.y) + (a.z + a.w);
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);

@@ -9,8 +9,8 @@
 // planes (`_pool_mask`, `_seaquest_planes`), the shared `_cnn_forward`, and
 // the TPU's hardware PRNG. None of that layout carries over.
 //
-// What bounded the old design: one block of 256 threads per env ran the CNN
-// of minatar_cnn.cuh, whose dense layer read the whole 512 KiB dense weight
+// What bounded the old design: one block of 256 threads per env ran the whole
+// CNN, whose dense layer read the whole 512 KiB dense weight
 // (H 128) from L2 at every step of every env, 64 MiB a step at the
 // trainer's B 128: about 0.55 ms a launch (T 32), 20x the operation bound
 // (the conv's taps at 10 channels and the dense layer's 2 x 1024 x H flops
@@ -22,10 +22,8 @@
 // CTAs trade the conv outputs' slices and the dense layer's partial sums
 // through distributed shared memory. The plan (ops/seaquest_rollout.py
 // `seaquest_plan`) takes C 16, which keeps a CTA under the 113 KB at which
-// two CTAs share an SM: on an H100 at (T 32, B 128, H 128) C 4, 8 and 16
-// ran 0.518, 0.457 (a CTA of 118,768 bytes, one an SM: 15 clusters of 8 at
-// once for the 16) and 0.283 ms (scripts/time_rollouts.py), the one block
-// an env 0.555 in the same call. Each step a CTA with an env builds the 10
+// two CTAs share an SM (ops/minatar_rollout.py PLAN_CLUSTER gives the times
+// behind the choice). Each step a CTA with an env builds the 10
 // planes in shared memory and writes them out, a thread a cell (each pool's
 // entities counted on the cell, then clamped to 1, as `_pool_mask` adds
 // before the clamp: a cell is on where any slot's cell code is it),

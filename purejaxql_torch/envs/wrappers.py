@@ -1,6 +1,8 @@
 """Environment wrappers. Port of purejaxql_tpu/envs/wrappers.py for the
 wrappers the ported trainers use:
 
+- ``FlattenObservation`` (wrappers.py:36-55): each env's observation as one
+  flat vector, for an MLP over an image-observation env;
 - ``Log`` (wrappers.py:68-101): per-episode return and length accounting,
   reported in ``info`` on the step that ends an episode;
 - ``ScrubNaN`` (:488-524): non-finite rewards and observations become 0,
@@ -23,9 +25,41 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
+from purejaxql_torch.envs import spaces
 from purejaxql_torch.envs.base import Wrapper, map_state, select_env, select_state
+
+
+class FlattenObservation(Wrapper):
+    """Each env's observation flattened to a vector (E, prod(shape)), in the
+    row-major order of ``obs.reshape(-1)`` under the JAX package's vmap."""
+
+    @staticmethod
+    def _flat(obs):
+        return obs.reshape(obs.shape[0], -1)
+
+    def reset(self, generator, num_envs, params=None):
+        obs, state = self._env.reset(generator, num_envs, params)
+        return self._flat(obs), state
+
+    def reset_env(self, generator, num_envs, params):
+        obs, state = self._env.reset_env(generator, num_envs, params)
+        return self._flat(obs), state
+
+    def step(self, generator, state, action, params=None):
+        obs, state, reward, done, info = self._env.step(generator, state, action, params)
+        return self._flat(obs), state, reward, done, info
+
+    def step_env(self, state, action, params, draws):
+        obs, state, reward, done, info = self._env.step_env(state, action, params, draws)
+        return self._flat(obs), state, reward, done, info
+
+    def observation_space(self, params):
+        space = self._env.observation_space(params)
+        flat = lambda bound: np.asarray(bound).reshape(-1) if np.ndim(bound) else bound  # noqa: E731
+        return spaces.Box(flat(space.low), flat(space.high), (int(np.prod(space.shape)),), space.dtype)
 
 
 @dataclass

@@ -8,7 +8,10 @@ observation planes from the state, the MinAtar CNN forward, greedy argmax
 (first index wins ties), the epsilon coin and a uniform random action, the
 Breakout dynamics, and auto-reset with the ball's side drawn per env.
 
-The kernel is ``csrc/breakout_rollout.cu``. ``breakout_rollout_plain`` is
+The kernel is ``csrc/breakout_rollout.cu``, on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (the plan: ``breakout_plan``, one cluster of C
+CTAs per C envs, each CTA holding 1 / C of the dense weight in shared
+memory for the whole launch). ``breakout_rollout_plain`` is
 the same function in PyTorch: the TPU kernel's CNN formulas
 (``ops/minatar_rollout.py``), the env's step rules (envs/minatar/breakout.py)
 and the kernel's Philox4x32-10 words 0-2 (``ops/philox.py``), so kernel and
@@ -38,6 +41,12 @@ from purejaxql_torch.envs.minatar.breakout import (
 from purejaxql_torch.ops import minatar_rollout
 from purejaxql_torch.ops.philox import step_words, unit24
 
+ROWS = 8
+CHANNELS = 4
+# the ints the kernel keeps in each env's CTA: the 8 state rows and 3 of its
+# own (12 with padding), 4 Philox words and the 100-cell brick map
+# (csrc/breakout_rollout.cu kGameInts)
+GAME_INTS = 116
 _ROWS = ("ball_y", "ball_x", "ball_dir", "pos", "strike", "last_y", "last_x", "time")
 _ENV = MinBreakout()
 
@@ -92,14 +101,21 @@ def breakout_rollout(
     if st0.device.type != "cuda":
         raise ValueError(f"breakout_rollout: unsupported device {st0.device}")
     out = minatar_rollout.launch(
-        "breakout_rollout", 4, seed, eps, weights, [((8,), st0), ((10, 10), brick0)],
-        num_steps, use_prng, [max_steps],
+        "breakout_rollout", CHANNELS, seed, eps, weights, [((ROWS,), st0), ((10, 10), brick0)],
+        num_steps, use_prng, (max_steps,), plan=breakout_plan,
     )
     breakout_rollout.launches += 1
     return out
 
 
 breakout_rollout.launches = 0
+
+
+def breakout_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
+    """The kernel's launch plan for B envs of H units
+    (``minatar_rollout.cluster_plan`` at Breakout's 4 channels and its
+    GAME_INTS)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, GAME_INTS, cluster)
 
 
 def state_matrix_from_breakout(bstate: BreakoutState):

@@ -6,20 +6,15 @@ Counterpart of purejaxql_tpu/ops/pallas_rollout.py `_pack_cnn_params`,
 (``ops/breakout_rollout.py``, ``ops/asterix_rollout.py``,
 ``ops/freeway_rollout.py``, ``ops/space_invaders_rollout.py``,
 ``ops/seaquest_rollout.py``) adds its state matrices, its random draws and
-its kernel, ``csrc/<game>_rollout.cu``, whose CNN is
-``csrc/minatar_cnn.cuh`` (one block an env; Breakout and SpaceInvaders), or
-for Asterix, Freeway and Seaquest the cluster CNN of
-``csrc/minatar_cluster.cuh``.
+its kernel, ``csrc/<game>_rollout.cu``, each on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (its plan: ``cluster_plan``).
 
 Every game's kernel has one C entry point of the same shape:
 ``<game>_rollout_f32(10 weight pointers, the state inputs, obs, act, rew,
 done, q, final_obs, the state outputs, T, B, H, A, seed, eps, use_prng,
-the game's int parameters, stream)``, returning the launch's cudaError_t.
-A kernel on the cluster CNN (``csrc/minatar_cluster.cuh``) takes its
-plan's cluster size and shared bytes before the stream (``cluster_plan``,
-``ClusterPlan.ints``) and also exports
-``<game>_rollout_active_clusters(cluster, smem_bytes)``
-(``active_clusters``).
+the game's int parameters, the plan's cluster size and shared bytes
+(``ClusterPlan.ints``), stream)``, returning the launch's cudaError_t, and
+``<game>_rollout_active_clusters(cluster, smem_bytes)`` (``active_clusters``).
 """
 
 from __future__ import annotations
@@ -48,9 +43,10 @@ TWO_CTAS_AN_SM = 113 * 1024
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 THREADS = 256  # a CTA: a thread per conv pixel and feature quad
 # the cluster size the plan takes: on an H100 at (T 32, B 128, H 128) at C
-# 4, 8 and 16 Freeway's kernel ran 0.474, 0.248 and 0.244 ms, Asterix's
-# 0.453, 0.241 and 0.244, Seaquest's 0.518, 0.457 and 0.283 (at C 8 its
-# CTA is over TWO_CTAS_AN_SM) (scripts/time_rollouts.py, PERF.md section 6)
+# 4, 8 and 16 Breakout's kernel ran 0.397, 0.220 and 0.203 ms, Asterix's
+# 0.416, 0.273 and 0.244, Freeway's 0.411, 0.212 and 0.207, SpaceInvaders'
+# 0.486, 0.249 and 0.247, Seaquest's 0.473, 0.263 and 0.252
+# (scripts/time_rollouts.py, PERF.md section 6)
 PLAN_CLUSTER = 16
 
 
@@ -85,12 +81,12 @@ def cluster_smem_bytes(channels: int, H: int, C: int, game_ints: int) -> int:
     """csrc/minatar_cluster.cuh `smem_floats` in bytes: the mbarriers, the W
     slice (F x H), two slots of the envs' conv-output slices (2 x 1024) and
     of the partial sums received (2 x C x H), the chunks' sums (chunks x C
-    x H), the planes and their active cells, the conv taps, conv bias and
-    LN1, the dense bias, LN2 and the head (11 H + 8), a scan scratch, the
+    x H), the planes and each cell's mask of active channels, the conv taps,
+    conv bias and LN1, the dense bias, LN2 and the head (11 H + 8), the
     Q-values and the game's ``game_ints`` ints (its state, Philox words and
     what its planes read)."""
     floats = (
-        8 + (FLAT // C) * H + 2 * FLAT + 2 * C * H + _chunks(H, C) * C * H + 2 * _round4(CELLS * channels) + 8
+        8 + (FLAT // C) * H + 2 * FLAT + 2 * C * H + _chunks(H, C) * C * H + _round4(CELLS * channels) + CELLS
         + 9 * channels * CONV_FEATURES + 48 + 11 * H + 8 + MAX_ACTIONS + _round4(game_ints)
     )
     return 4 * floats
@@ -202,17 +198,17 @@ def _check(name: str, weights, channels: int, state_ins) -> Tuple[int, int, int]
 
 
 def launch(name: str, channels: int, seed: int, eps: float, weights, state_ins, num_steps: int,
-           use_prng: bool, game_ints: Sequence[int], plan: Optional[Callable] = None):
+           use_prng: bool, game_ints: Sequence[int], plan: Callable[[int, int], ClusterPlan]):
     """Launch ``csrc/<name>.cu`` on CUDA tensors. ``state_ins`` is a list of
     (shape without B, int32 tensor (*shape, B)); the state outputs have the
-    same shapes. ``plan(B, H)``, for a kernel on the cluster CNN, gives the
-    ClusterPlan whose ints follow the game's. Returns (obs (T,B,10,10,C),
+    same shapes. ``plan(B, H)`` gives the ClusterPlan whose ints follow the
+    game's. Returns (obs (T,B,10,10,C),
     act (T,B) int32, rew (T,B), done (T,B) int32, q (T,B,A), final_obs
     (B,10,10,C), *state outputs)."""
     if num_steps < 1:
         raise ValueError(f"{name}: num_steps must be >= 1")
     H, A, B = _check(name, weights, channels, state_ins)
-    plan_ints = plan(B, H).ints if plan is not None else ()
+    plan_ints = plan(B, H).ints
     T, dev = num_steps, weights[0].device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)

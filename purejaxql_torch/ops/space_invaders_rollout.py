@@ -8,7 +8,10 @@ One call runs T env steps for B envs: the 6 observation planes, the MinAtar
 CNN forward, greedy argmax (first index wins ties), the epsilon coin and a
 uniform random action, the SpaceInvaders rules and the deterministic reset.
 
-The kernel is ``csrc/space_invaders_rollout.cu``. ``space_invaders_rollout_plain``
+The kernel is ``csrc/space_invaders_rollout.cu``, on the cluster CNN of
+``csrc/minatar_cluster.cuh`` (the plan: ``space_invaders_plan``, one
+cluster of C CTAs per C envs, each CTA holding 1 / C of the dense weight in
+shared memory for the whole launch). ``space_invaders_rollout_plain``
 runs the env's own batched step (envs/minatar/space_invaders.py); the env
 draws nothing, so the kernel's Philox words 0-1 (``ops/philox.py``) give
 only the coin and the random action. ``use_prng=False`` is the TPU kernel's
@@ -42,6 +45,11 @@ from purejaxql_torch.ops import minatar_rollout
 from purejaxql_torch.ops.philox import step_words, unit24
 
 ROWS = 16
+CHANNELS = 6
+# the ints the kernel keeps in each env's CTA: the 16 state rows (its own
+# scalars in the unused ones), 4 Philox words and the three 100-cell maps
+# (csrc/space_invaders_rollout.cu kGameInts)
+GAME_INTS = 320
 _SCALARS = ("pos", "alien_dir", "enemy_move_interval", "alien_move_timer", "alien_shot_timer",
             "ramp_index", "shot_timer", "terminal", "time")
 _MAPS = ("alien_map", "f_bullet_map", "e_bullet_map")
@@ -101,14 +109,22 @@ def space_invaders_rollout(
     if st0.device.type != "cuda":
         raise ValueError(f"space_invaders_rollout: unsupported device {st0.device}")
     out = minatar_rollout.launch(
-        "space_invaders_rollout", 6, seed, eps, weights,
+        "space_invaders_rollout", CHANNELS, seed, eps, weights,
         [((ROWS,), st0)] + [((10, 10), x) for x in maps], num_steps, use_prng, (max_steps,),
+        plan=space_invaders_plan,
     )
     space_invaders_rollout.launches += 1
     return out
 
 
 space_invaders_rollout.launches = 0
+
+
+def space_invaders_plan(B: int, H: int, cluster=None) -> minatar_rollout.ClusterPlan:
+    """The kernel's launch plan for B envs of H units
+    (``minatar_rollout.cluster_plan`` at SpaceInvaders' 6 channels and its
+    GAME_INTS)."""
+    return minatar_rollout.cluster_plan(B, H, CHANNELS, GAME_INTS, cluster)
 
 
 def state_matrix_from_space_invaders(state: SpaceInvadersState):

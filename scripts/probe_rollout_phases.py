@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Clock-probe the phases of a step of the MinAtar rollout kernels on the
-cluster CNN (csrc/asterix_rollout.cu, csrc/freeway_rollout.cu,
-csrc/seaquest_rollout.cu) on one GPU.
+cluster CNN (csrc/<game>_rollout.cu of the five games, time_rollouts.py's
+GAMES) on one GPU.
 
     python scripts/probe_rollout_phases.py [--out FILE]
 
@@ -13,7 +13,9 @@ patched kernel with the same nvcc flags, and runs it at the trainers' (T 32,
 B 128, H 128) with its plan, its outputs held against the twin. Thread 0 of
 the first CTA (an env's CTA) adds the cycles from one mark to the next into
 shared memory, so each phase's count is what that thread waits for it,
-barriers included. Prints the cycles a step of each phase, the patched and
+barriers included ("rules": from the CNN's end to the step's last barrier,
+every phase and barrier of the game's rules). Prints the cycles a step of
+each phase, the patched and
 the tree's kernel's ms (CUDA events), and a summary object as the last line
 with the card's name and power limit.
 """
@@ -33,7 +35,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 PHASES = (
-    "step start", "planes and words", "active cells", "conv, LN1 and send", "wait for the conv slices",
+    "step start", "planes and words", "cell masks", "conv, LN1 and send", "wait for the conv slices",
     "partial sums", "chunk sums and send", "wait for the partial sums", "LN2 and head", "rules",
     "barrier after the rules",
 )
@@ -49,7 +51,7 @@ static __shared__ long long probe_last;
 # (the line a mark goes after, the mark)
 HEADER_MARKS = (
     ("namespace minatar_cluster {\n", PROBE_DEFS),
-    ("    active_cells<kCh>(m);\n", "    PROBE(2);\n"),
+    ("    cell_masks<kCh>(m);\n", "    PROBE(2);\n"),
     ("    st_async4(cluster_addr(dst, r), y, cluster_addr(smem_addr(&m.bars[slot]), r));\n", "    PROBE(3);\n"),
     ("  wait_slot(m.bars, slot, parity);\n", "  PROBE(4);\n"),
     ("red[(ch * KC + eh * KE + g) * QH + uq] = acc[g];\n  }\n  __syncthreads();\n", "  PROBE(5);\n"),
@@ -87,7 +89,9 @@ def patched_sources(out_dir: str) -> None:
     for anchor, mark in HEADER_MARKS:
         text = insert_after(text, anchor, mark, path)
     open(path, "w").write(text)
-    for name in ("asterix_rollout", "freeway_rollout", "seaquest_rollout"):
+    import time_rollouts as tr
+
+    for name in tr.GAMES:
         path = os.path.join(out_dir, f"{name}.cu")
         text = open(path).read()
         for anchor, mark in GAME_MARKS:
@@ -133,29 +137,30 @@ def main() -> int:
         lib = ctypes.CDLL(lib_path)
         fn = getattr(lib, f"{name}_f32")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
+        n_states = tr.STATES.get(name, 1)
+        fn.argtypes = [ctypes.c_void_p] * (16 + 2 * n_states) + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
             ctypes.c_int
         ] * (len(game_ints) + 2) + [ctypes.c_void_p]
         module = tr.game_module(name)
         plan = getattr(module, f"{game}_plan")(B, H)
-        weights, st = tr.minatar_inputs(name, B, H, dev)
+        weights, states = tr.minatar_inputs(name, B, H, dev)
         f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
         A = weights[8].shape[0]
         outs = (
             torch.empty((T, B, 10, 10, channels), **f32), torch.empty((T, B), **i32), torch.empty((T, B), **f32),
             torch.empty((T, B), **i32), torch.empty((T, B, A), **f32), torch.empty((B, 10, 10, channels), **f32),
-            torch.empty_like(st),
+            *(torch.empty_like(x) for x in states),
         )
 
         def probed():
-            err = fn(*(x.data_ptr() for x in (*weights, st, *outs)), T, B, H, A, 3, 0.1, 1, *game_ints, *plan.ints,
-                     torch.cuda.current_stream().cuda_stream)
+            err = fn(*(x.data_ptr() for x in (*weights, *states, *outs)), T, B, H, A, 3, 0.1, 1, *game_ints,
+                     *plan.ints, torch.cuda.current_stream().cuda_stream)
             assert err == 0, err
             return outs
 
-        q_err = tr.minatar_err(name, probed(), getattr(module, f"{name}_plain")(3, 0.1, weights, st, T))
+        q_err = tr.minatar_err(name, probed(), getattr(module, f"{name}_plain")(3, 0.1, weights, *states, T))
         probed_ms = tr.cuda_time_ms(probed, 100)
-        tree_ms = tr.cuda_time_ms(lambda: getattr(module, name)(3, 0.1, weights, st, T), 100)
+        tree_ms = tr.cuda_time_ms(lambda: getattr(module, name)(3, 0.1, weights, *states, T), 100)
         probed()
         torch.cuda.synchronize()
         counts = (ctypes.c_ulonglong * 16)()

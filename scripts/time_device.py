@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """The device time of the epsilon-greedy and lambda-returns kernels
 (csrc/eps_greedy.cu, csrc/lambda_returns.cu), apart from their wrappers'
-host time, on one GPU.
+host time, on one GPU, beside an empty kernel's launch floor.
 
     python scripts/time_device.py [--out FILE]
 
 Each kernel at its trainers' shapes: epsilon-greedy at (E 1024, A 34),
 pqn_craftax's NUM_ENVS and actions; the lambda returns at (T 32, E 128),
-pqn_minatar's, and (T 64, E 32), pqn_cartpole's. For each, over ITERS
+pqn_minatar's, and (T 64, E 32), pqn_cartpole's; and an empty kernel
+(``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
+through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
+threads), the floor that any launch of that grid pays. For each, over ITERS
 back-to-back calls of the wrapper:
 
 1. ``wrapper_ms``: CUDA events around the calls, divided by their count, as
@@ -36,6 +39,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 ITERS = 200
+# a kernel that does nothing, launched as epsilon-greedy launches its own
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 EPS_GREEDY_SHAPE = (1024, 34)
 LAMBDA_SHAPES = ((32, 128), (64, 32))
 
@@ -95,6 +107,35 @@ def graph_ms(fn, iters: int) -> float:
     return events_ms(graph.replay, 5) / iters
 
 
+def empty_kernel(blocks: int, threads: int):
+    """A call that launches EMPTY_SOURCE's kernel on the current stream,
+    built into build/time_device/ with the port's nvcc flags."""
+    import ctypes
+
+    import torch
+
+    from purejaxql_torch.ops import build
+
+    out_dir = os.path.join(ROOT, "build", "time_device")
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib_path = os.path.join(out_dir, "empty.cu"), os.path.join(out_dir, "empty.so")
+    with open(src, "w") as f:
+        f.write(EMPTY_SOURCE)
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path, src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the empty kernel:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(lib_path).empty_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def call():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the empty kernel's launch failed ({err})")
+
+    return call
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
@@ -121,6 +162,8 @@ def main() -> int:
     if not torch.equal(eg.eps_greedy(3, q, 0.1), eg.eps_greedy_plain(3, q, 0.1)):
         raise AssertionError("eps_greedy differs from its twin")
     cases.append(("eps_greedy", {"E": E, "A": A}, lambda: eg.eps_greedy(3, q, 0.1)))
+    blocks = -(-E // 8)  # csrc/eps_greedy.cu: 8 warps a block, a warp a row
+    cases.append(("empty_kernel", {"blocks": blocks, "threads": 256}, empty_kernel(blocks, 256)))
     for T, E in LAMBDA_SHAPES:
         last_q, maxq = torch.randn(E, device=dev, generator=gen), torch.randn(T, E, device=dev, generator=gen)
         rew = torch.randn(T, E, device=dev, generator=gen)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Time the rollout kernels on the cluster CNN and the Pendulum cluster
 rollout (csrc/freeway_rollout.cu, csrc/asterix_rollout.cu,
-csrc/seaquest_rollout.cu, csrc/pendulum_ac_rollout.cu) on one GPU, with
-CUDA events, at the trainers' shapes.
+csrc/seaquest_rollout.cu, csrc/breakout_rollout.cu,
+csrc/space_invaders_rollout.cu, csrc/pendulum_ac_rollout.cu) on one GPU,
+with CUDA events, at the trainers' shapes.
 
     python scripts/time_rollouts.py
     python scripts/time_rollouts.py --parent-csrc build/parent_csrc --out build/rollout_times.json
 
-1. each kernel through its wrapper at its trainer's shape, Freeway, Asterix
-   and Seaquest at (T 32, B 128, H 128) and Pendulum at (T 32, B 64, H
+1. each kernel through its wrapper at its trainer's shape, the five
+   MinAtar games at (T 32, B 128, H 128) and Pendulum at (T 32, B 64, H
    256), its plan printed and its outputs held against the twin first (the
    MinAtar games: every output but Q equal, Q within 1e-4; Pendulum: done
    and time equal, every float within 1e-4);
@@ -18,10 +19,11 @@ CUDA events, at the trainers' shapes.
    games;
 3. with ``--parent-csrc DIR``: the MinAtar kernels of the earlier version,
    built from DIR/<game>_rollout.cu with DIR's headers and the same nvcc
-   flags and called through that version's C entry points (Freeway on the
-   cluster CNN with its plan, Asterix and Seaquest one block per env, no
-   plan), each held against the twin and timed in turns with the current
-   one: old, new, new, old.
+   flags and called through that version's C entry points (with the
+   current plan where the earlier kernel took one, per GAMES; a kernel of
+   one block an env takes none), each held against the twin and against
+   the current kernel's outputs (equal bit for bit, or the largest Q gap),
+   and timed in turns with the current one: old, new, new, old.
 
 Prints one JSON line per timing and one summary object as the last line,
 with the card's name and power limit.
@@ -31,8 +33,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -43,13 +47,17 @@ MINATAR_SHAPE = (32, 128, 128)  # T, B, H: pqn_minatar's NUM_STEPS, NUM_ENVS, HI
 PENDULUM_SHAPE = (32, 64, 256)  # pqn_pendulum's NUM_STEPS, NUM_ENVS, hidden sizes
 CLUSTERS = (4, 8, 16)
 # per game: the env, the wrapper's module name, channels, actions, the
-# game's int arguments after use_prng, and whether the earlier kernel took
-# a plan
+# game's int arguments after use_prng, and whether the earlier kernel (of
+# the tree --parent-csrc names) took a plan
 GAMES = {
     "freeway_rollout": ("Freeway-MinAtar", "freeway", 7, 3, (2500, 3), True),
-    "asterix_rollout": ("Asterix-MinAtar", "asterix", 4, 5, (1000,), False),
-    "seaquest_rollout": ("Seaquest-MinAtar", "seaquest", 10, 6, (1000,), False),
+    "asterix_rollout": ("Asterix-MinAtar", "asterix", 4, 5, (1000,), True),
+    "seaquest_rollout": ("Seaquest-MinAtar", "seaquest", 10, 6, (1000,), True),
+    "breakout_rollout": ("Breakout-MinAtar", "breakout", 4, 3, (1000,), False),
+    "space_invaders_rollout": ("SpaceInvaders-MinAtar", "space_invaders", 6, 4, (1000,), False),
 }
+# the state inputs of each game's kernel (and as many state outputs)
+STATES = {"breakout_rollout": 2, "space_invaders_rollout": 4}
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -75,8 +83,8 @@ def game_module(name: str):
 
 
 def minatar_inputs(name: str, B: int, H: int, dev):
-    """Seeded CNN weights and the state matrix after 40 steps of random play
-    through the twin from a reset."""
+    """Seeded CNN weights and the state matrices after 40 steps of random
+    play through the twin from a reset."""
     import torch
 
     from purejaxql_torch.envs import make as make_env
@@ -89,8 +97,9 @@ def minatar_inputs(name: str, B: int, H: int, dev):
     weights = minatar_weights(net)
     env, params = make_env(env_name)
     _, state = env.reset(torch.Generator(device=dev).manual_seed(0), B, params)
-    st = getattr(module, f"state_matrix_from_{game}")(state)
-    return weights, getattr(module, f"{name}_plain")(3, 1.0, weights, st, 40)[6]
+    states = getattr(module, f"state_matrix_from_{game}")(state)
+    states = states if isinstance(states, tuple) else (states,)
+    return weights, getattr(module, f"{name}_plain")(3, 1.0, weights, *states, 40)[6:]
 
 
 def pendulum_inputs(B: int, H: int, dev):
@@ -131,6 +140,22 @@ def pendulum_err(got, want) -> float:
     return max((g - w).abs().max().item() for i, (g, w) in enumerate(zip(got, want)) if i not in (5, 8))
 
 
+@functools.lru_cache(maxsize=None)
+def parent_smem_bytes(src_dir: str, name: str, channels: int, H: int, C: int) -> int:
+    """The shared bytes a CTA of the earlier kernel `name` takes: the earlier
+    minatar_cluster.cuh's `smem_floats` expression, evaluated with its
+    constants and that kernel's own kGameInts."""
+    header = open(os.path.join(src_dir, "minatar_cluster.cuh")).read()
+    expr = re.search(r"inline int smem_floats\(int kCh, int H, int C, int game_ints\) \{\s*return (.*?);", header, re.S)
+    source = open(os.path.join(src_dir, f"{name}.cu")).read()
+    game_ints = int(re.search(r"constexpr int kGameInts = (\d+);", source).group(1))
+    names = dict(
+        kFlat=1024, kCells=100, kFeatures=16, kMaxActions=8, kCh=channels, H=H, C=C, game_ints=game_ints,
+        round4=lambda n: (n + 3) // 4 * 4, chunks_of=lambda h, c: 256 // (h // 4 * (2 if c > 1 else 1)),
+    )
+    return 4 * eval("(" + expr.group(1).replace("/", "//") + ")", {}, names)
+
+
 def build_parent(src_dir: str):
     """The earlier MinAtar kernels' C entry points as ctypes functions, built
     into build/parent_rollouts/."""
@@ -147,33 +172,36 @@ def build_parent(src_dir: str):
             raise RuntimeError(f"nvcc failed for the earlier {name}.cu:\n{proc.stdout}{proc.stderr}")
         fn = getattr(ctypes.CDLL(lib_path), f"{name}_f32")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
+        fn.argtypes = [ctypes.c_void_p] * (16 + 2 * STATES.get(name, 1)) + [ctypes.c_int] * 4 + [ctypes.c_uint64, ctypes.c_float, ctypes.c_int] + [
             ctypes.c_int
         ] * (len(game_ints) + (2 if planned else 0)) + [ctypes.c_void_p]
         fns[name] = fn
     return fns
 
 
-def parent_call(fns, name: str):
+def parent_call(fns, name: str, src_dir: str):
     """The earlier wrapper's launch path for `name`: the same outputs,
-    allocated the same way, with the current plan where that kernel took one
-    (the earlier Freeway's: the same cluster CNN layout)."""
+    allocated the same way, with the current plan's cluster where that
+    kernel took a plan, and its own shared bytes (``parent_smem_bytes``)."""
     import torch
 
     _, game, channels, _, game_ints, planned = GAMES[name]
     module = game_module(name)
 
-    def call(seed, eps, weights, st0, T):
-        B, H, A, dev = st0.shape[1], weights[4].shape[0], weights[8].shape[0], st0.device
+    def call(seed, eps, weights, states, T):
+        B, H, A, dev = states[0].shape[-1], weights[4].shape[0], weights[8].shape[0], states[0].device
         f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
         outs = (
             torch.empty((T, B, 10, 10, channels), **f32), torch.empty((T, B), **i32), torch.empty((T, B), **f32),
             torch.empty((T, B), **i32), torch.empty((T, B, A), **f32), torch.empty((B, 10, 10, channels), **f32),
-            torch.empty_like(st0),
+            *(torch.empty_like(x) for x in states),
         )
-        plan_ints = getattr(module, f"{game}_plan")(B, H).ints if planned else ()
+        plan_ints = ()
+        if planned:
+            C = getattr(module, f"{game}_plan")(B, H).cluster
+            plan_ints = (C, parent_smem_bytes(src_dir, name, channels, H, C))
         err = fns[name](
-            *(x.data_ptr() for x in (*weights, st0, *outs)), T, B, H, A, seed, eps, 1, *game_ints, *plan_ints,
+            *(x.data_ptr() for x in (*weights, *states, *outs)), T, B, H, A, seed, eps, 1, *game_ints, *plan_ints,
             torch.cuda.current_stream().cuda_stream,
         )
         assert err == 0, err
@@ -185,7 +213,7 @@ def parent_call(fns, name: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--parent-csrc", default=None,
-                    help="directory with the earlier freeway, asterix and seaquest rollout sources and their headers")
+                    help="directory with the earlier MinAtar rollout sources and their headers")
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
     args = ap.parse_args()
 
@@ -216,14 +244,15 @@ def main() -> int:
     T, B, H = MINATAR_SHAPE
     for name, (_, game, *_) in GAMES.items():
         module = game_module(name)
-        weights, st = minatar_inputs(name, B, H, dev)
-        want = getattr(module, f"{name}_plain")(3, 0.1, weights, st, T)
+        weights, states = minatar_inputs(name, B, H, dev)
+        want = getattr(module, f"{name}_plain")(3, 0.1, weights, *states, T)
         kernel = getattr(module, name)
         cases.append((
             name, module, f"{game}_plan", MINATAR_SHAPE,
-            lambda kernel=kernel, weights=weights, st=st: kernel(3, 0.1, weights, st, T),
+            lambda kernel=kernel, weights=weights, states=states: kernel(3, 0.1, weights, *states, T),
             lambda out, name=name, want=want: minatar_err(name, out, want),
-            (lambda call=parent_call(old, name), weights=weights, st=st: call(3, 0.1, weights, st, T)) if old else None,
+            (lambda call=parent_call(old, name, args.parent_csrc), weights=weights, states=states: call(3, 0.1, weights, states, T))
+            if old else None,
         ))
     P, PB, PH = PENDULUM_SHAPE
     aw, cw, stf, sti = pendulum_inputs(PB, PH, dev)
@@ -239,14 +268,20 @@ def main() -> int:
         if old_fn is None:
             entry["ms"] = timed(name, new_fn, 200)
         else:
-            o_err = err_of(old_fn())
+            old_out, new_out = old_fn(), new_fn()
+            o_err = err_of(old_out)
+            # the earlier kernel's outputs against the current one's: every
+            # output bit for bit, or else how far the Q-values are apart
+            same = all(torch.equal(x, y) for x, y in zip(old_out, new_out))
+            q_gap = (old_out[4] - new_out[4]).abs().max().item()
             # in turns: old, new, new, old
             t_old1 = timed(f"earlier {name}", old_fn, 100)
             t_new1 = timed(name, new_fn, 200)
             t_new2 = timed(name, new_fn, 200)
             t_old2 = timed(f"earlier {name}", old_fn, 100)
             entry["ms"] = [t_new1, t_new2]
-            summary["parent"][name] = {"ms": [t_old1, t_old2], "max_abs_err": o_err}
+            summary["parent"][name] = {"ms": [t_old1, t_old2], "max_abs_err": o_err, "outputs_equal": same,
+                                       "max_q_gap": q_gap}
         summary["kernels"][name] = entry
 
         chosen = getattr(module, plan_name)

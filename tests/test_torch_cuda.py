@@ -323,6 +323,76 @@ def test_asterix_and_seaquest_plans_place_every_cluster_at_once(dev, env_name):
     assert minatar_rollout.active_clusters(kernel.__name__, plan) >= plan.clusters
 
 
+# Breakout and SpaceInvaders on the cluster CNN: the wrapper's module, the
+# wrapper, its twin, its plan's name and its inputs (weights and states after
+# 40 steps of random play through the twin)
+def _breakout_played(dev, B=128, hidden=128):
+    weights, st0, brick0 = _breakout_inputs(dev, B=B, hidden=hidden)
+    return weights, br.breakout_rollout_plain(3, 1.0, weights, st0, brick0, 40)[6:]
+
+
+BREAKOUT_AND_SPACE_INVADERS = {
+    "Breakout-MinAtar": (br, br.breakout_rollout, br.breakout_rollout_plain, "breakout_plan", _breakout_played),
+    "SpaceInvaders-MinAtar": (
+        sr, sr.space_invaders_rollout, sr.space_invaders_rollout_plain, "space_invaders_plan",
+        lambda dev, B=128, hidden=128: _game_inputs(dev, "SpaceInvaders-MinAtar", B=B, hidden=hidden),
+    ),
+}
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("B,H", [(1, 32), (37, 256), (130, 32), (130, 256), (37, 32), (1, 256)])
+@pytest.mark.parametrize("env_name", sorted(BREAKOUT_AND_SPACE_INVADERS))
+def test_breakout_and_space_invaders_kernels_match_plain_at_ragged_shapes(dev, env_name, B, H, use_prng):
+    """Clusters with CTAs past the last env (B not a multiple of the plan's
+    C) and the narrowest and widest H, with max_steps 9 so that every env
+    resets: the twin's integer outputs, observations and state (Breakout's
+    brick map, SpaceInvaders' three maps), Q within 1e-4."""
+    module, kernel, plain, plan_name, inputs = BREAKOUT_AND_SPACE_INVADERS[env_name]
+    plan = getattr(module, plan_name)(B, H)
+    assert B % plan.cluster and plan.clusters == -(-B // plan.cluster)
+    weights, states = inputs(dev, B=B, hidden=H)
+    got = kernel(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    want = plain(5, 0.2, weights, *states, 24, use_prng=use_prng, max_steps=9)
+    _assert_minatar_equal(got, want)
+    assert (want[3].sum(0) >= 2).all()
+
+
+@pytest.mark.parametrize("env_name", sorted(BREAKOUT_AND_SPACE_INVADERS))
+def test_breakout_and_space_invaders_kernels_repeat_bit_for_bit(dev, env_name):
+    """Two launches on the same inputs give the same bits: every sum has a
+    fixed order (the partial sums added in rank order) and no atomics."""
+    kernel, inputs = BREAKOUT_AND_SPACE_INVADERS[env_name][1], BREAKOUT_AND_SPACE_INVADERS[env_name][4]
+    weights, states = inputs(dev, B=130)
+    first, second = (kernel(9, 0.3, weights, *states, 32) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("env_name", sorted(BREAKOUT_AND_SPACE_INVADERS))
+def test_breakout_and_space_invaders_refused_launch_raises(dev, env_name, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    module, kernel, _, plan_name, inputs = BREAKOUT_AND_SPACE_INVADERS[env_name]
+    weights, states = inputs(dev, B=16)
+    plan = getattr(module, plan_name)(16, 128)._replace(smem_bytes=300_000)
+    monkeypatch.setattr(module, plan_name, lambda B, H: plan)
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match=f"{kernel.__name__} kernel launch failed"):
+        kernel(0, 0.1, weights, *states, 4)
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("env_name", sorted(BREAKOUT_AND_SPACE_INVADERS))
+def test_breakout_and_space_invaders_plans_place_every_cluster_at_once(dev, env_name):
+    """At the trainer's (B 128, H 128) the plan's CTAs stay under the 113 KB
+    at which two share an SM, so the card places all 8 clusters of 16 at
+    once (cudaOccupancyMaxActiveClusters), not 7 in a first wave."""
+    module, kernel, _, plan_name, _ = BREAKOUT_AND_SPACE_INVADERS[env_name]
+    plan = getattr(module, plan_name)(128, 128)
+    assert (plan.cluster, plan.clusters) == (16, 8)
+    assert minatar_rollout.active_clusters(kernel.__name__, plan) >= plan.clusters
+
+
 @pytest.mark.parametrize("use_prng", [False, True])
 def test_seaquest_kernel_matches_plain_through_resets(dev, use_prng):
     """B 64, T 40, max_steps 9: every env resets at least four times, so the

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_minatar_cases import check_cluster_plan
 
 from purejaxql_torch.core.checkpoint import params_from_flax
 from purejaxql_torch.envs import make as tmake
@@ -320,3 +321,12 @@ def test_breakout_wrapper_takes_plain_version_on_cpu_without_counting():
     assert tbr.breakout_rollout.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         tbr.breakout_rollout(0, 0.0, minatar_weights(tnet), st0.to("meta"), brick0.to("meta"), 3)
+
+
+@pytest.mark.parametrize("H", list(range(32, 257, 32)))
+@pytest.mark.parametrize("B", [1, 3, 64, 100, 128, 130])
+def test_breakout_plan_covers_every_env_and_column(B, H):
+    """The Breakout kernel's launch plan: every env and dense column
+    owned once, the header's shared bytes with the kernel's own ints, C 16
+    and two CTAs an SM at H 128 (``check_cluster_plan``)."""
+    check_cluster_plan(tbr.breakout_plan, B, H, 4, tbr.GAME_INTS, "breakout_rollout.cu")

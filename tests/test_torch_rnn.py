@@ -471,8 +471,10 @@ def test_rnn_unsupported_options_raise():
         pqn_rnn.make_train(tiny_rnn_config(FAST_BPTT=True, PALLAS_BPTT=True, RNN_CELL="lstm"))
     with pytest.raises(ValueError, match="NUM_MINIBATCHES"):
         pqn_rnn.make_train(tiny_rnn_config(NUM_MINIBATCHES=3))
+    # an image observation is flattened as the JAX trainer flattens it
+    # (pqn_rnn.py:72, tests/test_torch_options.py); kept whole, it is refused
     with pytest.raises(NotImplementedError, match="flat observations"):
-        pqn_rnn.make_train(tiny_rnn_config(ENV_NAME="Breakout-MinAtar"))
+        pqn_rnn.make_train(tiny_rnn_config(ENV_NAME="Breakout-MinAtar", FLATTEN_OBS=False))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pqn_rnn.make_train({**tiny_rnn_config(), "DEVICE": None})

@@ -14,6 +14,7 @@ import torch
 from torch_minatar_cases import (
     assert_same_step,
     assert_twin_matches_pallas,
+    check_cluster_plan,
     check_cnn_matches_flax_and_crosses,
     check_tiny_train,
     check_wrapper_on_cpu,
@@ -245,3 +246,12 @@ def test_space_invaders_kernel_constants_are_the_default_params():
     assert built_in["kResetInterval"] == params.enemy_move_interval
     assert built_in["kShotCoolDown"] == params.shot_cool_down
     assert built_in["kShotInterval"] == params.enemy_shot_interval
+
+
+@pytest.mark.parametrize("H", list(range(32, 257, 32)))
+@pytest.mark.parametrize("B", [1, 3, 64, 100, 128, 130])
+def test_space_invaders_plan_covers_every_env_and_column(B, H):
+    """The SpaceInvaders kernel's launch plan: every env and dense column
+    owned once, the header's shared bytes with the kernel's own ints, C 16
+    and two CTAs an SM at H 128 (``check_cluster_plan``)."""
+    check_cluster_plan(tsr.space_invaders_plan, B, H, 6, tsr.GAME_INTS, "space_invaders_rollout.cu")
