@@ -9,12 +9,15 @@ Phases, each ending the run with a non-zero exit if it fails:
 2. build the CUDA kernels under purejaxql_torch/csrc/ (one nvcc each, in
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   trainers' shapes: lambda returns, the CartPole rollout, the Breakout,
+   trainers' shapes: lambda returns, the CartPole cluster rollout (PRNG off
+   and on, at the trainer's two shapes and at ragged shapes that force
+   resets, each with its plan, register counts and the clusters the card
+   places at once; a Q-row with a NaN), the Breakout,
    Asterix, Freeway, SpaceInvaders and Seaquest rollouts (PRNG off and on;
    Seaquest also at a shape that forces resets; the five kernels on the
    cluster CNN also at a ragged shape, each with its plans, register counts
-   and the clusters the card places at once; Seaquest also through its
-   cash-ins), the GRU
+   and the clusters the card places at once, and with a NaN in every
+   Q-row; Seaquest also through its cash-ins), the GRU
    scan's forward and backward cluster kernels at five shapes, each with its
    launch plan and the kernels' register and spill counts (and autograd
    through them), and the
@@ -23,7 +26,8 @@ Phases, each ending the run with a non-zero exit if it fails:
    read from L2, each with its plan and register counts), and the
    epsilon-greedy kernel (bit for bit, at
    the Craftax trainer's shape and two others, at eps 0, 0.3 and 1, with a
-   tied and a NaN row);
+   tied and a NaN row, and on edge rows: signed zeros, NaN payloads,
+   infinities);
 4. check the kernels' random streams by their statistics (Seaquest: the
    coin, and one step of 8192 envs that fire, are shot at and spawn;
    epsilon-greedy: P(random), a uniform histogram at eps 1);
@@ -89,6 +93,10 @@ PENDULUM_GATE = -500.0
 # the Pendulum kernel at the trainer's shape (T, B, H, max_steps), at one
 # that forces resets, and at ragged groups with the W2 slices read from L2
 PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10), (12, 100, 1024, 5))
+# the CartPole kernel at ragged groups that force resets (T, B, H,
+# max_steps): a lone env, warps past the last env, W2 slices in shared
+# memory and read from L2
+CARTPOLE_RAGGED = ((24, 1, 64, 5), (24, 37, 256, 5), (24, 130, 512, 5), (24, 37, 1024, 5))
 # the MinAtar kernels on the cluster CNN at ragged clusters (T, B, H,
 # max_steps); the trainer's shape is phases 3c-3d's
 CLUSTER_RAGGED = (24, 37, 256, 9)
@@ -215,6 +223,36 @@ def eps_greedy_bound_ms(E: int, A: int):
     """Reads the (E, A) float32 Q-matrix once and writes E int64 actions; one
     compare an element and ~100 integer operations of Philox a row."""
     return _bound(4 * E * A + 8 * E, E * A + 100 * E)
+
+
+def eps_edge_rows(A: int):
+    """Q-rows of every kind the argmax rule decides: -0.0 against +0.0 (each
+    order), NaNs of different payloads and signs (the first wins), a NaN
+    after an +inf, all -inf, all NaN, and +inf tied with itself."""
+    import numpy as np
+
+    nan = lambda bits: np.array([bits], np.uint32).view(np.float32)[0]  # noqa: E731
+    payloads = [nan(0x7FC00000), nan(0x7F800001), nan(0xFFC00000), nan(0x7FFFFFFF)]
+    rows = []
+    base = -np.ones(A, np.float32)
+    for order in ((0.0, -0.0), (-0.0, 0.0)):
+        r = base.copy()
+        r[[A // 3, A - 1]] = order
+        rows.append(r)
+    for i, p in enumerate(payloads):
+        r = base.copy()
+        r[(A // 2 + i) % A] = p
+        r[(A // 2 + i + 1) % A] = payloads[(i + 1) % 4]
+        rows.append(r)
+    r = base.copy()
+    r[0], r[A - 1] = np.inf, payloads[2]
+    rows.append(r)
+    rows.append(np.full(A, -np.inf, np.float32))
+    rows.append(np.full(A, payloads[1], np.float32))
+    r = base.copy()
+    r[[A - 1, A // 2]] = np.inf
+    rows.append(r)
+    return np.stack(rows)
 
 
 def kernel_resources(log_text: str):
@@ -676,6 +714,55 @@ def main() -> int:
             check(errs["q"] <= 1e-4, f"rollout B={B} prng={use_prng}: q err {errs['q']} > 1e-4")
             if B == 32:
                 roll_err = max(roll_err, max(errs.values()))
+    # each plan (the trainer's two shapes and the ragged ones) with its
+    # registers, spills and the clusters the card places at once; the ragged
+    # shapes reset every env, PRNG off and on
+    cp_resources = kernel_resources(build.library_path("cartpole_rollout").with_suffix(".log").read_text())
+    for cT, cB, cH, c_max in ((64, 32, H, 500), (64, 128, H, 500), *CARTPOLE_RAGGED):
+        plan = cr.cartpole_plan(cB, cH)
+        # the template instance it launches: <resident, G, a lane's units (8 at H 256, else 0)>
+        nu = 8 if plan.resident and cH == 256 else 0
+        c_res = named_instance(cp_resources, f"cartpole_rollout_kernelILb{int(plan.resident)}ELi{plan.group}ELi{nu}E")
+        placed = cr.active_clusters(plan, cH)
+        print(f"cartpole_rollout (B, H) = {(cB, cH)}: plan C {plan.cluster}, G {plan.group}, {plan.clusters} "
+              f"cluster(s), {plan.units} units a CTA, W2 slice resident {plan.resident}, shared bytes "
+              f"{plan.smem_bytes}, {placed} clusters placed at once; registers / spill bytes {c_res[0]} / {c_res[1]}")
+        check(c_res[0] is not None, f"cartpole_rollout: no register count for the plan at {(cB, cH)}")
+        if c_max == 500:
+            check(placed >= plan.clusters, f"cartpole_rollout: the card places {placed} of {plan.clusters} clusters")
+            continue
+        rnet = QNetwork(4, A, hidden_size=cH, num_layers=2, generator=torch.Generator().manual_seed(cB + cH)).to(dev)
+        r = np.random.RandomState(cB)
+        stf0 = r.uniform(-0.05, 0.05, (4, cB)).astype(np.float32)
+        stf0[:, : cB // 4] *= 40  # some envs start near or past the bounds
+        stf0 = torch.tensor(stf0, device=dev)
+        sti0 = torch.tensor(r.randint(0, 3, (1, cB)).astype(np.int32), device=dev)
+        for use_prng in (False, True):
+            got = cr.cartpole_rollout(55, 0.2, cr.cartpole_weights(rnet), stf0, sti0, cT, use_prng=use_prng,
+                                      max_steps=c_max)
+            want = cr.cartpole_rollout_plain(55, 0.2, cr.cartpole_weights(rnet), stf0, sti0, cT,
+                                             use_prng=use_prng, max_steps=c_max)
+            torch.cuda.synchronize()
+            g, w = dict(zip(names, got)), dict(zip(names, want))
+            for k in ("act", "rew", "done", "sti"):
+                check(torch.equal(g[k], w[k]), f"cartpole_rollout {(cT, cB, cH)} prng={use_prng}: {k} differs")
+            errs = {k: (g[k] - w[k]).abs().max().item() for k in ("obs", "final_obs", "stf", "q")}
+            n_done = int(w["done"].sum())
+            print(f"cartpole_rollout T={cT} B={cB} H={cH} max_steps={c_max} prng={use_prng}: actions/rewards/"
+                  f"dones/time equal ({n_done} resets), max|err| {errs}")
+            check(max(errs[k] for k in ("obs", "final_obs", "stf")) <= 1e-5 and errs["q"] <= 1e-4,
+                  f"cartpole_rollout {(cT, cB, cH)} prng={use_prng}: {errs} over 1e-5 / 1e-4")
+            check(n_done >= 4 * cB, "cartpole_rollout: fewer resets than the time limit forces")
+    # a head bias of [0, NaN]: every Q-row holds a NaN at index 1, which
+    # torch.argmax and jnp.argmax take as the maximum
+    stf0, sti0 = reset_states(37, 37)
+    nan_weights = weights[:9] + (torch.tensor([0.0, float("nan")], device=dev),)
+    got = cr.cartpole_rollout(9, 0.0, nan_weights, stf0, sti0, 8, use_prng=False)
+    want = cr.cartpole_rollout_plain(9, 0.0, nan_weights, stf0, sti0, 8, use_prng=False)
+    torch.cuda.synchronize()
+    check(bool((got[1] == 1).all()) and all(torch.equal(got[i], want[i]) for i in (1, 2, 3, 7))
+          and bool(got[4][..., 1].isnan().all()), "cartpole_rollout: a NaN Q-value did not take the greedy action")
+    print("cartpole_rollout with a NaN in every Q-row at index 1: action 1 on every env and step, as the twin")
     errors["cartpole_rollout"] = roll_err
 
     # ---- 3c. Breakout rollout vs plain, PRNG off and on ------------------------
@@ -810,6 +897,19 @@ def main() -> int:
                   f"{err:.3g} (tolerance 1e-4)")
             check(n_done >= 2 * rB, f"{name}: fewer resets than the time limit forces")
             errors[name] = max(errors[name], err)
+        # a NaN head bias on action 2 at eps 0: every Q-row holds a NaN there,
+        # which torch.argmax and jnp.argmax take as the maximum
+        nweights, nstates = game_inputs[name]
+        bias = nweights[9].clone()
+        bias[2] = float("nan")
+        nweights = tuple(nweights[:9]) + (bias,)
+        got = kernel(5, 0.0, nweights, *nstates, 4, use_prng=False)
+        want = plain(5, 0.0, nweights, *nstates, 4, use_prng=False)
+        torch.cuda.synchronize()
+        check(bool((got[1] == 2).all()) and all(torch.equal(g, w) for i, (g, w) in enumerate(zip(got, want)) if i != 4)
+              and bool(got[4][..., 2].isnan().all()), f"{name}: a NaN Q-value did not take the greedy action")
+        print(f"{name} with a NaN in every Q-row at action 2: action 2 on every env and step, every output "
+              f"but Q as the twin's")
 
     # ---- 3e. GRU scan kernels vs plain, and autograd through them ---------------
     # forward within 1e-5; backward within 1e-4 absolute and relative: the
@@ -908,20 +1008,36 @@ def main() -> int:
         return torch.tensor(qv, device=dev)
 
     eps_inputs = {}
-    for E, A in EPS_GREEDY_SHAPES:
-        qv = eps_inputs[(E, A)] = eps_q(E, A, E + A)
+    for E, EA in EPS_GREEDY_SHAPES:
+        qv = eps_inputs[(E, EA)] = eps_q(E, EA, E + EA)
         n_random = 0
         for eps in (0.0, 0.3, 1.0):
             for seed in (3, 2**62 + 5):
                 got, want = eg.eps_greedy(seed, qv, eps), eg.eps_greedy_plain(seed, qv, eps)
                 torch.cuda.synchronize()
                 check(got.dtype == torch.int64 and torch.equal(got, want),
-                      f"eps_greedy ({E}, {A}) eps {eps} seed {seed}: kernel and twin differ")
+                      f"eps_greedy ({E}, {EA}) eps {eps} seed {seed}: kernel and twin differ")
                 n_random += int((got != qv.argmax(-1)).sum())
-        check(int(eg.eps_greedy(3, qv, 0.0)[0]) == A // 2 and int(eg.eps_greedy(3, qv, 0.0)[1]) == A - 1,
+        check(int(eg.eps_greedy(3, qv, 0.0)[0]) == EA // 2 and int(eg.eps_greedy(3, qv, 0.0)[1]) == EA - 1,
               "eps_greedy: the tie or the NaN row took the wrong greedy action")
-        print(f"eps_greedy (E, A) = ({E}, {A}): actions equal to the twin's at eps 0, 0.3, 1 and two seeds "
-              f"({n_random} non-greedy), the tie row takes index {A // 2}, the NaN row index {A - 1}")
+        print(f"eps_greedy (E, A) = ({E}, {EA}): actions equal to the twin's at eps 0, 0.3, 1 and two seeds "
+              f"({n_random} non-greedy), the tie row takes index {EA // 2}, the NaN row index {EA - 1}")
+    # edge rows: -0.0 against +0.0, NaNs of four payloads (the first wins), a
+    # NaN after +inf, all -inf, all NaN, +inf twice; at A 34 and 65 (three
+    # elements a lane)
+    for EA in (34, 65):
+        edges = eps_edge_rows(EA)
+        qv = torch.tensor(np.concatenate([edges, np.random.RandomState(EA).randn(64, EA).astype(np.float32)]),
+                          device=dev)
+        want_greedy = torch.tensor(edges).argmax(-1)
+        for eps in (0.0, 0.3):
+            got = eg.eps_greedy(17, qv, eps)
+            torch.cuda.synchronize()
+            check(torch.equal(got, eg.eps_greedy_plain(17, qv, eps)), f"eps_greedy edge rows A {EA} eps {eps}: differs")
+        check(torch.equal(eg.eps_greedy(17, qv, 0.0)[: len(edges)].cpu(), want_greedy),
+              f"eps_greedy edge rows A {EA}: not torch.argmax's choice on the CPU")
+        print(f"eps_greedy edge rows at A {EA}: equal to the twin at eps 0 and 0.3, greedy "
+              f"{want_greedy.tolist()} as torch.argmax on the CPU")
     errors["eps_greedy"] = 0.0
 
     # ---- 4. PRNG-on statistics -----------------------------------------------

@@ -16,12 +16,23 @@
 // Bound on an H100: the work reads E * A floats and writes E ints, with one
 // compare per element and one Philox call per env: bytes bound it (about
 // 143 KB at the Craftax trainer's E 1024, A 34), and at that size the
-// launch itself dominates.
+// launch itself dominates: an empty kernel on the same grid takes about
+// half of the first design's 1.75 us on the device.
 //
-// Design: one warp per env row, 8 rows per block of 256 threads. Lanes
-// stride over A, so a warp reads its row's floats consecutively; a shuffle
-// reduction keeps (max, lowest index); lane 0 draws the words and writes
-// the action.
+// What held the first design back: lane 0 began its Philox call only after
+// the argmax reduction, five rounds of two shuffles each through a
+// branching comparison, so the row's load, the reduction and Philox ran one
+// after another.
+//
+// Design: one warp per env row, 8 rows per block of 256 threads (one wave
+// at E 1024). Each lane issues the loads of its elements (a, a + 32, ...)
+// first; lane 0 runs the Philox call while they are in flight. Each lane
+// takes its local best by the argmax rule, then maps it to an
+// order-preserving 32-bit key (every NaN above +inf, -0.0 on +0.0's key),
+// and two warp instructions finish the argmax: __reduce_max_sync of the
+// keys, then __reduce_min_sync of the indices of the lanes that hold that
+// key (each lane's index the first of its best key, so the minimum is the
+// first index of the row's).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,13 +43,13 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
-// Whether (v, i) beats (w, j) as the argmax: a NaN beats any number, a larger
-// value beats a smaller one, and among equals (or two NaNs) the lower index.
-__device__ __forceinline__ bool beats(float v, int i, float w, int j) {
-  const bool v_nan = v != v, w_nan = w != w;
-  if (v_nan != w_nan) return v_nan;
-  if (!v_nan && v != w) return v > w;
-  return i < j;
+// An order-preserving key of v for the argmax: a larger value a larger key,
+// every NaN the largest key of all (above +inf) and -0.0 the key of +0.0,
+// so that equal values, and NaNs of any payload, tie.
+__device__ __forceinline__ unsigned argmax_key(float v) {
+  if (v != v) return 0xffffffffu;
+  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
 __global__ void eps_greedy_kernel(const float* __restrict__ q,
@@ -48,29 +59,39 @@ __global__ void eps_greedy_kernel(const float* __restrict__ q,
   const int e = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (e >= E) return;
   const float* row = q + (long long)e * A;
-  float best = 0.0f;
-  int best_i = A;  // no element yet: any real one beats it
-  for (int a = lane; a < A; a += 32) {
-    const float v = row[a];
-    if (best_i == A || beats(v, a, best, best_i)) {
-      best = v;
+  // the row's first two elements of each lane in flight before Philox
+  const float v0 = lane < A ? __ldg(row + lane) : 0.0f;
+  const float v1 = lane + 32 < A ? __ldg(row + lane + 32) : 0.0f;
+  U4 w{0u, 0u, 0u, 0u};
+  if (lane == 0) w = philox4x32_10(U4{0u, (uint32_t)e, 0u, 0u}, k0, k1);
+  // the lane's best: the first of its largest keys (key 0 where it has no
+  // element; every real element's key is above it)
+  unsigned best = 0u;
+  int best_i = A;
+  if (lane < A) {
+    best = argmax_key(v0);
+    best_i = lane;
+  }
+  if (lane + 32 < A) {
+    const unsigned k = argmax_key(v1);
+    if (k > best) {
+      best = k;
+      best_i = lane + 32;
+    }
+  }
+  for (int a = lane + 64; a < A; a += 32) {
+    const unsigned k = argmax_key(__ldg(row + a));
+    if (k > best) {
+      best = k;
       best_i = a;
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v = __shfl_down_sync(0xffffffffu, best, off);
-    const int i = __shfl_down_sync(0xffffffffu, best_i, off);
-    if (i < A && (best_i == A || beats(v, i, best, best_i))) {
-      best = v;
-      best_i = i;
-    }
-  }
+  const unsigned top = __reduce_max_sync(0xffffffffu, best);
+  const int greedy = (int)__reduce_min_sync(0xffffffffu, best == top ? (unsigned)best_i : 0xffffffffu);
   if (lane == 0) {
-    const U4 w = philox4x32_10(U4{0u, (uint32_t)e, 0u, 0u}, k0, k1);
     const bool take_random = unit24(w.x) < eps;
     const int random_action = (int)((w.y >> 8) % (uint32_t)A);
-    out[e] = take_random ? random_action : best_i;
+    out[e] = take_random ? random_action : greedy;
   }
 }
 

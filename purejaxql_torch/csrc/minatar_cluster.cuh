@@ -378,13 +378,15 @@ __device__ void cluster_q_values(const Smem& m, const CnnWeights& w, const Place
   __syncthreads();
 }
 
-// The greedy action of the Q-values in m.q (first index wins ties), on any
-// thread of the env's CTA after cluster_q_values.
+// The greedy action of the Q-values in m.q, on any thread of the env's CTA
+// after cluster_q_values: the rule of jnp.argmax and torch.argmax, a NaN
+// counted as the maximum (the first NaN wins) and the first index winning
+// ties.
 __device__ __forceinline__ int greedy_of(const Smem& m, int A) {
   int greedy = 0;
   float best = m.q[0];
   for (int a = 1; a < A; ++a) {
-    if (m.q[a] > best) {
+    if (best == best && (m.q[a] > best || m.q[a] != m.q[a])) {
       best = m.q[a];
       greedy = a;
     }

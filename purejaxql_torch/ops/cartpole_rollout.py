@@ -8,11 +8,15 @@ epsilon coin and a uniform random action, the Euler physics, done on
 |x| > 2.4, |theta| > 12 degrees or t >= max_steps, the reward masked by the
 incoming state, and auto-reset to U(-0.05, 0.05)^4.
 
-The kernel is ``csrc/cartpole_rollout.cu``. ``cartpole_rollout_plain`` is
+The kernel is ``csrc/cartpole_rollout.cu``, a thread-block cluster per
+group of envs with each CTA holding its rows of W2 in shared memory for the
+whole rollout (the plan: ``cartpole_plan``). ``cartpole_rollout_plain`` is
 the same function in PyTorch, including its Philox4x32-10 random stream
-(``ops/philox.py``), so the two agree with the PRNG on as well as off. ``cartpole_rollout`` takes
-the plain version only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.
+(``ops/philox.py``), so the two agree with the PRNG on as well as off.
+Both take the greedy action by torch.argmax's rule: a NaN Q-value counts as
+the maximum (the first NaN wins) and the first index wins ties.
+``cartpole_rollout`` takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises.
 
 Weights are passed in torch layout, as returned by ``cartpole_weights``:
 (W1 (H,4), b1, ln1 scale, ln1 bias, W2 (H,H), b2, ln2 scale, ln2 bias,
@@ -23,7 +27,8 @@ bias of the TPU kernel is a sublane artefact.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +42,108 @@ LENGTH, MASSPOLE, FORCE, TAU = 0.5, 0.1, 10.0, 0.02
 X_THR = 2.4
 TH_THR = 12 * 2 * 3.141592653589793 / 360
 MAX_ACTIONS = 8
+
+# shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB)
+SMEM_LIMIT = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+THREADS = 256  # a CTA: 8 warps, a warp an env of the cluster's group
+MAX_GROUP = THREADS // 32
+SMS = 132  # an H100 SXM's SMs: the plan puts a launch's CTAs in one wave on them
+# the most layer-2 units (rows of W2) a CTA owns in the plan, and the fewest
+# CTAs a cluster: on an H100 at (T 64, H 256) C 4, 8 and 16 ran 0.2257,
+# 0.2242 and 0.2490 ms at B 32 and 0.3709, 0.4199 and 0.6417 at B 128
+# (scripts/time_rollouts.py, PERF.md section 6)
+PLAN_UNITS = 64
+MIN_CLUSTER = 4
+RESIDENT_MAX_H = 512  # the largest H whose W2 slice the plan holds in shared memory
+STEP_CHUNK = 64  # csrc/cartpole_rollout.cu kChunk: the steps whose random words a CTA draws at once
+
+
+class CartPolePlan(NamedTuple):
+    """How the kernel splits a launch (``cartpole_plan``)."""
+
+    cluster: int  # C CTAs a cluster
+    group: int  # G envs a cluster (a warp an env): 1, 2, 4 or 8
+    clusters: int  # ceil(B / G); the last group's envs past B are computed, not written
+    units: int  # U = H / C: the layer-2 units (rows of W2) a CTA owns
+    resident: bool  # the W2 slice held in shared memory for the whole launch
+    threads: int  # a CTA
+    smem_bytes: int  # dynamic shared memory a CTA
+
+    @property
+    def ints(self) -> Tuple[int, int, int, int]:
+        """What the C entry point takes before the stream."""
+        return self.cluster, self.group, int(self.resident), self.smem_bytes
+
+
+def _split(U: int, H: int) -> int:
+    """Threads a row of the layer-2 slice takes (csrc/cartpole_rollout.cu
+    split_of)."""
+    ks = 1
+    while ks < 32 and 2 * ks * U <= THREADS and 8 * ks <= H:
+        ks *= 2
+    return ks
+
+
+def cartpole_smem_bytes(H: int, C: int, G: int, resident: bool) -> int:
+    """csrc/cartpole_rollout.cu `smem_floats` in bytes: two mbarriers, the
+    W2 slice (U rows of H floats, padded where fewer than 8 threads share a
+    row) where resident, layer-1 activations (G, H), two staging blocks of
+    G x U (padded to 4 floats), two slots of C received blocks, a gather
+    table (H ints), the random words of STEP_CHUNK steps for G envs (6
+    each), and the head (room for MAX_ACTIONS rows and biases)."""
+    U = H // C
+    ks = _split(U, H)
+    stride = H + (0 if ks >= 8 else 4 * ks)
+    blk = -(-G * U // 4) * 4
+    return 4 * (
+        4 + (U * stride if resident else 0) + G * H + 2 * blk * (1 + C) + H + 6 * STEP_CHUNK * G
+        + MAX_ACTIONS * (H + 1)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def cartpole_plan(B: int, H: int, cluster: Optional[int] = None) -> CartPolePlan:
+    """The kernel's launch plan for B envs of H units (H a multiple of 32 in
+    [32, 1024]).
+
+    C is the smallest power of two, at least MIN_CLUSTER, at which a CTA
+    owns at most PLAN_UNITS layer-2 units (``cluster`` overrides it, for
+    timing). G, a power of two (a template of the kernel), is the smallest
+    that puts the clusters in one wave on the card's SMs (one CTA an SM),
+    else 8. The W2 slice is held in shared memory for H <= 512 and read
+    from L2 every step above, as a resident slice there would halve G and
+    break the wave; G is halved until the CTA fits in 227 KB."""
+    if B < 1 or H % 32 or not 32 <= H <= 1024:
+        raise ValueError(f"cartpole_plan: B must be positive and H a multiple of 32 in [32, 1024], got {B}, {H}")
+    C = max(MIN_CLUSTER, 1 << (-(-H // PLAN_UNITS) - 1).bit_length()) if cluster is None else cluster
+    if C not in CLUSTER_SIZES or H // C > THREADS:
+        raise ValueError(f"cartpole_plan: cluster {C} at H {H}: must be one of {CLUSTER_SIZES}, H / C <= {THREADS}")
+    group = next((g for g in (1, 2, 4, 8) if -(-B // g) * C <= SMS), MAX_GROUP)
+    for resident in (True, False) if H <= RESIDENT_MAX_H else (False,):
+        G = group
+        while G > 1 and cartpole_smem_bytes(H, C, G, resident) > SMEM_LIMIT:
+            G //= 2
+        smem = cartpole_smem_bytes(H, C, G, resident)
+        if smem <= SMEM_LIMIT:
+            return CartPolePlan(
+                cluster=C, group=G, clusters=-(-B // G), units=H // C, resident=resident, threads=THREADS,
+                smem_bytes=smem,
+            )
+    raise ValueError(f"cartpole_plan: H {H} does not fit a CTA's shared memory at C {C}")
+
+
+def active_clusters(plan: CartPolePlan, H: int) -> int:
+    """How many clusters of ``plan`` the card places at once
+    (cudaOccupancyMaxActiveClusters). Raises if the query fails."""
+    lib = build.load("cartpole_rollout")
+    fn = lib.cartpole_rollout_active_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5
+    active = fn(H, *plan.ints)
+    if active < 0:
+        build.check_launch(lib, -active, "cartpole_rollout")
+    return active
 
 
 def _draws(seed: int, num_steps: int, batch: int, num_actions: int, device):
@@ -139,8 +246,8 @@ def _function():
     fn = lib.cartpole_rollout_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
-        ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+        ctypes.c_uint64, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return lib, fn
 
 
@@ -161,6 +268,8 @@ def _check(weights, stf0, sti0) -> Tuple[int, int, int]:
             raise ValueError(f"cartpole_rollout: input {name} must be {dtype} on {dev}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"cartpole_rollout: input {name} must be contiguous {shape}, got {tuple(x.shape)}")
+    if any(w.data_ptr() % 16 for w in (weights[0], weights[4])):
+        raise ValueError("cartpole_rollout: W1 and W2 must be 16-byte aligned (float4 loads)")
     return H, A, B
 
 
@@ -202,7 +311,7 @@ def cartpole_rollout(
     ]
     with torch.cuda.device(stf0.device):
         err = fn(
-            *ptrs, T, B, H, A, seed, eps, int(use_prng), max_steps,
+            *ptrs, T, B, H, A, seed, eps, int(use_prng), max_steps, *cartpole_plan(B, H).ints,
             torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, "cartpole_rollout")

@@ -3,14 +3,17 @@
 (csrc/eps_greedy.cu, csrc/lambda_returns.cu), apart from their wrappers'
 host time, on one GPU, beside an empty kernel's launch floor.
 
-    python scripts/time_device.py [--out FILE]
+    python scripts/time_device.py [--out FILE] [--parent-csrc DIR]
 
 Each kernel at its trainers' shapes: epsilon-greedy at (E 1024, A 34),
 pqn_craftax's NUM_ENVS and actions; the lambda returns at (T 32, E 128),
 pqn_minatar's, and (T 64, E 32), pqn_cartpole's; and an empty kernel
 (``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
 through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
-threads), the floor that any launch of that grid pays. For each, over ITERS
+threads), the floor that any launch of that grid pays, and beside it a
+kernel on the same grid that only reads each row's first Q-value and
+writes one int64 from it (``load_store_kernel``), the floor of a launch
+whose output waits on one read of its input. For each, over ITERS
 back-to-back calls of the wrapper:
 
 1. ``wrapper_ms``: CUDA events around the calls, divided by their count, as
@@ -21,6 +24,13 @@ back-to-back calls of the wrapper:
 3. ``graph_ms``: a CUDA graph that captured the same calls, replayed under
    CUDA events: the launches back to back on the device with no host work
    between them, so one launch's floor where the kernel is shorter.
+
+With ``--parent-csrc DIR`` (an earlier csrc/, e.g. ``git archive <commit>
+purejaxql_torch/csrc`` unpacked under build/), the earlier epsilon-greedy
+kernel too, built from DIR/eps_greedy.cu with the same nvcc flags and
+called through its C entry point on the same inputs, its actions held
+against the current kernel's; the two are measured in turns: earlier,
+current, current, earlier.
 
 The outputs are held against the plain twin first. Prints one JSON line a
 kernel and shape, then a summary object as the last line with the card's
@@ -45,6 +55,15 @@ EMPTY_SOURCE = r"""
 __global__ void empty_kernel() {}
 extern "C" int empty_launch(int blocks, int threads, void* stream) {
   empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+__global__ void load_store_kernel(const float* q, long long* out, int E, int A) {
+  const int e = blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
+  if (e < E && (threadIdx.x & 31) == 0) out[e] = q[(long long)e * A] > 0.0f;
+}
+extern "C" int load_store_launch(int blocks, int threads, const float* q, long long* out, int E, int A,
+                                 void* stream) {
+  load_store_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(q, out, E, A);
   return (int)cudaGetLastError();
 }
 """
@@ -107,12 +126,10 @@ def graph_ms(fn, iters: int) -> float:
     return events_ms(graph.replay, 5) / iters
 
 
-def empty_kernel(blocks: int, threads: int):
-    """A call that launches EMPTY_SOURCE's kernel on the current stream,
-    built into build/time_device/ with the port's nvcc flags."""
+def floor_library():
+    """EMPTY_SOURCE built into build/time_device/ with the port's nvcc flags
+    and loaded."""
     import ctypes
-
-    import torch
 
     from purejaxql_torch.ops import build
 
@@ -124,7 +141,17 @@ def empty_kernel(blocks: int, threads: int):
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path, src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for the empty kernel:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(lib_path).empty_launch
+    return ctypes.CDLL(lib_path)
+
+
+def empty_kernel(lib, blocks: int, threads: int):
+    """A call that launches EMPTY_SOURCE's empty kernel on the current
+    stream."""
+    import ctypes
+
+    import torch
+
+    fn = lib.empty_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -136,9 +163,64 @@ def empty_kernel(blocks: int, threads: int):
     return call
 
 
+def load_store_kernel(lib, blocks: int, threads: int, q):
+    """A call that launches EMPTY_SOURCE's load_store_kernel over the rows
+    of q into a new int64 vector on the current stream."""
+    import ctypes
+
+    import torch
+
+    fn = lib.load_store_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+
+    def call():
+        out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+        err = fn(blocks, threads, q.data_ptr(), out.data_ptr(), *q.shape, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the load-store kernel's launch failed ({err})")
+        return out
+
+    return call
+
+
+def parent_eps_greedy(src_dir: str):
+    """The earlier epsilon-greedy kernel's C entry point (the same signature
+    as csrc/eps_greedy.cu's), built into build/time_device/ from DIR with
+    DIR's headers, as a call with the current wrapper's arguments."""
+    import ctypes
+
+    import torch
+
+    from purejaxql_torch.ops import build
+
+    out_dir = os.path.join(ROOT, "build", "time_device")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "eps_greedy_parent.so")
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", src_dir, "-o", lib_path, os.path.join(src_dir, "eps_greedy.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the earlier eps_greedy.cu:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(lib_path).eps_greedy_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint64,
+                   ctypes.c_void_p]
+
+    def call(seed, q, eps):
+        out = torch.empty(q.shape[0], dtype=torch.int64, device=q.device)
+        err = fn(q.data_ptr(), out.data_ptr(), *q.shape, eps, seed, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the earlier eps_greedy's launch failed ({err})")
+        return out
+
+    return call
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
+    ap.add_argument("--parent-csrc", default=None, help="directory with the earlier eps_greedy.cu and its headers")
     args = ap.parse_args()
 
     import torch
@@ -161,9 +243,20 @@ def main() -> int:
     q = torch.randn(E, A, device=dev, generator=gen)
     if not torch.equal(eg.eps_greedy(3, q, 0.1), eg.eps_greedy_plain(3, q, 0.1)):
         raise AssertionError("eps_greedy differs from its twin")
-    cases.append(("eps_greedy", {"E": E, "A": A}, lambda: eg.eps_greedy(3, q, 0.1)))
+    current = ("eps_greedy", {"E": E, "A": A}, lambda: eg.eps_greedy(3, q, 0.1))
+    if args.parent_csrc:
+        old_call = parent_eps_greedy(args.parent_csrc)
+        if not torch.equal(old_call(3, q, 0.1), eg.eps_greedy(3, q, 0.1)):
+            raise AssertionError("the earlier eps_greedy's actions differ from the current kernel's")
+        earlier = ("eps_greedy", {"E": E, "A": A, "version": "earlier"}, lambda: old_call(3, q, 0.1))
+        cases += [earlier, current, current, earlier]  # in turns
+    else:
+        cases.append(current)
     blocks = -(-E // 8)  # csrc/eps_greedy.cu: 8 warps a block, a warp a row
-    cases.append(("empty_kernel", {"blocks": blocks, "threads": 256}, empty_kernel(blocks, 256)))
+    floors = floor_library()
+    cases.append(("empty_kernel", {"blocks": blocks, "threads": 256}, empty_kernel(floors, blocks, 256)))
+    cases.append(("load_store_kernel", {"blocks": blocks, "threads": 256, "E": E, "A": A},
+                  load_store_kernel(floors, blocks, 256, q)))
     for T, E in LAMBDA_SHAPES:
         last_q, maxq = torch.randn(E, device=dev, generator=gen), torch.randn(T, E, device=dev, generator=gen)
         rew = torch.randn(T, E, device=dev, generator=gen)

@@ -85,6 +85,88 @@ def test_rollout_kernel_matches_plain(dev, B, use_prng):
     torch.testing.assert_close(got["q"], want["q"], atol=1e-4, rtol=0)
 
 
+def _cartpole_inputs(dev, B, H, seed=0):
+    """Weights of a seeded 2-layer QNetwork and states near the upright
+    start, a quarter of them near or past the bounds, at random times."""
+    gen = torch.Generator().manual_seed(seed + B + H)
+    net = QNetwork(4, 2, hidden_size=H, generator=gen).to(dev)
+    rng = np.random.RandomState(seed + B)
+    stf0 = rng.uniform(-0.05, 0.05, (4, B)).astype(np.float32)
+    stf0[:, : B // 4] *= 40
+    sti0 = rng.randint(0, 3, (1, B)).astype(np.int32)
+    return cr.cartpole_weights(net), torch.tensor(stf0, device=dev), torch.tensor(sti0, device=dev)
+
+
+def _assert_cartpole_equal(got, want):
+    """Actions, rewards, dones and time equal; obs and state within 1e-5, Q
+    within 1e-4 (layer 2 sums in another order than the twin's matmul)."""
+    got, want = dict(zip(NAMES, got)), dict(zip(NAMES, want))
+    for k in ("act", "rew", "done", "sti"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("obs", "final_obs", "stf"):
+        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=0)
+    torch.testing.assert_close(got["q"], want["q"], atol=1e-4, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("use_prng", [False, True])
+@pytest.mark.parametrize("H", [64, 256, 512, 1024])
+@pytest.mark.parametrize("B", [1, 37, 130])
+def test_cartpole_kernel_matches_plain_at_ragged_shapes(dev, B, H, use_prng):
+    """Clusters whose last group has warps past the last env, the W2 slice
+    in shared memory (H <= 512) and read from L2 (H 1024), and max_steps 5
+    so that every env resets: the twin's outputs (``_assert_cartpole_equal``)."""
+    plan = cr.cartpole_plan(B, H)
+    assert plan.resident == (H <= 512)
+    weights, stf0, sti0 = _cartpole_inputs(dev, B, H)
+    got = cr.cartpole_rollout(7, 0.2, weights, stf0, sti0, 24, use_prng=use_prng, max_steps=5)
+    want = cr.cartpole_rollout_plain(7, 0.2, weights, stf0, sti0, 24, use_prng=use_prng, max_steps=5)
+    _assert_cartpole_equal(got, want)
+    assert (want[3].sum(0) >= 4).all()
+
+
+def test_cartpole_kernel_repeats_bit_for_bit(dev):
+    """Two launches on the same inputs give the same bits on both paths:
+    every sum has a fixed order and no atomics."""
+    for B, H in ((128, 256), (37, 1024)):
+        weights, stf0, sti0 = _cartpole_inputs(dev, B, H, seed=3)
+        first, second = (cr.cartpole_rollout(4, 0.3, weights, stf0, sti0, 32, max_steps=9) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (B, H)
+
+
+def test_cartpole_refused_launch_raises(dev, monkeypatch):
+    """A plan the card refuses (here more shared memory than a CTA has)
+    raises from the wrapper; nothing retries or falls back to the twin."""
+    weights, stf0, sti0 = _cartpole_inputs(dev, 8, 64)
+    plan = cr.cartpole_plan(8, 64)._replace(smem_bytes=300_000)
+    monkeypatch.setattr(cr, "cartpole_plan", lambda B, H: plan)
+    before = cr.cartpole_rollout.launches
+    with pytest.raises(RuntimeError, match="cartpole_rollout kernel launch failed"):
+        cr.cartpole_rollout(0, 0.1, weights, stf0, sti0, 4)
+    assert cr.cartpole_rollout.launches == before
+
+
+@pytest.mark.parametrize("B", [32, 128])
+def test_cartpole_plans_place_every_cluster_at_once(dev, B):
+    """The trainer's two launch shapes at H 256, B 32 (training) and B 128
+    (the eval chunks): the card places every cluster of the plan at once
+    (cudaOccupancyMaxActiveClusters), one wave."""
+    plan = cr.cartpole_plan(B, 256)
+    assert plan.clusters * plan.cluster <= 132
+    assert cr.active_clusters(plan, 256) >= plan.clusters
+
+
+def test_cartpole_nan_q_takes_the_first_nan(dev):
+    """A head bias of [0, NaN] at eps 0: every Q-row holds a NaN at index
+    1, which torch.argmax and jnp.argmax take; the kernel acts 1 on every
+    env, as its twin."""
+    weights, stf0, sti0 = _cartpole_inputs(dev, 37, 256)
+    weights = weights[:9] + (torch.tensor([0.0, float("nan")], device=dev),)
+    got = cr.cartpole_rollout(7, 0.0, weights, stf0, sti0, 8, use_prng=False)
+    want = cr.cartpole_rollout_plain(7, 0.0, weights, stf0, sti0, 8, use_prng=False)
+    _assert_cartpole_equal(got, want)
+    assert (got[1] == 1).all()
+
+
 def test_tiny_train_on_the_card_launches_both_kernels(dev):
     config = compose(
         alg="pqn_cartpole",
@@ -431,6 +513,30 @@ def test_tiny_minatar_train_on_the_card_launches_its_kernel(dev, env_name):
     assert torch.isfinite(out["metrics"]["td_loss"]).all()
 
 
+@pytest.mark.parametrize("env_name", sorted([*GAMES, "Breakout-MinAtar"]))
+def test_minatar_kernels_take_the_first_nan(dev, env_name):
+    """A NaN head bias on action 2 at eps 0: every Q-row holds a NaN there,
+    which torch.argmax and jnp.argmax take; each game's kernel acts 2 on
+    every env, as its twin, and matches the twin's every other output."""
+    if env_name == "Breakout-MinAtar":
+        kernel, plain = br.breakout_rollout, br.breakout_rollout_plain
+        weights, states = _breakout_played(dev, B=37)
+    else:
+        kernel, plain = GAMES[env_name][:2]
+        weights, states = _game_inputs(dev, env_name, B=37)
+    bias = weights[9].clone()
+    bias[2] = float("nan")
+    weights = tuple(weights[:9]) + (bias,)
+    got = kernel(5, 0.0, weights, *states, 8, use_prng=False)
+    want = plain(5, 0.0, weights, *states, 8, use_prng=False)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 4:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=0, equal_nan=True)
+        else:
+            assert torch.equal(g, w), i
+    assert (got[1] == 2).all() and got[4][..., 2].isnan().all()
+
+
 def _gru_inputs(dev, T, B, H, seed=0):
     """The GRU scan's inputs from numpy: xi ~ N(0, 1), about 20 % resets, h0
     ~ N(0, 0.25), an orthogonal W_h (the init's scale), b_hn ~ N(0, 0.01),
@@ -680,6 +786,51 @@ def test_eps_greedy_kernel_matches_plain(dev, E, A, eps):
         got = eg.eps_greedy(seed, q, eps)
         assert got.dtype == torch.int64 and got.shape == (E,)
         assert torch.equal(got, eg.eps_greedy_plain(seed, q, eps)), seed
+
+
+def eps_edge_rows(A):
+    """Q-rows of every kind the argmax rule decides (also the CPU tests'
+    in tests/test_torch_eps_greedy.py): -0.0 against +0.0 (each
+    order), NaNs of different payloads and signs (the first wins), a NaN
+    after an +inf, all -inf, all NaN, and +inf tied with itself."""
+    nan = lambda bits: np.array([bits], np.uint32).view(np.float32)[0]  # noqa: E731
+    payloads = [nan(0x7FC00000), nan(0x7F800001), nan(0xFFC00000), nan(0x7FFFFFFF)]
+    rows = []
+    base = -np.ones(A, np.float32)
+    for order in ((0.0, -0.0), (-0.0, 0.0)):
+        r = base.copy()
+        r[[A // 3, A - 1]] = order
+        rows.append(r)
+    for i, p in enumerate(payloads):
+        r = base.copy()
+        r[(A // 2 + i) % A] = p
+        r[(A // 2 + i + 1) % A] = payloads[(i + 1) % 4]
+        rows.append(r)
+    r = base.copy()
+    r[0], r[A - 1] = np.inf, payloads[2]
+    rows.append(r)
+    rows.append(np.full(A, -np.inf, np.float32))
+    rows.append(np.full(A, payloads[1], np.float32))
+    r = base.copy()
+    r[[A - 1, A // 2]] = np.inf
+    rows.append(r)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("A", [1, 2, 34, 65])
+def test_eps_greedy_kernel_takes_edge_rows_as_the_twin(dev, A):
+    """The edge rows (``eps_edge_rows``), repeated among random ones, bit for
+    bit against the twin at eps 0 and 0.3, and at eps 0 against
+    torch.argmax on the CPU."""
+    rng = np.random.RandomState(A)
+    edges = eps_edge_rows(A)
+    q = rng.randn(100, A).astype(np.float32)
+    q[::7][: len(edges)] = edges
+    qd = torch.tensor(q, device=dev)
+    for eps in (0.0, 0.3):
+        got = eg.eps_greedy(11, qd, eps)
+        assert torch.equal(got, eg.eps_greedy_plain(11, qd, eps)), eps
+    assert torch.equal(eg.eps_greedy(11, qd, 0.0).cpu(), torch.tensor(q).argmax(-1))
 
 
 def test_eps_greedy_wrapper_rejects_bad_inputs(dev):

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_cuda import eps_edge_rows
 
 from purejaxql_torch.ops import eps_greedy as teg
 from purejaxql_torch.ops.philox import philox4x32_10, seed_key
@@ -51,6 +52,20 @@ def test_twin_at_eps_zero_equals_jax_eps_greedy_batch(E, A):
     got = teg.eps_greedy_plain(12345, torch.tensor(q), 0.0)
     assert got.dtype == torch.int64 and got.shape == (E,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("A", [1, 2, 34, 65])
+def test_twin_takes_edge_rows_as_jnp_argmax(A):
+    """At eps 0 the twin's action is jnp.argmax's on the edge rows
+    (``eps_edge_rows``: signed zeros, NaN payloads, infinities), for a single
+    action, two, the Craftax trainer's 34, and 65, more than two per lane
+    of a warp."""
+    q = eps_edge_rows(A)
+    want = np.asarray(jnp.argmax(jnp.asarray(q), axis=-1))
+    got = teg.eps_greedy_plain(5, torch.tensor(q), 0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if A >= 34:  # the rows' own answers: the first zero, the first NaN, ...
+        assert list(want[:2]) == [A // 3, A // 3] and want[-2] == 0 and want[-3] == 0
 
 
 def _numpy_kernel(seed, q, eps):

@@ -112,6 +112,36 @@ def test_rollout_plain_matches_pallas_interpret(max_steps):
         assert (done.sum(0) >= 2).all()  # every env hit the time limit twice
 
 
+def test_rollout_plain_takes_the_first_nan_as_pallas():
+    """A head bias of [0, NaN]: every Q-row holds a NaN at index 1, which
+    jnp.argmax takes as the maximum. The twin against
+    cartpole_rollout_pallas(use_prng=False, interpret=True): action 1 on
+    every env and step, every other output as the TPU kernel's."""
+    B, T = 8, 6
+    jparams, weights = _weights_from_flax(64, 2)
+    jparams = jax.tree_util.tree_map(np.asarray, jparams)
+    jparams["Dense_2"]["bias"] = np.array([0.0, np.nan], np.float32)
+    weights = weights[:9] + (torch.tensor(jparams["Dense_2"]["bias"]),)
+    rng = np.random.RandomState(3)
+    stf0 = rng.uniform(-0.05, 0.05, (4, B)).astype(np.float32)
+    sti0 = np.zeros((1, B), np.int32)
+    want = cartpole_rollout_pallas(
+        jnp.asarray(0), jnp.asarray(0.0), jparams, jnp.asarray(stf0), jnp.asarray(sti0), T,
+        use_prng=False, interpret=True,
+    )
+    got = tcr.cartpole_rollout(0, 0.0, weights, torch.tensor(stf0), torch.tensor(sti0), T, use_prng=False)
+    names = ("obs", "act", "rew", "done", "q", "final_obs", "stf", "sti")
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        if name == "q":
+            w = w[..., :2]  # the TPU head is padded to 8 rows
+        if name in ("act", "rew", "done", "sti"):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+        else:  # NaN where NaN
+            np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0, err_msg=name)
+    assert (got[1] == 1).all() and got[4][..., 1].isnan().all()
+
+
 def test_rollout_plain_matches_port_env():
     """With the PRNG off and no resets, the fused twin steps as the port's
     env does under greedy actions from the same QNetwork."""
@@ -267,6 +297,35 @@ def test_breakout_rollout_plain_matches_pallas_interpret(max_steps):
         assert done.any() and rew.any()
 
 
+def test_breakout_rollout_plain_takes_the_first_nan_as_pallas():
+    """A NaN head bias on action 2 (of 3): every Q-row holds a NaN there,
+    which jnp.argmax takes. The twin against breakout_rollout_pallas in
+    interpret mode (PRNG off): action 2 on every env and step, every other
+    output as the TPU kernel's."""
+    B, T = 8, 4
+    _, _, jparams, tnet = _breakout_weights_from_flax(5)
+    jparams["Dense_0"]["bias"] = jparams["Dense_0"]["bias"].copy()
+    jparams["Dense_0"]["bias"][2] = np.nan
+    weights = minatar_weights(tnet)
+    bias = weights[9].clone()
+    bias[2] = float("nan")
+    weights = weights[:9] + (bias,)
+    st0, brick0 = _breakout_starts(B, 6)
+    want = breakout_rollout_pallas(
+        jnp.asarray(0), jnp.asarray(0.0), jparams, jnp.asarray(st0), jnp.asarray(brick0),
+        T, use_prng=False, interpret=True,
+    )
+    got = tbr.breakout_rollout(0, 0.0, weights, torch.tensor(st0), torch.tensor(brick0), T, use_prng=False)
+    names = ("obs", "act", "rew", "done", "q", "final_obs", "st", "brick")
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        if name == "q":  # NaN where NaN
+            np.testing.assert_allclose(g.numpy(), w[..., :3], atol=1e-4, rtol=0)
+        else:
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    assert (got[1] == 2).all() and got[4][..., 2].isnan().all()
+
+
 def test_breakout_weights_compute_the_cnn():
     """The kernel's weight layout (conv taps with 1/255 folded in, the dense
     weight in flax's (i, j, f) column order, an unpadded head) run through
@@ -330,3 +389,51 @@ def test_breakout_plan_covers_every_env_and_column(B, H):
     owned once, the header's shared bytes with the kernel's own ints, C 16
     and two CTAs an SM at H 128 (``check_cluster_plan``)."""
     check_cluster_plan(tbr.breakout_plan, B, H, 4, tbr.GAME_INTS, "breakout_rollout.cu")
+
+
+def _cartpole_smem_floats_of_source(H, C, G, resident):
+    """csrc/cartpole_rollout.cu's `smem_floats` expression, evaluated with
+    the wrapper's `_split` for the source's split_of."""
+    import re
+
+    source = (build.CSRC_DIR / "cartpole_rollout.cu").read_text()
+    expr = re.search(r"inline int smem_floats\(int H, int C, int G, bool resident\) \{\s*return (.*?);", source, re.S)
+
+    def row_stride(h, u):
+        ks = tcr._split(u, h)
+        return h + (0 if ks >= 8 else 4 * ks)
+
+    names = dict(
+        H=H, C=C, G=G, resident=int(resident), row_stride=row_stride, round4=lambda n: (n + 3) // 4 * 4,
+        kChunk=tcr.STEP_CHUNK, kMaxActions=tcr.MAX_ACTIONS,
+    )
+    return eval(" ".join(expr.group(1).split()).replace("/", "//"), {}, names)
+
+
+@pytest.mark.parametrize("H", list(range(32, 1025, 32)))
+@pytest.mark.parametrize("B", [1, 3, 32, 37, 128, 130])
+def test_cartpole_plan_covers_every_env_and_unit(B, H):
+    """The CartPole kernel's launch plan: clusters of at most 16 CTAs, each
+    over a group of at most 8 envs, so every env has one cluster (whose CTA
+    0 writes it); CTA c owns layer-2 units [c U, (c + 1) U), so every
+    hidden unit has one owner; a CTA within 227 KB of shared memory, by the
+    source's own formula; the W2 slice held on chip for H <= 512 and read
+    from L2 above. B 32 and B 128 in one wave on the card's 132 SMs for H
+    <= 512; the trainer's two shapes at C 4: B 32 in 32 clusters of one
+    env, B 128 (the eval chunks) in 32 of four."""
+    plan = tcr.cartpole_plan(B, H)
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.threads == 256
+    assert plan.group in (1, 2, 4, 8) and plan.clusters == -(-B // plan.group)
+    envs = [k * plan.group + g for k in range(plan.clusters) for g in range(plan.group)]
+    assert envs[:B] == list(range(B)) and len(envs) - B < plan.group
+    units = [c * plan.units + j for c in range(plan.cluster) for j in range(plan.units)]
+    assert units == list(range(H)) and plan.units <= 256
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes == 4 * _cartpole_smem_floats_of_source(H, plan.cluster, plan.group, plan.resident)
+    assert plan.resident == (H <= 512)
+    if plan.resident:
+        assert plan.smem_bytes >= 4 * plan.units * H  # the W2 slice
+    if B in (32, 128) and H <= 512:
+        assert plan.clusters * plan.cluster <= 132
+    if (B, H) in ((32, 256), (128, 256)):
+        assert (plan.cluster, plan.group) == ((4, 1) if B == 32 else (4, 4))
