@@ -9,7 +9,9 @@ Phases, each ending the run with a non-zero exit if it fails:
 2. build the CUDA kernels under purejaxql_torch/csrc/ (one nvcc each, in
    parallel) into build/purejaxql_torch/;
 3. hold each kernel against its plain PyTorch twin on the card, at the
-   trainers' shapes: lambda returns, the CartPole cluster rollout (PRNG off
+   trainers' shapes: the lambda returns in both forms (gymnax and closure,
+   at the trainers' shapes, short, ragged and long ones, each also with
+   NaN and infinities in max_qs and rewards), the CartPole cluster rollout (PRNG off
    and on, at the trainer's two shapes and at ragged shapes that force
    resets, each with its plan, register counts and the clusters the card
    places at once; a Q-row with a NaN), the Breakout,
@@ -44,7 +46,8 @@ Phases, each ending the run with a non-zero exit if it fails:
    and checked against its gate;
 6d. train pqn_rnn_memory_chain at its full config (GRU H 256, 32 envs x 128
    steps, window 4, 16 minibatches x 4 epochs, 1e5 env steps, greedy eval
-   128 envs x 64 steps) through the GRU scan kernels and check that it
+   128 envs x 64 steps) through the GRU scan kernels and the closure form
+   of the returns kernel (one launch of each a grad step) and check that it
    remembers; the FF trainer on the same config must not; then
    pqn_rnn_cartpole at full width for 16 updates;
 6e. train pqn_pendulum at full width (actor and two critics H 256, 64 envs x
@@ -123,8 +126,19 @@ EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
-    "gru_scan_bwd", "pendulum_ac_rollout", "eps_greedy",
+    "gru_scan_bwd", "pendulum_ac_rollout", "eps_greedy", "lambda_returns_closure",
 )
+# the sources under csrc/ (a kernel's own name but for the closure form of
+# the returns, which csrc/lambda_returns.cu also serves)
+SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
+# the returns kernel, both forms: the trainers' shapes (T, E) (CartPole (64,
+# 32), MinAtar (32, 128), Pendulum (32, 64); the recurrent trainer's windows,
+# MemoryChain (131, 2) and RNN CartPole (67, 2)), short and ragged ones, many
+# blocks through the ring, a long T of few envs
+LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (127, 2), (63, 2), (1, 7), (2, 33),
+                 (64, 200), (300, 4096), (1024, 3))
+# where both forms are timed
+LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (127, 2), (63, 2))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -162,6 +176,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 def _bound(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_abs_err(got, want) -> float:
+    """The largest |got - want|, a NaN against a NaN and an infinity
+    against the same infinity counting 0, any other NaN or infinity inf."""
+    import torch
+
+    same = (got == want) | (got.isnan() & want.isnan())
+    diff = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    return diff.nan_to_num(nan=float("inf"), posinf=float("inf")).max().item()
 
 
 def lambda_bound_ms(T: int, E: int):
@@ -614,6 +638,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     counters = {
         "lambda_returns": lr.lambda_returns,
+        "lambda_returns_closure": lr.lambda_returns_closure,
         "cartpole_rollout": cr.cartpole_rollout,
         "breakout_rollout": br.breakout_rollout,
         "asterix_rollout": ar.asterix_rollout,
@@ -645,12 +670,12 @@ def main() -> int:
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     try:
-        per_source = build.build(KERNELS)
+        per_source = build.build(SOURCES)
     except RuntimeError as e:
         fail(f"build failed: {e}")
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s wall, per source {json.dumps(per_source)}")
-    for name in KERNELS:
+    for name in SOURCES:
         log = build.library_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -661,21 +686,34 @@ def main() -> int:
     rng = np.random.RandomState(0)
     errors = {}
 
-    # ---- 3a. lambda returns vs plain -----------------------------------------
+    # ---- 3a. lambda returns, both forms, vs plain ------------------------------
     lam_inputs = {}
-    for T, E in ((64, 32), (32, 128), (64, 200)):
-        rew = torch.tensor(rng.randn(T, E).astype(np.float32), device=dev)
-        done = torch.tensor((rng.rand(T, E) < 0.15).astype(np.float32), device=dev)
-        maxq = torch.tensor(rng.randn(T, E).astype(np.float32), device=dev)
-        lastq = torch.tensor(rng.randn(E).astype(np.float32), device=dev)
-        got = lr.lambda_returns(lastq, rew, done, maxq, 0.99, 0.95)
-        want = lr.lambda_returns_plain(lastq, rew, done, maxq, 0.99, 0.95)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print(f"lambda_returns ({T},{E}): max|kernel - plain| = {err:.3g} (tolerance 1e-5)")
-        check(err <= 1e-5, f"lambda_returns disagrees with its plain twin at ({T},{E}): {err}")
-        errors["lambda_returns"] = max(errors.get("lambda_returns", 0.0), err)
-        lam_inputs[(T, E)] = (lastq, rew, done, maxq)
+    lam_forms = {
+        "lambda_returns": (lr.lambda_returns, lr.lambda_returns_plain),
+        "lambda_returns_closure": (lr.lambda_returns_closure, lr.lambda_returns_closure_plain),
+    }
+    for T, E in LAMBDA_SHAPES:
+        rew = rng.randn(T, E).astype(np.float32)
+        done = (rng.rand(T, E) < 0.15).astype(np.float32)
+        maxq = rng.randn(T, E).astype(np.float32)
+        lastq = rng.randn(E).astype(np.float32)
+        lam_inputs[(T, E)] = [torch.tensor(a, device=dev) for a in (lastq, rew, done, maxq)]
+        # a NaN, +inf and -inf in a row of max_qs, +inf and -inf in one of rewards
+        maxq[T // 2, : min(E, 3)] = [np.nan, np.inf, -np.inf][: min(E, 3)]
+        rew[T // 3, -min(E, 2):] = [np.inf, -np.inf][: min(E, 2)]
+        nonfinite = [torch.tensor(a, device=dev) for a in (lastq, rew, done, maxq)]
+        for name, (kernel, plain) in lam_forms.items():
+            err, err_nonfinite = (max_abs_err(kernel(*args, 0.99, 0.95), plain(*args, 0.99, 0.95))
+                                  for args in (lam_inputs[(T, E)], nonfinite))
+            print(f"{name} ({T},{E}): max|kernel - plain| = {err:.3g}, with NaN and inf rows "
+                  f"{err_nonfinite:.3g} (tolerance 1e-5)")
+            check(max(err, err_nonfinite) <= 1e-5,
+                  f"{name} disagrees with its plain twin at ({T},{E}): {err}, with NaN and inf rows {err_nonfinite}")
+            errors[name] = max(errors.get(name, 0.0), err, err_nonfinite)
+    for T, E in LAMBDA_SHAPES:
+        plan = lr.lambda_plan(T, E)
+        print(f"lambda_plan({T}, {E}): tile {plan.tile}, {plan.blocks} blocks, chunk {plan.chunk}, "
+              f"{plan.stages} stages, {plan.smem_bytes} B")
 
     # ---- 3b. CartPole rollout vs plain, PRNG off and on --------------------------
     H, A = 256, 2
@@ -1388,10 +1426,11 @@ def main() -> int:
     )
     check(ts.timesteps == mc_updates * 128 * 32, "memory_chain: wrong env-step count")
     check(all(p.device.type == "cuda" for p in ts.network.parameters()), "memory_chain: a parameter is not on cuda")
-    for name in ("gru_scan_fwd", "gru_scan_bwd"):
+    for name in ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure"):
         check(launches_mc[name] == mc_grad_steps,
               f"memory_chain: {name} launched {launches_mc[name]} times, expected {mc_grad_steps}")
-    others = {k: v for k, v in launches_mc.items() if not k.startswith("gru_scan") and v}
+    others = {k: v for k, v in launches_mc.items()
+              if not k.startswith("gru_scan") and k != "lambda_returns_closure" and v}
     check(not others, f"memory_chain: another kernel launched: {others}")
     check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "memory_chain: non-finite metrics")
     check(mc_last3 > MEMORY_GATE, f"the recurrent trainer did not remember: last-3 greedy return {mc_last3} <= {MEMORY_GATE}")
@@ -1413,7 +1452,8 @@ def main() -> int:
         f"train memory_chain (pqn, feedforward): {wall:.2f} s wall; launches {launches_ff}; "
         f"last-3 greedy eval return {ff_last3:.3f} (must stay below {FF_GATE})"
     )
-    check(launches_ff["lambda_returns"] == mc_updates and launches_ff["gru_scan_fwd"] == 0,
+    check(launches_ff["lambda_returns"] == mc_updates and launches_ff["gru_scan_fwd"] == 0
+          and launches_ff["lambda_returns_closure"] == 0,
           f"memory_chain FF: unexpected launches {launches_ff}")
     check(ff_last3 < FF_GATE, f"the feedforward trainer remembered: last-3 greedy return {ff_last3} >= {FF_GATE}")
     print(json.dumps({"memory_chain_ff_run": {"env_steps_per_s": outs["runner_state"][0].timesteps / wall,
@@ -1432,8 +1472,9 @@ def main() -> int:
         f"last greedy eval return {float(m['test/returned_episode_returns'][-1]):.2f}"
     )
     check(ts.timesteps == RNN_CARTPOLE_STEPS, "rnn cartpole: wrong env-step count")
-    for name in ("gru_scan_fwd", "gru_scan_bwd"):
+    for name in ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure"):
         check(launches_rc[name] == 16 * 4 * 16, f"rnn cartpole: {name} launched {launches_rc[name]} times, expected 1024")
+    check(launches_rc["lambda_returns"] == 0, f"rnn cartpole: the gymnax form launched: {launches_rc}")
     check(all(np.isfinite(v).all() for k, v in m.items() if not k.startswith("test/")) and
           np.isfinite(m["test/returned_episode_returns"]).all(), "rnn cartpole: non-finite metrics")
     print(json.dumps({"rnn_cartpole_run": {"env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
@@ -1513,13 +1554,16 @@ def main() -> int:
 
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
-    for shape in ((64, 32), (32, 128)):
-        lastq, rew, done, maxq = lam_inputs[shape]
-        k_ms = cuda_time_ms(lambda: lr.lambda_returns(lastq, rew, done, maxq, 0.99, 0.95), 200)
-        p_ms = cuda_time_ms(lambda: lr.lambda_returns_plain(lastq, rew, done, maxq, 0.99, 0.95), 20)
-        b_ms, b_by = lambda_bound_ms(*shape)
-        timings[f"lambda_returns_{shape[0]}x{shape[1]}"] = (k_ms, p_ms, b_ms, b_by)
-        print(json.dumps({"timing": "lambda_returns", "shape": list(shape), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
+    for name, (kernel, plain) in lam_forms.items():
+        for shape in LAMBDA_TIMED:
+            args = lam_inputs[shape]
+            # ms: through the wrapper, as the trainers call it
+            k_ms = cuda_time_ms(lambda: kernel(*args, 0.99, 0.95), 200)
+            p_ms = cuda_time_ms(lambda: plain(*args, 0.99, 0.95), 20)
+            b_ms, b_by = lambda_bound_ms(*shape)
+            timings[f"{name}_{shape[0]}x{shape[1]}"] = (k_ms, p_ms, b_ms, b_by)
+            print(json.dumps({"timing": name, "shape": list(shape), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None}))
     for B in (32, 128):
         stf0, sti0 = reset_states(B, 11)
         k_ms = cuda_time_ms(lambda: cr.cartpole_rollout(3, 0.1, weights, stf0, sti0, 64), 20)
@@ -1588,7 +1632,8 @@ def main() -> int:
 
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
-    # lambda returns' from the Asterix run, the GRU scan's from MemoryChain,
+    # lambda returns' from the Asterix run, their closure form's and the GRU
+    # scan's from MemoryChain,
     # the Pendulum rollout's from the Pendulum run, eps_greedy's from Craftax)
     kernels = []
     for name, src, replaces, key, launches in (
@@ -1615,6 +1660,8 @@ def main() -> int:
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
         ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
          "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_cx),
+        ("lambda_returns_closure", "purejaxql_torch/csrc/lambda_returns.cu",
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_131x2", launches_mc),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

@@ -14,7 +14,9 @@ Line references ``pqn_rnn.py:N`` are to that module.
   major, so sequences stay whole) cut into NUM_MINIBATCHES minibatches
   (:344-350). A minibatch step replays the whole window from its first
   stored hidden state (truncated BPTT) and takes its lambda targets, closure
-  form, from the stop-gradient of the same forward (:275-330).
+  form, from the stop-gradient of the same forward (:275-330), through
+  ``ops/lambda_returns.py:lambda_returns_closure`` (on ``cuda`` one launch
+  of the returns kernel a minibatch step, on the CPU its plain twin).
 - With FAST_BPTT the forward is ``ops/fast_rnn.py:fast_rnn_train_forward``,
   and with PALLAS_BPTT its GRU recurrence runs through the two CUDA kernels
   (``ops/gru_scan.py``); on ``cuda`` the config policy turns both on.
@@ -43,7 +45,6 @@ from purejaxql_torch.algo.metrics import (
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import _NOT_PORTED, build_env, stack_metrics
-from purejaxql_torch.algo.returns import lambda_returns_closure
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core.config import derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
@@ -52,6 +53,7 @@ from purejaxql_torch.core.train_state import PQNTrainState
 from purejaxql_torch.models.factory import check_rnn_q_network, make_rnn_q_network
 from purejaxql_torch.models.rnn import RNNQNetwork
 from purejaxql_torch.ops.fast_rnn import fast_rnn_train_forward, supports_fast_bptt
+from purejaxql_torch.ops.lambda_returns import lambda_returns_closure
 from purejaxql_torch.utils.platform import resolve_device
 
 # the FF trainer's batched modes, done-masked metrics and the epsilon-greedy

@@ -25,7 +25,9 @@ step, optimistic resets at ratio 16, 1-step TD on one minibatch, no eval):
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
    the minibatch steps and, inside them, the train-mode forward, the
-   closure-form targets and the GRU scan kernels; for the actor-critic
+   closure-form targets (the returns kernel's wrapper,
+   ``ops.lambda_returns.lambda_returns_closure``, as the trainer calls it)
+   and the GRU scan kernels; for the actor-critic
    trainer the fused rollout, the LogVec replay, the lambda targets, the
    critic step, the actor step and the eval's episode sums; for pqn_craftax
    the env step of the optimistic-reset wrapper and, inside it, the Forager

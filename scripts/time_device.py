@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """The device time of the epsilon-greedy and lambda-returns kernels
-(csrc/eps_greedy.cu, csrc/lambda_returns.cu), apart from their wrappers'
-host time, on one GPU, beside an empty kernel's launch floor.
+(csrc/eps_greedy.cu, csrc/lambda_returns.cu, both of its forms), apart from
+their wrappers' host time, on one GPU, beside an empty kernel's launch
+floor.
 
     python scripts/time_device.py [--out FILE] [--parent-csrc DIR]
 
 Each kernel at its trainers' shapes: epsilon-greedy at (E 1024, A 34),
-pqn_craftax's NUM_ENVS and actions; the lambda returns at (T 32, E 128),
-pqn_minatar's, and (T 64, E 32), pqn_cartpole's; and an empty kernel
+pqn_craftax's NUM_ENVS and actions; the lambda returns' gymnax form at
+(T 32, E 128), pqn_minatar's, (T 64, E 32), pqn_cartpole's, and (T 32,
+E 64), pqn_pendulum's, and their closure form at (T 131, E 2) and (T 67,
+E 2), the recurrent trainer's minibatch windows on MemoryChain and on
+CartPole (MEMORY_WINDOW + NUM_STEPS - 1 steps of NUM_ENVS /
+NUM_MINIBATCHES envs); and an empty kernel
 (``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
 through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
 threads), the floor that any launch of that grid pays, and beside it a
@@ -27,9 +32,11 @@ back-to-back calls of the wrapper:
 
 With ``--parent-csrc DIR`` (an earlier csrc/, e.g. ``git archive <commit>
 purejaxql_torch/csrc`` unpacked under build/), the earlier epsilon-greedy
-kernel too, built from DIR/eps_greedy.cu with the same nvcc flags and
-called through its C entry point on the same inputs, its actions held
-against the current kernel's; the two are measured in turns: earlier,
+and lambda-returns kernels too, each built from DIR with the same nvcc
+flags and called through its C entry point on the same inputs (the
+returns' entry point with the one-thread-an-env signature), the earlier
+epsilon-greedy's actions and the earlier gymnax returns held against the
+current kernel's bit for bit; each pair is measured in turns: earlier,
 current, current, earlier.
 
 The outputs are held against the plain twin first. Prints one JSON line a
@@ -68,7 +75,8 @@ extern "C" int load_store_launch(int blocks, int threads, const float* q, long l
 }
 """
 EPS_GREEDY_SHAPE = (1024, 34)
-LAMBDA_SHAPES = ((32, 128), (64, 32))
+LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64))
+CLOSURE_SHAPES = ((131, 2), (67, 2))
 
 
 def events_ms(fn, iters: int) -> float:
@@ -217,10 +225,46 @@ def parent_eps_greedy(src_dir: str):
     return call
 
 
+def parent_lambda_returns(src_dir: str):
+    """The earlier lambda-returns kernel's gymnax entry point (the
+    one-thread-an-env signature: pointers, T, E, gamma, gamma * lam,
+    stream), built into build/time_device/ from DIR with DIR's headers, as a
+    call with the current wrapper's arguments."""
+    import ctypes
+
+    import torch
+
+    from purejaxql_torch.ops import build
+
+    out_dir = os.path.join(ROOT, "build", "time_device")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "lambda_returns_parent.so")
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", src_dir, "-o", lib_path,
+           os.path.join(src_dir, "lambda_returns.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the earlier lambda_returns.cu:\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(lib_path).lambda_returns_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+    def call(last_q, rew, done, maxq, gamma, lam):
+        T, E = rew.shape
+        out = torch.empty_like(rew)
+        err = fn(last_q.data_ptr(), rew.data_ptr(), done.data_ptr(), maxq.data_ptr(), out.data_ptr(), T, E, gamma,
+                 gamma * lam, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"the earlier lambda_returns' launch failed ({err})")
+        return out
+
+    return call
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=None, help="also write the summary JSON here")
-    ap.add_argument("--parent-csrc", default=None, help="directory with the earlier eps_greedy.cu and its headers")
+    ap.add_argument("--parent-csrc", default=None,
+                    help="directory with the earlier eps_greedy.cu, lambda_returns.cu and their headers")
     args = ap.parse_args()
 
     import torch
@@ -257,23 +301,35 @@ def main() -> int:
     cases.append(("empty_kernel", {"blocks": blocks, "threads": 256}, empty_kernel(floors, blocks, 256)))
     cases.append(("load_store_kernel", {"blocks": blocks, "threads": 256, "E": E, "A": A},
                   load_store_kernel(floors, blocks, 256, q)))
-    for T, E in LAMBDA_SHAPES:
+    old_returns = parent_lambda_returns(args.parent_csrc) if args.parent_csrc else None
+    for T, E in LAMBDA_SHAPES + CLOSURE_SHAPES:
         last_q, maxq = torch.randn(E, device=dev, generator=gen), torch.randn(T, E, device=dev, generator=gen)
         rew = torch.randn(T, E, device=dev, generator=gen)
         done = (torch.rand(T, E, device=dev, generator=gen) < 0.1).float()
-        got = lr.lambda_returns(last_q, rew, done, maxq, 0.99, 0.95)
-        torch.testing.assert_close(got, lr.lambda_returns_plain(last_q, rew, done, maxq, 0.99, 0.95), atol=1e-5, rtol=0)
-        cases.append((
-            "lambda_returns", {"T": T, "E": E},
-            lambda last_q=last_q, rew=rew, done=done, maxq=maxq: lr.lambda_returns(last_q, rew, done, maxq, 0.99, 0.95),
-        ))
+        name, kernel, plain = (("lambda_returns", lr.lambda_returns, lr.lambda_returns_plain) if (T, E) in LAMBDA_SHAPES
+                               else ("lambda_returns_closure", lr.lambda_returns_closure,
+                                     lr.lambda_returns_closure_plain))
+        got = kernel(last_q, rew, done, maxq, 0.99, 0.95)
+        if not torch.equal(got, plain(last_q, rew, done, maxq, 0.99, 0.95)):
+            raise AssertionError(f"{name} at ({T}, {E}) differs from its twin")
+        current = (name, {"T": T, "E": E},
+                   lambda kernel=kernel, a=(last_q, rew, done, maxq): kernel(*a, 0.99, 0.95))
+        if old_returns is not None and name == "lambda_returns":
+            if not torch.equal(old_returns(last_q, rew, done, maxq, 0.99, 0.95), got):
+                raise AssertionError(f"the earlier lambda_returns differs from the current kernel at ({T}, {E})")
+            earlier = (name, {"T": T, "E": E, "version": "earlier"},
+                       lambda a=(last_q, rew, done, maxq): old_returns(*a, 0.99, 0.95))
+            cases += [earlier, current, current, earlier]  # in turns
+        else:
+            cases.append(current)
     rows = []
     for name, shape, fn in cases:
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
         wrapper = events_ms(fn, ITERS)
-        device, count, names = profiled_ms(fn, name, ITERS)
+        # both forms of the returns launch lambda_returns_kernel<form>
+        device, count, names = profiled_ms(fn, "lambda_returns" if name.startswith("lambda_returns") else name, ITERS)
         row = {"kernel": name, "shape": shape, "wrapper_ms": wrapper, "device_ms": device,
                "profiled_launches": count, "profiled_names": names, "graph_ms": graph_ms(fn, ITERS)}
         print(json.dumps(row))

@@ -42,30 +42,80 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("T,E", [(64, 32), (64, 200), (1, 7)])
-def test_lambda_returns_kernel_matches_plain(dev, T, E):
-    rng = np.random.RandomState(E)
-    args = [
-        torch.tensor(a, device=dev)
-        for a in (
-            rng.randn(E).astype(np.float32),
-            rng.randn(T, E).astype(np.float32),
-            (rng.rand(T, E) < 0.15).astype(np.float32),
-            rng.randn(T, E).astype(np.float32),
-        )
-    ]
-    got = lr.lambda_returns(*args, 0.99, 0.95)
-    want = lr.lambda_returns_plain(*args, 0.99, 0.95)
+# the trainers' shapes (CartPole (64, 32), MinAtar (32, 128), Pendulum (32,
+# 64), the recurrent trainer's windows (131, 2) and (67, 2)), short and
+# ragged ones, many blocks through the ring, a long T of few envs
+LAMBDA_SHAPES = [(64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (127, 2), (63, 2), (1, 7), (2, 33),
+                 (64, 200), (300, 4096), (1024, 3)]
+LAMBDA_FORMS = {
+    "gymnax": (lr.lambda_returns, lr.lambda_returns_plain),
+    "closure": (lr.lambda_returns_closure, lr.lambda_returns_closure_plain),
+}
+
+
+def _lambda_inputs(dev, T, E, seed, inf_rows=False):
+    """last_q, rewards, 0/1-float dones and max_qs on the card; with
+    ``inf_rows`` a NaN, +inf and -inf in a row of max_qs and rewards."""
+    rng = np.random.RandomState(seed)
+    last_q, rew, maxq = rng.randn(E).astype(np.float32), rng.randn(T, E).astype(np.float32), rng.randn(T, E).astype(np.float32)
+    done = (rng.rand(T, E) < 0.15).astype(np.float32)
+    if inf_rows:
+        maxq[T // 2, : min(E, 3)] = [np.nan, np.inf, -np.inf][: min(E, 3)]
+        rew[T // 3, -min(E, 2):] = [np.inf, -np.inf][: min(E, 2)]
+    return [torch.tensor(a, device=dev) for a in (last_q, rew, done, maxq)]
+
+
+@pytest.mark.parametrize("form", list(LAMBDA_FORMS))
+@pytest.mark.parametrize("T,E", LAMBDA_SHAPES)
+def test_lambda_returns_kernel_matches_plain(dev, T, E, form):
+    kernel, plain = LAMBDA_FORMS[form]
+    args = _lambda_inputs(dev, T, E, T * 10_000 + E)
+    got = kernel(*args, 0.99, 0.95)
+    want = plain(*args, 0.99, 0.95)
     # rounded op for op as the twin: equal to the last bit
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("form", list(LAMBDA_FORMS))
+@pytest.mark.parametrize("T,E", [(64, 32), (32, 128), (131, 2), (2, 33), (300, 4096), (1024, 3)])
+def test_lambda_returns_kernel_matches_plain_through_nan_and_inf(dev, T, E, form):
+    """NaN and +-inf in max_qs and rewards: the twin's bits, NaN where the
+    twin has NaN."""
+    kernel, plain = LAMBDA_FORMS[form]
+    args = _lambda_inputs(dev, T, E, E, inf_rows=True)
+    got, want = kernel(*args, 0.99, 0.95), plain(*args, 0.99, 0.95)
+    assert want.isnan().any() and want.isfinite().any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("form", list(LAMBDA_FORMS))
+def test_lambda_returns_kernel_on_unaligned_rows(dev, form):
+    """E a multiple of 4 but the operands one float past a 16-byte
+    boundary: the kernel copies 4 bytes at a time and gives the twin's
+    bits."""
+    kernel, plain = LAMBDA_FORMS[form]
+    T, E = 40, 64
+    args = [torch.cat([torch.zeros(1, device=dev), x.reshape(-1)])[1:].view(x.shape)
+            for x in _lambda_inputs(dev, T, E, 3)]
+    assert all(x.data_ptr() % 16 == 4 and x.is_contiguous() for x in args)
+    assert torch.equal(kernel(*args, 0.99, 0.95), plain(*args, 0.99, 0.95))
+
+
+def test_lambda_returns_closure_takes_bool_dones(dev):
+    last_q, rew, done, maxq = _lambda_inputs(dev, 131, 2, 5)
+    got = lr.lambda_returns_closure(last_q, rew, done.bool(), maxq, 0.99, 0.95)
+    assert torch.equal(got, lr.lambda_returns_closure_plain(last_q, rew, done, maxq, 0.99, 0.95))
+
+
 def test_lambda_returns_wrapper_rejects_bad_inputs(dev):
     x = torch.zeros(8, 4, device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
-        lr.lambda_returns(torch.zeros(4, device=dev), x.T.contiguous().T[:, :4], x[:, :3], x, 0.9, 0.9)
-    with pytest.raises(ValueError, match="float32"):
-        lr.lambda_returns(torch.zeros(4, device=dev), x, x.double(), x, 0.9, 0.9)
+    for fn in (lr.lambda_returns, lr.lambda_returns_closure):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros(4, device=dev), x.T.contiguous().T[:, :4], x[:, :3], x, 0.9, 0.9)
+        with pytest.raises(ValueError, match="float32"):
+            fn(torch.zeros(4, device=dev), x, x.double(), x, 0.9, 0.9)
+        with pytest.raises(ValueError, match="T, E >= 1"):
+            fn(torch.zeros(0, device=dev), x[:, :0], x[:, :0], x[:, :0], 0.9, 0.9)
 
 
 @pytest.mark.parametrize("B", [32, 128])
@@ -659,11 +709,13 @@ def test_tiny_rnn_train_on_the_card_launches_both_kernels(dev):
         overrides=["TOTAL_TIMESTEPS=8192", "TOTAL_TIMESTEPS_DECAY=8192", "TEST_NUM_STEPS=64"],
     )
     assert config["FAST_BPTT"] is True and config["PALLAS_BPTT"] is True
-    for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns):
+    for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns, lr.lambda_returns_closure):
         fn.launches = 0
     out = pqn_rnn.make_train(config)()
     grad_steps = 8192 // 128 // 32 * 4 * 16
     assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == grad_steps
+    # the closure-form targets: one launch of the returns kernel a grad step
+    assert lr.lambda_returns_closure.launches == grad_steps
     assert lr.lambda_returns.launches == 0
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()

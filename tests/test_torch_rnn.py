@@ -427,6 +427,37 @@ def test_learn_minibatch_matches_jax_math(jax_learn_step, fast_bptt, pallas):
                                    atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("fast_bptt,pallas", [(False, False), (True, True)])
+def test_learn_minibatch_through_the_closure_wrapper_matches_the_loop(jax_learn_step, monkeypatch, fast_bptt,
+                                                                      pallas):
+    """The minibatch step takes its targets through
+    ``ops.lambda_returns.lambda_returns_closure``, which on the CPU is the
+    plain loop the step ran before: the same loss, chosen Q-values, params
+    and batch_stats to the last bit as with the loop itself, and no launch
+    counted."""
+    config, variables, window, _, _, _ = jax_learn_step
+    w_obs, w_act, w_rew, w_done, w_hs, w_ldone, w_lact = window
+    steps, n = w_act.shape
+    mb = RNNTransition(
+        obs=torch.tensor(w_obs), action=torch.tensor(w_act).long(), reward=torch.tensor(w_rew),
+        done=torch.tensor(w_done), last_hs=(torch.tensor(w_hs),), last_done=torch.tensor(w_ldone),
+        last_action=torch.tensor(w_lact).long(), q_val=torch.zeros(steps, n, 2),
+    )
+    assert pqn_rnn.lambda_returns_closure is tlr.lambda_returns_closure
+    results = []
+    for targets in (tlr.lambda_returns_closure, lambda_returns_closure):
+        monkeypatch.setattr(pqn_rnn, "lambda_returns_closure", targets)
+        tnet = TRNNQNetwork(3, 2, hidden_size=32, num_layers=2, **LEARN_KW)
+        tnet.load_state_dict(tckpt.params_from_flax(_np(variables)))
+        opt = make_optimizer(tnet.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config))
+        before = tlr.lambda_returns_closure.launches
+        loss, chosen = pqn_rnn.learn_minibatch(tnet, opt, mb, config["GAMMA"], config["LAMBDA"], fast_bptt, pallas)
+        assert tlr.lambda_returns_closure.launches == before
+        results.append([loss, chosen, *tnet.parameters(), *tnet.buffers()])
+    for got, want in zip(*results):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("alg,extra", [
     ("pqn_rnn_cartpole", {}),
     ("pqn_rnn_memory_chain", {"FAST_BPTT": True, "PALLAS_BPTT": True, "MEMORY_WINDOW": 8}),
@@ -437,7 +468,8 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
     CPU, and one result per seed."""
     config = tiny_rnn_config(alg, TEST_DURING_TRAINING=True, TEST_NUM_ENVS=8, TEST_NUM_STEPS=24,
                              TEST_INTERVAL=0.25, **extra)
-    before = (tgs.gru_scan_fwd.launches, tgs.gru_scan_bwd.launches, tlr.lambda_returns.launches)
+    before = (tgs.gru_scan_fwd.launches, tgs.gru_scan_bwd.launches, tlr.lambda_returns.launches,
+              tlr.lambda_returns_closure.launches)
     out = pqn_rnn.make_train(config)()
     m = out["metrics"]
     n_updates = 2048 // 16 // 8
@@ -450,7 +482,8 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
     assert memory.obs.shape[0] == config.get("MEMORY_WINDOW", 4) + 16
     assert memory.last_hs[0].shape == (memory.obs.shape[0], 8, 32)
     assert train_state.step == n_updates * 4
-    assert (tgs.gru_scan_fwd.launches, tgs.gru_scan_bwd.launches, tlr.lambda_returns.launches) == before
+    assert (tgs.gru_scan_fwd.launches, tgs.gru_scan_bwd.launches, tlr.lambda_returns.launches,
+            tlr.lambda_returns_closure.launches) == before
     again = pqn_rnn.make_train(config)()["runner_state"][0]
     for (name, x), y in zip(train_state.network.named_parameters(), again.network.parameters()):
         assert torch.equal(x, y), name
