@@ -55,12 +55,23 @@ Phases, each ending the run with a non-zero exit if it fails:
    10 % of the run) for 400k env steps through the Pendulum kernel and check
    that its best greedy eval beats -500;
 6f. train pqn_craftax at full width (Forager, H 1024 x 4 with an input
-   BatchRenorm, 1024 envs x 1 step, optimistic resets at ratio 16, 1-step
-   TD) for 2^21 env steps: every action of the training rollout from the
-   epsilon-greedy kernel (one launch an update), no other kernel, finite
-   metrics, episodes ending, and the done-masked returns of its last 10 %
-   printed (no learning bar: at this length learned and LR=0 runs do not
-   separate, PERF.md section 7);
+   BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^21
+   env steps, the YAML unchanged, so the cuda policy gives it the fast
+   program: RESET_BANK=256 (the reset bank, refreshed every 16 steps),
+   FAST_TARGETS and SKIP_NOOP_PERMUTE. Every action of the training rollout
+   from the epsilon-greedy kernel (one launch an update), no other kernel,
+   the bank's refresh bursts counted (one every 16 updates), finite
+   metrics, episodes ending, the saved flax tree, env-steps/s and the
+   done-masked returns of its last 10 % printed (no learning bar: at this
+   length learned and LR=0 runs do not separate, PERF.md section 7); then
+   the strict program (PARITY=strict with the epsilon-greedy kernel:
+   optimistic resets, concat 1-step TD, a permuted minibatch) for 2^19
+   steps; then pqn_craftax with BF16_COMPUTE for 2^18 steps, its trunk's
+   activations bfloat16 (forward hooks) and its parameters float32, and
+   its bfloat16 forward held within BF16_BOUND of the float32 forward on the
+   same weights at H 1024 x 4 and batch 1024; then Breakout-MinAtar with
+   BF16_COMPUTE for 16 updates through the fused Breakout kernel (which
+   reads the float32 master weights);
 7. time each kernel and its twin with CUDA events at the trainers' shapes,
    and torch.nn.GRU (cuDNN) beside the GRU scan as a yardstick;
 8. print the kernel table as one JSON line;
@@ -72,6 +83,7 @@ port's package is not beside it. What it builds and writes goes under build/.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -121,6 +133,17 @@ SEAQUEST_GATE = 0.2
 # seeds of this length ends above random play, three end with the LR=0 runs
 # (scripts/craftax_learning_bar.py, PERF.md sections 2 and 7)
 CRAFTAX_STEPS = 2**21
+# the strict Craftax program (PARITY=strict) and the bfloat16 one, shorter
+CRAFTAX_STRICT_STEPS = 2**19
+CRAFTAX_BF16_STEPS = 2**18
+# the bfloat16 forward against the float32 one on the same weights: the
+# largest |difference| over the Q-values at most this share of the largest
+# |Q| (bfloat16 keeps 8 significant bits; 0.7 % measured on the CPU at H 1024
+# x 4 from the init, tests/test_torch_bf16.py)
+BF16_BOUND = 0.03
+# this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build
+# included, before the fast Craftax and bf16 phases (PERF.md section 2)
+RECORDED_WALL_S = 621.7
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
 EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
 KERNELS = (
@@ -611,6 +634,7 @@ def main() -> int:
         from purejaxql_torch import cli
         from purejaxql_torch.core.checkpoint import load_params
         from purejaxql_torch.core.config import compose
+        from purejaxql_torch.envs import wrappers
         from purejaxql_torch.envs.classic.pendulum import PendulumParams
         from purejaxql_torch.envs.minatar.breakout import start_state
         from purejaxql_torch.models.cnn import CNNQNetwork
@@ -1521,36 +1545,109 @@ def main() -> int:
                                        "best_eval_return": pd_best, "gate": PENDULUM_GATE,
                                        "launches": launches_pd, "card": card}}))
 
-    # ---- 6f. pqn_craftax at full width: Forager, every action from eps_greedy -----
-    outs, wall, launches_cx = train(
-        cli, compose, "pqn_craftax", CRAFTAX_STEPS, save_path, counters, policy=(("EXPLORATION_KERNEL", "pallas"),),
-    )
+    # ---- 6f. pqn_craftax at full width: the fast program, every action from eps_greedy ----
     ccfg = compose(alg="pqn_craftax")
     cx_updates = CRAFTAX_STEPS // ccfg["NUM_STEPS"] // ccfg["NUM_ENVS"]
+    wrappers.BankedResetVecEnv.refreshes = 0
+    outs, wall, launches_cx = train(
+        cli, compose, "pqn_craftax", CRAFTAX_STEPS, save_path, counters,
+        policy=(("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256)),
+    )
+    bursts = wrappers.BankedResetVecEnv.refreshes
     ts = outs["runner_state"][0]
     m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
     cx_metric, cx_ended = craftax_bar_metric(m)
     cx_rate = ts.timesteps / wall
     print(
-        f"train craftax (pqn_craftax, Forager): {ts.timesteps} env steps in {wall:.2f} s wall "
-        f"({cx_rate:.0f} env-steps/s on {card}); launches {launches_cx}; done-masked returned_episode_returns "
-        f"over the last 10 % ({cx_ended} updates with an episode end): {cx_metric:.4f} (no bar); "
-        f"achievement_count there {float(m['achievement_count'][-cx_updates // 10:].mean()):.3f}"
+        f"train craftax (pqn_craftax, Forager, the fast program): {ts.timesteps} env steps in {wall:.2f} s wall "
+        f"({cx_rate:.0f} env-steps/s on {card}); launches {launches_cx}; refresh bursts {bursts}; done-masked "
+        f"returned_episode_returns over the last 10 % ({cx_ended} updates with an episode end): {cx_metric:.4f} "
+        f"(no bar); achievement_count there {float(m['achievement_count'][-cx_updates // 10:].mean()):.3f}"
     )
+    check(isinstance(outs["runner_state"][1][1], wrappers.BankedResetState), "craftax: the training env is not banked")
     check(launches_cx["eps_greedy"] == cx_updates,
           f"craftax: eps_greedy launched {launches_cx['eps_greedy']} times, expected {cx_updates}")
     others = {k: v for k, v in launches_cx.items() if k != "eps_greedy" and v}
     check(not others, f"craftax: a returns or rollout kernel launched: {others}")
+    check(bursts == -(-cx_updates // 16), f"craftax: {bursts} refresh bursts, expected {-(-cx_updates // 16)}")
     check(ts.timesteps == CRAFTAX_STEPS, "craftax: wrong env-step count")
     check(all(p.device.type == "cuda" for p in ts.network.parameters()), "craftax: a parameter is not on cuda")
+    check(int(ts.network.BatchRenorm_0.steps) == cx_updates, "craftax: the input norm did not step once a grad step")
     check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax: non-finite td_loss or qvals")
     check(cx_ended > 0 and np.isfinite(cx_metric), "craftax: no episode ended in the last 10 % of the run")
     saved = load_params(os.path.join(save_path, "Craftax-Symbolic-v1", "pqn_craftax_Craftax-Symbolic-v1_seed0.safetensors"))
     check(tuple(saved["Dense_0"]["kernel"].shape) == (2883, 1024) and tuple(saved["Dense_4"]["kernel"].shape) == (1024, 34)
           and tuple(saved["BatchRenorm_0"]["scale"].shape) == (2883,), "craftax: saved params have the wrong flax tree")
-    print(json.dumps({"craftax_run": {"env_steps_per_s": cx_rate, "wall_s": wall, "bar_metric": cx_metric,
-                                      "updates_with_an_end": cx_ended,
-                                      "launches": launches_cx, "card": card}}))
+    print(json.dumps({"craftax_run": {"program": "fast", "env_steps_per_s": cx_rate, "wall_s": wall,
+                                      "bar_metric": cx_metric, "updates_with_an_end": cx_ended,
+                                      "refresh_bursts": bursts, "launches": launches_cx, "card": card}}))
+
+    # the strict program: optimistic resets, concat 1-step TD, a permuted minibatch
+    outs, wall, launches_cs = train(
+        cli, compose, "pqn_craftax", CRAFTAX_STRICT_STEPS, save_path, counters,
+        extra=["PARITY=strict", "EXPLORATION_KERNEL=pallas"], policy=(("EXPLORATION_KERNEL", "pallas"),),
+    )
+    ts = outs["runner_state"][0]
+    cs_updates = CRAFTAX_STRICT_STEPS // ccfg["NUM_ENVS"]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    print(f"train craftax (the strict program): {ts.timesteps} env steps in {wall:.2f} s wall "
+          f"({ts.timesteps / wall:.0f} env-steps/s); launches {launches_cs}")
+    check(isinstance(outs["runner_state"][1][1], wrappers.LogEnvState), "craftax strict: the training env is banked")
+    check(launches_cs["eps_greedy"] == cs_updates and not {k: v for k, v in launches_cs.items() if k != "eps_greedy" and v},
+          f"craftax strict: unexpected launches {launches_cs}")
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax strict: non-finite td_loss or qvals")
+    print(json.dumps({"craftax_run": {"program": "strict", "env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
+                                      "launches": launches_cs, "card": card}}))
+
+    # the fast program in bfloat16
+    outs, wall, launches_cb = train(
+        cli, compose, "pqn_craftax", CRAFTAX_BF16_STEPS, save_path, counters, extra=["BF16_COMPUTE=True"],
+        policy=(("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256)),
+    )
+    ts = outs["runner_state"][0]
+    net = ts.network
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    check(launches_cb["eps_greedy"] == CRAFTAX_BF16_STEPS // ccfg["NUM_ENVS"], f"craftax bf16: launches {launches_cb}")
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax bf16: non-finite td_loss or qvals")
+    seen = {}
+    hooks = [mod.register_forward_hook(lambda mod_, i, o, name=name: seen.__setitem__(name, o.dtype))
+             for name, mod in net.named_modules() if name.startswith(("Dense_", "LayerNorm_"))]
+    obs = outs["runner_state"][1][0]
+    with torch.no_grad():
+        q_bf16 = net(obs, train=False)
+    for h in hooks:
+        h.remove()
+    check(net.dtype == torch.bfloat16 and len(seen) == 9 and set(seen.values()) == {torch.bfloat16},
+          f"craftax bf16: the trunk's activations are {seen}")
+    check(q_bf16.dtype == torch.float32 and all(t.dtype in (torch.float32, torch.int32) for t in net.state_dict().values()),
+          "craftax bf16: a parameter, buffer or the Q-values are not float32")
+    f32_net = copy.deepcopy(net)
+    f32_net.dtype = torch.float32
+    with torch.no_grad():
+        q_f32 = f32_net(obs, train=False)
+    bf16_err = float((q_bf16 - q_f32).abs().max())
+    bf16_scale = float(q_f32.abs().max())
+    print(f"train craftax (BF16_COMPUTE): {ts.timesteps} env steps in {wall:.2f} s wall "
+          f"({ts.timesteps / wall:.0f} env-steps/s); launches {launches_cb}; bfloat16 forward against float32 on the "
+          f"same weights at batch {obs.shape[0]}: max |diff| {bf16_err:.5f}, mean "
+          f"{float((q_bf16 - q_f32).abs().mean()):.5f}, max |Q| {bf16_scale:.4f}")
+    check(bf16_err <= BF16_BOUND * bf16_scale, f"craftax bf16: forward off float32 by {bf16_err} > "
+                                               f"{BF16_BOUND} x {bf16_scale}")
+    print(json.dumps({"craftax_run": {"program": "fast, BF16_COMPUTE", "env_steps_per_s": ts.timesteps / wall,
+                                      "wall_s": wall, "bf16_max_abs_err": bf16_err, "max_abs_q": bf16_scale,
+                                      "launches": launches_cb, "card": card}}))
+
+    # Breakout in bfloat16: the learn phase's trunk in bfloat16, the fused
+    # kernel on the float32 master weights
+    outs, wall, launches_bb = train(
+        cli, compose, "pqn_minatar", SHORT_STEPS, save_path, counters,
+        extra=["ENV_NAME=Breakout-MinAtar", "BF16_COMPUTE=True"],
+    )
+    check_run("breakout bf16", outs, wall, launches_bb, 16, 32 * 128, "breakout_rollout", None)
+    check(outs["runner_state"][0].network.dtype == torch.bfloat16, "breakout bf16: the network is not bfloat16")
+    print(json.dumps({"short_run": {"env": "Breakout-MinAtar", "BF16_COMPUTE": True,
+                                    "env_steps_per_s": outs["runner_state"][0].timesteps / wall, "wall_s": wall,
+                                    "launches": launches_bb, "card": card}}))
 
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
@@ -1669,7 +1766,8 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": errors[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "
+          f"(recorded before the fast Craftax and bf16 phases: {RECORDED_WALL_S} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -9,16 +9,34 @@ of NUM_MINIBATCHES minibatch steps of clip + RAdam on the 0.5 * MSE TD loss,
 the update metrics, and every TEST_INTERVAL of the run a greedy eval.
 
 With Q_LAMBDA=False (the craftax family) the targets are 1-step TD,
-computed inside each minibatch step from one train-mode forward on
-cat(obs, next_obs) (pqn.py:515-534): the batch norms' statistics run over
-both halves, and no returns kernel runs. DONE_MASKED_INFO_METRICS averages
-the env infos over the steps that end an episode (pqn.py:601-610).
+computed inside each minibatch step, in one of two forms:
+
+- the concat form (pqn.py:515-534): one train-mode forward on
+  cat(obs, next_obs), so the batch norms' statistics (and a BatchRenorm's
+  step count) run once over both halves (``learn_minibatch_td``);
+- FAST_TARGETS (pqn.py:459-503, NORM_TYPE layer_norm only): first a
+  no-grad train-mode forward on next_obs with the pre-step statistics,
+  its statistics update discarded, for the targets; then the loss's
+  train-mode forward on obs alone, whose update is kept
+  (``learn_minibatch_fast_td``).
+
+No returns kernel runs. SKIP_NOOP_PERMUTE (default FAST_TARGETS's value)
+leaves the rows of a single minibatch in rollout order (pqn.py:556-566):
+the permutation is still drawn, so every other random number of the run is
+the one it would be, and only the gradients' summation order changes.
+DONE_MASKED_INFO_METRICS averages the env infos over the steps that end an
+episode (pqn.py:601-610).
 
 Envs (``build_env``, pqn.py:50-107): the Log-wrapped env ("split" mode), or
 in the batched modes that env inside ``OptimisticResetVecEnv``
-(USE_OPTIMISTIC_RESETS, with OPTIMISTIC_RESET_RATIO) or ``BatchEnv``
+(USE_OPTIMISTIC_RESETS, with OPTIMISTIC_RESET_RATIO; with RESET_BANK > 0
+the training env is ``BankedResetVecEnv``, its fresh worlds served from a
+bank refreshed every RESET_BANK_REFRESH_EVERY steps) or ``BatchEnv``
 (BATCH_ENV); with ARCH ``mlp`` (or FLATTEN_OBS) an image observation is
-flattened under Log (``FlattenObservation``, pqn.py:64-68).
+flattened under Log (``FlattenObservation``, pqn.py:64-68). BF16_COMPUTE
+gives the network a bfloat16 trunk over float32 parameters
+(``models/factory.py``); a fused rollout kernel reads the float32
+parameters, as the JAX package's does.
 
 Where the JAX package scans, this trainer loops in Python; it keeps host
 syncs out of the update loop: counters and schedules are host integers and
@@ -78,6 +96,7 @@ from purejaxql_torch.core.train_state import PQNTrainState
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs import wrappers
 from purejaxql_torch.models.factory import make_q_network
+from purejaxql_torch.models.qnet import frozen_statistics
 from purejaxql_torch.ops.asterix_rollout import (
     asterix_from_state_matrix,
     asterix_rollout,
@@ -115,9 +134,6 @@ from purejaxql_torch.utils.platform import resolve_device
 
 # options of the JAX trainer that later slices port; asking for one raises
 _NOT_PORTED = {
-    "FAST_TARGETS": "FAST_TARGETS",
-    "RESET_BANK": "RESET_BANK",
-    "SKIP_NOOP_PERMUTE": "SKIP_NOOP_PERMUTE",
     "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
 }
 
@@ -132,7 +148,9 @@ _BUILT_IN_PARAMS = ("CartPole-v1", "Asterix-MinAtar", "SpaceInvaders-MinAtar", "
 
 def fused_ff_eligible(config: Dict[str, Any]) -> bool:
     """The configs the FF trainer's fused rollout runs, which the cuda
-    policy (core/config.py) fuses and ``_check_supported`` accepts: a game
+    policy (core/config.py) fuses and ``_check_supported`` accepts: the
+    split env mode (no USE_OPTIMISTIC_RESETS, so no RESET_BANK, and no
+    BATCH_ENV: pqn.py:249), a game
     with a rollout kernel, layer_norm and NORM_INPUT=False, CartPole with a
     2-layer MLP, a MinAtar game with the MinAtar CNN on its planes (ARCH
     unset or ``cnn``, no FLATTEN_OBS), and for a game whose kernel keeps its
@@ -141,6 +159,8 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
     env_name = config.get("ENV_NAME")
     return (
         env_name in FUSED_GAMES
+        and not config.get("USE_OPTIMISTIC_RESETS", False)
+        and not config.get("BATCH_ENV", False)
         and config.get("NORM_TYPE") == "layer_norm"
         and not config.get("NORM_INPUT", False)
         and (env_name != "CartPole-v1" or config.get("NUM_LAYERS", 2) == 2)
@@ -159,9 +179,15 @@ def _check_supported(config: Dict[str, Any]) -> None:
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
+    if config.get("FAST_TARGETS", False) and config.get("NORM_TYPE") != "layer_norm":
+        raise ValueError(
+            "FAST_TARGETS requires NORM_TYPE=layer_norm (the out-of-grad target forward "
+            "cannot replicate the batch-stats update of the concat forward)"
+        )
     if config.get("FUSED_ROLLOUT", False) and not fused_ff_eligible(config):
         raise ValueError(
-            "FUSED_ROLLOUT supports CartPole-v1 with a 2-layer MLP and the MinAtar "
+            "FUSED_ROLLOUT supports the split env mode (no USE_OPTIMISTIC_RESETS or "
+            "BATCH_ENV) with CartPole-v1 with a 2-layer MLP and the MinAtar "
             "games Asterix, Breakout, Freeway, Seaquest and SpaceInvaders with the MinAtar "
             "CNN on their planes (ARCH unset or cnn, no FLATTEN_OBS), all with layer_norm and NORM_INPUT=False; for CartPole, Asterix, "
             "Seaquest and SpaceInvaders no ENV_KWARGS but max_steps_in_episode (their "
@@ -177,7 +203,9 @@ def build_env(config: Dict[str, Any]):
     flat already (pqn.py:64-68), wrapped in Log ("split"
     mode), or that inside ``OptimisticResetVecEnv``
     (USE_OPTIMISTIC_RESETS) or ``BatchEnv`` (BATCH_ENV) at NUM_ENVS for
-    training and TEST_NUM_ENVS for the eval. ``env`` is the env under Log.
+    training and TEST_NUM_ENVS for the eval; with RESET_BANK > 0 the
+    training env is ``BankedResetVecEnv`` (pqn.py:72-86) and the eval's
+    stays optimistic. ``env`` is the env under Log.
     Shared with the recurrent trainer, which runs the split mode."""
     env_kwargs = dict(config.get("ENV_KWARGS") or {})
     if config.get("LOG_ACHIEVEMENTS", False):
@@ -187,15 +215,21 @@ def build_env(config: Dict[str, Any]):
     if config.get("FLATTEN_OBS", config.get("ARCH") == "mlp") and len(obs_shape) > 1:
         env = wrappers.FlattenObservation(env)
     log_env = wrappers.Log(env)
+    n_train, n_test = config["NUM_ENVS"], config["TEST_NUM_ENVS"]
     if config.get("USE_OPTIMISTIC_RESETS", False):
-        def batched(n):
-            return wrappers.OptimisticResetVecEnv(log_env, n, min(config["OPTIMISTIC_RESET_RATIO"], n))
-    elif config.get("BATCH_ENV", False):
-        def batched(n):
-            return wrappers.BatchEnv(log_env, n)
-    else:
-        return log_env, log_env, env, env_params
-    return batched(config["NUM_ENVS"]), batched(config["TEST_NUM_ENVS"]), env, env_params
+        ratio = config["OPTIMISTIC_RESET_RATIO"]
+        test_env = wrappers.OptimisticResetVecEnv(log_env, n_test, min(ratio, n_test))
+        if config.get("RESET_BANK", 0):
+            train_env = wrappers.BankedResetVecEnv(
+                log_env, n_train, min(ratio, n_train), int(config["RESET_BANK"]),
+                int(config.get("RESET_BANK_REFRESH_EVERY", 16)),
+            )
+        else:
+            train_env = wrappers.OptimisticResetVecEnv(log_env, n_train, min(ratio, n_train))
+        return train_env, test_env, env, env_params
+    if config.get("BATCH_ENV", False):
+        return wrappers.BatchEnv(log_env, n_train), wrappers.BatchEnv(log_env, n_test), env, env_params
+    return log_env, log_env, env, env_params
 
 
 def stack_metrics(history):
@@ -339,6 +373,29 @@ def learn_minibatch_td(
     return _td_step(optimizer, q_vals, action, target)
 
 
+def learn_minibatch_fast_td(
+    network: torch.nn.Module,
+    optimizer: ClipRAdam,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    next_obs: torch.Tensor,
+    reward: torch.Tensor,
+    done: torch.Tensor,
+    gamma: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One minibatch step of 1-step TD with FAST_TARGETS (pqn.py:459-503):
+    the target r + (1 - done) * gamma * max_a Q(s', a) from a no-grad
+    train-mode forward on next_obs alone, with the statistics as they were
+    before the step and their update discarded (so an input norm
+    normalizes next_obs by its own batch moments); then ``_td_step`` on a
+    train-mode forward on obs alone, whose statistics update is kept: one
+    update of the statistics (one BatchRenorm step) a grad step."""
+    with torch.no_grad(), frozen_statistics(network):
+        q_next = network(next_obs, train=True).max(-1).values
+    target = reward + (1 - done.float()) * gamma * q_next
+    return _td_step(optimizer, network(obs, train=True), action, target)
+
+
 def make_train(
     config: Dict[str, Any], device: Optional[str] = None
 ) -> Callable[..., Dict[str, Any]]:
@@ -364,6 +421,9 @@ def make_train(
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     use_fused = config.get("FUSED_ROLLOUT", False)
     use_q_lambda = config.get("Q_LAMBDA", True)
+    fast_targets = config.get("FAST_TARGETS", False)
+    # one minibatch: its rows in rollout order (pqn.py:564-566)
+    skip_permute = n_minibatches == 1 and config.get("SKIP_NOOP_PERMUTE", fast_targets)
     done_masked = config.get("DONE_MASKED_INFO_METRICS", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
@@ -432,12 +492,18 @@ def make_train(
             leaves = [x.reshape(n, *x.shape[2:]) for x in leaves]
             losses, qvals = [], []
             for _ in range(n_epochs):
-                # one permutation per epoch, shared by every leaf
+                # one permutation per epoch, shared by every leaf; with
+                # skip_permute it is drawn all the same, so the device
+                # generator moves as without the flag
                 perm = torch.randperm(n, generator=dev_gen, device=device)
-                batches = zip(*(x[perm].reshape(n_minibatches, -1, *x.shape[1:]) for x in leaves))
+                batches = zip(*(
+                    (x if skip_permute else x[perm]).reshape(n_minibatches, -1, *x.shape[1:]) for x in leaves
+                ))
                 for mb in batches:
                     if use_q_lambda:
                         loss, chosen = learn_minibatch(network, optimizer, *mb)
+                    elif fast_targets:
+                        loss, chosen = learn_minibatch_fast_td(network, optimizer, *mb, config["GAMMA"])
                     else:
                         loss, chosen = learn_minibatch_td(network, optimizer, *mb, config["GAMMA"])
                     train_state.grad_steps += 1

@@ -56,12 +56,14 @@ from purejaxql_torch.ops.fast_rnn import fast_rnn_train_forward, supports_fast_b
 from purejaxql_torch.ops.lambda_returns import lambda_returns_closure
 from purejaxql_torch.utils.platform import resolve_device
 
-# the FF trainer's batched modes, done-masked metrics and the epsilon-greedy
-# kernel are not wired into the recurrent trainer yet
+# the FF trainer's batched modes (the reset bank among them), done-masked
+# metrics and the epsilon-greedy kernel are not wired into the recurrent
+# trainer yet
 _NOT_PORTED_RNN = {
     **_NOT_PORTED,
     "BATCH_ENV": "BATCH_ENV",
     "USE_OPTIMISTIC_RESETS": "optimistic resets",
+    "RESET_BANK": "RESET_BANK in the recurrent trainer",
     "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
     "EXPLORATION_KERNEL": "EXPLORATION_KERNEL in the recurrent rollout",
 }

@@ -124,12 +124,7 @@ def _fused_rollout_eligible(config: Dict[str, Any]) -> bool:
         return fused_ac_eligible(config)
     from purejaxql_torch.algo.pqn import fused_ff_eligible
 
-    return (
-        str(config.get("ALG_NAME", "pqn")) == "pqn"
-        and not config.get("USE_OPTIMISTIC_RESETS", False)
-        and not config.get("BATCH_ENV", False)
-        and fused_ff_eligible(config)
-    )
+    return str(config.get("ALG_NAME", "pqn")) == "pqn" and fused_ff_eligible(config)
 
 
 def resolve_fast_paths(
@@ -154,8 +149,11 @@ def resolve_fast_paths(
     (pallas_explore.py:9); the port's random streams cannot match the JAX
     package's anyway (ROADMAP.md, "held against"), so nothing is traded and
     the kernel is the default (the JAX package's spelling, so that YAMLs carry
-    across). The policy does not turn on FAST_TARGETS, SKIP_NOOP_PERMUTE or
-    RESET_BANK, which the FF trainer does not run yet. Two escape hatches: ``PARITY=strict`` turns off all
+    across). For a feedforward config it also turns on, as the JAX policy
+    does (config.py:190-202): FAST_TARGETS where Q_LAMBDA is False and
+    NORM_TYPE is layer_norm, SKIP_NOOP_PERMUTE at NUM_MINIBATCHES 1, and
+    RESET_BANK=256 with USE_OPTIMISTIC_RESETS; so ``pqn_craftax`` runs the
+    fast program. Two escape hatches: ``PARITY=strict`` turns off all
     auto-enabling, and a flag set explicitly (on the command line or in an
     alg YAML) always wins. CPU runs are left untouched. The flags turned on
     are printed to stderr.
@@ -180,8 +178,15 @@ def resolve_fast_paths(
         _default("FUSED_ROLLOUT", True)
         if config["FUSED_ROLLOUT"] and str(config.get("ALG_NAME", "pqn")) == "pqn":
             _default("EVAL_EARLY_EXIT", True)
-    if str(config.get("ALG_NAME", "pqn")) in ("pqn", "pqn_craftax") and not config.get("FUSED_ROLLOUT"):
-        _default("EXPLORATION_KERNEL", "pallas")
+    if str(config.get("ALG_NAME", "pqn")) in ("pqn", "pqn_craftax"):
+        if not config.get("FUSED_ROLLOUT"):
+            _default("EXPLORATION_KERNEL", "pallas")
+        if not config.get("Q_LAMBDA", True) and config.get("NORM_TYPE") == "layer_norm":
+            _default("FAST_TARGETS", True)
+        if config.get("NUM_MINIBATCHES", 1) == 1:
+            _default("SKIP_NOOP_PERMUTE", True)
+        if config.get("USE_OPTIMISTIC_RESETS", False):
+            _default("RESET_BANK", 256)
     elif str(config.get("ALG_NAME", "pqn")).startswith("pqn_rnn"):
         from purejaxql_torch.ops.fast_rnn import supports_fast_bptt
 

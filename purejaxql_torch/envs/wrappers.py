@@ -13,7 +13,12 @@ wrappers the ported trainers use:
 - ``BatchEnv`` (:139-158): the env at a fixed number of envs;
 - ``OptimisticResetVecEnv`` (:214-280): auto-reset that makes only
   num_envs / reset_ratio fresh states a step and routes them to the done
-  envs, for an env whose reset is expensive (Forager's worldgen).
+  envs, for an env whose reset is expensive (Forager's worldgen);
+- ``BankedResetVecEnv`` (:354-487): the same routing, its candidates
+  served from a bank of packed reset states (``pack_rows``,
+  ``unpack_rows``, :281-351) that a burst refreshes every
+  ``refresh_every`` steps, and scattered onto the done envs
+  (``scatter_resets``, :185-212).
 
 ``VecEnv`` has no counterpart: an env here already steps a whole batch. The
 other wrappers (the observation and reward normalizers among them) come with
@@ -22,8 +27,10 @@ the slices that need them.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +203,167 @@ class OptimisticResetVecEnv(Wrapper):
         obs = select_env(done, obs_re[index], obs_st)
         state = select_state(done, map_state(lambda x: x[index], state_re), state_st)
         return obs, state, reward, done, info
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a state tree in the order ``jax.tree_util.tree_leaves``
+    gives the JAX package's: tuple items in order, dataclass fields in
+    declaration order, recursively (a Log state's env state first)."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    if dataclasses.is_dataclass(tree):
+        return [leaf for f in dataclasses.fields(tree) for leaf in tree_leaves(getattr(tree, f.name))]
+    return [tree]
+
+
+def _rebuild(like, leaves: Iterator[torch.Tensor]):
+    """``like``'s tree with its tensors taken in turn from ``leaves``."""
+    if isinstance(like, (tuple, list)):
+        return type(like)(_rebuild(item, leaves) for item in like)
+    if dataclasses.is_dataclass(like):
+        return dataclasses.replace(
+            like, **{f.name: _rebuild(getattr(like, f.name), leaves) for f in dataclasses.fields(like)}
+        )
+    return next(leaves)
+
+
+def pack_rows(tree) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A tree of (N, ...) tensors as two row-major buffers (wrappers.py:
+    281-318): (N, n8) int8 for the 1-byte leaves (bool as 0 / 1, int8 and
+    uint8 bit-cast) and (N, n32) int32 for the 4-byte ones (float32 bit-cast,
+    so the round trip is exact: NaN payloads and -0.0 included), each leaf's
+    columns in ``tree_leaves`` order."""
+    leaves = tree_leaves(tree)
+    n, dev = leaves[0].shape[0], leaves[0].device
+    g8, g32 = [], []
+    for x in leaves:
+        flat = x.reshape(n, -1)
+        if x.dtype == torch.bool:
+            g8.append(flat.to(torch.int8))
+        elif x.element_size() == 1:
+            g8.append(flat.view(torch.int8))
+        elif x.element_size() == 4:
+            g32.append(flat if x.dtype == torch.int32 else flat.view(torch.int32))
+        else:
+            raise NotImplementedError(f"packed rows hold 1- and 4-byte leaves, got {x.dtype}")
+    w8 = torch.cat(g8, 1) if g8 else torch.zeros((n, 0), dtype=torch.int8, device=dev)
+    w32 = torch.cat(g32, 1) if g32 else torch.zeros((n, 0), dtype=torch.int32, device=dev)
+    return w8, w32
+
+
+def unpack_rows(w8: torch.Tensor, w32: torch.Tensor, like):
+    """The inverse of ``pack_rows`` (wrappers.py:321-351): ``like``'s tree,
+    leaf shapes past the first and dtypes, with the buffers' row count."""
+    n = w8.shape[0]
+    o8 = o32 = 0
+    out = []
+    for x in tree_leaves(like):
+        tail = tuple(x.shape[1:])
+        size = math.prod(tail)
+        if x.dtype == torch.bool or x.element_size() == 1:
+            seg = w8[:, o8 : o8 + size]
+            o8 += size
+            seg = seg.to(torch.bool) if x.dtype == torch.bool else seg.view(x.dtype)
+        else:
+            seg = w32[:, o32 : o32 + size]
+            o32 += size
+            if x.dtype != torch.int32:
+                seg = seg.view(x.dtype)
+        out.append(seg.reshape((n,) + tail))
+    return _rebuild(like, iter(out))
+
+
+def scatter_resets(done: torch.Tensor, being_reset: torch.Tensor, resets, live):
+    """``live`` with candidate k of ``resets`` written onto env
+    ``being_reset[k]`` where that env is done (wrappers.py:185-212). The
+    sampled envs that are not done (``sample_being_reset`` fills num_resets
+    slots whatever the number of dones) take their own stepped row back,
+    where the JAX package drops their writes out of range. When more envs
+    are done than there are candidates, the extras are not reset: they end
+    again on the next step and are routed then. O(num_resets) rows gathered
+    and written per leaf, no host sync."""
+    take = done[being_reset]
+
+    def put(st, re):
+        return st.index_copy(0, being_reset, select_env(take, re, st[being_reset]))
+
+    return _rebuild(live, iter([put(st, re) for st, re in zip(tree_leaves(live), tree_leaves(resets))]))
+
+
+def serve_resets(done, being_reset, cand, bank, stepped):
+    """The bank's deterministic serve (wrappers.py:470-476): rows ``cand`` of
+    the packed bank ``(w8, w32)``, one gather a buffer, unpacked to the tree
+    of ``stepped`` (the step's (obs, state)) and scattered onto its done
+    envs among ``being_reset``."""
+    w8, w32 = bank
+    return scatter_resets(done, being_reset, unpack_rows(w8[cand], w32[cand], stepped), stepped)
+
+
+@dataclass
+class BankedResetState:
+    env_state: Any  # (num_envs, ...) live env states
+    bank_w8: torch.Tensor  # (bank_size, n8) packed 1-byte columns of the bank's (obs, state) rows
+    bank_w32: torch.Tensor  # (bank_size, n32) packed 4-byte columns
+    cursor: int  # where the next refresh burst writes, a host integer
+    tick: int  # steps taken, a host integer: it gates the bursts without a device sync
+
+
+class BankedResetVecEnv(Wrapper):
+    """``OptimisticResetVecEnv`` with its fresh states served from a bank
+    (wrappers.py:354-487, config RESET_BANK > 0): reset makes the num_envs
+    live states and ``bank_size`` reset states, packed; each step steps the
+    env, every ``refresh_every`` steps regenerates num_resets bank rows at a
+    rotating cursor (a burst: one reset of num_resets envs), draws
+    num_resets candidate rows uniformly and routes them to the done envs by
+    the optimistic wrapper's sampling (``sample_being_reset``, the
+    ``p=done`` weighted draw), deferring the dones beyond num_resets to a
+    later step (``scatter_resets``). A bank row is at most ~bank_size /
+    num_resets * refresh_every steps old. ``refreshes`` counts the bursts
+    of every instance (reset's bank not included)."""
+
+    refreshes = 0
+
+    def __init__(self, env, num_envs: int, reset_ratio: int, bank_size: int = 256, refresh_every: int = 16):
+        super().__init__(env)
+        if num_envs % reset_ratio != 0:
+            raise ValueError("reset_ratio must divide num_envs")
+        self.num_envs = num_envs
+        self.num_resets = num_envs // reset_ratio
+        self.bank_size = bank_size
+        self.refresh_every = refresh_every
+
+    def reset(self, generator, num_envs=None, params=None):
+        if num_envs not in (None, self.num_envs):
+            raise ValueError(f"BankedResetVecEnv holds {self.num_envs} envs, asked for {num_envs}")
+        params = self.default_params if params is None else params
+        obs, env_state = self._env.reset_env(generator, self.num_envs, params)
+        w8, w32 = pack_rows(self._env.reset_env(generator, self.bank_size, params))
+        return obs, BankedResetState(env_state, w8, w32, cursor=0, tick=0)
+
+    def refresh(self, generator, state: BankedResetState, params):
+        """A burst: num_resets fresh (obs, state) rows written over the bank
+        from the cursor on. Returns (bank_w8, bank_w32, cursor)."""
+        f8, f32 = pack_rows(self._env.reset_env(generator, self.num_resets, params))
+        rows = (state.cursor + torch.arange(self.num_resets, device=f8.device)) % self.bank_size
+        BankedResetVecEnv.refreshes += 1
+        return (
+            state.bank_w8.index_copy(0, rows, f8),
+            state.bank_w32.index_copy(0, rows, f32),
+            state.cursor + self.num_resets,
+        )
+
+    def step(self, generator, state: BankedResetState, action, params=None):
+        params = self.default_params if params is None else params
+        draws = self._env.step_draws(generator, self.num_envs)
+        obs_st, env_st, reward, done, info = self._env.step_env(state.env_state, action, params, draws)
+        w8, w32, cursor = state.bank_w8, state.bank_w32, state.cursor
+        if state.tick % self.refresh_every == 0:
+            w8, w32, cursor = self.refresh(generator, state, params)
+        cand = torch.randint(0, self.bank_size, (self.num_resets,), generator=generator, device=done.device)
+        being_reset = sample_being_reset(generator, done, self.num_resets)
+        obs, env_state = serve_resets(done, being_reset, cand, (w8, w32), (obs_st, env_st))
+        new_state = BankedResetState(env_state, w8, w32, cursor % self.bank_size, state.tick + 1)
+        return obs, new_state, reward, done, info
 
 
 class ScrubNaN(Wrapper):

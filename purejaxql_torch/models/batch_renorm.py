@@ -16,7 +16,9 @@ packages (core/checkpoint.py).
 The arithmetic follows the JAX module's: the fast variance E[x^2] - E[x]^2
 clamped at 0, the d-shift by sqrt(var) with no epsilon, the warm-up as a
 float blend, and flax's ``_normalize`` order, (x - mean) * (rsqrt(var + eps)
-* scale) + bias. Train mode updates the buffers in place.
+* scale) + bias. Train mode updates the buffers in place, unless the module
+is ``frozen`` (``models/qnet.py:frozen_statistics``): then it normalizes as
+in train mode and leaves the buffers, ``steps`` included, as they were.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ class BatchRenorm(nn.Module):
         self.register_buffer("r_max", torch.tensor(r_max, dtype=torch.float32))
         self.register_buffer("d_max", torch.tensor(d_max, dtype=torch.float32))
         self.register_buffer("steps", torch.zeros((), dtype=torch.int32))
+        self.frozen = False
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
@@ -63,9 +66,13 @@ class BatchRenorm(nn.Module):
             tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r
             var = warmed_up * tmp_var + (1.0 - warmed_up) * batch_var
             mean = warmed_up * tmp_mean + (1.0 - warmed_up) * batch_mean
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
-                self.var.copy_(m * self.var + (1 - m) * batch_var)
-                self.steps.add_(1)
+            if not self.frozen:
+                self._update(batch_mean, batch_var)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+    @torch.no_grad()
+    def _update(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
+        self.var.copy_(m * self.var + (1 - m) * batch_var)
+        self.steps.add_(1)

@@ -19,6 +19,12 @@ The 3x3 VALID conv is a sum over its 9 taps of shifted slices times the
 tap's (C, O) weights, written as one matmul over the gathered patches
 (im2col): it runs in full float32 on the GPU, where a float32 cuDNN
 convolution would default to TF32.
+
+With ``dtype=torch.bfloat16`` (BF16_COMPUTE, cnn.py:26-40, 124-159) the input
+norm and the / input_scale run in float32, the trunk casts once to bfloat16,
+the conv and the dense layers compute in bfloat16 from the float32 master
+parameters, the LayerNorms in float32 returning bfloat16 (``models/qnet.py``),
+and the Q-values come back in float32.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        return conv_patches(x, k) @ conv_weight_matrix(self.weight) + self.bias
+        return conv_patches(x, k) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
 
 
 class MinAtarCNN(nn.Module):
@@ -99,6 +105,7 @@ class CNNQNetwork(nn.Module):
         trunk: str = "minatar",
         input_scale: float = 255.0,
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if trunk != "minatar":
@@ -110,6 +117,7 @@ class CNNQNetwork(nn.Module):
         self.norm_input = norm_input
         self.hidden_size = hidden_size
         self.input_scale = input_scale
+        self.dtype = dtype
         self.BatchNorm_0 = BatchNorm(obs_shape[-1])
         self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator)
         self.Dense_0 = dense(hidden_size, action_dim, generator)
@@ -117,4 +125,4 @@ class CNNQNetwork(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         normed = self.BatchNorm_0(x, train)
         x = normed if self.norm_input else x / self.input_scale
-        return self.Dense_0(self.CNN_0(x))
+        return self.Dense_0(self.CNN_0(x.to(self.dtype))).float()

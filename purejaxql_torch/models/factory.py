@@ -3,9 +3,11 @@
 Port of purejaxql_tpu/models/factory.py for the MLP family, with the JAX
 package's per-family norms (``resolve_norms``: BatchRenorm for the craftax
 family), the MinAtar CNN (ARCH ``cnn``, or an observation of rank 3 or more)
-and the GRU recurrent network (``make_rnn_q_network``). The Nature trunk,
-BF16_COMPUTE, LSTM cells and dueling heads come with later slices and raise
-here.
+and the GRU recurrent network (``make_rnn_q_network``). BF16_COMPUTE
+(factory.py:43) gives the MLP and the MinAtar CNN a bfloat16 trunk over
+float32 master parameters. The Nature trunk, a BatchRenorm trunk in bfloat16,
+the recurrent network in bfloat16, LSTM cells and dueling heads come with
+later slices and raise here.
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ def make_q_network(
     config, action_dim: int, obs_shape, generator: Optional[torch.Generator] = None
 ) -> nn.Module:
     arch = config.get("ARCH") or ("cnn" if len(obs_shape) >= 3 else "mlp")
-    if config.get("BF16_COMPUTE", False):
-        raise NotImplementedError("BF16_COMPUTE is not ported yet")
+    dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
     if arch == "mlp":
         norm_type, input_norm_type = resolve_norms(config)
         return QNetwork(
@@ -55,6 +56,7 @@ def make_q_network(
             norm_input=config.get("NORM_INPUT", False),
             input_norm_type=input_norm_type,
             generator=generator,
+            dtype=dtype,
         )
     if arch == "cnn":
         return CNNQNetwork(
@@ -66,6 +68,7 @@ def make_q_network(
             trunk=config.get("CNN_TRUNK", "minatar"),
             input_scale=config.get("INPUT_SCALE", 255.0),
             generator=generator,
+            dtype=dtype,
         )
     raise ValueError(f"Unknown ARCH '{arch}'")
 

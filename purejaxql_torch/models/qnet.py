@@ -20,14 +20,29 @@ unchanged (core/checkpoint.py):
 - BatchNorm in train mode normalizes with the batch statistics and updates
   its running statistics as new = 0.99 * old + 0.01 * batch with the biased
   variance, even when its output is unused (the dummy input norm).
+
+``frozen_statistics(network)`` runs train-mode forwards whose statistics
+updates are discarded, as flax's ``mutable=["batch_stats"]`` with the
+update thrown away: FAST_TARGETS' bootstrap forward (purejaxql_tpu/algo/
+pqn.py:473-481).
+
+With ``dtype=torch.bfloat16`` (BF16_COMPUTE, qnet.py:56-95) the input norm
+runs in float32 and the trunk casts once to bfloat16: each Dense computes in
+bfloat16 from the float32 master parameters (``Dense``), each LayerNorm or
+BatchNorm computes its statistics and its normalize in float32 and returns
+bfloat16, as flax's norms with ``dtype=bfloat16`` do (a bfloat16 input less
+a float32 mean promotes to float32), and the Q-values come back in float32.
+For float32 every cast is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from purejaxql_torch.models.batch_renorm import BatchRenorm
@@ -58,16 +73,28 @@ def variance_scaling_(
         nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
+class Dense(nn.Linear):
+    """flax ``Dense(dtype=x.dtype)`` over float32 parameters: for an input of
+    another dtype the weight and the bias are cast to it, the product is
+    rounded to it and then the bias added, two roundings as flax's dot and
+    add; for a float32 input ``nn.Linear`` as it is."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+
+
 def dense(
     in_features: int,
     out_features: int,
     generator: Optional[torch.Generator],
     scale: float = 1.0,
-) -> nn.Linear:
-    """An ``nn.Linear`` initialised as flax's ``Dense`` (lecun-normal, or
+) -> Dense:
+    """A ``Dense`` initialised as flax's (lecun-normal, or
     ``variance_scaling(scale)``), drawing only from ``generator`` (torch's
     own init is skipped, so the global RNG is not touched)."""
-    layer = torch.nn.utils.skip_init(nn.Linear, in_features, out_features)
+    layer = torch.nn.utils.skip_init(Dense, in_features, out_features)
     variance_scaling_(layer.weight, in_features, scale, generator)
     with torch.no_grad():
         layer.bias.zero_()
@@ -82,8 +109,10 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        mean, var = _stats(x, -1)
-        return _normalize(x, mean, var, self.eps, self.weight, self.bias)
+        # statistics and normalize in float32, the result in x's dtype
+        h = x.float()
+        mean, var = _stats(h, -1)
+        return _normalize(h, mean, var, self.eps, self.weight, self.bias).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -97,17 +126,34 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.frozen = False
 
     def forward(self, x, train: bool):
+        h = x.float()
         if train:
-            mean, var = _stats(x, tuple(range(x.dim() - 1)))
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean.reshape(-1))
-                self.var.copy_(m * self.var + (1 - m) * var.reshape(-1))
+            mean, var = _stats(h, tuple(range(h.dim() - 1)))
+            if not self.frozen:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1 - m) * mean.reshape(-1))
+                    self.var.copy_(m * self.var + (1 - m) * var.reshape(-1))
         else:
             mean, var = self.mean, self.var
-        return _normalize(x, mean, var, self.eps, self.weight, self.bias)
+        return _normalize(h, mean, var, self.eps, self.weight, self.bias).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_statistics(network: nn.Module):
+    """Train-mode forwards of ``network`` inside leave every BatchNorm's and
+    BatchRenorm's buffers (a BatchRenorm's ``steps`` too) as they were."""
+    norms = [m for m in network.modules() if isinstance(m, (BatchNorm, BatchRenorm))]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield network
+    finally:
+        for m in norms:
+            m.frozen = False
 
 
 _NORMS = {"batch_norm": ("BatchNorm", BatchNorm), "batch_renorm": ("BatchRenorm", BatchRenorm)}
@@ -124,16 +170,22 @@ class QNetwork(nn.Module):
         norm_input: bool = False,
         input_norm_type: str = "batch_norm",
         generator: Optional[torch.Generator] = None,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "batch_renorm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
+        if dtype != torch.float32 and norm_type == "batch_renorm":
+            # the JAX module computes a BatchRenorm trunk's statistics in the
+            # input's bfloat16 and returns float32 (qnet.py:79-88)
+            raise NotImplementedError("BF16_COMPUTE with a BatchRenorm trunk is not ported yet")
         if input_norm_type not in _NORMS:
             raise ValueError(f"unsupported INPUT_NORM_TYPE '{input_norm_type}'")
         self.action_dim = action_dim
         self.num_layers = num_layers
         self.norm_type = norm_type
         self.norm_input = norm_input
+        self.dtype = dtype
         counts = {}
 
         def add(kind, module):
@@ -163,6 +215,7 @@ class QNetwork(nn.Module):
         normed = getattr(self, self.input_norm)(x, train)
         if self.norm_input:
             x = normed
+        x = x.to(self.dtype)
         for dense_name, norm_name in self.layers:
             x = getattr(self, dense_name)(x)
             if self.norm_type == "layer_norm":
@@ -170,4 +223,4 @@ class QNetwork(nn.Module):
             elif norm_name is not None:
                 x = getattr(self, norm_name)(x, train)
             x = torch.relu(x)
-        return getattr(self, self.head)(x)
+        return getattr(self, self.head)(x).float()

@@ -5,11 +5,19 @@ a learning bar for chip_smoke.py's Craftax phase could sit.
     python scripts/craftax_learning_bar.py                    # learned and LR=0, seeds 0 and 1
     python scripts/craftax_learning_bar.py --runs learned:2 lr0:2 random:0
     python scripts/craftax_learning_bar.py --steps 8388608 --runs learned:1
+    python scripts/craftax_learning_bar.py --steps 8388608 --program strict fast --runs learned:0 learned:1
 
 Each run trains +alg=pqn_craftax at full width (Forager, H 1024 x 4 with an
-input BatchRenorm, 1024 envs x 1 step, optimistic resets at ratio 16, 1-step
-TD) for chip_smoke.py's CRAFTAX_STEPS env steps (or --steps), through the
-cuda policy (the epsilon-greedy kernel), as one of:
+input BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for
+chip_smoke.py's CRAFTAX_STEPS env steps (or --steps), through the cuda policy
+(the epsilon-greedy kernel), in each program of --program (default fast):
+
+- ``fast``: the YAML as the cuda policy completes it: the reset bank
+  (RESET_BANK=256), FAST_TARGETS and SKIP_NOOP_PERMUTE;
+- ``strict``: PARITY=strict with EXPLORATION_KERNEL=pallas: optimistic
+  resets, the concat 1-step TD, a permuted minibatch;
+
+each run of --runs in every program in turn, the run as one of:
 
 - ``learned:<seed>``: the YAML's config;
 - ``lr0:<seed>``: LR=0, so the network keeps its initial weights (the
@@ -35,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 KINDS = {"learned": [], "lr0": ["LR=0"], "random": ["EPS_START=1.0", "EPS_FINISH=1.0"]}
+PROGRAMS = {"fast": [], "strict": ["PARITY=strict", "EXPLORATION_KERNEL=pallas"]}
 
 
 def main() -> int:
@@ -48,6 +57,7 @@ def main() -> int:
     ap.add_argument("--runs", nargs="+", default=["learned:0", "learned:1", "lr0:0", "lr0:1"],
                     help="kind:seed, kind one of " + ", ".join(KINDS))
     ap.add_argument("--steps", type=int, default=CRAFTAX_STEPS)
+    ap.add_argument("--program", nargs="+", default=["fast"], choices=sorted(PROGRAMS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a GPU")
@@ -55,10 +65,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    for run in args.runs:
+    for run, program in ((r, p) for r in args.runs for p in args.program):
         kind, seed = run.split(":")
         config = compose(alg="pqn_craftax", overrides=[
             f"TOTAL_TIMESTEPS={args.steps}", f"TOTAL_TIMESTEPS_DECAY={args.steps}", f"SEED={seed}", *KINDS[kind],
+            *PROGRAMS[program],
         ])
         train = pqn.make_train(config)
         torch.cuda.synchronize()
@@ -70,7 +81,7 @@ def main() -> int:
         value, n_ended = craftax_bar_metric(metrics)
         tail = len(metrics["td_loss"]) // 10
         print(json.dumps({
-            "run": run, "bar_metric": value, "updates_with_an_end": n_ended,
+            "program": program, "run": run, "bar_metric": value, "updates_with_an_end": n_ended,
             "achievement_count_last_10pct": float(metrics["achievement_count"][-tail:].mean()),
             "returned_episode_lengths_last_10pct": float(
                 metrics["returned_episode_lengths"][-tail:][metrics["returned_episode"][-tail:] > 0].mean()

@@ -11,6 +11,9 @@
         --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
     python scripts/profile_torch_train.py --alg pqn_pendulum --steps 400000    # actor-critic
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64
+    python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64 \
+        --set PARITY=strict --set EXPLORATION_KERNEL=pallas     # the strict Craftax program
+    python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --set BF16_COMPUTE=True
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -20,7 +23,10 @@ network, FAST_BPTT and PALLAS_BPTT on, the window of MEMORY_WINDOW +
 NUM_STEPS steps; pqn_pendulum: actor and two critics H 256, 64 envs x 32
 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every 10 %;
 pqn_craftax: Forager, H 1024 x 4 with an input BatchRenorm, 1024 envs x 1
-step, optimistic resets at ratio 16, 1-step TD on one minibatch, no eval):
+step, resets at ratio 16, 1-step TD on one minibatch, no eval; by the cuda
+policy the fast program: the reset bank, FAST_TARGETS, SKIP_NOOP_PERMUTE;
+with PARITY=strict and EXPLORATION_KERNEL=pallas the strict one: optimistic
+resets, the concat 1-step TD, a permuted minibatch):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
@@ -30,9 +36,12 @@ step, optimistic resets at ratio 16, 1-step TD on one minibatch, no eval):
    and the GRU scan kernels; for the actor-critic
    trainer the fused rollout, the LogVec replay, the lambda targets, the
    critic step, the actor step and the eval's episode sums; for pqn_craftax
-   the env step of the optimistic-reset wrapper and, inside it, the Forager
-   step and the worldgen of its 64 fresh worlds, the epsilon-greedy kernel
-   and the 1-step-TD minibatch step) is wrapped with a device
+   the env step of the reset wrapper (the bank's or the optimistic one) and,
+   inside it, the Forager step, the worldgen (``reset_env``: the optimistic
+   wrapper's 64 fresh worlds a step, the bank's 64 a refresh burst), the
+   bank's refresh bursts and its serve (gather, unpack, scatter), the
+   epsilon-greedy kernel and the 1-step-TD minibatch step, concat or
+   FAST_TARGETS, in float32 or, with BF16_COMPUTE, in bfloat16) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
@@ -128,9 +137,11 @@ def main() -> int:
     recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
     trainer = pqn_rnn if recurrent else pqn_ac if actor_critic else pqn
     if config["ALG_NAME"] == "pqn_craftax":  # the wrapper's env step, and its parts inside it
-        patches = [(wrappers.OptimisticResetVecEnv, "step", None), (Forager, "step_env", None),
-                   (Forager, "reset_env", None), (exploration, "eps_greedy", None),
-                   (pqn, "learn_minibatch_td", None)]
+        patches = [(wrappers.OptimisticResetVecEnv, "step", None), (wrappers.BankedResetVecEnv, "step", None),
+                   (Forager, "step_env", None), (Forager, "reset_env", None),
+                   (wrappers.BankedResetVecEnv, "refresh", None), (wrappers, "serve_resets", None),
+                   (exploration, "eps_greedy", None), (pqn, "learn_minibatch_td", None),
+                   (pqn, "learn_minibatch_fast_td", None)]
     elif actor_critic:  # (module, name, the noise's argument index)
         patches = [(pqn_ac, "fused_pendulum_rollout", 1), (pqn_ac, "eval_episode_metrics", None)]
         patches += [(pqn_ac, n, None) for n in ("log_vec_replay", "lambda_returns", "critic_step", "actor_step")]
@@ -156,7 +167,7 @@ def main() -> int:
     ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
     inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd", "step_env",
-             "reset_env")
+             "reset_env", "refresh", "serve_resets")
     accounted = sum(v for k, v in totals.items() if k not in inner)
 
     # ---- 2. device busy share over a short run without eval -----------------
@@ -183,7 +194,9 @@ def main() -> int:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     result = {
         "card": card,
-        "config": {"alg": args.alg, "env": config["ENV_NAME"], "set": args.set},
+        "config": {"alg": args.alg, "env": config["ENV_NAME"], "set": args.set,
+                   "policy": {k: config.get(k) for k in ("FUSED_ROLLOUT", "EXPLORATION_KERNEL", "FAST_TARGETS",
+                                                         "SKIP_NOOP_PERMUTE", "RESET_BANK", "BF16_COMPUTE")}},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,

@@ -407,19 +407,22 @@ def test_factory_gives_the_craftax_family_batch_renorm():
 def test_cuda_policy_turns_on_the_exploration_kernel():
     """On cuda (the default DEVICE), every FF config that runs the unfused
     rollout gets EXPLORATION_KERNEL="pallas", pqn_craftax among them, and
-    pqn_craftax gets none of FAST_TARGETS, RESET_BANK, SKIP_NOOP_PERMUTE; a
-    fused config, a recurrent one, the CPU, PARITY=strict and an explicit
-    setting are left alone. Explicit RESET_BANK or SKIP_NOOP_PERMUTE raise."""
+    pqn_craftax also FAST_TARGETS, SKIP_NOOP_PERMUTE and RESET_BANK=256, as
+    the JAX policy gives them (tests/test_torch_reset_bank.py holds the
+    rest), not FUSED_ROLLOUT; a fused config, a recurrent one, the CPU,
+    PARITY=strict and an explicit setting are left alone. What the FF
+    trainer still does not run raises: NUM_SEEDS > 1, LOG_VIA_CALLBACK."""
     cfg = compose(alg="pqn_craftax")
     assert cfg["EXPLORATION_KERNEL"] == "pallas"
-    assert not {"FAST_TARGETS", "RESET_BANK", "SKIP_NOOP_PERMUTE", "FUSED_ROLLOUT"} & set(cfg)
+    assert cfg["FAST_TARGETS"] is True and cfg["SKIP_NOOP_PERMUTE"] is True and cfg["RESET_BANK"] == 256
+    assert "FUSED_ROLLOUT" not in cfg
     assert compose(alg="pqn_cartpole", overrides=["NUM_LAYERS=3"])["EXPLORATION_KERNEL"] == "pallas"
     assert "EXPLORATION_KERNEL" not in compose(alg="pqn_cartpole")
     assert "EXPLORATION_KERNEL" not in compose(alg="pqn_rnn_memory_chain")
     for ov in (["DEVICE=cpu"], ["PARITY=strict"]):
         assert "EXPLORATION_KERNEL" not in compose(alg="pqn_craftax", overrides=ov)
     assert compose(alg="pqn_craftax", overrides=["EXPLORATION_KERNEL=False"])["EXPLORATION_KERNEL"] is False
-    for kw in ({"RESET_BANK": 256}, {"SKIP_NOOP_PERMUTE": True}, {"FAST_TARGETS": True}):
+    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}):
         with pytest.raises(NotImplementedError):
             pqn.make_train({**_tiny_craftax(), **kw})
 

@@ -11,7 +11,7 @@ import torch
 from purejaxql_torch.core import checkpoint as tckpt
 from purejaxql_torch.models.cnn import CNNQNetwork as TCNNQNetwork
 from purejaxql_torch.models.cnn import Conv
-from purejaxql_torch.models.factory import make_q_network
+from purejaxql_torch.models.factory import check_rnn_q_network, make_q_network
 from purejaxql_torch.models.qnet import BatchNorm
 from purejaxql_torch.models.qnet import QNetwork as TQNetwork
 from purejaxql_tpu.core import checkpoint as jckpt
@@ -309,6 +309,13 @@ def test_factory_builds_the_cnn_and_raises_for_unported_variants():
     assert isinstance(make_q_network(cfg, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network({**cfg, "ARCH": "cnn"}, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network(cfg, 2, (4,)), TQNetwork)
-    for bad in ({"CNN_TRUNK": "nature"}, {"NORM_TYPE": "batch_norm"}, {"BF16_COMPUTE": True}):
+    # BF16_COMPUTE is ported for the MinAtar trunk (tests/test_torch_bf16.py);
+    # the Nature trunk, in bfloat16 or not, and the recurrent network in
+    # bfloat16 still raise
+    assert make_q_network({**cfg, "BF16_COMPUTE": True}, 3, (10, 10, 4)).dtype == torch.bfloat16
+    for bad in ({"CNN_TRUNK": "nature"}, {"NORM_TYPE": "batch_norm"},
+                {"CNN_TRUNK": "nature", "BF16_COMPUTE": True}):
         with pytest.raises(NotImplementedError):
             make_q_network({**cfg, **bad}, 3, (10, 10, 4))
+    with pytest.raises(NotImplementedError, match="BF16_COMPUTE"):
+        check_rnn_q_network({**cfg, "BF16_COMPUTE": True}, (4,))
