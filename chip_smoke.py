@@ -20,9 +20,9 @@ Phases, each ending the run with a non-zero exit if it fails:
    cluster CNN also at a ragged shape, each with its plans, register counts
    and the clusters the card places at once, and with a NaN in every
    Q-row; Seaquest also through its cash-ins), the GRU
-   scan's forward and backward cluster kernels at five shapes, each with its
-   launch plan and the kernels' register and spill counts (and autograd
-   through them), and the
+   scan's forward and backward cluster kernels at seven shapes (VDN's
+   Spread and SMAX windows among them), each with its launch plan and the
+   kernels' register and spill counts (and autograd through them), and the
    Pendulum actor-critic cluster rollout (PRNG off and on, at the trainer's
    shape, at one that forces resets and at a ragged one whose W2 slices are
    read from L2, each with its plan and register counts), and the
@@ -72,8 +72,19 @@ Phases, each ending the run with a non-zero exit if it fails:
    same weights at H 1024 x 4 and batch 1024; then Breakout-MinAtar with
    BF16_COMPUTE for 16 updates through the fused Breakout kernel (which
    reads the float32 master weights);
-7. time each kernel and its twin with CUDA events at the trainers' shapes,
-   and torch.nn.GRU (cuDNN) beside the GRU scan as a yardstick;
+6g. train pqn_vdn_spread at full width (3 agents, one GRU network H 256
+   shared by all, 128 envs x 25 steps, window 4, 8 minibatches x 2 epochs,
+   greedy eval 128 envs x 25 steps every 5 % of the run) for the YAML's 1e6
+   env steps through the GRU scan kernels and the closure form of the
+   returns kernel, one launch of each a grad step at VDN's shapes (T 29,
+   rows 48; targets (28, 16)), and check that it learned (the JAX package's
+   bar: the last tenth of updates' mean team return above the first
+   tenth's by more than 3); then pqn_vdn_smax (Skirmish 2s3z, 5 agents,
+   rows 80), pqn_vdn_kitchen and pqn_vdn_hanabi at full width for 8
+   updates each through the same kernels;
+7. time each kernel and its twin with CUDA events at the trainers' shapes
+   (the GRU scan and the closure returns also at VDN's), and torch.nn.GRU
+   (cuDNN) beside the GRU scan as a yardstick;
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
 
@@ -100,6 +111,13 @@ ASTERIX_STEPS = 500_000
 SEAQUEST_STEPS = 500_000
 SHORT_STEPS = 16 * 32 * 128  # 16 updates of Freeway and of SpaceInvaders
 MEMORY_STEPS = 100_000  # pqn_rnn_memory_chain.yaml's TOTAL_TIMESTEPS: 24 updates
+VDN_SPREAD_STEPS = 1_000_000  # pqn_vdn_spread.yaml's TOTAL_TIMESTEPS: 312 updates
+# tests/test_pqn_vdn.py::test_vdn_learns_spread: the last tenth of updates'
+# mean returned_episode_returns above the first tenth's by more than this
+VDN_SPREAD_GATE = 3.0
+# the other VDN configs, 8 updates each at full width
+VDN_SHORT = ("pqn_vdn_smax", "pqn_vdn_kitchen", "pqn_vdn_hanabi")
+VDN_SHORT_UPDATES = 8
 RNN_CARTPOLE_STEPS = 16 * 64 * 32  # 16 updates of pqn_rnn_cartpole
 PENDULUM_STEPS = 400_000  # tests/test_pqn_ac.py::test_ac_learns_pendulum's length
 # the best greedy eval return the Pendulum run must beat (the same test's
@@ -120,9 +138,14 @@ CLUSTER_RAGGED = (24, 37, 256, 9)
 # (tests/test_pqn_rnn.py::test_rnn_solves_memory_task_ff_does_not)
 MEMORY_GATE, FF_GATE = 0.8, 0.5
 # the GRU scan at the trainers' shapes (T = MEMORY_WINDOW + NUM_STEPS, B =
-# NUM_ENVS / NUM_MINIBATCHES, H), then at shapes of several clusters and at
-# the largest H whose W_h slice stays in shared memory (a cluster of 16)
-GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (32, 16, 128), (20, 40, 256), (9, 2, 512))
+# NUM_ENVS / NUM_MINIBATCHES, H; VDN's B = agents x NUM_ENVS /
+# NUM_MINIBATCHES: Spread 3 x 16, SMAX 5 x 16), then at shapes of several
+# clusters and at the largest H whose W_h slice stays in shared memory (a
+# cluster of 16)
+GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (29, 48, 256), (68, 80, 256), (32, 16, 128), (20, 40, 256),
+              (9, 2, 512))
+# VDN's windows, timed beside the recurrent trainer's
+GRU_VDN_TIMED = ((29, 48, 256), (68, 80, 256))
 # the mean of the last 10 training returns the Asterix run must beat:
 # tests/test_torch_asterix.py::test_asterix_learns
 ASTERIX_GATE = 0.8
@@ -141,9 +164,9 @@ CRAFTAX_BF16_STEPS = 2**18
 # |Q| (bfloat16 keeps 8 significant bits; 0.7 % measured on the CPU at H 1024
 # x 4 from the init, tests/test_torch_bf16.py)
 BF16_BOUND = 0.03
-# this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build
-# included, before the fast Craftax and bf16 phases (PERF.md section 2)
-RECORDED_WALL_S = 621.7
+# this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build and
+# the VDN phase included (PERF.md section 2)
+RECORDED_WALL_S = 515.5
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
 EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
 KERNELS = (
@@ -156,12 +179,13 @@ KERNELS = (
 SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
 # the returns kernel, both forms: the trainers' shapes (T, E) (CartPole (64,
 # 32), MinAtar (32, 128), Pendulum (32, 64); the recurrent trainer's windows,
-# MemoryChain (131, 2) and RNN CartPole (67, 2)), short and ragged ones, many
-# blocks through the ring, a long T of few envs
-LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (127, 2), (63, 2), (1, 7), (2, 33),
-                 (64, 200), (300, 4096), (1024, 3))
+# MemoryChain (131, 2) and RNN CartPole (67, 2); VDN's targets, Spread (28,
+# 16) and Skirmish / SMAX (67, 16)), short and ragged ones, many blocks
+# through the ring, a long T of few envs
+LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 2), (63, 2),
+                 (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3))
 # where both forms are timed
-LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (127, 2), (63, 2))
+LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 2), (63, 2))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -999,9 +1023,12 @@ def main() -> int:
         args = (plan.rows, plan.resident and not plan.registers, plan.registers)
         f_res = gru_instance(gru_resources["gru_scan_fwd"], "gru_scan_fwd_kernel", *args)
         b_res = gru_instance(gru_resources["gru_scan_bwd"], "gru_scan_bwd_kernel", *args)
+        placed = [gs.active_clusters(k, plan) for k in ("gru_scan_fwd", "gru_scan_bwd")]
         print(
             f"gru_scan (T, B, H) = {shape}: plan C {plan.cluster}, U {plan.units}, R {plan.rows}, "
-            f"{plan.clusters} cluster(s), {plan.threads} threads, W_h resident {plan.resident}, "
+            f"{plan.clusters} cluster(s), placed at once fwd {placed[0]} bwd {placed[1]} "
+            f"(waves {-(-plan.clusters // placed[0])} / {-(-plan.clusters // placed[1])}), "
+            f"{plan.threads} threads, W_h resident {plan.resident}, "
             f"shared bytes fwd {plan.fwd_bytes} bwd {plan.bwd_bytes}, slice in registers {plan.registers}; "
             f"registers / spill bytes fwd {f_res[0]} / {f_res[1]}, bwd {b_res[0]} / {b_res[1]}; "
             f"forward max|err| {f_err:.3g} (tolerance 1e-5); backward max|err| {b_err:.3g}, "
@@ -1649,6 +1676,72 @@ def main() -> int:
                                     "env_steps_per_s": outs["runner_state"][0].timesteps / wall, "wall_s": wall,
                                     "launches": launches_bb, "card": card}}))
 
+    # ---- 6g. the VDN trainer: Spread at full width, then SMAX, Kitchen, Hanabi ----
+    # every grad step one launch of each GRU scan kernel and of the closure
+    # returns, nothing else; the rollout and the eval run no kernel
+    vdn_kernels = ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure")
+
+    def check_vdn_launches(name, launches, grad_steps):
+        for k in vdn_kernels:
+            check(launches[k] == grad_steps, f"{name}: {k} launched {launches[k]} times, expected {grad_steps}")
+        others = {k: v for k, v in launches.items() if k not in vdn_kernels and v}
+        check(not others, f"{name}: another kernel launched: {others}")
+
+    outs, wall, launches_vdn = train(
+        cli, compose, "pqn_vdn_spread", VDN_SPREAD_STEPS, save_path, counters, policy=("FAST_BPTT", "PALLAS_BPTT"),
+    )
+    vcfg = compose(alg="pqn_vdn_spread")
+    vdn_updates = VDN_SPREAD_STEPS // vcfg["NUM_STEPS"] // vcfg["NUM_ENVS"]
+    vdn_grad_steps = vdn_updates * vcfg["NUM_EPOCHS"] * vcfg["NUM_MINIBATCHES"]
+    ts = outs["runner_state"][0]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    rets = m["returned_episode_returns"]
+    tenth = max(1, len(rets) // 10)
+    vdn_early, vdn_late = float(rets[:tenth].mean()), float(rets[-tenth:].mean())
+    vdn_eval = float(m["test/returned_episode_returns"][-1])
+    print(
+        f"train spread (pqn_vdn, 3 agents, GRU): {ts.timesteps} env steps in {wall:.2f} s wall "
+        f"({ts.timesteps / wall:.0f} env-steps/s, eval included); launches {launches_vdn}; mean team return of the "
+        f"first tenth of updates {vdn_early:.3f}, of the last tenth {vdn_late:.3f} (must beat the first by "
+        f"{VDN_SPREAD_GATE}); last greedy eval return {vdn_eval:.3f}"
+    )
+    check(ts.timesteps == vdn_updates * vcfg["NUM_STEPS"] * vcfg["NUM_ENVS"], "spread: wrong env-step count")
+    check(all(p.device.type == "cuda" for p in ts.network.parameters()), "spread: a parameter is not on cuda")
+    check_vdn_launches("spread", launches_vdn, vdn_grad_steps)
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals", "returned_episode_returns")),
+          "spread: non-finite metrics")
+    check(np.isfinite(vdn_eval), "spread: the last greedy eval finished no episode")
+    check(vdn_late > vdn_early + VDN_SPREAD_GATE,
+          f"the VDN trainer did not learn Spread: last tenth {vdn_late} <= first tenth {vdn_early} + {VDN_SPREAD_GATE}")
+    saved = load_params(os.path.join(save_path, "Spread-v0", "pqn_vdn_rnn_Spread-v0_seed0.safetensors"))
+    check(tuple(saved["ScannedRNN_0"]["GRUCell_0"]["ir"]["kernel"].shape) == (256, 256)
+          and tuple(saved["Dense_2"]["kernel"].shape) == (256, 5) and "Dense_3" not in saved,
+          "spread: saved params have the wrong flax tree (no last action in, one head)")
+    print(json.dumps({"vdn_spread_run": {"env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
+                                         "early_tenth_return": vdn_early, "late_tenth_return": vdn_late,
+                                         "gate": VDN_SPREAD_GATE, "last_eval_return": vdn_eval,
+                                         "launches": launches_vdn, "card": card}}))
+
+    for alg in VDN_SHORT:
+        acfg = compose(alg=alg)
+        steps = VDN_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"]
+        outs, wall, launches_v = train(cli, compose, alg, steps, save_path, counters,
+                                       policy=("FAST_BPTT", "PALLAS_BPTT"))
+        ts = outs["runner_state"][0]
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        memory = outs["runner_state"][1]
+        print(
+            f"train {alg} ({memory.obs.shape[1]} agents, window {memory.obs.shape[0]}, obs {memory.obs.shape[-1]}): "
+            f"{ts.timesteps} env steps in {wall:.2f} s wall ({ts.timesteps / wall:.0f} env-steps/s, eval "
+            f"included); launches {launches_v}; td_loss {[round(float(v), 4) for v in m['td_loss']]}"
+        )
+        check(ts.timesteps == steps, f"{alg}: wrong env-step count")
+        check_vdn_launches(alg, launches_v, VDN_SHORT_UPDATES * acfg["NUM_EPOCHS"] * acfg["NUM_MINIBATCHES"])
+        check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals", "returned_episode_returns")),
+              f"{alg}: non-finite metrics")
+        print(json.dumps({"vdn_short_run": {"alg": alg, "env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
+                                            "launches": launches_v, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -1679,7 +1772,7 @@ def main() -> int:
         print(json.dumps({"timing": name, "shape": {"T": BT, "B": BB, "H": BH, "C": gC, "A": gA}, "ms": k_ms,
                           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}))
 
-    for shape in GRU_SHAPES[:2]:
+    for shape in GRU_SHAPES[:2] + GRU_VDN_TIMED:
         xi, keep, h0, w_h, b_hn, g_y, g_hT, res = gru_inputs_by_shape[shape]
         for name, kernel, plain, args, bound in (
             ("gru_scan_fwd", gs.gru_scan_fwd, gs.gru_scan_fwd_plain, (xi, keep, h0, w_h, b_hn), gru_fwd_bound_ms),
@@ -1688,26 +1781,26 @@ def main() -> int:
             k_ms = cuda_time_ms(lambda: kernel(*args), 50)
             p_ms = cuda_time_ms(lambda: plain(*args), 3, warmup=1)
             b_ms, b_by = bound(*shape)
-            timings[f"{name}_T{shape[0]}"] = (k_ms, p_ms, b_ms, b_by)
+            timings[f"{name}_T{shape[0]}_B{shape[1]}"] = (k_ms, p_ms, b_ms, b_by)
             print(json.dumps({"timing": name, "shape": dict(zip("TBH", shape)), "ms": k_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
     # a yardstick, not library_ms: cuDNN's GRU has no resets and does its own
     # input projection, and the port never calls it
-    T, B, H = GRU_SHAPES[0]
-    cudnn_gru = torch.nn.GRU(H, H).to(dev)
-    x_seq = torch.randn(T, B, H, device=dev)
-    h_init = torch.randn(1, B, H, device=dev)
-    with torch.no_grad():
-        c_fwd = cuda_time_ms(lambda: cudnn_gru(x_seq, h_init), 50)
-    x_grad = x_seq.clone().requires_grad_(True)
+    for T, B, H in (GRU_SHAPES[0], GRU_VDN_TIMED[0]):
+        cudnn_gru = torch.nn.GRU(H, H).to(dev)
+        x_seq = torch.randn(T, B, H, device=dev)
+        h_init = torch.randn(1, B, H, device=dev)
+        with torch.no_grad():
+            c_fwd = cuda_time_ms(lambda: cudnn_gru(x_seq, h_init), 50)
+        x_grad = x_seq.clone().requires_grad_(True)
 
-    def cudnn_fwd_bwd():
-        ys, h_last = cudnn_gru(x_grad, h_init)
-        (ys.sum() + h_last.sum()).backward()
+        def cudnn_fwd_bwd():
+            ys, h_last = cudnn_gru(x_grad, h_init)
+            (ys.sum() + h_last.sum()).backward()
 
-    c_fb = cuda_time_ms(cudnn_fwd_bwd, 50)
-    print(json.dumps({"timing": "torch.nn.GRU (cuDNN)", "shape": dict(zip("TBH", GRU_SHAPES[0])),
-                      "cudnn_gru_ms": {"fwd": c_fwd, "fwd_bwd": c_fb}}))
+        c_fb = cuda_time_ms(cudnn_fwd_bwd, 50)
+        print(json.dumps({"timing": "torch.nn.GRU (cuDNN)", "shape": {"T": T, "B": B, "H": H},
+                          "cudnn_gru_ms": {"fwd": c_fwd, "fwd_bwd": c_fb}}))
 
     aw, cw, stf, sti = pend_inputs[(32, 64, 256)]
     k_ms = cuda_time_ms(lambda: pr.pendulum_ac_rollout(3, 0.5, aw, cw, stf, sti, 32), 50)
@@ -1730,8 +1823,9 @@ def main() -> int:
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
     # lambda returns' from the Asterix run, their closure form's and the GRU
-    # scan's from MemoryChain,
-    # the Pendulum rollout's from the Pendulum run, eps_greedy's from Craftax)
+    # scan's from the newest slice that runs them, VDN on Spread, timed at
+    # its shapes; the Pendulum rollout's from the Pendulum run, eps_greedy's
+    # from Craftax)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -1750,15 +1844,15 @@ def main() -> int:
         ("seaquest_rollout", "purejaxql_torch/csrc/seaquest_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:1689", "seaquest_rollout", launches_sq),
         ("gru_scan_fwd", "purejaxql_torch/csrc/gru_scan_fwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132", launches_mc),
+         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T29_B48", launches_vdn),
         ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132", launches_mc),
+         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T29_B48", launches_vdn),
         ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
         ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
          "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_cx),
         ("lambda_returns_closure", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_131x2", launches_mc),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_28x16", launches_vdn),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({
@@ -1767,7 +1861,7 @@ def main() -> int:
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "
-          f"(recorded before the fast Craftax and bf16 phases: {RECORDED_WALL_S} s)")
+          f"(recorded with the VDN phase: {RECORDED_WALL_S} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

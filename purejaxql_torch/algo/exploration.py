@@ -5,6 +5,9 @@
 - ``make_eps_greedy``: the unfused rollout's epsilon-greedy as the config's
   EXPLORATION_KERNEL picks it, the hand-written kernel (``ops/eps_greedy.py``)
   or ``eps_greedy_batch``;
+- ``greedy_legal_actions`` and ``masked_eps_greedy``: the VDN trainer's
+  greedy action and epsilon-greedy over legal actions only
+  (purejaxql_tpu/algo/pqn_vdn.py:41-66);
 - ``gaussian_noise_ladder`` (exploration.py:62-85): additive Gaussian noise
   for a deterministic continuous policy, env i of E at std
   i / (E - 1) * noise_std, so some envs always exploit and others always
@@ -31,6 +34,30 @@ def eps_greedy_batch(
     random_actions = torch.randint(
         0, n_actions, (n_envs,), generator=generator, device=q_vals.device
     )
+    return torch.where(coin, random_actions, greedy)
+
+
+def greedy_legal_actions(q_vals: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """``argmax(q - (1 - avail) * 1e10)`` over the last axis (pqn_vdn.py:
+    41-43): the first NaN wins, as in ``jnp.argmax``, then the first of equal
+    values."""
+    return torch.argmax(q_vals - (1 - avail) * 1e10, -1)
+
+
+def masked_eps_greedy(
+    generator: torch.Generator, q_vals: torch.Tensor, eps: float, avail: torch.Tensor
+) -> torch.Tensor:
+    """q_vals and avail (..., n) -> actions (...) int64: per row, a uniform
+    coin below eps picks an action uniform over the legal ones (avail 1),
+    else ``greedy_legal_actions`` (pqn_vdn.py:46-65). The random action is
+    the k-th legal one for k = floor(u * n_legal), u uniform in [0, 1). Every
+    row needs a legal action."""
+    greedy = greedy_legal_actions(q_vals, avail)
+    u = torch.rand(greedy.shape, generator=generator, device=q_vals.device)
+    n_legal = avail.sum(-1)
+    k = torch.minimum(torch.floor(u * n_legal), n_legal - 1)
+    random_actions = (avail.cumsum(-1) <= k[..., None]).sum(-1)
+    coin = torch.rand(greedy.shape, generator=generator, device=q_vals.device) < eps
     return torch.where(coin, random_actions, greedy)
 
 

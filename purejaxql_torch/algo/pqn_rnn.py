@@ -86,17 +86,18 @@ def _check_supported(config: Dict[str, Any]) -> None:
         )
 
 
-def map_transitions(fn: Callable, *transitions: RNNTransition) -> RNNTransition:
-    """``fn`` over each field of one or more transition records, layer by
-    layer for the hidden states (a tree map)."""
+def map_transitions(fn: Callable, *transitions):
+    """``fn`` over each field of one or more transition records of one type
+    (``RNNTransition``, ``MARLTransition``), layer by layer for the hidden
+    states (a tree map)."""
     fields = {}
-    for f in dataclasses.fields(RNNTransition):
+    for f in dataclasses.fields(transitions[0]):
         values = [getattr(t, f.name) for t in transitions]
         if isinstance(values[0], tuple):
             fields[f.name] = tuple(fn(*layer) for layer in zip(*values))
         else:
             fields[f.name] = fn(*values)
-    return RNNTransition(**fields)
+    return type(transitions[0])(**fields)
 
 
 @torch.no_grad()

@@ -4,11 +4,13 @@
     python -m purejaxql_torch.cli +alg=pqn_rnn_memory_chain [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_pendulum [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_craftax [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_vdn_spread [KEY=val ...]
 
 The trainer is picked by the config's ALG_NAME: ``pqn`` and ``pqn_craftax``
-(algo/pqn.py),
-``pqn_rnn*`` (algo/pqn_rnn.py) or ``pqn_ac`` / ``pqn_playground``
-(algo/pqn_ac.py). Runs on the GPU unless DEVICE=cpu is given. Prints
+(algo/pqn.py), ``pqn_rnn*`` (algo/pqn_rnn.py), ``pqn_vdn*``
+(algo/pqn_vdn.py: ``pqn_vdn_{spread,skirmish,smax,kitchen,hanabi}``) or
+``pqn_ac`` / ``pqn_playground`` (algo/pqn_ac.py). Runs on the GPU unless
+DEVICE=cpu is given. Prints
 "Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
 (flax wire format; the actor-critic family's as one tree ``{"actor": ...,
 "critic": ...}``) and ``<run>_config.yaml``, and replays the metrics into the
@@ -24,8 +26,8 @@ import time
 
 def _select_make_train(config):
     """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40
-    picks it: ``pqn`` / ``pqn_craftax``, ``pqn_rnn*`` or ``pqn_ac`` /
-    ``pqn_playground``; the other families (pqn_vdn*, pqn_host) are not
+    picks it: ``pqn`` / ``pqn_craftax``, ``pqn_rnn*``, ``pqn_vdn*`` or
+    ``pqn_ac`` / ``pqn_playground``; the host-env family (pqn_host) is not
     ported."""
     name = str(config.get("ALG_NAME", "pqn"))
     if name in ("pqn", "pqn_craftax"):
@@ -34,12 +36,15 @@ def _select_make_train(config):
     if name.startswith("pqn_rnn"):
         from purejaxql_torch.algo.pqn_rnn import make_train
         return make_train
+    if name.startswith("pqn_vdn"):
+        from purejaxql_torch.algo.pqn_vdn import make_train
+        return make_train
     if name in ("pqn_ac", "pqn_playground"):
         from purejaxql_torch.algo.pqn_ac import make_train
         return make_train
     raise SystemExit(
-        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_craftax, pqn_rnn, pqn_ac; still to "
-        "port: pqn_vdn, pqn_host)"
+        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_craftax, pqn_rnn, pqn_vdn, pqn_ac; still "
+        "to port: pqn_host)"
     )
 
 

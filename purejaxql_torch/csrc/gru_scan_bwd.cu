@@ -366,6 +366,18 @@ int launch_rows(const float* keep, const float* hprev, const float* wh, const fl
   }
 }
 
+// how many clusters of the <R, RES, REG> instance the card places at once
+template <bool RES, bool REG>
+int active_rows(int R, int C, int threads, int smem) {
+  switch (R) {
+    case 1: return active_clusters(gru_scan_bwd_kernel<1, RES, REG>, C, threads, smem);
+    case 2: return active_clusters(gru_scan_bwd_kernel<2, RES, REG>, C, threads, smem);
+    case 4: return active_clusters(gru_scan_bwd_kernel<4, RES, REG>, C, threads, smem);
+    case 8: return active_clusters(gru_scan_bwd_kernel<8, RES, REG>, C, threads, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -409,6 +421,15 @@ int gru_scan_bwd_f32(const float* keep, const float* hprev, const float* wh,
   gru_partial_sum_kernel<<<(nw + 255) / 256, 256, 0, s>>>(dw_part, dw, nw, clusters);
   gru_partial_sum_kernel<<<(H + 255) / 256, 256, 0, s>>>(db_part, db, H, clusters);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of the plan (ops/gru_scan.py:scan_plan) the card
+// places at once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int gru_scan_bwd_active_clusters(int cluster, int rows, int threads, int resident, int dw_in_loop,
+                                   int smem_bytes) {
+  if (dw_in_loop) return active_rows<false, true>(rows, cluster, threads, smem_bytes);
+  if (resident) return active_rows<true, false>(rows, cluster, threads, smem_bytes);
+  return active_rows<false, false>(rows, cluster, threads, smem_bytes);
 }
 
 const char* gru_scan_bwd_error_string(int err) {

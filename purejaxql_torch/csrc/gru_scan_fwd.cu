@@ -281,6 +281,18 @@ int launch_rows(const float* xi, const float* keep, const float* h0, const float
   }
 }
 
+// how many clusters of the <R, RES, REG> instance the card places at once
+template <bool RES, bool REG>
+int active_rows(int R, int C, int threads, int smem) {
+  switch (R) {
+    case 1: return active_clusters(gru_scan_fwd_kernel<1, RES, REG>, C, threads, smem);
+    case 2: return active_clusters(gru_scan_fwd_kernel<2, RES, REG>, C, threads, smem);
+    case 4: return active_clusters(gru_scan_fwd_kernel<4, RES, REG>, C, threads, smem);
+    case 8: return active_clusters(gru_scan_fwd_kernel<8, RES, REG>, C, threads, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -310,6 +322,15 @@ int gru_scan_fwd_f32(const float* xi, const float* keep, const float* h0,
                                     rows, threads, smem_bytes, s);
   return launch_rows<false, false>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, cluster, units,
                                    rows, threads, smem_bytes, s);
+}
+
+// How many clusters of the plan (ops/gru_scan.py:scan_plan) the card
+// places at once (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+int gru_scan_fwd_active_clusters(int cluster, int rows, int threads, int resident, int registers,
+                                   int smem_bytes) {
+  if (registers) return active_rows<false, true>(rows, cluster, threads, smem_bytes);
+  if (resident) return active_rows<true, false>(rows, cluster, threads, smem_bytes);
+  return active_rows<false, false>(rows, cluster, threads, smem_bytes);
 }
 
 const char* gru_scan_fwd_error_string(int err) {

@@ -5,9 +5,9 @@ package's per-family norms (``resolve_norms``: BatchRenorm for the craftax
 family), the MinAtar CNN (ARCH ``cnn``, or an observation of rank 3 or more)
 and the GRU recurrent network (``make_rnn_q_network``). BF16_COMPUTE
 (factory.py:43) gives the MLP and the MinAtar CNN a bfloat16 trunk over
-float32 master parameters. The Nature trunk, a BatchRenorm trunk in bfloat16,
-the recurrent network in bfloat16, LSTM cells and dueling heads come with
-later slices and raise here.
+float32 master parameters; the recurrent network takes a dueling head. The
+Nature trunk, a BatchRenorm trunk in bfloat16, the recurrent network in
+bfloat16 and LSTM cells come with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -78,7 +78,6 @@ def check_rnn_q_network(config, obs_shape) -> None:
     norm_type, input_norm_type = resolve_norms(config)
     unported = {
         "RNN_CELL": config.get("RNN_CELL", "gru") != "gru",
-        "DUELING": config.get("DUELING", False),
         "NORM_TYPE": norm_type != "layer_norm",
         "INPUT_NORM_TYPE": input_norm_type != "batch_norm",
         "BF16_COMPUTE": config.get("BF16_COMPUTE", False),
@@ -98,8 +97,10 @@ def check_rnn_q_network(config, obs_shape) -> None:
 def make_rnn_q_network(
     config, action_dim: int, obs_shape, generator: Optional[torch.Generator] = None
 ) -> RNNQNetwork:
-    """The recurrent trainer's network (pqn_rnn.py:87-100): GRU cells on a
-    layer_norm trunk over flat observations."""
+    """The recurrent trainers' network (pqn_rnn.py:87-100, pqn_vdn.py:93-104):
+    GRU cells on a layer_norm trunk over flat observations, the last action
+    as an input where ADD_LAST_ACTION says so, a dueling head where DUELING
+    does."""
     check_rnn_q_network(config, obs_shape)
     return RNNQNetwork(
         obs_dim=int(obs_shape[0]),
@@ -109,5 +110,6 @@ def make_rnn_q_network(
         num_rnn_layers=config.get("NUM_RNN_LAYERS", 1),
         norm_input=config.get("NORM_INPUT", False),
         add_last_action=config.get("ADD_LAST_ACTION", False),
+        dueling=config.get("DUELING", False),
         generator=generator,
     )

@@ -16,10 +16,12 @@ packages unchanged (core/checkpoint.py):
   running statistics even when NORM_INPUT=False (rnn.py:121-128);
 - submodules carry flax's names: ``BatchNorm_0``, ``Dense_i``,
   ``LayerNorm_i``, ``ScannedRNN_l.GRUCell_0.{ir,iz,in,hr,hz,hn}`` and the
-  head ``Dense_<num_layers>``.
+  head ``Dense_<num_layers>``; a dueling head (rnn.py:146-151) is the value
+  ``Dense_<num_layers>`` (one output) and the advantage
+  ``Dense_<num_layers + 1>``, q = value + adv - mean(adv).
 
-LSTM cells, dueling heads, other trunk norms and a BatchRenorm input norm
-come with later slices; the factory raises for them.
+LSTM cells, other trunk norms and a BatchRenorm input norm come with later
+slices; the factory raises for them.
 """
 
 from __future__ import annotations
@@ -100,6 +102,7 @@ class RNNQNetwork(nn.Module):
         num_rnn_layers: int = 1,
         norm_input: bool = False,
         add_last_action: bool = False,
+        dueling: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
@@ -109,6 +112,7 @@ class RNNQNetwork(nn.Module):
         self.num_rnn_layers = num_rnn_layers
         self.norm_input = norm_input
         self.add_last_action = add_last_action
+        self.dueling = dueling
         self.BatchNorm_0 = BatchNorm(obs_dim)
         width = obs_dim
         for i in range(num_layers):
@@ -120,7 +124,11 @@ class RNNQNetwork(nn.Module):
         for layer in range(num_rnn_layers):
             self.add_module(f"ScannedRNN_{layer}", ScannedRNN(width, hidden_size, generator))
             width = hidden_size
-        self.add_module(f"Dense_{num_layers}", dense(width, action_dim, generator))
+        if dueling:
+            self.add_module(f"Dense_{num_layers}", dense(width, 1, generator))
+            self.add_module(f"Dense_{num_layers + 1}", dense(width, action_dim, generator))
+        else:
+            self.add_module(f"Dense_{num_layers}", dense(width, action_dim, generator))
 
     def initialize_carry(self, batch_size: int, device=None) -> List[torch.Tensor]:
         return [
@@ -150,4 +158,12 @@ class RNNQNetwork(nn.Module):
         for layer in range(self.num_rnn_layers):
             h, x = getattr(self, f"ScannedRNN_{layer}")(hidden[layer], x, resets)
             new_hidden.append(h)
-        return new_hidden, getattr(self, f"Dense_{self.num_layers}")(x)
+        return new_hidden, self.head(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The Q head: one Dense, or the dueling value + adv - mean(adv)."""
+        if not self.dueling:
+            return getattr(self, f"Dense_{self.num_layers}")(x)
+        value = getattr(self, f"Dense_{self.num_layers}")(x)
+        adv = getattr(self, f"Dense_{self.num_layers + 1}")(x)
+        return value + adv - adv.mean(-1, keepdim=True)

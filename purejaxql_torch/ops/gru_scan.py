@@ -290,6 +290,23 @@ def gru_scan_bwd(keep, hprev, w_h, r, z, n, c, g_y, g_hT):
 gru_scan_bwd.launches = 0
 
 
+def active_clusters(name: str, plan: ScanPlan) -> int:
+    """How many clusters of ``plan`` the card places at once for the kernel
+    ``name`` ("gru_scan_fwd" or "gru_scan_bwd"), through
+    ``<name>_active_clusters`` (cudaOccupancyMaxActiveClusters). More
+    clusters than this run in more than one wave. Raises if the query
+    fails."""
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_active_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6
+    smem = plan.fwd_bytes if name == "gru_scan_fwd" else plan.bwd_bytes
+    active = fn(plan.cluster, plan.rows, plan.threads, int(plan.resident), int(plan.registers), smem)
+    if active < 0:
+        build.check_launch(lib, -active, name)
+    return active
+
+
 class GRUScan(torch.autograd.Function):
     """``(h_T, y_seq) = GRUScan.apply(xi, keep, h0, w_h, b_hn)``: the GRU
     recurrence over T through ``gru_scan_fwd``, differentiated through

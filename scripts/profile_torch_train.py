@@ -14,6 +14,7 @@
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64 \
         --set PARITY=strict --set EXPLORATION_KERNEL=pallas     # the strict Craftax program
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --set BF16_COMPUTE=True
+    python scripts/profile_torch_train.py --alg pqn_vdn_spread --steps 1000000   # VDN, 3 agents
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -26,7 +27,8 @@ pqn_craftax: Forager, H 1024 x 4 with an input BatchRenorm, 1024 envs x 1
 step, resets at ratio 16, 1-step TD on one minibatch, no eval; by the cuda
 policy the fast program: the reset bank, FAST_TARGETS, SKIP_NOOP_PERMUTE;
 with PARITY=strict and EXPLORATION_KERNEL=pallas the strict one: optimistic
-resets, the concat 1-step TD, a permuted minibatch):
+resets, the concat 1-step TD, a permuted minibatch; pqn_vdn_*: one GRU
+network shared by the agents, FAST_BPTT and PALLAS_BPTT on):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
@@ -41,7 +43,11 @@ resets, the concat 1-step TD, a permuted minibatch):
    wrapper's 64 fresh worlds a step, the bank's 64 a refresh burst), the
    bank's refresh bursts and its serve (gather, unpack, scatter), the
    epsilon-greedy kernel and the 1-step-TD minibatch step, concat or
-   FAST_TARGETS, in float32 or, with BF16_COMPUTE, in bfloat16) is wrapped with a device
+   FAST_TARGETS, in float32 or, with BF16_COMPUTE, in bfloat16; for the VDN
+   trainer the random-policy prefill, the training rollouts, the greedy
+   eval rollouts, the minibatch steps and, inside them, the train-mode
+   forward, the VDN targets (the closure returns kernel) and the GRU scan
+   kernels) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
@@ -51,7 +57,8 @@ resets, the concat 1-step TD, a permuted minibatch):
 2. the device's busy share: torch.profiler over a short run without eval,
    summed kernel time over the wall time of the profiled run.
 
-Prints one JSON object.
+Every kernel is built before the first measurement (the build is printed
+apart), so no phase pays a compile. Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -77,11 +84,11 @@ ROLLOUTS = (
 def main() -> int:
     import torch
 
-    from purejaxql_torch.algo import exploration, pqn, pqn_ac, pqn_rnn
+    from purejaxql_torch.algo import exploration, pqn, pqn_ac, pqn_rnn, pqn_vdn
     from purejaxql_torch.core.config import compose
     from purejaxql_torch.envs import wrappers
     from purejaxql_torch.envs.gridworld.forager import Forager
-    from purejaxql_torch.ops import gru_scan
+    from purejaxql_torch.ops import build, gru_scan
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--alg", default="pqn_cartpole")
@@ -97,6 +104,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
+
+    t_build = time.perf_counter()
+    built = build.build(sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")))
+    build_s = time.perf_counter() - t_build
 
     # ---- 1. phase wall times ------------------------------------------------
     env = ([f"ENV_NAME={args.env}"] if args.env else []) + args.set
@@ -114,6 +125,9 @@ def main() -> int:
     totals = defaultdict(float)
     counts = defaultdict(int)
 
+    vdn = str(config["ALG_NAME"]).startswith("pqn_vdn")
+    prefill_len = config.get("MEMORY_WINDOW", 0) + config["NUM_STEPS"]
+
     def timed(name, fn, eps_arg=None):
         # wraps() copies a kernel wrapper's launch counter, which the wrapped
         # function then increments through its module's name for it
@@ -125,6 +139,9 @@ def main() -> int:
             torch.cuda.synchronize()
             if eps_arg is not None:
                 phase = "eval" if a[eps_arg] == eval_eps else "train"
+                # the VDN prefill: MEMORY_WINDOW + NUM_STEPS steps at epsilon 1
+                if vdn and phase == "train" and a[eps_arg + 1] == prefill_len != config["NUM_STEPS"]:
+                    phase = "prefill"
                 key = f"{name}_{phase}"
             else:
                 key = name
@@ -135,7 +152,7 @@ def main() -> int:
         return wrapper
 
     recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
-    trainer = pqn_rnn if recurrent else pqn_ac if actor_critic else pqn
+    trainer = pqn_rnn if recurrent else pqn_vdn if vdn else pqn_ac if actor_critic else pqn
     if config["ALG_NAME"] == "pqn_craftax":  # the wrapper's env step, and its parts inside it
         patches = [(wrappers.OptimisticResetVecEnv, "step", None), (wrappers.BankedResetVecEnv, "step", None),
                    (Forager, "step_env", None), (Forager, "reset_env", None),
@@ -145,6 +162,10 @@ def main() -> int:
     elif actor_critic:  # (module, name, the noise's argument index)
         patches = [(pqn_ac, "fused_pendulum_rollout", 1), (pqn_ac, "eval_episode_metrics", None)]
         patches += [(pqn_ac, n, None) for n in ("log_vec_replay", "lambda_returns", "critic_step", "actor_step")]
+    elif vdn:  # (module, name, the epsilon's argument index)
+        patches = [(pqn_vdn, "vdn_rollout", 4), (pqn_vdn, "learn_minibatch", None),
+                   (pqn_vdn, "rnn_train_q_values", None), (pqn_vdn, "vdn_targets", None),
+                   (gru_scan, "gru_scan_fwd", None), (gru_scan, "gru_scan_bwd", None)]
     elif recurrent:  # (module, name, the epsilon's argument index)
         patches = [(pqn_rnn, "rnn_rollout", 5), (pqn_rnn, "learn_minibatch", None),
                    (pqn_rnn, "rnn_train_q_values", None), (pqn_rnn, "lambda_returns_closure", None),
@@ -166,7 +187,7 @@ def main() -> int:
     ts = out["runner_state"][0]
     ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
-    inner = ("rnn_train_q_values", "lambda_returns_closure", "gru_scan_fwd", "gru_scan_bwd", "step_env",
+    inner = ("rnn_train_q_values", "lambda_returns_closure", "vdn_targets", "gru_scan_fwd", "gru_scan_bwd", "step_env",
              "reset_env", "refresh", "serve_resets")
     accounted = sum(v for k, v in totals.items() if k not in inner)
 
@@ -194,9 +215,11 @@ def main() -> int:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     result = {
         "card": card,
+        "build": {"s": build_s, "sources_compiled": sorted(built)},
         "config": {"alg": args.alg, "env": config["ENV_NAME"], "set": args.set,
                    "policy": {k: config.get(k) for k in ("FUSED_ROLLOUT", "EXPLORATION_KERNEL", "FAST_TARGETS",
-                                                         "SKIP_NOOP_PERMUTE", "RESET_BANK", "BF16_COMPUTE")}},
+                                                         "SKIP_NOOP_PERMUTE", "RESET_BANK", "BF16_COMPUTE",
+                                                         "FAST_BPTT", "PALLAS_BPTT")}},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,

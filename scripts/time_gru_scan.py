@@ -6,15 +6,20 @@ one GPU, with CUDA events, at the recurrent trainers' shapes.
     python scripts/time_gru_scan.py --parent-csrc build/parent_csrc --out build/gru_times.json
 
 1. the kernels through their wrappers (``ops/gru_scan.py``) at (T, B, H) =
-   (132, 2, 256) and (68, 2, 256), and at (132, 2, 512), each plan printed,
-   each result checked against the twins (forward 1e-5, backward 1e-4);
+   (132, 2, 256) and (68, 2, 256), the recurrent trainer's windows, (29,
+   48, 256) and (68, 80, 256), the VDN trainer's on Spread and SMAX (agents
+   x envs rows), and at (132, 2, 512), each plan printed with the clusters
+   the card places at once, each result checked against the twins (forward
+   1e-5, backward 1e-4); beside the CUDA-event time through the wrapper,
+   the time on the device (torch.profiler: every kernel a call launches,
+   the backward's partial sums included, summed and divided by the calls);
 2. the same at (132, 2, 256) with the cluster forced to 4, 8 and 16 CTAs
    (``scan_plan(B, H, cluster)``): at 4 and 8 a CTA owns 64 or 32 units,
    too many for the slice in registers, so those run the kernels' shared
    memory (C 8) or L2 (C 4) paths;
 3. ``torch.nn.GRU`` (cuDNN) forward, and forward plus backward, at T 132,
-   B 2, H 256: a yardstick only (no resets, its own input projection), which
-   the port never calls;
+   B 2, H 256 and at T 29, B 48, H 256: a yardstick only (no resets, its own
+   input projection), which the port never calls;
 4. with ``--parent-csrc DIR``: an earlier version of the two kernels, built
    from DIR/gru_scan_fwd.cu and DIR/gru_scan_bwd.cu with the same nvcc flags
    and called as that version's wrapper called them (the backward with a
@@ -38,9 +43,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# the recurrent trainers' shapes, and the largest H whose slice stays in
-# shared memory (no trainer's; the kernels' general path)
-SHAPES = ((132, 2, 256), (68, 2, 256), (132, 2, 512))
+# the recurrent trainers' shapes (VDN's B = agents x NUM_ENVS /
+# NUM_MINIBATCHES), and the largest H whose slice stays in shared memory (no
+# trainer's; the kernels' general path)
+SHAPES = ((132, 2, 256), (68, 2, 256), (29, 48, 256), (68, 80, 256), (132, 2, 512))
+# where the cuDNN yardstick is timed
+CUDNN_SHAPES = ((132, 2, 256), (29, 48, 256))
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -127,6 +135,21 @@ def parent_calls(fns):
     return fwd, bwd
 
 
+def device_ms(fn, iters: int):
+    """(device time a call, the kernels' names): torch.profiler's CUDA time
+    of every kernel ``iters`` calls launch, summed, over ``iters``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in events)
+    return (total_us / 1000.0 / iters if events else None), sorted(e.key[:60] for e in events)
+
+
 def max_err(got, want) -> float:
     return max((g - w).abs().max().item() for g, w in zip(got, want))
 
@@ -172,10 +195,15 @@ def main() -> int:
             print(f"time_gru_scan: the kernels disagree with the twins at {(T, B, H)}: {errs}", file=sys.stderr)
             return 1
         key = f"T{T}_B{B}_H{H}"
-        entry = {"plan": plan._asdict(), "max_abs_err": errs}
+        placed = {k: gs.active_clusters(k, plan) for k in ("gru_scan_fwd", "gru_scan_bwd")}
+        entry = {"plan": plan._asdict(), "placed_at_once": placed, "max_abs_err": errs}
+        print(json.dumps({"shape": key, **entry}))
         for name, new_fn, args_, i in (("fwd", gs.gru_scan_fwd, fwd_args, 0), ("bwd", gs.gru_scan_bwd, bwd_args, 1)):
             if old is None:
                 entry[f"{name}_ms"] = timed(f"gru_scan_{name} {key}", lambda: new_fn(*args_), 200)
+                entry[f"{name}_device_ms"], names = device_ms(lambda: new_fn(*args_), 50)
+                print(json.dumps({"device": f"gru_scan_{name} {key}", "ms": entry[f"{name}_device_ms"],
+                                  "kernels": names}))
                 continue
             old_fn = old[i]
             o_err = max_err(old_fn(*args_), want_f if i == 0 else want_b)
@@ -206,19 +234,21 @@ def main() -> int:
             gs.scan_plan = chosen
         summary["clusters"][C] = {"plan": plan._asdict(), "fwd_ms": f_ms, "bwd_ms": b_ms, "max_abs_err": errs}
 
-    gru = torch.nn.GRU(H, H).to(dev)
-    x = torch.randn(T, B, H, device=dev)
-    hx = torch.randn(1, B, H, device=dev)
-    with torch.no_grad():
-        c_fwd = timed("cudnn torch.nn.GRU forward", lambda: gru(x, hx), 200)
-    xg = x.clone().requires_grad_(True)
+    summary["cudnn_gru_ms"] = []
+    for T, B, H in CUDNN_SHAPES:
+        gru = torch.nn.GRU(H, H).to(dev)
+        x = torch.randn(T, B, H, device=dev)
+        hx = torch.randn(1, B, H, device=dev)
+        with torch.no_grad():
+            c_fwd = timed(f"cudnn torch.nn.GRU forward T{T}_B{B}_H{H}", lambda: gru(x, hx), 200)
+        xg = x.clone().requires_grad_(True)
 
-    def fwd_bwd():
-        y, h = gru(xg, hx)
-        (y.sum() + h.sum()).backward()
+        def fwd_bwd():
+            y, h = gru(xg, hx)
+            (y.sum() + h.sum()).backward()
 
-    c_fb = timed("cudnn torch.nn.GRU forward + backward", fwd_bwd, 200)
-    summary["cudnn_gru_ms"] = {"shape": [T, B, H], "fwd": c_fwd, "fwd_bwd": c_fb}
+        c_fb = timed(f"cudnn torch.nn.GRU forward + backward T{T}_B{B}_H{H}", fwd_bwd, 200)
+        summary["cudnn_gru_ms"].append({"shape": [T, B, H], "fwd": c_fwd, "fwd_bwd": c_fb})
     line = json.dumps(summary)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -10,13 +10,16 @@ import numpy as np
 import pytest
 import torch
 
-from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn
+from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn, pqn_vdn
+from purejaxql_torch.algo.types import MARLTransition
 from purejaxql_torch.core.config import compose
+from purejaxql_torch.core.optim import make_optimizer
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs.minatar.breakout import start_state
 from purejaxql_torch.models.actor_critic import Actor, CriticEnsemble
 from purejaxql_torch.models.cnn import CNNQNetwork
 from purejaxql_torch.models.qnet import QNetwork
+from purejaxql_torch.models.rnn import RNNQNetwork
 from purejaxql_torch.ops import asterix_rollout as ar
 from purejaxql_torch.ops import breakout_rollout as br
 from purejaxql_torch.ops import cartpole_rollout as cr
@@ -43,10 +46,12 @@ def dev():
 
 
 # the trainers' shapes (CartPole (64, 32), MinAtar (32, 128), Pendulum (32,
-# 64), the recurrent trainer's windows (131, 2) and (67, 2)), short and
-# ragged ones, many blocks through the ring, a long T of few envs
-LAMBDA_SHAPES = [(64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (127, 2), (63, 2), (1, 7), (2, 33),
-                 (64, 200), (300, 4096), (1024, 3)]
+# 64), the recurrent trainer's windows (131, 2) and (67, 2), VDN's targets
+# (28, 16) Spread, (67, 16) Skirmish and SMAX, (39, 16) Kitchen, (47, 16)
+# Hanabi), short and ragged ones, many blocks through the ring, a long T of
+# few envs
+LAMBDA_SHAPES = [(64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (39, 16), (47, 16),
+                 (127, 2), (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3)]
 LAMBDA_FORMS = {
     "gymnax": (lr.lambda_returns, lr.lambda_returns_plain),
     "closure": (lr.lambda_returns_closure, lr.lambda_returns_closure_plain),
@@ -600,13 +605,15 @@ def _gru_inputs(dev, T, B, H, seed=0):
     return [torch.tensor(np.asarray(a, np.float32), device=dev) for a in arrays]
 
 
-# the trainers' shapes (the slice in registers), several clusters, ragged
-# rows and units (B 3 of R 4; H 130: CTAs of 17 units, the slice in shared
-# memory, and a last one of 11; H 200: of 13 and a last one of 5), the
-# largest H with the slice in shared memory, and one read from L2
+# the trainers' shapes (the slice in registers; VDN's agents x envs rows:
+# Spread (29, 48), SMAX (68, 80), Skirmish (68, 48), Kitchen (40, 32),
+# Hanabi (48, 32)), several clusters, ragged rows and units (B 3 of R 4;
+# H 130: CTAs of 17 units, the slice in shared memory, and a last one of 11;
+# H 200: of 13 and a last one of 5), the largest H with the slice in shared
+# memory, and one read from L2
 GRU_CARD_SHAPES = [
-    (132, 2, 256), (68, 2, 256), (32, 16, 128), (13, 3, 32), (20, 40, 256), (7, 3, 96),
-    (7, 3, 130), (7, 3, 200), (9, 2, 512), (5, 3, 1024),
+    (132, 2, 256), (68, 2, 256), (29, 48, 256), (68, 80, 256), (68, 48, 256), (40, 32, 256), (48, 32, 256),
+    (32, 16, 128), (13, 3, 32), (20, 40, 256), (7, 3, 96), (7, 3, 130), (7, 3, 200), (9, 2, 512), (5, 3, 1024),
 ]
 
 
@@ -663,6 +670,17 @@ def test_gru_scan_bwd_is_one_cluster_with_no_copy_of_w_h(dev):
     assert db_hn.untyped_storage().nbytes() == 4 * H
 
 
+@pytest.mark.parametrize("B", [48, 80, 32])
+def test_gru_scan_plans_at_vdn_rows_are_placed(dev, B):
+    """At VDN's rows (agents x 16 envs) the plan is clusters of 16 CTAs of 8
+    rows, and the card places at least one cluster of each kernel's at
+    once (more clusters than it places run in waves)."""
+    plan = gs.scan_plan(B, 256)
+    assert (plan.cluster, plan.rows, plan.clusters) == (16, 8, B // 8)
+    for name in ("gru_scan_fwd", "gru_scan_bwd"):
+        assert gs.active_clusters(name, plan) >= 1
+
+
 def test_gru_scan_refused_launch_raises(dev, monkeypatch):
     """A plan the card refuses (here more shared memory than a CTA has)
     raises from the wrapper; nothing retries or falls back to the twin."""
@@ -716,6 +734,60 @@ def test_tiny_rnn_train_on_the_card_launches_both_kernels(dev):
     assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == grad_steps
     # the closure-form targets: one launch of the returns kernel a grad step
     assert lr.lambda_returns_closure.launches == grad_steps
+    assert lr.lambda_returns.launches == 0
+    assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+def _vdn_minibatch(dev, T=29, A=3, B=16, D=14, n=5, H=256, seed=0):
+    """A numpy-seeded VDN minibatch at Spread's full shape (window 29, 3
+    agents x 16 envs, H 256) with masks that leave each row a legal action."""
+    rng = np.random.RandomState(seed)
+    avail = (rng.rand(T, A, B, n) < 0.6).astype(np.float32)
+    avail[..., 0] = 1.0
+    action = np.array([rng.choice(np.flatnonzero(r)) for r in avail.reshape(-1, n)]).reshape(T, A, B)
+    t = lambda x, dtype=torch.float32: torch.tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return MARLTransition(
+        obs=t(rng.randn(T, A, B, D)), action=t(action, torch.long), reward=t(rng.randn(T, 1, B)),
+        done=t(rng.rand(T, 1, B) < 0.1), last_hs=(t(0.3 * rng.randn(T, A, B, H)),),
+        last_done=t(rng.rand(T, A, B) < 0.1), last_action=t(action, torch.long), avail_actions=t(avail),
+        q_val=t(np.zeros((T, A, B, n))),
+    )
+
+
+def test_vdn_learn_step_through_the_kernels_matches_the_twins(dev):
+    """Two VDN minibatch steps at Spread's full shape through the GRU scan
+    kernels and the closure returns kernel (one launch of each a step)
+    against the same steps on the CPU through their twins, from the same
+    weights: losses within 1e-4 relative, params within 1e-5."""
+    gen = torch.Generator().manual_seed(0)
+    cpu_net = RNNQNetwork(14, 5, hidden_size=256, num_layers=2, generator=gen)
+    gpu_net = RNNQNetwork(14, 5, hidden_size=256, num_layers=2).to(dev)
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    results = []
+    for net, device in ((gpu_net, dev), (cpu_net, torch.device("cpu"))):
+        opt = make_optimizer(net.parameters(), 10.0, 1e-4)
+        mb = _vdn_minibatch(device)
+        for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns_closure):
+            fn.launches = 0
+        losses = [pqn_vdn.learn_minibatch(net, opt, mb, 0.99, 0.85, True, True)[0].item() for _ in range(2)]
+        launches = [fn.launches for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns_closure)]
+        results.append((losses, launches, [p.detach().cpu() for p in net.parameters()]))
+    (g_losses, g_launches, g_params), (c_losses, c_launches, c_params) = results
+    assert g_launches == [2, 2, 2] and c_launches == [0, 0, 0]
+    np.testing.assert_allclose(g_losses, c_losses, rtol=1e-4)
+    for g, c in zip(g_params, c_params):
+        torch.testing.assert_close(g, c, atol=1e-5, rtol=0)
+
+
+def test_tiny_vdn_train_on_the_card_launches_the_three_kernels(dev):
+    config = compose(alg="pqn_vdn_smax", overrides=["TOTAL_TIMESTEPS=16384", "TEST_NUM_STEPS=64"])
+    assert config["FAST_BPTT"] is True and config["PALLAS_BPTT"] is True
+    for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns, lr.lambda_returns_closure):
+        fn.launches = 0
+    out = pqn_vdn.make_train(config)()
+    grad_steps = 16384 // 64 // 128 * 2 * 8
+    assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == lr.lambda_returns_closure.launches == grad_steps
     assert lr.lambda_returns.launches == 0
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()

@@ -492,7 +492,7 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
 
 
 def test_rnn_unsupported_options_raise():
-    for kw in ({"RNN_CELL": "lstm"}, {"DUELING": True}, {"NORM_TYPE": "batch_norm"},
+    for kw in ({"RNN_CELL": "lstm"}, {"NORM_TYPE": "batch_norm"},
                {"INPUT_NORM_TYPE": "batch_renorm"}, {"BF16_COMPUTE": True}, {"NUM_SEEDS": 2},
                {"DONE_MASKED_INFO_METRICS": True}, {"USE_OPTIMISTIC_RESETS": True},
                {"RESET_BANK": 256}, {"LOG_VIA_CALLBACK": True}):
@@ -502,6 +502,9 @@ def test_rnn_unsupported_options_raise():
         pqn_rnn.make_train(tiny_rnn_config(FAST_BPTT=True, NORM_TYPE="batch_norm"))
     with pytest.raises(ValueError, match="FAST_BPTT"):
         pqn_rnn.make_train(tiny_rnn_config(FAST_BPTT=True, PALLAS_BPTT=True, RNN_CELL="lstm"))
+    # a dueling head is ported (the VDN slice), but not on the fast path, as in JAX
+    with pytest.raises(ValueError, match="FAST_BPTT"):
+        pqn_rnn.make_train(tiny_rnn_config(FAST_BPTT=True, DUELING=True))
     with pytest.raises(ValueError, match="NUM_MINIBATCHES"):
         pqn_rnn.make_train(tiny_rnn_config(NUM_MINIBATCHES=3))
     # an image observation is flattened as the JAX trainer flattens it
@@ -551,9 +554,9 @@ def test_rnn_cli_recipe_writes_what_the_jax_loader_reads(tmp_path, capsys):
     assert (run_dir / "pqn_rnn_MemoryChain-bsuite_seed0_config.yaml").exists()
     rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
     assert len(rows) == 1024 // 16 // 8 and rows[-1]["env_step"] == 1024
-    # the families still to port are refused by name
+    # the family still to port is refused by name
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["+alg=pqn_rnn_memory_chain", "DEVICE=cpu", "ALG_NAME=pqn_vdn_spread"])
+        cli.main(["+alg=pqn_rnn_memory_chain", "DEVICE=cpu", "ALG_NAME=pqn_host"])
 
 
 @pytest.mark.slow
