@@ -49,7 +49,9 @@ Phases, each ending the run with a non-zero exit if it fails:
    128 envs x 64 steps) through the GRU scan kernels and the closure form
    of the returns kernel (one launch of each a grad step) and check that it
    remembers; the FF trainer on the same config must not; then
-   pqn_rnn_cartpole at full width for 16 updates;
+   pqn_rnn_cartpole at full width for 16 updates; both recurrent runs take
+   every action of their prefill and rollouts from the epsilon-greedy kernel
+   (the cuda policy's EXPLORATION_KERNEL);
 6e. train pqn_pendulum at full width (actor and two critics H 256, 64 envs x
    32 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every
    10 % of the run) for 400k env steps through the Pendulum kernel and check
@@ -82,6 +84,19 @@ Phases, each ending the run with a non-zero exit if it fails:
    tenth's by more than 3); then pqn_vdn_smax (Skirmish 2s3z, 5 agents,
    rows 80), pqn_vdn_kitchen and pqn_vdn_hanabi at full width for 8
    updates each through the same kernels;
+6h. train pqn_rnn_craftax at full width (Forager, one dense layer H 512 with
+   LayerNorm, an LSTM layer H 512 with the last action as input, an input
+   BatchRenorm, 1024 envs x 128 steps, resets at ratio 16, 4 epochs x 4
+   minibatches of truncated BPTT over the 128-step window, done-masked info
+   metrics) for 3 updates, the YAML's decay kept, so the cuda policy gives it
+   FAST_BPTT (the LSTM loop in PyTorch), the epsilon-greedy kernel and the
+   reset bank: one epsilon-greedy launch a step of the prefill and of the
+   rollouts (128 x 4), one closure returns launch a grad step (48), no other
+   kernel, the banked env state, the input BatchRenorm's step count, finite
+   metrics and the saved flax tree (OptimizedLSTMCell_0's eight kernels);
+   then one update in the strict program (PARITY=strict: optimistic resets,
+   the module path) and one with BF16_COMPUTE, whose BPTT forward is held
+   within BF16_BOUND of the float32 one on the same weights;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's), and torch.nn.GRU
    (cuDNN) beside the GRU scan as a yardstick;
@@ -159,14 +174,20 @@ CRAFTAX_STEPS = 2**21
 # the strict Craftax program (PARITY=strict) and the bfloat16 one, shorter
 CRAFTAX_STRICT_STEPS = 2**19
 CRAFTAX_BF16_STEPS = 2**18
+# pqn_rnn_craftax at full width (LSTM H 512, 1024 envs x 128 steps, 4 x 4
+# grad steps an update): 3 updates in the fast program, the YAML's
+# TOTAL_TIMESTEPS_DECAY of 1e9 kept; 1 in the strict program and 1 with
+# BF16_COMPUTE
+RNN_CRAFTAX_STEPS = 3 * 1024 * 128
+RNN_CRAFTAX_SHORT_STEPS = 1024 * 128
 # the bfloat16 forward against the float32 one on the same weights: the
 # largest |difference| over the Q-values at most this share of the largest
 # |Q| (bfloat16 keeps 8 significant bits; 0.7 % measured on the CPU at H 1024
 # x 4 from the init, tests/test_torch_bf16.py)
 BF16_BOUND = 0.03
 # this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build and
-# the VDN phase included (PERF.md section 2)
-RECORDED_WALL_S = 515.5
+# the pqn_rnn_craftax phase included (PERF.md section 2)
+RECORDED_WALL_S = 547.2
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
 EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
 KERNELS = (
@@ -179,13 +200,13 @@ KERNELS = (
 SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
 # the returns kernel, both forms: the trainers' shapes (T, E) (CartPole (64,
 # 32), MinAtar (32, 128), Pendulum (32, 64); the recurrent trainer's windows,
-# MemoryChain (131, 2) and RNN CartPole (67, 2); VDN's targets, Spread (28,
-# 16) and Skirmish / SMAX (67, 16)), short and ragged ones, many blocks
-# through the ring, a long T of few envs
-LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 2), (63, 2),
-                 (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3))
+# MemoryChain (131, 2), RNN CartPole (67, 2) and RNN Craftax (127, 256);
+# VDN's targets, Spread (28, 16) and Skirmish / SMAX (67, 16)), short and
+# ragged ones, many blocks through the ring, a long T of few envs
+LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2),
+                 (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3))
 # where both forms are timed
-LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 2), (63, 2))
+LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2), (63, 2))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -675,6 +696,7 @@ def main() -> int:
         from purejaxql_torch.ops import pendulum_rollout as pr
         from purejaxql_torch.ops import seaquest_rollout as sq
         from purejaxql_torch.ops import space_invaders_rollout as sr
+        from purejaxql_torch.ops.fast_rnn import fast_rnn_train_forward
         from purejaxql_torch.ops.minatar_rollout import minatar_weights
     except ImportError as e:
         fail(f"cannot import purejaxql_torch ({e}): run from the root of a checkout")
@@ -1463,10 +1485,13 @@ def main() -> int:
     # ---- 6d. the recurrent trainer on MemoryChain, the FF contrast, CartPole ----
     outs, wall, launches_mc = train(
         cli, compose, "pqn_rnn_memory_chain", MEMORY_STEPS, save_path, counters,
-        extra=["TEST_NUM_STEPS=64"], policy=("FAST_BPTT", "PALLAS_BPTT"),
+        extra=["TEST_NUM_STEPS=64"], policy=("FAST_BPTT", "PALLAS_BPTT", ("EXPLORATION_KERNEL", "pallas")),
     )
     mc_updates = MEMORY_STEPS // 128 // 32
     mc_grad_steps = mc_updates * 4 * 16
+    # the cuda policy's epsilon-greedy kernel: every step of the prefill
+    # (window 4 + 128) and of the training rollouts, not the eval's
+    mc_rollout_steps = 4 + 128 + mc_updates * 128
     ts = outs["runner_state"][0]
     m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
     mc_last3 = float(m["test/returned_episode_returns"][-3:].mean())
@@ -1480,8 +1505,10 @@ def main() -> int:
     for name in ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure"):
         check(launches_mc[name] == mc_grad_steps,
               f"memory_chain: {name} launched {launches_mc[name]} times, expected {mc_grad_steps}")
+    check(launches_mc["eps_greedy"] == mc_rollout_steps,
+          f"memory_chain: eps_greedy launched {launches_mc['eps_greedy']} times, expected {mc_rollout_steps}")
     others = {k: v for k, v in launches_mc.items()
-              if not k.startswith("gru_scan") and k != "lambda_returns_closure" and v}
+              if not k.startswith("gru_scan") and k not in ("lambda_returns_closure", "eps_greedy") and v}
     check(not others, f"memory_chain: another kernel launched: {others}")
     check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "memory_chain: non-finite metrics")
     check(mc_last3 > MEMORY_GATE, f"the recurrent trainer did not remember: last-3 greedy return {mc_last3} <= {MEMORY_GATE}")
@@ -1504,7 +1531,7 @@ def main() -> int:
         f"last-3 greedy eval return {ff_last3:.3f} (must stay below {FF_GATE})"
     )
     check(launches_ff["lambda_returns"] == mc_updates and launches_ff["gru_scan_fwd"] == 0
-          and launches_ff["lambda_returns_closure"] == 0,
+          and launches_ff["lambda_returns_closure"] == 0 and launches_ff["eps_greedy"] == mc_updates * 128,
           f"memory_chain FF: unexpected launches {launches_ff}")
     check(ff_last3 < FF_GATE, f"the feedforward trainer remembered: last-3 greedy return {ff_last3} >= {FF_GATE}")
     print(json.dumps({"memory_chain_ff_run": {"env_steps_per_s": outs["runner_state"][0].timesteps / wall,
@@ -1513,7 +1540,7 @@ def main() -> int:
 
     outs, wall, launches_rc = train(
         cli, compose, "pqn_rnn_cartpole", RNN_CARTPOLE_STEPS, save_path, counters,
-        policy=("FAST_BPTT", "PALLAS_BPTT"),
+        policy=("FAST_BPTT", "PALLAS_BPTT", ("EXPLORATION_KERNEL", "pallas")),
     )
     ts = outs["runner_state"][0]
     m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
@@ -1526,6 +1553,8 @@ def main() -> int:
     for name in ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure"):
         check(launches_rc[name] == 16 * 4 * 16, f"rnn cartpole: {name} launched {launches_rc[name]} times, expected 1024")
     check(launches_rc["lambda_returns"] == 0, f"rnn cartpole: the gymnax form launched: {launches_rc}")
+    check(launches_rc["eps_greedy"] == 4 + 64 + 16 * 64,
+          f"rnn cartpole: eps_greedy launched {launches_rc['eps_greedy']} times, expected {4 + 64 + 16 * 64}")
     check(all(np.isfinite(v).all() for k, v in m.items() if not k.startswith("test/")) and
           np.isfinite(m["test/returned_episode_returns"]).all(), "rnn cartpole: non-finite metrics")
     print(json.dumps({"rnn_cartpole_run": {"env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
@@ -1742,6 +1771,118 @@ def main() -> int:
         print(json.dumps({"vdn_short_run": {"alg": alg, "env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
                                             "launches": launches_v, "card": card}}))
 
+    # ---- 6h. pqn_rnn_craftax at full width: LSTM, BatchRenorm input, the reset bank ----
+    # the fast program by the cuda policy: FAST_BPTT (the LSTM recurrence in
+    # PyTorch, no GRU kernel), the epsilon-greedy kernel on every step of the
+    # prefill and of the rollouts, the bank; the closure returns once a grad step
+    rcfg = compose(alg="pqn_rnn_craftax")
+    check(not rcfg.get("PALLAS_BPTT"), "rnn craftax: the cuda policy turned on PALLAS_BPTT for an LSTM stack")
+    rc_updates = RNN_CRAFTAX_STEPS // rcfg["NUM_STEPS"] // rcfg["NUM_ENVS"]
+    rc_grad_steps = rc_updates * rcfg["NUM_EPOCHS"] * rcfg["NUM_MINIBATCHES"]
+    rc_window = rcfg["MEMORY_WINDOW"] + rcfg["NUM_STEPS"]
+    rnn_craftax_policy = ("FAST_BPTT", ("EXPLORATION_KERNEL", "pallas"), ("RESET_BANK", 256))
+
+    def check_rnn_craftax(name, outs, launches, updates):
+        """The launches (epsilon-greedy once a rollout step, prefill
+        included; the closure returns once a grad step; nothing else), the
+        env-step count, the parameters on the card, finite metrics (the
+        done-masked infos among them). Returns the metrics."""
+        ts = outs["runner_state"][0]
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        grad_steps = updates * rcfg["NUM_EPOCHS"] * rcfg["NUM_MINIBATCHES"]
+        check(launches["eps_greedy"] == rc_window + updates * rcfg["NUM_STEPS"],
+              f"{name}: eps_greedy launched {launches['eps_greedy']} times, expected "
+              f"{rc_window + updates * rcfg['NUM_STEPS']}")
+        check(launches["lambda_returns_closure"] == grad_steps,
+              f"{name}: lambda_returns_closure launched {launches['lambda_returns_closure']} times, "
+              f"expected {grad_steps}")
+        others = {k: v for k, v in launches.items() if k not in ("eps_greedy", "lambda_returns_closure") and v}
+        check(not others, f"{name}: a GRU, rollout or gymnax-form returns kernel launched: {others}")
+        check(ts.timesteps == updates * rcfg["NUM_STEPS"] * rcfg["NUM_ENVS"], f"{name}: wrong env-step count")
+        check(ts.grad_steps == grad_steps, f"{name}: {ts.grad_steps} grad steps, expected {grad_steps}")
+        check(all(p.device.type == "cuda" for p in ts.network.parameters()), f"{name}: a parameter is not on cuda")
+        check(int(ts.network.BatchRenorm_0.steps) == grad_steps,
+              f"{name}: the input BatchRenorm stepped {int(ts.network.BatchRenorm_0.steps)} times, expected {grad_steps}")
+        check(all(np.isfinite(v).all() for v in m.values()), f"{name}: non-finite metrics")
+        return m
+
+    outs, wall, launches_rcx = train(
+        cli, compose, "pqn_rnn_craftax", RNN_CRAFTAX_STEPS, save_path, counters,
+        extra=["TOTAL_TIMESTEPS_DECAY=1e9"], policy=rnn_craftax_policy,
+    )
+    ts = outs["runner_state"][0]
+    m = check_rnn_craftax("rnn craftax", outs, launches_rcx, rc_updates)
+    rcx_rate = ts.timesteps / wall
+    print(
+        f"train rnn craftax (pqn_rnn_craftax, Forager, LSTM H 512, the fast program): {ts.timesteps} env steps in "
+        f"{wall:.2f} s wall ({rcx_rate:.0f} env-steps/s on {card}); launches {launches_rcx}; td_loss "
+        f"{[round(float(v), 5) for v in m['td_loss']]}; done-masked returned_episode_returns "
+        f"{[round(float(v), 3) for v in m['returned_episode_returns']]}"
+    )
+    check(isinstance(outs["runner_state"][2][4], wrappers.BankedResetState), "rnn craftax: the training env is not banked")
+    saved = load_params(os.path.join(save_path, "Craftax-Symbolic-v1", "pqn_rnn_Craftax-Symbolic-v1_seed0.safetensors"))
+    lstm = saved["ScannedRNN_0"]["OptimizedLSTMCell_0"]
+    check(sorted(lstm) == sorted(["ii", "if", "ig", "io", "hi", "hf", "hg", "ho"])
+          and all(tuple(lstm[f"i{g}"]["kernel"].shape) == (512 + 34, 512) and "bias" not in lstm[f"i{g}"]
+                  and tuple(lstm[f"h{g}"]["kernel"].shape) == (512, 512) and tuple(lstm[f"h{g}"]["bias"].shape) == (512,)
+                  for g in "ifgo")
+          and tuple(saved["BatchRenorm_0"]["scale"].shape) == (2883,)
+          and tuple(saved["Dense_0"]["kernel"].shape) == (2883, 512)
+          and tuple(saved["Dense_1"]["kernel"].shape) == (512, 34) and "GRUCell_0" not in saved["ScannedRNN_0"],
+          "rnn craftax: saved params have the wrong flax tree")
+    print(json.dumps({"rnn_craftax_run": {"program": "fast", "env_steps_per_s": rcx_rate, "wall_s": wall,
+                                          "launches": launches_rcx, "card": card}}))
+
+    # the strict program: optimistic resets, the module path (no FAST_BPTT)
+    outs, wall, launches_rcs = train(
+        cli, compose, "pqn_rnn_craftax", RNN_CRAFTAX_SHORT_STEPS, save_path, counters,
+        extra=["TOTAL_TIMESTEPS_DECAY=1e9", "PARITY=strict", "EXPLORATION_KERNEL=pallas"],
+        policy=(("EXPLORATION_KERNEL", "pallas"),),
+    )
+    ts = outs["runner_state"][0]
+    check_rnn_craftax("rnn craftax strict", outs, launches_rcs, 1)
+    check(isinstance(outs["runner_state"][2][4], wrappers.LogEnvState), "rnn craftax strict: the training env is banked")
+    print(f"train rnn craftax (the strict program, the module path): {ts.timesteps} env steps in {wall:.2f} s wall "
+          f"({ts.timesteps / wall:.0f} env-steps/s); launches {launches_rcs}")
+    print(json.dumps({"rnn_craftax_run": {"program": "strict", "env_steps_per_s": ts.timesteps / wall, "wall_s": wall,
+                                          "launches": launches_rcs, "card": card}}))
+
+    # the fast program with BF16_COMPUTE: the BPTT forward's products in
+    # bfloat16 operands, float32 accumulation; its Q-values held against the
+    # float32 forward's on the same weights and a minibatch of the memory
+    outs, wall, launches_rcb = train(
+        cli, compose, "pqn_rnn_craftax", RNN_CRAFTAX_SHORT_STEPS, save_path, counters,
+        extra=["TOTAL_TIMESTEPS_DECAY=1e9", "BF16_COMPUTE=True"], policy=rnn_craftax_policy,
+    )
+    ts = outs["runner_state"][0]
+    check_rnn_craftax("rnn craftax bf16", outs, launches_rcb, 1)
+    net, memory = ts.network, outs["runner_state"][1]
+    rows = slice(0, rcfg["NUM_ENVS"] // rcfg["NUM_MINIBATCHES"])
+    window = [memory.obs[:, rows], memory.last_done[:, rows], memory.last_action[:, rows]]
+    hs0 = [(c[0, rows], h[0, rows]) for c, h in memory.last_hs]
+    with torch.no_grad():
+        q_by_dtype = [
+            fast_rnn_train_forward(
+                dict(net.named_parameters()), dict(net.named_buffers()), hs0, *window,
+                num_layers=net.num_layers, num_rnn_layers=net.num_rnn_layers, action_dim=net.action_dim,
+                add_last_action=net.add_last_action, norm_input=net.norm_input, cell_type=net.cell_type,
+                input_norm_type=net.input_norm_type, compute_dtype=dtype,
+            )[1]
+            for dtype in (torch.bfloat16, torch.float32)
+        ]
+    rc_bf16_err = float((q_by_dtype[0] - q_by_dtype[1]).abs().max())
+    rc_bf16_scale = float(q_by_dtype[1].abs().max())
+    print(f"train rnn craftax (BF16_COMPUTE): {ts.timesteps} env steps in {wall:.2f} s wall "
+          f"({ts.timesteps / wall:.0f} env-steps/s); launches {launches_rcb}; the bfloat16 BPTT forward against "
+          f"float32 on the same weights over a minibatch window {tuple(q_by_dtype[0].shape)}: max |diff| "
+          f"{rc_bf16_err:.5f}, max |Q| {rc_bf16_scale:.4f}")
+    check(q_by_dtype[0].dtype == torch.float32, "rnn craftax bf16: the Q-values are not float32")
+    check(rc_bf16_err <= BF16_BOUND * rc_bf16_scale,
+          f"rnn craftax bf16: forward off float32 by {rc_bf16_err} > {BF16_BOUND} x {rc_bf16_scale}")
+    print(json.dumps({"rnn_craftax_run": {"program": "fast, BF16_COMPUTE", "env_steps_per_s": ts.timesteps / wall,
+                                          "wall_s": wall, "bf16_max_abs_err": rc_bf16_err, "max_abs_q": rc_bf16_scale,
+                                          "launches": launches_rcb, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -1822,10 +1963,10 @@ def main() -> int:
 
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
-    # lambda returns' from the Asterix run, their closure form's and the GRU
-    # scan's from the newest slice that runs them, VDN on Spread, timed at
-    # its shapes; the Pendulum rollout's from the Pendulum run, eps_greedy's
-    # from Craftax)
+    # lambda returns' from the Asterix run; the GRU scan's from VDN on
+    # Spread, timed at its shapes; the Pendulum rollout's from the Pendulum
+    # run; eps_greedy's and the closure returns' from the newest slice that
+    # runs them, pqn_rnn_craftax's fast program, timed at its shapes)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -1850,9 +1991,9 @@ def main() -> int:
         ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
         ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
-         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_cx),
+         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_rcx),
         ("lambda_returns_closure", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_28x16", launches_vdn),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_127x256", launches_rcx),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({
@@ -1861,7 +2002,7 @@ def main() -> int:
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "
-          f"(recorded with the VDN phase: {RECORDED_WALL_S} s)")
+          f"(recorded with the pqn_rnn_craftax phase: {RECORDED_WALL_S} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

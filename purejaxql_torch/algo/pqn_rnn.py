@@ -1,15 +1,24 @@
-"""RNN-PQN: the trainer for recurrent Q-networks (GRU).
+"""RNN-PQN: the trainer for recurrent Q-networks (GRU or LSTM).
 
-Port of purejaxql_tpu/algo/pqn_rnn.py `make_train` for GRU cells on a
-layer_norm trunk (``+alg=pqn_rnn_memory_chain``, ``+alg=pqn_rnn_cartpole``).
-Line references ``pqn_rnn.py:N`` are to that module.
+Port of purejaxql_tpu/algo/pqn_rnn.py `make_train` for GRU and LSTM cells on
+a layer_norm trunk (``+alg=pqn_rnn_memory_chain``, ``+alg=pqn_rnn_cartpole``,
+``+alg=pqn_rnn_craftax``). Line references ``pqn_rnn.py:N`` are to that
+module.
 
+- The envs come from ``algo/pqn.py:build_env``, as in the FF trainer: the
+  Log-wrapped env, or in the batched modes (BATCH_ENV, optimistic resets,
+  with RESET_BANK the reset bank) the training env and the eval's own.
 - Before training, a random-policy prefill of MEMORY_WINDOW + NUM_STEPS
   steps fills the memory (:468-476).
 - Each update: a NUM_STEPS rollout, one env step at a time, each step
   running the network on a length-1 time slice in eval mode and storing the
   *incoming* hidden state, done flag and action (:154-200); the memory drops
-  its oldest NUM_STEPS steps and appends the rollout (:224-229).
+  its oldest NUM_STEPS steps and appends the rollout (:224-229). The actions
+  of the rollouts and the prefill come from ``algo/exploration.py:
+  make_eps_greedy`` (EXPLORATION_KERNEL="pallas": the epsilon-greedy kernel,
+  on ``cuda`` by the config policy), the eval's from ``eps_greedy_batch``.
+  An LSTM layer's carry is a (c, h) pair, so the hidden states are trees
+  (``tree_map``).
 - NUM_EPOCHS epochs, each with one permutation of the env axis (time stays
   major, so sequences stay whole) cut into NUM_MINIBATCHES minibatches
   (:344-350). A minibatch step replays the whole window from its first
@@ -17,11 +26,16 @@ Line references ``pqn_rnn.py:N`` are to that module.
   form, from the stop-gradient of the same forward (:275-330), through
   ``ops/lambda_returns.py:lambda_returns_closure`` (on ``cuda`` one launch
   of the returns kernel a minibatch step, on the CPU its plain twin).
-- With FAST_BPTT the forward is ``ops/fast_rnn.py:fast_rnn_train_forward``,
-  and with PALLAS_BPTT its GRU recurrence runs through the two CUDA kernels
-  (``ops/gru_scan.py``); on ``cuda`` the config policy turns both on.
-- The update metrics (:369-387) and, every TEST_INTERVAL of the run, a
-  greedy eval over TEST_NUM_STEPS steps from a zero carry (:415-452).
+- With FAST_BPTT the forward is ``ops/fast_rnn.py:fast_rnn_train_forward``
+  (BF16_COMPUTE: its products with bfloat16 operands, :296-300; the module
+  path ignores the flag, as the JAX trainer does), and with PALLAS_BPTT its
+  GRU recurrence runs through the two CUDA kernels (``ops/gru_scan.py``); on
+  ``cuda`` the config policy turns on FAST_BPTT, and PALLAS_BPTT for a GRU
+  stack.
+- The update metrics (:369-387; DONE_MASKED_INFO_METRICS averages the infos
+  over the steps that end an episode, :376-385) and, every TEST_INTERVAL of
+  the run, a greedy eval on the eval env over TEST_NUM_STEPS steps from a
+  zero carry (:415-452).
 
 As in the FF trainer, counters and schedules are host numbers and metrics
 stay device tensors until the end, so the update loop makes no host sync;
@@ -38,7 +52,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch
+from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     episode_mean_metrics,
@@ -56,25 +70,12 @@ from purejaxql_torch.ops.fast_rnn import fast_rnn_train_forward, supports_fast_b
 from purejaxql_torch.ops.lambda_returns import lambda_returns_closure
 from purejaxql_torch.utils.platform import resolve_device
 
-# the FF trainer's batched modes (the reset bank among them), done-masked
-# metrics and the epsilon-greedy kernel are not wired into the recurrent
-# trainer yet
-_NOT_PORTED_RNN = {
-    **_NOT_PORTED,
-    "BATCH_ENV": "BATCH_ENV",
-    "USE_OPTIMISTIC_RESETS": "optimistic resets",
-    "RESET_BANK": "RESET_BANK in the recurrent trainer",
-    "DONE_MASKED_INFO_METRICS": "DONE_MASKED_INFO_METRICS",
-    "EXPLORATION_KERNEL": "EXPLORATION_KERNEL in the recurrent rollout",
-}
-
-
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_rnn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_rnn config")
     if config.get("NUM_SEEDS", 1) != 1:
         raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
-    for key, what in _NOT_PORTED_RNN.items():
+    for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
@@ -86,45 +87,53 @@ def _check_supported(config: Dict[str, Any]) -> None:
         )
 
 
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the leaves of one or more trees of one structure, the
+    nodes lists and tuples (the hidden states: a list of layers, an LSTM
+    layer's (c, h) pair); the result keeps the first tree's node types."""
+    if isinstance(trees[0], (list, tuple)):
+        return type(trees[0])(tree_map(fn, *nodes) for nodes in zip(*trees))
+    return fn(*trees)
+
+
 def map_transitions(fn: Callable, *transitions):
     """``fn`` over each field of one or more transition records of one type
-    (``RNNTransition``, ``MARLTransition``), layer by layer for the hidden
-    states (a tree map)."""
-    fields = {}
-    for f in dataclasses.fields(transitions[0]):
-        values = [getattr(t, f.name) for t in transitions]
-        if isinstance(values[0], tuple):
-            fields[f.name] = tuple(fn(*layer) for layer in zip(*values))
-        else:
-            fields[f.name] = fn(*values)
+    (``RNNTransition``, ``MARLTransition``), leaf by leaf for the hidden
+    states (``tree_map``)."""
+    fields = {
+        f.name: tree_map(fn, *(getattr(t, f.name) for t in transitions))
+        for f in dataclasses.fields(transitions[0])
+    }
     return type(transitions[0])(**fields)
 
 
 @torch.no_grad()
-def rnn_rollout(network, log_env, env_params, generator, carry, eps, length, rew_scale=1.0):
+def rnn_rollout(network, env, env_params, generator, carry, eps, length, rew_scale=1.0, explore=None):
     """``length`` env steps (pqn_rnn.py:169-200) from ``carry`` = (hidden,
-    obs, done, last_action, log_state): the network on a length-1 time
-    slice in eval mode, epsilon-greedy, the Log-wrapped env step. Returns the
-    new carry, the transitions and the Log infos, stacked over time."""
+    obs, done, last_action, env_state): the network on a length-1 time
+    slice in eval mode, epsilon-greedy (``explore(q_vals, eps)``, by default
+    ``eps_greedy_batch`` on ``generator``), the env step (the Log-wrapped
+    env or a batched mode of it). Returns the new carry, the transitions and
+    the Log infos, stacked over time."""
+    if explore is None:
+        explore = lambda q_vals, e: eps_greedy_batch(generator, q_vals, e)  # noqa: E731
     steps, infos = [], []
     for _ in range(length):
-        hs, obs, done, last_action, log_state = carry
+        hs, obs, done, last_action, env_state = carry
         new_hs, q_vals = network(hs, obs[None], done[None], last_action[None], train=False)
         q_vals = q_vals[0]
-        action = eps_greedy_batch(generator, q_vals, eps)
-        new_obs, log_state, reward, new_done, info = log_env.step(
-            generator, log_state, action, env_params
-        )
+        action = explore(q_vals, eps)
+        new_obs, env_state, reward, new_done, info = env.step(generator, env_state, action, env_params)
         steps.append((obs, action, rew_scale * reward, new_done, tuple(hs), done, last_action, q_vals))
         infos.append(info)
-        carry = (new_hs, new_obs, new_done, action, log_state)
+        carry = (new_hs, new_obs, new_done, action, env_state)
     f = list(zip(*steps))
     transitions = RNNTransition(
         obs=torch.stack(f[0]),
         action=torch.stack(f[1]),
         reward=torch.stack(f[2]),
         done=torch.stack(f[3]),
-        last_hs=tuple(torch.stack(layer) for layer in zip(*f[4])),
+        last_hs=tree_map(lambda *xs: torch.stack(xs), *f[4]),
         last_done=torch.stack(f[5]),
         last_action=torch.stack(f[6]),
         q_val=torch.stack(f[7]),
@@ -140,10 +149,12 @@ def rnn_train_q_values(
     last_action: torch.Tensor,
     fast_bptt: bool = False,
     pallas: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """The train-mode Q-values (T, B, A) of a window, from the network's
-    module forward or from ``fast_rnn_train_forward``; both leave the input
-    BatchNorm's running statistics updated (pqn_rnn.py:276-314)."""
+    module forward or from ``fast_rnn_train_forward`` (in
+    ``compute_dtype``); both leave the input norm's running statistics
+    updated (pqn_rnn.py:276-314)."""
     if not fast_bptt:
         return network(hidden, obs, done, last_action, train=True)[1]
     buffers = dict(network.named_buffers())
@@ -151,7 +162,8 @@ def rnn_train_q_values(
         dict(network.named_parameters()), buffers, hidden, obs, done, last_action,
         num_layers=network.num_layers, num_rnn_layers=network.num_rnn_layers,
         action_dim=network.action_dim, add_last_action=network.add_last_action,
-        norm_input=network.norm_input, pallas=pallas,
+        norm_input=network.norm_input, cell_type=network.cell_type,
+        input_norm_type=network.input_norm_type, pallas=pallas, compute_dtype=compute_dtype,
     )
     with torch.no_grad():
         for name, value in new_stats.items():
@@ -167,6 +179,7 @@ def learn_minibatch(
     lam: float,
     fast_bptt: bool = False,
     pallas: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One minibatch step (pqn_rnn.py:234-342): the window's train-mode
     forward from its first stored hidden state, closure-form lambda targets
@@ -174,10 +187,10 @@ def learn_minibatch(
     bootstraps), 0.5 * MSE on the taken actions of the first T - 1 steps,
     and clip + RAdam on every parameter. Returns the loss and the chosen
     Q-values, detached."""
-    hs0 = [h[0] for h in minibatch.last_hs]
+    hs0 = list(tree_map(lambda x: x[0], minibatch.last_hs))
     q_vals = rnn_train_q_values(
         network, hs0, minibatch.obs, minibatch.last_done, minibatch.last_action,
-        fast_bptt, pallas,
+        fast_bptt, pallas, compute_dtype,
     )
     target_q = q_vals.detach()
     last_q = target_q[-1].max(-1).values
@@ -205,14 +218,14 @@ def make_train(
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
     (NUM_UPDATES,), and is empty with COLLECT_METRICS=False;
     ``runner_state`` is (train_state, memory, (hidden, obs, done,
-    last_action, log_state), test_metrics).
+    last_action, env_state), test_metrics).
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
     config.setdefault("ARCH", "mlp")  # the recurrent trunk is dense: flatten the observations
-    log_env, _, env, env_params = build_env(config)
+    train_env, test_env, env, env_params = build_env(config)
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
@@ -224,6 +237,8 @@ def make_train(
     gamma, lam = config["GAMMA"], config["LAMBDA"]
     fast_bptt = config.get("FAST_BPTT", False)
     pallas = fast_bptt and config.get("PALLAS_BPTT", False)
+    compute_dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
+    done_masked = config.get("DONE_MASKED_INFO_METRICS", False)
     rew_scale = config.get("REW_SCALE", 1.0)
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
@@ -242,12 +257,13 @@ def make_train(
             network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
         )
         train_state = PQNTrainState(network, optimizer)
+        explore = make_eps_greedy(config, dev_gen, host_gen)
 
-        def start(n: int):
-            obs, log_state = log_env.reset(dev_gen, n, env_params)
+        def start(env_, n: int):
+            obs, env_state = env_.reset(dev_gen, n, env_params)
             done = torch.zeros(n, dtype=torch.bool, device=device)
             action = torch.zeros(n, dtype=torch.long, device=device)
-            return (network.initialize_carry(n, device), obs, done, action, log_state)
+            return (network.initialize_carry(n, device), obs, done, action, env_state)
 
         def learn(memory: RNNTransition):
             losses, qvals = [], []
@@ -256,7 +272,7 @@ def make_train(
                 for idx in perm.reshape(n_minibatches, -1):
                     minibatch = map_transitions(lambda x: x[:, idx], memory)
                     loss, chosen = learn_minibatch(
-                        network, optimizer, minibatch, gamma, lam, fast_bptt, pallas
+                        network, optimizer, minibatch, gamma, lam, fast_bptt, pallas, compute_dtype
                     )
                     train_state.grad_steps += 1
                     losses.append(loss)
@@ -266,22 +282,23 @@ def make_train(
             return torch.stack(losses).mean(), torch.stack(qvals).mean()
 
         def get_test_metrics() -> Dict[str, torch.Tensor]:
-            carry = start(config["TEST_NUM_ENVS"])
+            carry = start(test_env, config["TEST_NUM_ENVS"])
             _, _, infos = rnn_rollout(
-                network, log_env, env_params, dev_gen, carry, config["EPS_TEST"],
+                network, test_env, env_params, dev_gen, carry, config["EPS_TEST"],
                 config["TEST_NUM_STEPS"], rew_scale,
             )
             return episode_mean_metrics(infos)
 
         test_metrics = get_test_metrics() if test_during_training else {}
         carry, memory, _ = rnn_rollout(
-            network, log_env, env_params, dev_gen, start(n_envs), 1.0, memory_len, rew_scale
+            network, train_env, env_params, dev_gen, start(train_env, n_envs), 1.0, memory_len, rew_scale,
+            explore,
         )
         history = []
         for _ in range(config["NUM_UPDATES"]):
             eps = eps_scheduler(train_state.n_updates)
             carry, transitions, infos = rnn_rollout(
-                network, log_env, env_params, dev_gen, carry, eps, n_steps, rew_scale
+                network, train_env, env_params, dev_gen, carry, eps, n_steps, rew_scale, explore
             )
             train_state.timesteps += n_steps * n_envs * timestep_scale
             memory = map_transitions(
@@ -301,7 +318,13 @@ def make_train(
                 "td_loss": td_loss,
                 "qvals": qvals,
             }
-            metrics.update({k: v.float().mean() for k, v in infos.items()})
+            if done_masked:
+                # the infos at episode ends only, a mean weighted by returned_episode
+                ended = infos["returned_episode"].float()
+                denom = ended.sum().clamp(min=1.0)
+                metrics.update({k: (v.float() * ended).sum() / denom for k, v in infos.items()})
+            else:
+                metrics.update({k: v.float().mean() for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)

@@ -3,8 +3,12 @@
 Port of purejaxql_tpu/algo/pqn_vdn.py `make_train` (``+alg=pqn_vdn_*``).
 Line references ``pqn_vdn.py:N`` are to that module.
 
-- One recurrent Q-network with parameters shared by every agent, built
-  without the last action as an input whatever the config says (:93-104).
+- One recurrent Q-network with parameters shared by every agent, built as
+  the JAX trainer builds it (:93-104): without the last action as an input
+  whatever the config says, HIDDEN_SIZE 256 by default, NORM_TYPE as given
+  and the BatchNorm input norm whatever INPUT_NORM_TYPE says (no per-family
+  mapping). GRU cells only: the JAX trainer's FAST_BPTT forward takes no
+  cell type (:322-341), so an LSTM there would read a ``GRUCell_0``.
   Where the JAX trainer ``vmap``s it over the agents during the rollout
   (:177-195), the port runs one forward over the A x E rows: exact, since
   in eval mode no norm reads batch statistics and the LayerNorm works per
@@ -21,7 +25,9 @@ Line references ``pqn_vdn.py:N`` are to that module.
   over the agents-major rows ``a * B + b`` (:278-285), through the network
   or, with FAST_BPTT, through ``ops/fast_rnn.py:fast_rnn_train_forward``
   (with PALLAS_BPTT its GRU recurrence through the CUDA scan kernels; on
-  ``cuda`` the config policy turns both on). The target is the closure-form
+  ``cuda`` the config policy turns both on; BF16_COMPUTE its products with
+  bfloat16 operands, :337-341, ignored on the module path as in JAX). The
+  target is the closure-form
   lambda return (``ops/lambda_returns.py:lambda_returns_closure``, one
   launch of the returns kernel a step on ``cuda``) of the team reward,
   bootstrapping from the sum over agents of each agent's largest legal Q of
@@ -47,7 +53,7 @@ import torch
 from purejaxql_torch.algo.exploration import draw_seed, greedy_legal_actions, masked_eps_greedy
 from purejaxql_torch.algo.metrics import apply_eval_subsample, episode_mean_metrics, test_interval_updates
 from purejaxql_torch.algo.pqn import stack_metrics
-from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values
+from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values, tree_map
 from purejaxql_torch.algo.types import MARLTransition
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import epsilon_schedule, linear_schedule
@@ -63,7 +69,6 @@ from purejaxql_torch.utils.platform import resolve_device
 # options of the JAX trainer that the port does not run yet
 _NOT_PORTED_VDN = {
     "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
-    "BF16_COMPUTE": "BF16_COMPUTE in the VDN trainer",
 }
 
 
@@ -75,6 +80,11 @@ def _check_supported(config: Dict[str, Any]) -> None:
     for key, what in _NOT_PORTED_VDN.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
+    if config.get("RNN_CELL", "gru") == "lstm":
+        raise NotImplementedError(
+            "RNN_CELL=lstm in the VDN trainer is not ported yet: the JAX trainer's FAST_BPTT "
+            "forward takes no cell type (pqn_vdn.py:322-341)"
+        )
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
     if config.get("FAST_BPTT", False) and not supports_fast_bptt(config):
@@ -91,10 +101,10 @@ def agents_forward(network: RNNQNetwork, hidden, obs: torch.Tensor, done: torch.
     JAX trainer's vmap over agents (pqn_vdn.py:177-195)."""
     n_agents, n_envs = done.shape
     rows = n_agents * n_envs
-    flat_hidden = [h.reshape(rows, -1) for h in hidden]
+    flat_hidden = tree_map(lambda h: h.reshape(rows, -1), list(hidden))
     zeros = torch.zeros(1, rows, dtype=torch.long, device=done.device)
     new_hidden, q = network(flat_hidden, obs.reshape(1, rows, -1), done.reshape(1, rows), zeros, train=False)
-    return [h.reshape(n_agents, n_envs, -1) for h in new_hidden], q[0].reshape(n_agents, n_envs, -1)
+    return tree_map(lambda h: h.reshape(n_agents, n_envs, -1), new_hidden), q[0].reshape(n_agents, n_envs, -1)
 
 
 def stack_agents(manager: CTRolloutManager, values: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -141,7 +151,7 @@ def vdn_rollout(network, manager, generator, carry, eps, length, rew_scale=1.0, 
         action=actions,
         reward=torch.stack(f[2]),
         done=torch.stack(f[3]),
-        last_hs=tuple(torch.stack(layer) for layer in zip(*f[4])),
+        last_hs=tree_map(lambda *xs: torch.stack(xs), *f[4]),
         last_done=torch.stack(f[5]),
         last_action=actions,
         avail_actions=torch.stack(f[6]),
@@ -171,6 +181,7 @@ def learn_minibatch(
     lam: float,
     fast_bptt: bool = False,
     pallas: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One minibatch step (pqn_vdn.py:275-394): the window's train-mode
     forward over the agents-major rows from its first stored hidden state,
@@ -179,11 +190,11 @@ def learn_minibatch(
     parameter. Returns the loss and the chosen Q-values (T, A, B), detached."""
     n_steps, n_agents, n_rows = minibatch.action.shape
     rows = n_agents * n_rows
-    hs0 = [h[0].reshape(rows, -1) for h in minibatch.last_hs]
+    hs0 = list(tree_map(lambda h: h[0].reshape(rows, -1), minibatch.last_hs))
     last_done = minibatch.last_done.reshape(n_steps, rows)
     q_vals = rnn_train_q_values(
         network, hs0, minibatch.obs.reshape(n_steps, rows, -1), last_done,
-        torch.zeros_like(last_done, dtype=torch.long), fast_bptt, pallas,
+        torch.zeros_like(last_done, dtype=torch.long), fast_bptt, pallas, compute_dtype,
     ).reshape(n_steps, n_agents, n_rows, -1)
     target = vdn_targets(
         q_vals.detach(), minibatch.avail_actions, minibatch.reward[:, 0], minibatch.done[:, 0], gamma, lam
@@ -233,6 +244,7 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
     gamma, lam = config["GAMMA"], config["LAMBDA"]
     fast_bptt = config.get("FAST_BPTT", False)
     pallas = fast_bptt and config.get("PALLAS_BPTT", False)
+    compute_dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
     rew_scale = config.get("REW_SCALE", 1.0)
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
@@ -244,7 +256,10 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
 
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
         host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
-        network = make_rnn_q_network(net_config, action_dim, (obs_size,), generator=host_gen).to(device)
+        network = make_rnn_q_network(
+            net_config, action_dim, (obs_size,), generator=host_gen, norms=(config["NORM_TYPE"], "batch_norm"),
+            hidden_size=256,
+        ).to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         optimizer = make_optimizer(network.parameters(), config["MAX_GRAD_NORM"], vdn_lr(config))
         train_state = PQNTrainState(network, optimizer)
@@ -253,7 +268,7 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
             obs, env_state = mgr.batch_reset(dev_gen)
             n = mgr.batch_size
             dones = {a: torch.zeros(n, dtype=torch.bool, device=device) for a in env.agents + ["__all__"]}
-            hidden = [h.expand(env.num_agents, -1, -1).clone() for h in network.initialize_carry(n, device)]
+            hidden = tree_map(lambda h: h.expand(env.num_agents, -1, -1).clone(), network.initialize_carry(n, device))
             return hidden, obs, dones, env_state
 
         def learn(memory: MARLTransition):
@@ -262,7 +277,9 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
                 perm = torch.randperm(n_envs, generator=dev_gen, device=device)
                 for idx in perm.reshape(n_minibatches, -1):
                     minibatch = map_transitions(lambda x: x[:, :, idx], memory)
-                    loss, chosen = learn_minibatch(network, optimizer, minibatch, gamma, lam, fast_bptt, pallas)
+                    loss, chosen = learn_minibatch(
+                        network, optimizer, minibatch, gamma, lam, fast_bptt, pallas, compute_dtype
+                    )
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)

@@ -30,7 +30,7 @@ class RNNTransition:
     action: torch.Tensor  # int64
     reward: torch.Tensor
     done: torch.Tensor  # bool
-    last_hs: Tuple[torch.Tensor, ...]  # one (T, E, H) per recurrent layer
+    last_hs: Tuple  # per recurrent layer a (T, E, H), or for LSTM a (c, h) pair of them
     last_done: torch.Tensor  # bool
     last_action: torch.Tensor  # int64
     q_val: torch.Tensor

@@ -3,11 +3,14 @@
 Port of purejaxql_tpu/models/factory.py for the MLP family, with the JAX
 package's per-family norms (``resolve_norms``: BatchRenorm for the craftax
 family), the MinAtar CNN (ARCH ``cnn``, or an observation of rank 3 or more)
-and the GRU recurrent network (``make_rnn_q_network``). BF16_COMPUTE
+and the recurrent network (``make_rnn_q_network``: GRU or LSTM cells, a
+BatchNorm or BatchRenorm input norm, a dueling head). BF16_COMPUTE
 (factory.py:43) gives the MLP and the MinAtar CNN a bfloat16 trunk over
-float32 master parameters; the recurrent network takes a dueling head. The
-Nature trunk, a BatchRenorm trunk in bfloat16, the recurrent network in
-bfloat16 and LSTM cells come with later slices and raise here.
+float32 master parameters; the recurrent network ignores it, as the JAX
+package's does, and the recurrent trainers' FAST_BPTT forward takes it
+(``ops/fast_rnn.py``). The Nature trunk, a BatchRenorm trunk in bfloat16 and
+a recurrent trunk norm other than layer_norm come with later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -73,21 +76,16 @@ def make_q_network(
     raise ValueError(f"Unknown ARCH '{arch}'")
 
 
-def check_rnn_q_network(config, obs_shape) -> None:
-    """Raise for the recurrent variants that are not ported yet."""
-    norm_type, input_norm_type = resolve_norms(config)
-    unported = {
-        "RNN_CELL": config.get("RNN_CELL", "gru") != "gru",
-        "NORM_TYPE": norm_type != "layer_norm",
-        "INPUT_NORM_TYPE": input_norm_type != "batch_norm",
-        "BF16_COMPUTE": config.get("BF16_COMPUTE", False),
-    }
-    for key, asked in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"{key}={config.get(key)!r} is not ported yet: the recurrent network "
-                "has GRU cells, a layer_norm trunk and a BatchNorm input norm"
-            )
+def check_rnn_q_network(config, obs_shape, norms=None) -> None:
+    """Raise for the recurrent variants that are not ported yet. ``norms``
+    is the (norm_type, input_norm_type) the trainer builds, by default
+    ``resolve_norms(config)``."""
+    norm_type = (norms if norms is not None else resolve_norms(config))[0]
+    if norm_type != "layer_norm":
+        raise NotImplementedError(
+            f"NORM_TYPE={config.get('NORM_TYPE')!r} is not ported yet: the recurrent network "
+            "has a layer_norm trunk"
+        )
     if len(obs_shape) != 1:
         raise NotImplementedError(
             f"the recurrent network takes flat observations, got shape {tuple(obs_shape)}"
@@ -95,20 +93,30 @@ def check_rnn_q_network(config, obs_shape) -> None:
 
 
 def make_rnn_q_network(
-    config, action_dim: int, obs_shape, generator: Optional[torch.Generator] = None
+    config,
+    action_dim: int,
+    obs_shape,
+    generator: Optional[torch.Generator] = None,
+    norms=None,
+    hidden_size: int = 128,
 ) -> RNNQNetwork:
     """The recurrent trainers' network (pqn_rnn.py:87-100, pqn_vdn.py:93-104):
-    GRU cells on a layer_norm trunk over flat observations, the last action
-    as an input where ADD_LAST_ACTION says so, a dueling head where DUELING
-    does."""
-    check_rnn_q_network(config, obs_shape)
+    RNN_CELL's cells on a layer_norm trunk over flat observations, the input
+    norm of ``norms`` (default ``resolve_norms(config)``, the recurrent
+    trainer's), the last action as an input where ADD_LAST_ACTION says so,
+    a dueling head where DUELING does; HIDDEN_SIZE defaults to
+    ``hidden_size`` (the recurrent trainer's 128, pqn_rnn.py:90)."""
+    norms = norms if norms is not None else resolve_norms(config)
+    check_rnn_q_network(config, obs_shape, norms)
     return RNNQNetwork(
         obs_dim=int(obs_shape[0]),
         action_dim=action_dim,
-        hidden_size=config.get("HIDDEN_SIZE", 128),
+        hidden_size=config.get("HIDDEN_SIZE", hidden_size),
         num_layers=config.get("NUM_LAYERS", 2),
         num_rnn_layers=config.get("NUM_RNN_LAYERS", 1),
+        cell_type=config.get("RNN_CELL", "gru"),
         norm_input=config.get("NORM_INPUT", False),
+        input_norm_type=norms[1],
         add_last_action=config.get("ADD_LAST_ACTION", False),
         dueling=config.get("DUELING", False),
         generator=generator,

@@ -1,37 +1,45 @@
-"""Recurrent Q-network: a dense trunk, time-scanned GRU layers with
+"""Recurrent Q-network: a dense trunk, time-scanned GRU or LSTM layers with
 reset-on-done, and the Q head.
 
 Port of purejaxql_tpu/models/rnn.py (``ScannedRNN``, ``RNNQNetwork``) for
-GRU cells. flax conventions are kept so that weights cross between the
-packages unchanged (core/checkpoint.py):
+GRU and LSTM cells on a layer_norm trunk. flax conventions are kept so that
+weights cross between the packages unchanged (core/checkpoint.py):
 
-- the cell is flax's ``GRUCell``, not ``torch.nn.GRU``: r and z take no
+- the GRU cell is flax's ``GRUCell``, not ``torch.nn.GRU``: r and z take no
   hidden bias (``hr``, ``hz`` have none), and n = tanh(W_in x + b_in +
   r * (W_hn h + b_hn)); h' = (1 - z) * n + z * h;
+- the LSTM cell is flax's ``OptimizedLSTMCell``: input kernels ``ii``,
+  ``if``, ``ig``, ``io`` without bias, hidden kernels ``hi``, ``hf``,
+  ``hg``, ``ho`` with one; gates i, f, g, o; c' = f * c + i * g,
+  h' = o * tanh(c'); its carry is the pair (c, h);
 - input kernels start lecun-normal, recurrent kernels orthogonal, biases
   zero; the carry starts at zero;
 - ``ScannedRNN`` zeroes the carry wherever ``resets[t]`` is set, *before*
   the cell (rnn.py:50-55); the trainer passes the incoming done flag;
-- the input BatchNorm is always built, and in train mode updates its
-  running statistics even when NORM_INPUT=False (rnn.py:121-128);
-- submodules carry flax's names: ``BatchNorm_0``, ``Dense_i``,
-  ``LayerNorm_i``, ``ScannedRNN_l.GRUCell_0.{ir,iz,in,hr,hz,hn}`` and the
+- the input norm, BatchNorm or (``input_norm_type="batch_renorm"``, the
+  craftax family) BatchRenorm, is always built, and in train mode updates
+  its running statistics even when NORM_INPUT=False (rnn.py:110-128);
+- submodules carry flax's names: ``BatchNorm_0`` or ``BatchRenorm_0``,
+  ``Dense_i``, ``LayerNorm_i``, ``ScannedRNN_l.GRUCell_0.{ir,iz,in,hr,hz,hn}``
+  or ``ScannedRNN_l.OptimizedLSTMCell_0.{ii,if,ig,io,hi,hf,hg,ho}`` and the
   head ``Dense_<num_layers>``; a dueling head (rnn.py:146-151) is the value
   ``Dense_<num_layers>`` (one output) and the advantage
   ``Dense_<num_layers + 1>``, q = value + adv - mean(adv).
 
-LSTM cells, other trunk norms and a BatchRenorm input norm come with later
-slices; the factory raises for them.
+Other trunk norms come with a later slice; the factory raises for them.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import BatchNorm, LayerNorm, dense
+from purejaxql_torch.models.batch_renorm import BatchRenorm
+from purejaxql_torch.models.qnet import BatchNorm, LayerNorm, dense, variance_scaling_
+
+LSTM_GATES = ("i", "f", "g", "o")
 
 
 def _orthogonal_linear(
@@ -65,32 +73,69 @@ class GRUCell(nn.Module):
         return (1.0 - z) * n + z * h
 
 
-class ScannedRNN(nn.Module):
-    """One GRU layer over the leading time axis, the carry zeroed wherever
-    ``resets[t]`` is set."""
+class OptimizedLSTMCell(nn.Module):
+    """flax ``linen.OptimizedLSTMCell`` over (B, F) inputs and a (c, h)
+    carry of two (B, H). As flax does, the four gates' kernels are
+    concatenated into one product for the input and one for the hidden
+    state."""
 
     def __init__(self, in_features: int, hidden_size: int, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.GRUCell_0 = GRUCell(in_features, hidden_size, generator)
+        for gate in LSTM_GATES:
+            layer = torch.nn.utils.skip_init(nn.Linear, in_features, hidden_size, bias=False)
+            variance_scaling_(layer.weight, in_features, 1.0, generator)
+            self.add_module(f"i{gate}", layer)
+        for gate in LSTM_GATES:
+            self.add_module(f"h{gate}", _orthogonal_linear(hidden_size, True, generator))
 
-    def forward(
-        self, h: torch.Tensor, x: torch.Tensor, resets: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """h (B, H), x (T, B, F), resets (T, B) -> (h_T, ys (T, B, H))."""
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor):
+        c, h = carry
+        w_i = torch.cat([getattr(self, f"i{g}").weight for g in LSTM_GATES])
+        w_h = torch.cat([getattr(self, f"h{g}").weight for g in LSTM_GATES])
+        b_h = torch.cat([getattr(self, f"h{g}").bias for g in LSTM_GATES])
+        i, f, g, o = (nn.functional.linear(h, w_h, b_h) + nn.functional.linear(x, w_i)).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return c, torch.sigmoid(o) * torch.tanh(c)
+
+
+class ScannedRNN(nn.Module):
+    """One GRU or LSTM layer over the leading time axis, the carry (h, or
+    the LSTM's (c, h)) zeroed wherever ``resets[t]`` is set."""
+
+    def __init__(self, in_features: int, hidden_size: int, generator: Optional[torch.Generator] = None,
+                 cell_type: str = "gru"):
+        super().__init__()
+        self.cell_type = cell_type
+        if cell_type == "lstm":
+            self.OptimizedLSTMCell_0 = OptimizedLSTMCell(in_features, hidden_size, generator)
+        else:  # any other cell type is a GRU, as in rnn.py:57-60
+            self.GRUCell_0 = GRUCell(in_features, hidden_size, generator)
+
+    def forward(self, carry, x: torch.Tensor, resets: torch.Tensor):
+        """carry (B, H) or (c, h), x (T, B, F), resets (T, B) -> (carry at
+        T, ys (T, B, H))."""
         ys = []
         for t in range(x.shape[0]):
-            h = torch.where(resets[t][:, None], torch.zeros_like(h), h)
-            h = self.GRUCell_0(h, x[t])
-            ys.append(h)
-        return h, torch.stack(ys)
+            reset = resets[t][:, None]
+            if self.cell_type == "lstm":
+                carry = self.OptimizedLSTMCell_0(
+                    tuple(torch.where(reset, torch.zeros_like(v), v) for v in carry), x[t]
+                )
+                ys.append(carry[1])
+            else:
+                carry = self.GRUCell_0(torch.where(reset, torch.zeros_like(carry), carry), x[t])
+                ys.append(carry)
+        return carry, torch.stack(ys)
 
 
 class RNNQNetwork(nn.Module):
-    """Dense trunk -> (optional one-hot last action) -> GRU stack -> Q head.
+    """Dense trunk -> (optional one-hot last action) -> GRU or LSTM stack ->
+    Q head.
 
     ``forward(hidden, x, done, last_action, train)`` with time-major x
     (T, B, F), done and last_action (T, B), and ``hidden`` a list of per-layer
-    (B, H) carries; returns (new hidden list, q_vals (T, B, A)).
+    carries, (B, H) for GRU and a (c, h) pair for LSTM; returns (new hidden
+    list, q_vals (T, B, A)).
     """
 
     def __init__(
@@ -100,7 +145,9 @@ class RNNQNetwork(nn.Module):
         hidden_size: int = 512,
         num_layers: int = 2,
         num_rnn_layers: int = 1,
+        cell_type: str = "gru",
         norm_input: bool = False,
+        input_norm_type: str = "batch_norm",
         add_last_action: bool = False,
         dueling: bool = False,
         generator: Optional[torch.Generator] = None,
@@ -110,10 +157,15 @@ class RNNQNetwork(nn.Module):
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_rnn_layers = num_rnn_layers
+        self.cell_type = cell_type
         self.norm_input = norm_input
+        self.input_norm_type = input_norm_type
         self.add_last_action = add_last_action
         self.dueling = dueling
-        self.BatchNorm_0 = BatchNorm(obs_dim)
+        if input_norm_type == "batch_renorm":
+            self.BatchRenorm_0 = BatchRenorm(obs_dim)
+        else:
+            self.BatchNorm_0 = BatchNorm(obs_dim)
         width = obs_dim
         for i in range(num_layers):
             self.add_module(f"Dense_{i}", dense(width, hidden_size, generator))
@@ -122,7 +174,7 @@ class RNNQNetwork(nn.Module):
         if add_last_action:
             width += action_dim
         for layer in range(num_rnn_layers):
-            self.add_module(f"ScannedRNN_{layer}", ScannedRNN(width, hidden_size, generator))
+            self.add_module(f"ScannedRNN_{layer}", ScannedRNN(width, hidden_size, generator, cell_type))
             width = hidden_size
         if dueling:
             self.add_module(f"Dense_{num_layers}", dense(width, 1, generator))
@@ -130,21 +182,20 @@ class RNNQNetwork(nn.Module):
         else:
             self.add_module(f"Dense_{num_layers}", dense(width, action_dim, generator))
 
-    def initialize_carry(self, batch_size: int, device=None) -> List[torch.Tensor]:
-        return [
-            torch.zeros(batch_size, self.hidden_size, device=device)
-            for _ in range(self.num_rnn_layers)
-        ]
+    def initialize_carry(self, batch_size: int, device=None) -> list:
+        """One zero carry a layer: (B, H), or a (c, h) pair for LSTM."""
+        zeros = lambda: torch.zeros(batch_size, self.hidden_size, device=device)  # noqa: E731
+        return [(zeros(), zeros()) if self.cell_type == "lstm" else zeros() for _ in range(self.num_rnn_layers)]
 
     def forward(
         self,
-        hidden: Sequence[torch.Tensor],
+        hidden: Sequence,
         x: torch.Tensor,
         done: torch.Tensor,
         last_action: torch.Tensor,
         train: bool,
-    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-        normed = self.BatchNorm_0(x, train)
+    ) -> Tuple[list, torch.Tensor]:
+        normed = self.input_norm(x, train)
         if self.norm_input:
             x = normed
         for i in range(self.num_layers):
@@ -159,6 +210,12 @@ class RNNQNetwork(nn.Module):
             h, x = getattr(self, f"ScannedRNN_{layer}")(hidden[layer], x, resets)
             new_hidden.append(h)
         return new_hidden, self.head(x)
+
+    def input_norm(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The input BatchNorm or BatchRenorm (``input_norm_type``)."""
+        if self.input_norm_type == "batch_renorm":
+            return self.BatchRenorm_0(x, train)
+        return self.BatchNorm_0(x, train)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """The Q head: one Dense, or the dueling value + adv - mean(adv)."""

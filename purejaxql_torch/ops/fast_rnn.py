@@ -1,33 +1,41 @@
-"""The recurrent trainer's BPTT forward with hoisted input projections
+"""The recurrent trainers' BPTT forward with hoisted input projections
 (FAST_BPTT), and the GRU time scan through the CUDA kernels (PALLAS_BPTT).
 
-Port of the GRU half of purejaxql_tpu/ops/fast_rnn.py. It recomputes the
-train-mode forward of ``models/rnn.py:RNNQNetwork`` (layer_norm trunk, GRU
-stack) straight from the network's parameters, restructured so that:
+Port of purejaxql_tpu/ops/fast_rnn.py. It recomputes the train-mode forward
+of ``models/rnn.py:RNNQNetwork`` (layer_norm trunk, GRU or LSTM stack)
+straight from the network's parameters, restructured so that:
 
-- the three input projections of a GRU layer are one (T*B, F) x (F, 3H)
-  product over the whole window (``torch.matmul``, as the JAX package leaves
-  it to XLA), and the head is one product too;
-- the recurrence keeps only the per-step (B, H) x (H, 3H) product and the
-  gate math: a Python loop over T in ``gru_layer_scan``, or one launch of
-  ``csrc/gru_scan_fwd.cu`` forward and one of ``csrc/gru_scan_bwd.cu``
-  backward in ``gru_layer_scan_kernel`` (``ops/gru_scan.py:GRUScan``);
-- the input BatchNorm's running statistics are updated with flax's rule and
-  returned, as the JAX function returns ``new_batch_stats``.
+- the input projections of a layer (three gates for GRU, four for LSTM) are
+  one (T*B, F) x (F, 3H or 4H) product over the whole window (as the JAX
+  package leaves it to XLA), and the head is one product too;
+- the recurrence keeps only the per-step (B, H) x (H, 3H or 4H) product and
+  the gate math: a Python loop over T in ``gru_layer_scan`` and
+  ``lstm_layer_scan`` (a ``lax.scan`` in the JAX package, no Pallas kernel),
+  or for GRU one launch of ``csrc/gru_scan_fwd.cu`` forward and one of
+  ``csrc/gru_scan_bwd.cu`` backward in ``gru_layer_scan_kernel``
+  (``ops/gru_scan.py:GRUScan``);
+- the input norm's running statistics are updated and returned, as the JAX
+  function returns ``new_batch_stats``: BatchNorm's with flax's rule,
+  BatchRenorm's (the craftax family's) with its own (``_batch_renorm_train``).
+
+``compute_dtype=torch.bfloat16`` (BF16_COMPUTE) takes the trunk's, the
+projections' and the head's products with bfloat16 operands and float32
+accumulation and result (``_mp_matmul``); gates, norms and the carries stay
+float32. The GRU kernels' recurrence and their input projection stay float32,
+as in the JAX package (fast_rnn.py:438, 346-368).
 
 The functions take ``params`` and ``batch_stats`` as flat dicts in the
 network's own names and layouts (``dict(network.named_parameters())`` and
 ``dict(network.named_buffers())``: ``Dense_0.weight`` is (out, in)).
-Float32 only; the LSTM and BatchRenorm branches and BF16_COMPUTE come with a
-later slice (``models/factory.py:check_rnn_q_network`` refuses them).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
+from purejaxql_torch.models.rnn import LSTM_GATES
 from purejaxql_torch.ops.gru_scan import GRUScan
 
 
@@ -56,8 +64,52 @@ def _batch_norm_train(x, scale, bias, eps=1e-5):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _cell(params: Mapping[str, torch.Tensor], layer: int) -> Dict[str, torch.Tensor]:
-    prefix = f"ScannedRNN_{layer}.GRUCell_0."
+def _mp_matmul(a, b, dtype=torch.float32):
+    """a (..., K) @ b (K, N) (fast_rnn.py:50-62). For float32 the plain
+    product. For bfloat16 the operands are rounded to bfloat16 and multiplied
+    in float32: a product of two bfloat16 numbers is exact in float32, so
+    this is the JAX package's bfloat16-operand product with float32
+    accumulation and a float32 result (``preferred_element_type``), whose
+    gradients come back through the casts rounded to bfloat16 as there."""
+    if dtype == torch.float32:
+        return torch.matmul(a, b)
+    return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
+
+
+def _batch_renorm_train(x, scale, bias, stats):
+    """Train-mode BatchRenorm and its new statistics (fast_rnn.py:84-123),
+    the arithmetic of ``models/batch_renorm.py``: the fast variance
+    E[x^2] - E[x]^2 clamped at 0, r and d clipped by r_max and d_max and
+    without gradient, the correction blended in once ``steps`` reaches 1,000,
+    the d-shift by sqrt(var) without epsilon. ``stats`` holds ``mean``,
+    ``var``, ``r_max``, ``d_max`` and ``steps``; the returned ones are
+    detached, ``steps`` one more."""
+    eps, momentum, warmup_steps = 1e-3, 0.999, 1000
+    axes = tuple(range(x.dim() - 1))
+    batch_mean = x.mean(axes)
+    batch_var = torch.clamp((x * x).mean(axes) - batch_mean * batch_mean, min=0.0)
+    with torch.no_grad():
+        std = torch.sqrt(batch_var + eps)
+        ra_std = torch.sqrt(stats["var"] + eps)
+        r = torch.minimum(torch.maximum(std / ra_std, 1.0 / stats["r_max"]), stats["r_max"])
+        d = torch.minimum(torch.maximum((batch_mean - stats["mean"]) / ra_std, -stats["d_max"]), stats["d_max"])
+        warmed = (stats["steps"] >= warmup_steps).float()
+        new_stats = {
+            "mean": momentum * stats["mean"] + (1 - momentum) * batch_mean,
+            "var": momentum * stats["var"] + (1 - momentum) * batch_var,
+            "r_max": stats["r_max"],
+            "d_max": stats["d_max"],
+            "steps": stats["steps"] + 1,
+        }
+    tmp_var = batch_var / (r ** 2)
+    tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r
+    var = warmed * tmp_var + (1.0 - warmed) * batch_var
+    mean = warmed * tmp_mean + (1.0 - warmed) * batch_mean
+    return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias, new_stats
+
+
+def _cell(params: Mapping[str, torch.Tensor], layer: int, cell_type: str) -> Dict[str, torch.Tensor]:
+    prefix = f"ScannedRNN_{layer}.{'OptimizedLSTMCell_0' if cell_type == 'lstm' else 'GRUCell_0'}."
     return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
 
 
@@ -71,24 +123,53 @@ def gru_weights(cell: Mapping[str, torch.Tensor]):
     return w_i, b_i, w_h, cell["hn.bias"]
 
 
-def gru_layer_scan(x_seq, resets, h0, cell):
+def gru_layer_scan(x_seq, resets, h0, cell, compute_dtype=torch.float32):
     """One GRU layer over time with the input projections hoisted
     (fast_rnn.py:171-212). x_seq (T, B, F), resets (T, B) bool, h0 (B, H);
     returns (h_T, y_seq (T, B, H))."""
     w_i, b_i, w_h, b_hn = gru_weights(cell)
     H = w_h.shape[0]
-    xi_seq = torch.matmul(x_seq, w_i) + b_i
+    xi_seq = _mp_matmul(x_seq, w_i, compute_dtype) + b_i
     h, ys = h0, []
     for t in range(x_seq.shape[0]):
         xi = xi_seq[t]
         h = torch.where(resets[t][:, None], torch.zeros_like(h), h)
-        hh = h @ w_h
+        hh = _mp_matmul(h, w_h, compute_dtype)
         r = torch.sigmoid(xi[:, :H] + hh[:, :H])
         z = torch.sigmoid(xi[:, H:2 * H] + hh[:, H:2 * H])
         n = torch.tanh(xi[:, 2 * H:] + r * (hh[:, 2 * H:] + b_hn))
         h = (1.0 - z) * n + z * h
         ys.append(h)
     return h, torch.stack(ys)
+
+
+def lstm_weights(cell: Mapping[str, torch.Tensor]):
+    """(w_i (F, 4H), w_h (H, 4H), b_h (4H,)) of an LSTM cell's params
+    (``ii.weight``, ..., ``ho.bias``), gates in the order i, f, g, o and
+    kernels in the (in, out) layout of fast_rnn.py:137-149."""
+    w_i = torch.cat([cell[f"i{g}.weight"].t() for g in LSTM_GATES], 1)
+    w_h = torch.cat([cell[f"h{g}.weight"].t() for g in LSTM_GATES], 1)
+    b_h = torch.cat([cell[f"h{g}.bias"] for g in LSTM_GATES])
+    return w_i, w_h, b_h
+
+
+def lstm_layer_scan(x_seq, resets, carry0, cell, compute_dtype=torch.float32):
+    """One LSTM layer over time with the input projections hoisted
+    (fast_rnn.py:126-168): one window-wide (T*B, F) x (F, 4H) product, then
+    per step the carry zeroed where ``resets`` is set, one (B, H) x (H, 4H)
+    product and the gate math. x_seq (T, B, F), resets (T, B), carry0 the
+    pair (c, h) of (B, H); returns ((c_T, h_T), y_seq (T, B, H))."""
+    w_i, w_h, b_h = lstm_weights(cell)
+    xi_seq = _mp_matmul(x_seq, w_i, compute_dtype)
+    keep = (1.0 - resets.to(torch.float32))[..., None]
+    (c, h), ys = carry0, []
+    for t in range(x_seq.shape[0]):
+        c, h = c * keep[t], h * keep[t]
+        i, f, g, o = (xi_seq[t] + (_mp_matmul(h, w_h, compute_dtype) + b_h)).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return (c, h), torch.stack(ys)
 
 
 def gru_layer_scan_kernel(x_seq, resets, h0, cell):
@@ -105,8 +186,7 @@ def gru_layer_scan_kernel(x_seq, resets, h0, cell):
 def supports_fast_bptt(config) -> bool:
     """The families the JAX package's fast path covers (fast_rnn.py:371-387):
     a GRU or LSTM stack on a layer_norm trunk with a BatchNorm or BatchRenorm
-    input norm and no dueling head; PALLAS_BPTT also needs GRU. The port
-    builds GRU on BatchNorm only, and its factory raises for the rest."""
+    input norm and no dueling head; PALLAS_BPTT also needs GRU."""
     from purejaxql_torch.models.factory import resolve_norms
 
     norm_type, input_norm_type = resolve_norms(config)
@@ -124,7 +204,7 @@ def supports_fast_bptt(config) -> bool:
 def fast_rnn_train_forward(
     params: Mapping[str, torch.Tensor],
     batch_stats: Mapping[str, torch.Tensor],
-    hidden: Sequence[torch.Tensor],
+    hidden: Sequence,
     x: torch.Tensor,
     done: torch.Tensor,
     last_action: torch.Tensor,
@@ -134,26 +214,39 @@ def fast_rnn_train_forward(
     action_dim: int,
     add_last_action: bool,
     norm_input: bool,
+    cell_type: str = "gru",
+    input_norm_type: str = "batch_norm",
     pallas: bool = False,
-) -> Tuple[List[torch.Tensor], torch.Tensor, Dict[str, torch.Tensor]]:
-    """Train-mode forward of ``RNNQNetwork`` (fast_rnn.py:390-469, the GRU
-    branch with the BatchNorm input norm, in float32). Returns (new_hidden,
-    q_vals (T, B, A), new_batch_stats), the statistics detached.
+    compute_dtype: torch.dtype = torch.float32,
+) -> Tuple[list, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Train-mode forward of ``RNNQNetwork`` (fast_rnn.py:390-469). Returns
+    (new_hidden, q_vals (T, B, A), new_batch_stats), the statistics detached
+    and keyed by buffer name.
 
     x (T, B, F) obs, done (T, B), last_action (T, B) int, hidden a list of
-    per-layer (B, H) carries; ``pallas`` runs each GRU layer's recurrence
-    through the CUDA kernels (``gru_layer_scan_kernel``).
+    per-layer carries ((B, H), or (c, h) for ``cell_type="lstm"``);
+    ``pallas`` runs each GRU layer's recurrence through the CUDA kernels
+    (``gru_layer_scan_kernel``); ``compute_dtype`` as the module says.
     """
-    with torch.no_grad():
-        new_mean, new_var = _batch_stats_update(
-            x, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"]
+    if input_norm_type == "batch_renorm":
+        y, new_stats = _batch_renorm_train(
+            x, params["BatchRenorm_0.weight"], params["BatchRenorm_0.bias"],
+            {k: batch_stats[f"BatchRenorm_0.{k}"] for k in ("mean", "var", "r_max", "d_max", "steps")},
         )
-    if norm_input:
-        x = _batch_norm_train(x, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"])
-    new_batch_stats = {"BatchNorm_0.mean": new_mean, "BatchNorm_0.var": new_var}
+        if norm_input:
+            x = y
+        new_batch_stats = {f"BatchRenorm_0.{k}": v for k, v in new_stats.items()}
+    else:
+        with torch.no_grad():
+            new_mean, new_var = _batch_stats_update(
+                x, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"]
+            )
+        if norm_input:
+            x = _batch_norm_train(x, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"])
+        new_batch_stats = {"BatchNorm_0.mean": new_mean, "BatchNorm_0.var": new_var}
 
     for i in range(num_layers):
-        x = torch.matmul(x, params[f"Dense_{i}.weight"].t()) + params[f"Dense_{i}.bias"]
+        x = _mp_matmul(x, params[f"Dense_{i}.weight"].t(), compute_dtype) + params[f"Dense_{i}.bias"]
         x = _layer_norm(x, params[f"LayerNorm_{i}.weight"], params[f"LayerNorm_{i}.bias"])
         x = torch.relu(x)
 
@@ -162,12 +255,17 @@ def fast_rnn_train_forward(
         x = torch.cat([x, one_hot], -1)
 
     resets = done.bool()
-    scan = gru_layer_scan_kernel if pallas else gru_layer_scan
     new_hidden = []
     for layer in range(num_rnn_layers):
-        h_T, x = scan(x, resets, hidden[layer], _cell(params, layer))
-        new_hidden.append(h_T)
+        cell = _cell(params, layer, cell_type)
+        if cell_type == "lstm":
+            carry_T, x = lstm_layer_scan(x, resets, hidden[layer], cell, compute_dtype)
+        elif pallas:
+            carry_T, x = gru_layer_scan_kernel(x, resets, hidden[layer], cell)
+        else:
+            carry_T, x = gru_layer_scan(x, resets, hidden[layer], cell, compute_dtype)
+        new_hidden.append(carry_T)
 
     head_w, head_b = params[f"Dense_{num_layers}.weight"], params[f"Dense_{num_layers}.bias"]
-    q_vals = torch.matmul(x, head_w.t()) + head_b
+    q_vals = _mp_matmul(x, head_w.t(), compute_dtype) + head_b
     return new_hidden, q_vals, new_batch_stats

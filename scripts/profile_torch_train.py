@@ -15,6 +15,7 @@
         --set PARITY=strict --set EXPLORATION_KERNEL=pallas     # the strict Craftax program
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --set BF16_COMPUTE=True
     python scripts/profile_torch_train.py --alg pqn_vdn_spread --steps 1000000   # VDN, 3 agents
+    python scripts/profile_torch_train.py --alg pqn_rnn_craftax --steps 1048576 --profile-updates 2
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -28,7 +29,10 @@ step, resets at ratio 16, 1-step TD on one minibatch, no eval; by the cuda
 policy the fast program: the reset bank, FAST_TARGETS, SKIP_NOOP_PERMUTE;
 with PARITY=strict and EXPLORATION_KERNEL=pallas the strict one: optimistic
 resets, the concat 1-step TD, a permuted minibatch; pqn_vdn_*: one GRU
-network shared by the agents, FAST_BPTT and PALLAS_BPTT on):
+network shared by the agents, FAST_BPTT and PALLAS_BPTT on;
+pqn_rnn_craftax: Forager, an LSTM H 512 after one dense layer, 1024 envs x
+128 steps, 4 x 4 grad steps of BPTT over the window, by the cuda policy
+FAST_BPTT, the epsilon-greedy kernel and the reset bank):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
@@ -47,7 +51,10 @@ network shared by the agents, FAST_BPTT and PALLAS_BPTT on):
    trainer the random-policy prefill, the training rollouts, the greedy
    eval rollouts, the minibatch steps and, inside them, the train-mode
    forward, the VDN targets (the closure returns kernel) and the GRU scan
-   kernels) is wrapped with a device
+   kernels; for pqn_rnn_craftax also, inside the rollouts, the reset
+   wrapper's env step, the Forager step, the worldgen, the bank's bursts
+   and serve and the epsilon-greedy kernel, and inside the grad steps' forward
+   the LSTM loop, ``ops.fast_rnn.lstm_layer_scan``) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
@@ -88,7 +95,7 @@ def main() -> int:
     from purejaxql_torch.core.config import compose
     from purejaxql_torch.envs import wrappers
     from purejaxql_torch.envs.gridworld.forager import Forager
-    from purejaxql_torch.ops import build, gru_scan
+    from purejaxql_torch.ops import build, fast_rnn, gru_scan
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--alg", default="pqn_cartpole")
@@ -169,7 +176,12 @@ def main() -> int:
     elif recurrent:  # (module, name, the epsilon's argument index)
         patches = [(pqn_rnn, "rnn_rollout", 5), (pqn_rnn, "learn_minibatch", None),
                    (pqn_rnn, "rnn_train_q_values", None), (pqn_rnn, "lambda_returns_closure", None),
-                   (gru_scan, "gru_scan_fwd", None), (gru_scan, "gru_scan_bwd", None)]
+                   (gru_scan, "gru_scan_fwd", None), (gru_scan, "gru_scan_bwd", None),
+                   (fast_rnn, "lstm_layer_scan", None), (exploration, "eps_greedy", None)]
+        if "Craftax" in config["ENV_NAME"]:  # the env step inside the rollouts, and its parts
+            patches += [(wrappers.OptimisticResetVecEnv, "step", None), (wrappers.BankedResetVecEnv, "step", None),
+                        (Forager, "step_env", None), (Forager, "reset_env", None),
+                        (wrappers.BankedResetVecEnv, "refresh", None), (wrappers, "serve_resets", None)]
     else:
         patches = [(pqn, n, 1) for n in ROLLOUTS]
         patches += [(pqn, n, None) for n in ("log_replay", "lambda_returns", "learn_minibatch")]
@@ -188,7 +200,9 @@ def main() -> int:
     ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
     inner = ("rnn_train_q_values", "lambda_returns_closure", "vdn_targets", "gru_scan_fwd", "gru_scan_bwd", "step_env",
-             "reset_env", "refresh", "serve_resets")
+             "reset_env", "refresh", "serve_resets", "lstm_layer_scan")
+    if recurrent:  # the epsilon-greedy kernel and the env step run inside the rollouts
+        inner += ("eps_greedy", "step")
     accounted = sum(v for k, v in totals.items() if k not in inner)
 
     # ---- 2. device busy share over a short run without eval -----------------

@@ -12,8 +12,10 @@ pqn_craftax's NUM_ENVS and actions; the lambda returns' gymnax form at
 E 64), pqn_pendulum's, and their closure form at (T 131, E 2) and (T 67,
 E 2), the recurrent trainer's minibatch windows on MemoryChain and on
 CartPole (MEMORY_WINDOW + NUM_STEPS - 1 steps of NUM_ENVS /
-NUM_MINIBATCHES envs), and at (T 28, E 16) and (T 67, E 16), the VDN
-trainer's on Spread and on Skirmish / SMAX; and an empty kernel
+NUM_MINIBATCHES envs), at (T 28, E 16) and (T 67, E 16), the VDN
+trainer's on Spread and on Skirmish / SMAX, and at (T 127, E 256),
+pqn_rnn_craftax's (epsilon-greedy's (1024, 34) is its rollout's too); and an
+empty kernel
 (``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
 through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
 threads), the floor that any launch of that grid pays, and beside it a
@@ -77,7 +79,7 @@ extern "C" int load_store_launch(int blocks, int threads, const float* q, long l
 """
 EPS_GREEDY_SHAPE = (1024, 34)
 LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64))
-CLOSURE_SHAPES = ((131, 2), (67, 2), (28, 16), (67, 16))
+CLOSURE_SHAPES = ((131, 2), (67, 2), (28, 16), (67, 16), (127, 256))
 
 
 def events_ms(fn, iters: int) -> float:

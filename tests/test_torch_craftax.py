@@ -409,7 +409,8 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     rollout gets EXPLORATION_KERNEL="pallas", pqn_craftax among them, and
     pqn_craftax also FAST_TARGETS, SKIP_NOOP_PERMUTE and RESET_BANK=256, as
     the JAX policy gives them (tests/test_torch_reset_bank.py holds the
-    rest), not FUSED_ROLLOUT; a fused config, a recurrent one, the CPU,
+    rest), not FUSED_ROLLOUT; a recurrent config, whose rollout is unfused,
+    gets it too (tests/test_torch_lstm.py); a fused config, the CPU,
     PARITY=strict and an explicit setting are left alone. What the FF
     trainer still does not run raises: NUM_SEEDS > 1, LOG_VIA_CALLBACK."""
     cfg = compose(alg="pqn_craftax")
@@ -418,7 +419,7 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     assert "FUSED_ROLLOUT" not in cfg
     assert compose(alg="pqn_cartpole", overrides=["NUM_LAYERS=3"])["EXPLORATION_KERNEL"] == "pallas"
     assert "EXPLORATION_KERNEL" not in compose(alg="pqn_cartpole")
-    assert "EXPLORATION_KERNEL" not in compose(alg="pqn_rnn_memory_chain")
+    assert compose(alg="pqn_rnn_memory_chain")["EXPLORATION_KERNEL"] == "pallas"
     for ov in (["DEVICE=cpu"], ["PARITY=strict"]):
         assert "EXPLORATION_KERNEL" not in compose(alg="pqn_craftax", overrides=ov)
     assert compose(alg="pqn_craftax", overrides=["EXPLORATION_KERNEL=False"])["EXPLORATION_KERNEL"] is False

@@ -46,12 +46,12 @@ def dev():
 
 
 # the trainers' shapes (CartPole (64, 32), MinAtar (32, 128), Pendulum (32,
-# 64), the recurrent trainer's windows (131, 2) and (67, 2), VDN's targets
-# (28, 16) Spread, (67, 16) Skirmish and SMAX, (39, 16) Kitchen, (47, 16)
-# Hanabi), short and ragged ones, many blocks through the ring, a long T of
-# few envs
-LAMBDA_SHAPES = [(64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (39, 16), (47, 16),
-                 (127, 2), (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3)]
+# 64), the recurrent trainer's windows (131, 2), (67, 2) and RNN Craftax's
+# (127, 256), VDN's targets (28, 16) Spread, (67, 16) Skirmish and SMAX,
+# (39, 16) Kitchen, (47, 16) Hanabi), short and ragged ones, many blocks
+# through the ring, a long T of few envs
+LAMBDA_SHAPES = [(64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (127, 256), (28, 16), (67, 16), (39, 16),
+                 (47, 16), (127, 2), (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3)]
 LAMBDA_FORMS = {
     "gymnax": (lr.lambda_returns, lr.lambda_returns_plain),
     "closure": (lr.lambda_returns_closure, lr.lambda_returns_closure_plain),
@@ -981,3 +981,61 @@ def test_tiny_pqn_craftax_on_the_card_launches_eps_greedy(dev):
     assert lr.lambda_returns.launches == cr.cartpole_rollout.launches == 0
     assert all(p.is_cuda for p in out["runner_state"][0].network.parameters())
     assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
+def test_lstm_learn_step_on_the_card_matches_the_cpu(dev):
+    """Two FAST_BPTT minibatch steps of the LSTM network with the BatchRenorm
+    input (pqn_rnn_craftax's, at H 128) over a (33, 64) window: on the card
+    through the closure returns kernel (one launch a step), on the CPU
+    through its twin, from the same weights: losses within 1e-4 relative,
+    params and the input norm's statistics within 1e-4."""
+    from purejaxql_torch.algo.types import RNNTransition
+
+    rng = np.random.RandomState(0)
+    T, B, F, H, A = 33, 64, 300, 128, 34
+    cpu_net = RNNQNetwork(F, A, hidden_size=H, num_layers=1, cell_type="lstm", norm_input=True,
+                          input_norm_type="batch_renorm", add_last_action=True,
+                          generator=torch.Generator().manual_seed(0))
+    gpu_net = RNNQNetwork(F, A, hidden_size=H, num_layers=1, cell_type="lstm", norm_input=True,
+                          input_norm_type="batch_renorm", add_last_action=True).to(dev)
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    arrays = dict(obs=rng.rand(T, B, F).astype(np.float32), action=rng.randint(0, A, (T, B)),
+                  reward=rng.randn(T, B).astype(np.float32), done=rng.rand(T, B) < 0.05,
+                  last_done=rng.rand(T, B) < 0.05, last_action=rng.randint(0, A, (T, B)),
+                  c=0.3 * rng.randn(T, B, H).astype(np.float32), h=0.3 * rng.randn(T, B, H).astype(np.float32))
+    results = []
+    for net, device in ((gpu_net, dev), (cpu_net, torch.device("cpu"))):
+        t = {k: torch.tensor(v, device=device) for k, v in arrays.items()}
+        mb = RNNTransition(obs=t["obs"], action=t["action"].long(), reward=t["reward"], done=t["done"],
+                           last_hs=((t["c"], t["h"]),), last_done=t["last_done"],
+                           last_action=t["last_action"].long(), q_val=torch.zeros(T, B, A, device=device))
+        opt = make_optimizer(net.parameters(), 0.5, 3e-4)
+        lr.lambda_returns_closure.launches = 0
+        losses = [pqn_rnn.learn_minibatch(net, opt, mb, 0.99, 0.7, True)[0].item() for _ in range(2)]
+        results.append((losses, lr.lambda_returns_closure.launches,
+                        {k: v.detach().cpu() for k, v in net.state_dict().items()}))
+    (g_losses, g_launches, g_state), (c_losses, c_launches, c_state) = results
+    assert g_launches == 2 and c_launches == 0
+    np.testing.assert_allclose(g_losses, c_losses, rtol=1e-4)
+    for name in g_state:
+        torch.testing.assert_close(g_state[name], c_state[name], atol=1e-4, rtol=0, msg=name)
+
+
+def test_tiny_rnn_craftax_on_the_card_launches_eps_greedy_and_the_closure_returns(dev):
+    """pqn_rnn_craftax through the cuda policy at H 64, 64 envs x 16 steps:
+    FAST_BPTT, the reset bank, an epsilon-greedy launch a step of the prefill
+    and the rollouts, a closure returns launch a grad step, no GRU, rollout
+    or gymnax-form returns kernel."""
+    config = compose(alg="pqn_rnn_craftax", overrides=[
+        "TOTAL_TIMESTEPS=2048", "NUM_ENVS=64", "NUM_STEPS=16", "HIDDEN_SIZE=64",
+    ])
+    assert config["FAST_BPTT"] is True and config["RESET_BANK"] == 256 and not config.get("PALLAS_BPTT")
+    fns = (eg.eps_greedy, lr.lambda_returns_closure, lr.lambda_returns, gs.gru_scan_fwd, gs.gru_scan_bwd)
+    for fn in fns:
+        fn.launches = 0
+    out = pqn_rnn.make_train(config)()
+    assert [fn.launches for fn in fns] == [16 + 2 * 16, 2 * 4 * 4, 0, 0, 0]
+    train_state = out["runner_state"][0]
+    assert all(p.is_cuda for p in train_state.network.parameters())
+    assert int(train_state.network.BatchRenorm_0.steps) == 2 * 4 * 4
+    assert all(torch.isfinite(v).all() for v in out["metrics"].values())

@@ -309,13 +309,16 @@ def test_factory_builds_the_cnn_and_raises_for_unported_variants():
     assert isinstance(make_q_network(cfg, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network({**cfg, "ARCH": "cnn"}, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network(cfg, 2, (4,)), TQNetwork)
-    # BF16_COMPUTE is ported for the MinAtar trunk (tests/test_torch_bf16.py);
-    # the Nature trunk, in bfloat16 or not, and the recurrent network in
-    # bfloat16 still raise
+    # BF16_COMPUTE is ported for the MinAtar trunk (tests/test_torch_bf16.py)
+    # and accepted by the recurrent network, which ignores it as the JAX
+    # package's does (its FAST_BPTT forward takes it: tests/test_torch_lstm.py);
+    # the Nature trunk, in bfloat16 or not, and a recurrent trunk norm other
+    # than layer_norm still raise
     assert make_q_network({**cfg, "BF16_COMPUTE": True}, 3, (10, 10, 4)).dtype == torch.bfloat16
     for bad in ({"CNN_TRUNK": "nature"}, {"NORM_TYPE": "batch_norm"},
                 {"CNN_TRUNK": "nature", "BF16_COMPUTE": True}):
         with pytest.raises(NotImplementedError):
             make_q_network({**cfg, **bad}, 3, (10, 10, 4))
-    with pytest.raises(NotImplementedError, match="BF16_COMPUTE"):
-        check_rnn_q_network({**cfg, "BF16_COMPUTE": True}, (4,))
+    check_rnn_q_network({**cfg, "BF16_COMPUTE": True}, (4,))
+    with pytest.raises(NotImplementedError, match="NORM_TYPE"):
+        check_rnn_q_network({**cfg, "NORM_TYPE": "batch_norm", "BF16_COMPUTE": True}, (4,))

@@ -411,8 +411,53 @@ def test_cuda_policy_turns_on_the_gru_kernels_for_vdn(capsys):
         assert "FAST_BPTT" not in cfg and "PALLAS_BPTT" not in cfg, ov
 
 
+def _jax_tiny_vdn_config(**kw):
+    from purejaxql_tpu.core.config import compose as jax_compose
+
+    return jax_compose(alg="pqn_vdn_spread", overrides=[
+        "TOTAL_TIMESTEPS=128", "NUM_ENVS=8", "NUM_STEPS=8", "MEMORY_WINDOW=2", "NUM_MINIBATCHES=2", "NUM_EPOCHS=1",
+        "TEST_DURING_TRAINING=False",
+    ] + [f"{k}={v}" for k, v in kw.items()])
+
+
+def test_vdn_hidden_size_defaults_to_256_as_jax():
+    """Without the HIDDEN_SIZE key both packages build the VDN network at
+    width 256 (pqn_vdn.py:95), not the recurrent trainer's 128: Dense_0's
+    flax kernel (14, 256) on Spread (the JAX program traced, not compiled)."""
+    from purejaxql_tpu.algo.pqn_vdn import make_train as jax_make_train
+
+    jcfg = _jax_tiny_vdn_config()
+    del jcfg["HIDDEN_SIZE"]
+    jparams = jax.eval_shape(jax_make_train(jcfg), jax.random.PRNGKey(0))["runner_state"][0].params
+    tcfg = tiny_vdn_config(TOTAL_TIMESTEPS=128, NUM_EPOCHS=1)
+    del tcfg["HIDDEN_SIZE"]
+    tnet = pqn_vdn.make_train(tcfg)()["runner_state"][0].network
+    tparams = tckpt.params_to_flax(tnet)["params"]
+    assert tuple(jparams["Dense_0"]["kernel"].shape) == tuple(tparams["Dense_0"]["kernel"].shape) == (14, 256)
+    shapes = lambda t: jax.tree_util.tree_map(lambda v: tuple(np.shape(v)), t)  # noqa: E731
+    assert shapes(tparams) == shapes(jparams)
+
+
+def test_vdn_ignores_input_norm_type_as_jax():
+    """INPUT_NORM_TYPE=batch_renorm: the JAX VDN trainer passes no input norm
+    type (pqn_vdn.py:93-104), so both trainers train with the BatchNorm input
+    norm, its statistics moved."""
+    from purejaxql_tpu.algo.pqn_vdn import make_train as jax_make_train
+
+    jout = jax.jit(jax_make_train(_jax_tiny_vdn_config(HIDDEN_SIZE=16, INPUT_NORM_TYPE="batch_renorm")))(
+        jax.random.PRNGKey(0))
+    tout = pqn_vdn.make_train(tiny_vdn_config(TOTAL_TIMESTEPS=128, NUM_EPOCHS=1, HIDDEN_SIZE=16,
+                                              INPUT_NORM_TYPE="batch_renorm"))()
+    jstats = jout["runner_state"][0].batch_stats
+    tstats = tckpt.params_to_flax(tout["runner_state"][0].network)["batch_stats"]
+    assert set(jstats) == set(tstats) == {"BatchNorm_0"}
+    assert np.isfinite(np.asarray(jout["metrics"]["td_loss"])).all()
+    assert torch.isfinite(tout["metrics"]["td_loss"]).all()
+    assert not np.allclose(tstats["BatchNorm_0"]["mean"], 0.0)
+
+
 def test_vdn_unsupported_options_raise():
-    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}, {"BF16_COMPUTE": True}, {"RNN_CELL": "lstm"},
+    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}, {"RNN_CELL": "lstm"},
                {"NORM_TYPE": "batch_norm"}, {"ALG_NAME": "pqn_rnn"}):
         with pytest.raises(NotImplementedError):
             pqn_vdn.make_train(tiny_vdn_config(**kw))()
