@@ -57,7 +57,7 @@ Phases, each ending the run with a non-zero exit if it fails:
    10 % of the run) for 400k env steps through the Pendulum kernel and check
    that its best greedy eval beats -500;
 6f. train pqn_craftax at full width (Forager, H 1024 x 4 with an input
-   BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^21
+   BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^20
    env steps, the YAML unchanged, so the cuda policy gives it the fast
    program: RESET_BANK=256 (the reset bank, refreshed every 16 steps),
    FAST_TARGETS and SKIP_NOOP_PERMUTE. Every action of the training rollout
@@ -97,9 +97,25 @@ Phases, each ending the run with a non-zero exit if it fails:
    then one update in the strict program (PARITY=strict: optimistic resets,
    the module path) and one with BF16_COMPUTE, whose BPTT forward is held
    within BF16_BOUND of the float32 one on the same weights;
+6i. train S seeds as one program (NUM_SEEDS, algo/seeds.py): pqn_cartpole
+   with 8 seeds for 200k env steps a seed (the epsilon-greedy kernel a
+   rollout step, the returns an update, as one seed: the mean over seeds of
+   each seed's last-10 return above the single-seed gate, the lanes' params
+   apart, (8, NUM_UPDATES) metrics, one checkpoint a seed); pqn_cartpole
+   with 64 seeds, PARITY=strict, for 16 updates (bench.py's
+   cartpole_seeds64: its aggregate rate beside the single-seed strict
+   run's); Breakout-MinAtar with 4 seeds for 16 updates, unfused; and
+   pqn_rnn_memory_chain with 4 seeds for 1e5 env steps a seed, each GRU
+   scan kernel and the closure returns launched once a grad step for all 4
+   seeds (the mean over seeds of the last-3 greedy eval above 0.8, the
+   per-seed checkpoints read back); before them (3e') the seeded GRU scan
+   kernels against their twins at the seeded windows (T 132 and 68, 4
+   seeds of B 2) and lane s against the unseeded launch, bit for bit;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
-   (the GRU scan and the closure returns also at VDN's), and torch.nn.GRU
-   (cuDNN) beside the GRU scan as a yardstick;
+   (the GRU scan and the closure returns also at VDN's, and the seeded
+   shapes: one seeded GRU launch against S unseeded ones), and torch.nn.GRU
+   (cuDNN) beside the GRU scan as a yardstick (S calls of it beside the
+   seeded launch);
 8. print the kernel table as one JSON line;
 9. print {"ok": true, "device": {...}} as the last line.
 
@@ -161,16 +177,28 @@ GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (29, 48, 256), (68, 80, 256), (32, 16
               (9, 2, 512))
 # VDN's windows, timed beside the recurrent trainer's
 GRU_VDN_TIMED = ((29, 48, 256), (68, 80, 256))
+# the seeded recurrent trainer's windows (T, S, B, H): MemoryChain and RNN
+# CartPole with 4 seeds of B 2 rows
+SEEDED_GRU_SHAPES = ((132, 4, 2, 256), (68, 4, 2, 256))
+# the seeded runs (NUM_SEEDS): pqn_cartpole with 8 seeds, 200k env steps a
+# seed, held to the single-seed CartPole gate by the mean over seeds of each
+# seed's last-10 return; 64 seeds in the strict program (bench.py's
+# cartpole_seeds64) and Breakout with 4 seeds for 16 updates; MemoryChain
+# with 4 seeds, 1e5 env steps a seed, held to MEMORY_GATE by the mean over
+# seeds of each seed's last-3 greedy eval
+SEED_CARTPOLE, SEEDS64, SEED_BREAKOUT, SEED_MEMORY = 8, 64, 4, 4
+SEEDS64_STEPS = 16 * 64 * 32
 # the mean of the last 10 training returns the Asterix run must beat:
 # tests/test_torch_asterix.py::test_asterix_learns
 ASTERIX_GATE = 0.8
 # the same for Seaquest: tests/test_torch_seaquest.py::test_seaquest_learns
 SEAQUEST_GATE = 0.2
-# pqn_craftax's run: 2,048 updates of 1024 envs x 1 step (the YAML's 1e9 cut
-# to this length). It has no learning bar: on an H100, one of four learned
-# seeds of this length ends above random play, three end with the LR=0 runs
-# (scripts/craftax_learning_bar.py, PERF.md sections 2 and 7)
-CRAFTAX_STEPS = 2**21
+# pqn_craftax's run: 1,024 updates of 1024 envs x 1 step (the YAML's 1e9 cut
+# to this length; 2,048 before the seeded phases came in). It has no learning
+# bar: at 2^21 steps on an H100, one of four learned seeds ended above random
+# play, three with the LR=0 runs (scripts/craftax_learning_bar.py, PERF.md
+# sections 2 and 7)
+CRAFTAX_STEPS = 2**20
 # the strict Craftax program (PARITY=strict) and the bfloat16 one, shorter
 CRAFTAX_STRICT_STEPS = 2**19
 CRAFTAX_BF16_STEPS = 2**18
@@ -186,10 +214,12 @@ RNN_CRAFTAX_SHORT_STEPS = 1024 * 128
 # x 4 from the init, tests/test_torch_bf16.py)
 BF16_BOUND = 0.03
 # this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build and
-# the pqn_rnn_craftax phase included (PERF.md section 2)
-RECORDED_WALL_S = 547.2
+# the seeded phases included (PERF.md section 2)
+RECORDED_WALL_S = 755.5
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
-EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6))
+# and the seeded FF runs' folded rows (S x NUM_ENVS, A): CartPole with 8 and
+# 64 seeds, Breakout with 4
+EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6), (256, 2), (2048, 2), (512, 3))
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
@@ -203,10 +233,14 @@ SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
 # MemoryChain (131, 2), RNN CartPole (67, 2) and RNN Craftax (127, 256);
 # VDN's targets, Spread (28, 16) and Skirmish / SMAX (67, 16)), short and
 # ragged ones, many blocks through the ring, a long T of few envs
+# the seeded runs' folded columns (T, S x E): CartPole with 8 and 64 seeds,
+# Breakout with 4, MemoryChain and RNN CartPole with 4 seeds of B 2
 LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2),
-                 (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3))
+                 (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3),
+                 (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8))
 # where both forms are timed
-LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2), (63, 2))
+LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2), (63, 2),
+                (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -407,6 +441,17 @@ def pendulum_inputs(B: int, H: int, seed: int, dev):
     stf = np.stack([r.uniform(-np.pi, np.pi, B), r.uniform(-8, 8, B), np.zeros(B)]).astype(np.float32)
     sti = r.randint(0, 200, (1, B)).astype(np.int32)
     return pendulum_ac_weights(actor, critics), torch.tensor(stf, device=dev), torch.tensor(sti, device=dev)
+
+
+def seeded_gru_inputs(T: int, S: int, B: int, H: int, seed: int, dev):
+    """S seeds' GRU scan inputs (``gru_inputs`` each), seed-major: xi (T,
+    S B, 3H), keep, h0 (S B, H), W_h (S, H, 3H), b_hn (S, H), g_y, g_hT;
+    and each seed's own."""
+    import torch
+
+    lanes = [gru_inputs(T, B, H, seed + 100 * s, dev) for s in range(S)]
+    dims = (1, 1, 0, None, None, 1, 0)
+    return [torch.stack(xs) if d is None else torch.cat(xs, d) for d, xs in zip(dims, zip(*lanes))], lanes
 
 
 def gru_inputs(T: int, B: int, H: int, seed: int, dev):
@@ -1074,6 +1119,45 @@ def main() -> int:
           f"max |err| / (1e-4 + 1e-4 |plain|) {a_rel:.3g} (must be <= 1)")
     check(a_rel <= 1.0, f"autograd through GRUScan disagrees with the plain loop: {a_rel}")
 
+    # ---- 3e'. the GRU scan kernels with a seed axis ------------------------------
+    # one launch for S seeds (a stacked W_h, seed-major rows) against the
+    # seeded twins, forward within 1e-5, backward as above; and lane s bit
+    # for bit against the unseeded launch on seed s's rows and weights
+    seeded_gru = {}
+    for i, (T, S, B, H) in enumerate(SEEDED_GRU_SHAPES):
+        (xi, keep, h0, w_h, b_hn, g_y, g_hT), lanes = seeded_gru_inputs(T, S, B, H, 40 + i, dev)
+        got = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+        want = gs.gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn)
+        torch.cuda.synchronize()
+        f_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        res = (keep, torch.cat([h0[None], got[0][:-1]]), w_h, *got[1:])
+        got_b = gs.gru_scan_bwd(*res, g_y, g_hT)
+        want_b = gs.gru_scan_bwd_plain(*res, g_y, g_hT)
+        torch.cuda.synchronize()
+        b_err = max((g - w).abs().max().item() for g, w in zip(got_b, want_b))
+        b_rel = max(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max().item() for g, w in zip(got_b, want_b))
+        lane_args, same = [], True
+        for s_, (lxi, lkeep, lh0, lw, lb, lgy, lghT) in enumerate(lanes):
+            rows = slice(s_ * B, (s_ + 1) * B)
+            one = gs.gru_scan_fwd(lxi, lkeep, lh0, lw, lb)
+            same &= all(torch.equal(a[:, rows], b) for a, b in zip(got, one))
+            lres = (lkeep, torch.cat([lh0[None], one[0][:-1]]), lw, *one[1:])
+            one_b = gs.gru_scan_bwd(*lres, lgy, lghT)
+            same &= torch.equal(got_b[0][:, rows], one_b[0]) and torch.equal(got_b[1][rows], one_b[1])
+            same &= torch.equal(got_b[2][s_], one_b[2]) and torch.equal(got_b[3][s_], one_b[3])
+            lane_args.append(((lxi, lkeep, lh0, lw, lb), (*lres, lgy, lghT)))
+        plan = gs.scan_plan(B, H)
+        print(f"gru_scan seeded (T, S, B, H) = {(T, S, B, H)}: {S * plan.clusters} cluster(s) in one launch "
+              f"(C {plan.cluster}, R {plan.rows}); forward max|err| {f_err:.3g} (tolerance 1e-5), backward "
+              f"max|err| {b_err:.3g}, max |err| / (1e-4 + 1e-4 |plain|) {b_rel:.3g} (must be <= 1); dW_h "
+              f"{tuple(got_b[2].shape)}; each lane equal to the unseeded launch on its seed, bit for bit: {same}")
+        check(f_err <= 1e-5, f"seeded gru_scan_fwd disagrees with its twin at {(T, S, B, H)}: {f_err}")
+        check(b_rel <= 1.0, f"seeded gru_scan_bwd disagrees with its twin at {(T, S, B, H)}: {b_err}")
+        check(same, f"seeded gru_scan at {(T, S, B, H)}: a lane differs from the unseeded launch on its seed")
+        errors["gru_scan_fwd"] = max(errors["gru_scan_fwd"], f_err)
+        errors["gru_scan_bwd"] = max(errors["gru_scan_bwd"], b_err)
+        seeded_gru[(T, S, B, H)] = ((xi, keep, h0, w_h, b_hn), (*res, g_y, g_hT), lane_args)
+
     # ---- 3f. the Pendulum actor-critic rollout vs plain, PRNG off and on --------
     # done and time equal; every float within 1e-4 (the MLPs sum in another
     # order than the twin's matmuls, and the pendulum carries the gap along)
@@ -1538,8 +1622,10 @@ def main() -> int:
                                               "wall_s": wall, "last3_eval_return": ff_last3, "gate": FF_GATE,
                                               "card": card}}))
 
+    # evals every quarter of the 16 updates (the YAML's 5 % would eval after
+    # every update, each 500 unfused steps)
     outs, wall, launches_rc = train(
-        cli, compose, "pqn_rnn_cartpole", RNN_CARTPOLE_STEPS, save_path, counters,
+        cli, compose, "pqn_rnn_cartpole", RNN_CARTPOLE_STEPS, save_path, counters, extra=["TEST_INTERVAL=0.25"],
         policy=("FAST_BPTT", "PALLAS_BPTT", ("EXPLORATION_KERNEL", "pallas")),
     )
     ts = outs["runner_state"][0]
@@ -1754,7 +1840,8 @@ def main() -> int:
     for alg in VDN_SHORT:
         acfg = compose(alg=alg)
         steps = VDN_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"]
-        outs, wall, launches_v = train(cli, compose, alg, steps, save_path, counters,
+        # two evals besides the first (the YAML's 5 % would eval after every update)
+        outs, wall, launches_v = train(cli, compose, alg, steps, save_path, counters, extra=["TEST_INTERVAL=0.5"],
                                        policy=("FAST_BPTT", "PALLAS_BPTT"))
         ts = outs["runner_state"][0]
         m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
@@ -1883,6 +1970,108 @@ def main() -> int:
                                           "wall_s": wall, "bf16_max_abs_err": rc_bf16_err, "max_abs_q": rc_bf16_scale,
                                           "launches": launches_rcb, "card": card}}))
 
+    # ---- 6i. several seeds as one program (NUM_SEEDS) ---------------------------
+    def check_seeded(name, outs, launches, seeds, n_updates, expected):
+        """The checks every seeded run shares: the kernels of ``expected``
+        launched as often as one seed's run launches them and no other,
+        every metric (seeds, NUM_UPDATES) and finite, every parameter on the
+        card with a leading seed axis, lanes apart. Returns the metrics."""
+        ts = outs["runner_state"][0]
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        for k, n in expected.items():
+            check(launches[k] == n, f"{name}: {k} launched {launches[k]} times, expected {n} (one seed's count)")
+        others = {k: v for k, v in launches.items() if k not in expected and v}
+        check(not others, f"{name}: another kernel launched: {others}")
+        check(all(v.shape == (seeds, n_updates) for v in m.values()), f"{name}: metrics not (seeds, NUM_UPDATES)")
+        check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals", "returned_episode_returns")),
+              f"{name}: non-finite metrics")
+        params = list(ts.network.parameters())
+        check(all(p.device.type == "cuda" and p.shape[0] == seeds for p in params),
+              f"{name}: a parameter is not on cuda or has no seed axis")
+        check(not torch.equal(params[2][0], params[2][1]), f"{name}: the lanes' params are equal")
+        return m
+
+    # the seeded runs evaluate every quarter of the run (TEST_INTERVAL 0.25)
+    # instead of every 5 %: the unfused eval has no early exit, and at these
+    # lengths the YAML's cadence would eval every update or two
+    outs, wall, launches_s8 = train(
+        cli, compose, "pqn_cartpole", TRAIN_STEPS, save_path, counters,
+        extra=[f"NUM_SEEDS={SEED_CARTPOLE}", "TEST_INTERVAL=0.25"], policy=(("EXPLORATION_KERNEL", "pallas"),),
+    )
+    s8_updates = TRAIN_STEPS // 64 // 32
+    m = check_seeded("cartpole seeds", outs, launches_s8, SEED_CARTPOLE, s8_updates,
+                     {"eps_greedy": s8_updates * 64, "lambda_returns": s8_updates})
+    s8_last10 = m["returned_episode_returns"][:, -10:].mean(1)
+    s8_rate = SEED_CARTPOLE * outs["runner_state"][0].timesteps / wall
+    print(f"train cartpole, {SEED_CARTPOLE} seeds as one program: {SEED_CARTPOLE} x "
+          f"{outs['runner_state'][0].timesteps} env steps in {wall:.2f} s wall ({s8_rate:.0f} env-steps/s aggregate, "
+          f"eval included); launches {launches_s8}; each seed's mean of its last 10 returned_episode_returns "
+          f"{[round(float(v), 2) for v in s8_last10]}, their mean {float(s8_last10.mean()):.2f} (gate 100)")
+    check(float(s8_last10.mean()) > 100, f"cartpole seeds did not learn: mean of the seeds' last-10 {s8_last10.mean()}")
+    run_dir = os.path.join(save_path, "CartPole-v1")
+    check(all(os.path.exists(os.path.join(run_dir, f"pqn_CartPole-v1_seed0_vmap{i}.safetensors"))
+              for i in range(SEED_CARTPOLE)), "cartpole seeds: a per-seed checkpoint is missing")
+    print(json.dumps({"seeds_cartpole_run": {"seeds": SEED_CARTPOLE, "env_steps_per_s": s8_rate, "wall_s": wall,
+                                             "last10_return_by_seed": s8_last10.tolist(), "launches": launches_s8,
+                                             "card": card}}))
+
+    # bench.py's cartpole_seeds64 row, 16 updates, and one seed of the same
+    # program beside it
+    s64_rates = {}
+    for n_seeds in (SEEDS64, 1):
+        outs, wall, launches = train(
+            cli, compose, "pqn_cartpole", SEEDS64_STEPS, save_path, counters,
+            extra=[f"NUM_SEEDS={n_seeds}", "PARITY=strict", "COLLECT_METRICS=False", "TEST_INTERVAL=0.25"],
+            policy=(),
+        )
+        check(launches["lambda_returns"] == 16 and sum(launches.values()) == 16,
+              f"cartpole {n_seeds} seeds strict: unexpected launches {launches}")
+        s64_rates[n_seeds] = n_seeds * outs["runner_state"][0].timesteps / wall
+        print(f"train cartpole, {n_seeds} seed(s), PARITY=strict: {n_seeds} x {outs['runner_state'][0].timesteps} env "
+              f"steps in {wall:.2f} s wall ({s64_rates[n_seeds]:.0f} env-steps/s aggregate)")
+    print(json.dumps({"seeds64_cartpole_run": {"env_steps_per_s": s64_rates[SEEDS64],
+                                               "one_seed_env_steps_per_s": s64_rates[1],
+                                               "ratio": s64_rates[SEEDS64] / s64_rates[1], "card": card}}))
+
+    outs, wall, launches_sb = train(
+        cli, compose, "pqn_minatar", SHORT_STEPS, save_path, counters,
+        extra=["ENV_NAME=Breakout-MinAtar", f"NUM_SEEDS={SEED_BREAKOUT}", "TEST_NUM_STEPS=256", "TEST_INTERVAL=0.25"],
+        policy=(("EXPLORATION_KERNEL", "pallas"),),
+    )
+    check_seeded("breakout seeds", outs, launches_sb, SEED_BREAKOUT, 16, {"eps_greedy": 16 * 32, "lambda_returns": 16})
+    sb_rate = SEED_BREAKOUT * outs["runner_state"][0].timesteps / wall
+    print(f"train breakout, {SEED_BREAKOUT} seeds, unfused: {wall:.2f} s wall ({sb_rate:.0f} env-steps/s aggregate); "
+          f"launches {launches_sb}")
+    print(json.dumps({"seeds_breakout_run": {"seeds": SEED_BREAKOUT, "env_steps_per_s": sb_rate, "wall_s": wall,
+                                             "launches": launches_sb, "card": card}}))
+
+    outs, wall, launches_sm = train(
+        cli, compose, "pqn_rnn_memory_chain", MEMORY_STEPS, save_path, counters,
+        extra=["TEST_NUM_STEPS=64", f"NUM_SEEDS={SEED_MEMORY}"],
+        policy=("FAST_BPTT", "PALLAS_BPTT", ("EXPLORATION_KERNEL", "pallas")),
+    )
+    m = check_seeded("memory_chain seeds", outs, launches_sm, SEED_MEMORY, mc_updates, {
+        "gru_scan_fwd": mc_grad_steps, "gru_scan_bwd": mc_grad_steps, "lambda_returns_closure": mc_grad_steps,
+        "eps_greedy": mc_rollout_steps,
+    })
+    sm_last3 = m["test/returned_episode_returns"][:, -3:].mean(1)
+    sm_rate = SEED_MEMORY * outs["runner_state"][0].timesteps / wall
+    print(f"train memory_chain (pqn_rnn, GRU), {SEED_MEMORY} seeds: {wall:.2f} s wall ({sm_rate:.0f} env-steps/s "
+          f"aggregate, eval included); launches {launches_sm}; each seed's last-3 greedy eval "
+          f"{[round(float(v), 3) for v in sm_last3]}, their mean {float(sm_last3.mean()):.3f} (gate {MEMORY_GATE})")
+    check(float(sm_last3.mean()) > MEMORY_GATE,
+          f"the seeded recurrent trainer did not remember: mean of the seeds' last-3 {sm_last3.mean()}")
+    net = outs["runner_state"][0].network
+    for i in range(SEED_MEMORY):
+        saved = load_params(os.path.join(save_path, "MemoryChain-bsuite",
+                                         f"pqn_rnn_MemoryChain-bsuite_seed0_vmap{i}.safetensors"))
+        hn = saved["ScannedRNN_0"]["GRUCell_0"]["hn"]["kernel"]
+        check(tuple(hn.shape) == (256, 256) and torch.equal(hn, net.ScannedRNN_0.GRUCell_0.hn.weight[i].T.cpu()),
+              f"memory_chain seeds: the checkpoint of seed {i} is not lane {i}")
+    print(json.dumps({"seeds_memory_chain_run": {"seeds": SEED_MEMORY, "env_steps_per_s": sm_rate, "wall_s": wall,
+                                                 "last3_eval_by_seed": sm_last3.tolist(), "gate": MEMORY_GATE,
+                                                 "launches": launches_sm, "card": card}}))
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -1925,6 +2114,28 @@ def main() -> int:
             timings[f"{name}_T{shape[0]}_B{shape[1]}"] = (k_ms, p_ms, b_ms, b_by)
             print(json.dumps({"timing": name, "shape": dict(zip("TBH", shape)), "ms": k_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
+    # one seeded launch for S seeds against S unseeded launches, and the
+    # twin; the bound is S times one seed's
+    for (T, S, B, H), (f_args, b_args, lane_args) in seeded_gru.items():
+        for name, kernel, plain, args, lane, bound in (
+            ("gru_scan_fwd", gs.gru_scan_fwd, gs.gru_scan_fwd_plain, f_args, 0, gru_fwd_bound_ms),
+            ("gru_scan_bwd", gs.gru_scan_bwd, gs.gru_scan_bwd_plain, b_args, 1, gru_bwd_bound_ms),
+        ):
+            k_ms = cuda_time_ms(lambda: kernel(*args), 50)
+            u_ms = cuda_time_ms(lambda: [kernel(*la[lane]) for la in lane_args], 50)
+            p_ms = cuda_time_ms(lambda: plain(*args), 3, warmup=1)
+            b_ms, b_by = bound(T, B, H)
+            timings[f"{name}_T{T}_S{S}_B{B}"] = (k_ms, p_ms, S * b_ms, b_by)
+            print(json.dumps({"timing": name, "shape": dict(zip("TSBH", (T, S, B, H))), "ms": k_ms,
+                              "ms_s_unseeded_launches": u_ms, "plain_ms": p_ms, "bound_ms": S * b_ms,
+                              "bound_by": b_by, "library_ms": None}))
+        # the yardstick: S calls of cuDNN's GRU (one W_h a call)
+        cudnn_gru = torch.nn.GRU(H, H).to(dev)
+        x_seq, h_init = torch.randn(T, B, H, device=dev), torch.randn(1, B, H, device=dev)
+        with torch.no_grad():
+            c_fwd = cuda_time_ms(lambda: [cudnn_gru(x_seq, h_init) for _ in range(S)], 50)
+        print(json.dumps({"timing": f"{S} calls of torch.nn.GRU (cuDNN)", "shape": {"T": T, "B": B, "H": H},
+                          "cudnn_gru_ms": {"fwd": c_fwd}}))
     # a yardstick, not library_ms: cuDNN's GRU has no resets and does its own
     # input projection, and the port never calls it
     for T, B, H in (GRU_SHAPES[0], GRU_VDN_TIMED[0]):
@@ -1951,26 +2162,31 @@ def main() -> int:
     print(json.dumps({"timing": "pendulum_ac_rollout", "shape": {"T": 32, "B": 64, "H": 256}, "ms": k_ms,
                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
 
-    qv = eps_inputs[EPS_GREEDY_SHAPES[0]]
-    k_ms = cuda_time_ms(lambda: eg.eps_greedy(3, qv, 0.1), 200)
-    p_ms = cuda_time_ms(lambda: eg.eps_greedy_plain(3, qv, 0.1), 20)
-    a_ms = cuda_time_ms(lambda: torch.argmax(qv, -1), 200)
-    b_ms, b_by = eps_greedy_bound_ms(*EPS_GREEDY_SHAPES[0])
-    timings["eps_greedy"] = (k_ms, p_ms, b_ms, b_by)
-    # torch.argmax computes only the greedy half, so it is no library time for the kernel
-    print(json.dumps({"timing": "eps_greedy", "shape": dict(zip("EA", EPS_GREEDY_SHAPES[0])), "ms": k_ms,
-                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "argmax_ms": a_ms, "library_ms": None}))
+    # Craftax's shape, then the seeded FF runs' (CartPole 8 and 64 seeds,
+    # Breakout 4)
+    for shape in (EPS_GREEDY_SHAPES[0], (256, 2), (2048, 2), (512, 3)):
+        qv = eps_inputs[shape]
+        k_ms = cuda_time_ms(lambda: eg.eps_greedy(3, qv, 0.1), 200)
+        p_ms = cuda_time_ms(lambda: eg.eps_greedy_plain(3, qv, 0.1), 20)
+        a_ms = cuda_time_ms(lambda: torch.argmax(qv, -1), 200)
+        b_ms, b_by = eps_greedy_bound_ms(*shape)
+        timings["eps_greedy" if shape == EPS_GREEDY_SHAPES[0] else f"eps_greedy_{shape[0]}x{shape[1]}"] = (
+            k_ms, p_ms, b_ms, b_by)
+        # torch.argmax computes only the greedy half, so it is no library time for the kernel
+        print(json.dumps({"timing": "eps_greedy", "shape": dict(zip("EA", shape)), "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "argmax_ms": a_ms, "library_ms": None}))
 
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
-    # lambda returns' from the Asterix run; the GRU scan's from VDN on
-    # Spread, timed at its shapes; the Pendulum rollout's from the Pendulum
-    # run; eps_greedy's and the closure returns' from the newest slice that
-    # runs them, pqn_rnn_craftax's fast program, timed at its shapes)
+    # Pendulum rollout's from the Pendulum run, each MinAtar game's and
+    # CartPole's from its fused run); the five kernels of the newest slice's
+    # path from its seeded runs, timed at their shapes: the lambda returns'
+    # and eps_greedy's from pqn_cartpole with 8 seeds, the GRU scan's and
+    # the closure returns' from pqn_rnn_memory_chain with 4
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x128", launches_as),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_64x256", launches_s8),
         ("cartpole_rollout", "purejaxql_torch/csrc/cartpole_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:465", "cartpole_rollout_B32", launches_cp),
         ("breakout_rollout", "purejaxql_torch/csrc/breakout_rollout.cu",
@@ -1985,15 +2201,15 @@ def main() -> int:
         ("seaquest_rollout", "purejaxql_torch/csrc/seaquest_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:1689", "seaquest_rollout", launches_sq),
         ("gru_scan_fwd", "purejaxql_torch/csrc/gru_scan_fwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T29_B48", launches_vdn),
+         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132_S4_B2", launches_sm),
         ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T29_B48", launches_vdn),
+         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132_S4_B2", launches_sm),
         ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
         ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
-         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy", launches_rcx),
+         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy_256x2", launches_s8),
         ("lambda_returns_closure", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_127x256", launches_rcx),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_131x8", launches_sm),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({
@@ -2002,7 +2218,7 @@ def main() -> int:
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "
-          f"(recorded with the pqn_rnn_craftax phase: {RECORDED_WALL_S} s)")
+          f"(recorded with the seeded phases: {RECORDED_WALL_S} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -10,13 +10,17 @@ from typing import Any, Dict
 import torch
 
 
-def episode_mean_metrics(infos: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def episode_mean_metrics(infos: Dict[str, torch.Tensor], seeds: int = 1) -> Dict[str, torch.Tensor]:
     """Mean of each info leaf over the steps where `returned_episode` is set
     (NaN where no episode finished): the reference's
-    ``nanmean(where(returned_episode, x, nan))``."""
+    ``nanmean(where(returned_episode, x, nan))``; with seeds, (T, S * E)
+    leaves of seed-major envs, each seed's mean, (S,)."""
     mask = infos["returned_episode"]
     nan = torch.tensor(float("nan"), device=mask.device)
-    return {k: torch.where(mask, v.float(), nan).nanmean() for k, v in infos.items()}
+    if seeds == 1:
+        return {k: torch.where(mask, v.float(), nan).nanmean() for k, v in infos.items()}
+    lanes = lambda x: x.unflatten(1, (seeds, -1)).transpose(0, 1).reshape(seeds, -1)  # noqa: E731
+    return {k: lanes(torch.where(mask, v.float(), nan)).nanmean(1) for k, v in infos.items()}
 
 
 def apply_eval_subsample(config: Dict[str, Any]) -> Dict[str, Any]:

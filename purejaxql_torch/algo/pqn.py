@@ -72,6 +72,13 @@ Randomness comes from two generators seeded from SEED: a host generator
 (parameter init, kernel seeds) and one on the run's device (env resets,
 exploration, minibatch permutations). Parameters are initialised on the
 host, so a CPU and a GPU run start from the same weights.
+
+NUM_SEEDS = S > 1 trains S seeds as one program on the unfused rollout
+(``algo/seeds.py``: the stacked network, seed-major folded envs, each
+seed's own loss mean, clip, row permutation and metrics), what
+``jax.vmap(make_train(config))`` computes; every metric is then (S,
+NUM_UPDATES). The batched env modes, a BatchRenorm, BF16_COMPUTE and
+FUSED_ROLLOUT are refused with seeds.
 """
 
 from __future__ import annotations
@@ -81,6 +88,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
+from purejaxql_torch.algo.seeds import (
+    check_seeds,
+    seed_generators,
+    seed_mean,
+    seed_minibatches,
+    seed_permutations,
+    seed_rows,
+    seed_sum,
+    take_rows,
+)
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     episode_mean_metrics,
@@ -174,11 +191,10 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
 def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "pqn")) not in ("pqn", "pqn_craftax"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an FF-PQN config")
-    if config.get("NUM_SEEDS", 1) != 1:
-        raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
+    check_seeds(config)
     if config.get("FAST_TARGETS", False) and config.get("NORM_TYPE") != "layer_norm":
         raise ValueError(
             "FAST_TARGETS requires NORM_TYPE=layer_norm (the out-of-grad target forward "
@@ -232,13 +248,18 @@ def build_env(config: Dict[str, Any]):
     return log_env, log_env, env, env_params
 
 
-def stack_metrics(history):
-    """The per-update metric dicts as one tensor per metric, (NUM_UPDATES,):
-    device tensors stack on the device, host counters on the host."""
+def stack_metrics(history, seeds: int = 1):
+    """The per-update metric dicts as one tensor per metric, (NUM_UPDATES,),
+    or with seeds (S, NUM_UPDATES) from (S,) values, the host counters
+    repeated for every seed: device tensors stack on the device, host
+    counters on the host."""
     stacked = {}
     for k in history[0] if history else {}:
         values = [m[k] for m in history]
-        stacked[k] = torch.stack(values) if torch.is_tensor(values[0]) else torch.tensor(values)
+        if torch.is_tensor(values[0]):
+            stacked[k] = torch.stack(values, -1)
+        else:
+            stacked[k] = torch.tensor(values) if seeds == 1 else torch.tensor(values).repeat(seeds, 1)
     return stacked
 
 
@@ -329,12 +350,14 @@ def log_replay(log_state: wrappers.LogEnvState, rew: torch.Tensor, done: torch.T
 
 def _td_step(optimizer: ClipRAdam, q_vals: torch.Tensor, action: torch.Tensor, target: torch.Tensor):
     """The 0.5 * MSE TD loss on the taken actions and clip + RAdam on every
-    parameter (zero gradients for the unused ones, as jax.grad gives).
-    Returns the loss and the chosen Q-values, detached."""
+    parameter (zero gradients for the unused ones, as jax.grad gives); with
+    seeds (the optimizer's) the sum over seeds of each seed's mean over its
+    seed-major rows. Returns the loss, (S,) with seeds, and the chosen
+    Q-values, detached."""
     chosen = q_vals.gather(1, action[:, None]).squeeze(1)
-    loss = 0.5 * torch.square(chosen - target).mean()
+    loss = seed_mean(0.5 * torch.square(chosen - target), optimizer.seeds)
     grads = torch.autograd.grad(
-        loss, optimizer.params, allow_unused=True, materialize_grads=True
+        loss.sum(), optimizer.params, allow_unused=True, materialize_grads=True
     )
     optimizer.step(grads)
     return loss.detach(), chosen.detach()
@@ -367,8 +390,11 @@ def learn_minibatch_td(
     forward on cat(obs, next_obs), so the batch norms' statistics (and a
     BatchRenorm's step count) run once over both halves; the target
     r + (1 - done) * gamma * max_a Q(s', a) with Q(s') detached; then
-    ``_td_step``."""
-    q_vals, q_next = network(torch.cat([obs, next_obs]), train=True).chunk(2)
+    ``_td_step``. With seeds each seed's forward rows are its obs, then
+    its next_obs."""
+    S = optimizer.seeds
+    both = torch.cat([obs.unflatten(0, (S, -1)), next_obs.unflatten(0, (S, -1))], 1).flatten(0, 1)
+    q_vals, q_next = (q.flatten(0, 1) for q in network(both, train=True).unflatten(0, (S, -1)).chunk(2, 1))
     target = reward + (1 - done.float()) * gamma * q_next.detach().max(-1).values
     return _td_step(optimizer, q_vals, action, target)
 
@@ -403,11 +429,13 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False; ``runner_state``
-    is (train_state, (obs, env_state), test_metrics).
+    (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
+    COLLECT_METRICS=False; ``runner_state`` is (train_state, (obs,
+    env_state), test_metrics), the envs seed-major with seeds.
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
+    seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
     train_env, test_env, env, env_params = build_env(config)
@@ -434,12 +462,14 @@ def make_train(
     )
 
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
-        network = make_q_network(config, action_dim, obs_shape, generator=host_gen)
+        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+        host_gen = gens[0]
+        network = make_q_network(config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen,
+                                 seeds=seeds)
         network = network.to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         optimizer = make_optimizer(
-            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
+            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
         )
         train_state = PQNTrainState(network, optimizer)
         env_name = config["ENV_NAME"]
@@ -489,15 +519,15 @@ def make_train(
                 (transitions.obs, transitions.action, targets) if use_q_lambda else
                 (transitions.obs, transitions.action, transitions.next_obs, transitions.reward, transitions.done)
             )
-            leaves = [x.reshape(n, *x.shape[2:]) for x in leaves]
+            leaves = [seed_rows(x, seeds) for x in leaves]  # each seed's n rows, (S, n, ...)
             losses, qvals = [], []
             for _ in range(n_epochs):
-                # one permutation per epoch, shared by every leaf; with
-                # skip_permute it is drawn all the same, so the device
+                # one permutation per epoch and seed, shared by every leaf;
+                # with skip_permute it is drawn all the same, so the device
                 # generator moves as without the flag
-                perm = torch.randperm(n, generator=dev_gen, device=device)
+                perm = seed_permutations(dev_gen, seeds, n, device)
                 batches = zip(*(
-                    (x if skip_permute else x[perm]).reshape(n_minibatches, -1, *x.shape[1:]) for x in leaves
+                    seed_minibatches(x if skip_permute else take_rows(x, perm), n_minibatches) for x in leaves
                 ))
                 for mb in batches:
                     if use_q_lambda:
@@ -511,11 +541,11 @@ def make_train(
                     qvals.append(chosen)
             if not collect_metrics:
                 return None, None
-            return torch.stack(losses).mean(), torch.stack(qvals).mean()
+            return seed_mean(torch.stack(losses), seeds, -1), seed_mean(torch.stack(qvals), seeds, 1)
 
         @torch.no_grad()
         def get_test_metrics() -> Dict[str, torch.Tensor]:
-            n_test = config["TEST_NUM_ENVS"]
+            n_test = seeds * config["TEST_NUM_ENVS"]
             n_test_steps = config["TEST_NUM_STEPS"]
             _, test_state = test_env.reset(dev_gen, n_test, env_params)
             if use_fused:
@@ -552,11 +582,11 @@ def make_train(
                 obs, state, _, _, info = test_env.step(dev_gen, state, action, env_params)
                 infos.append(info)
             return episode_mean_metrics(
-                {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+                {k: torch.stack([i[k] for i in infos]) for k in infos[0]}, seeds
             )
 
         test_metrics = get_test_metrics() if test_during_training else {}
-        obs, log_state = train_env.reset(dev_gen, n_envs, env_params)
+        obs, log_state = train_env.reset(dev_gen, seeds * n_envs, env_params)
         history = []
         for _ in range(config["NUM_UPDATES"]):
             obs, log_state, transitions, infos = rollout(obs, log_state)
@@ -591,17 +621,17 @@ def make_train(
             if done_masked:
                 # the infos at episode ends only, a mean weighted by returned_episode
                 ended = infos["returned_episode"].float()
-                denom = ended.sum().clamp(min=1.0)
-                metrics.update({k: (v.float() * ended).sum() / denom for k, v in infos.items()})
+                denom = seed_sum(ended, seeds, 1).clamp(min=1.0)
+                metrics.update({k: seed_sum(v.float() * ended, seeds, 1) / denom for k, v in infos.items()})
             else:
-                metrics.update({k: v.float().mean() for k, v in infos.items()})
+                metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 
         return {
             "runner_state": (train_state, (obs, log_state), test_metrics),
-            "metrics": stack_metrics(history),
+            "metrics": stack_metrics(history, seeds),
         }
 
     return train

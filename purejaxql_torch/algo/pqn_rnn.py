@@ -43,6 +43,14 @@ with COLLECT_METRICS=False (:118, :413) no metrics are returned, and the
 losses' means and the per-update dicts are skipped (the eval still runs).
 ARCH defaults to ``mlp`` (:72), so an image observation is flattened
 (``algo/pqn.py:build_env``).
+
+NUM_SEEDS = S > 1 trains S seeds as one program (``algo/seeds.py``): the
+stacked network, S * NUM_ENVS seed-major envs and carries, each seed's own
+env permutation (minibatch m of every seed in one grad step), the loss the
+sum of each seed's mean, the closure targets over (T, S * B) columns, on
+FAST_BPTT with PALLAS_BPTT each GRU layer's scan one launch of each kernel
+for all seeds, and (S, NUM_UPDATES) metrics. The batched env modes, a
+BatchRenorm input norm and BF16_COMPUTE are refused with seeds.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from purejaxql_torch.algo.metrics import (
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import _NOT_PORTED, build_env, stack_metrics
+from purejaxql_torch.algo.seeds import check_seeds, seed_generators, seed_mean, seed_permutations, seed_sum
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core.config import derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
@@ -73,11 +82,10 @@ from purejaxql_torch.utils.platform import resolve_device
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_rnn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_rnn config")
-    if config.get("NUM_SEEDS", 1) != 1:
-        raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
     for key, what in _NOT_PORTED.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
+    check_seeds(config)
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
     if config.get("FAST_BPTT", False) and not supports_fast_bptt(config):
@@ -154,7 +162,8 @@ def rnn_train_q_values(
     """The train-mode Q-values (T, B, A) of a window, from the network's
     module forward or from ``fast_rnn_train_forward`` (in
     ``compute_dtype``); both leave the input norm's running statistics
-    updated (pqn_rnn.py:276-314)."""
+    updated (pqn_rnn.py:276-314). A network with seeds takes and gives
+    seed-major rows."""
     if not fast_bptt:
         return network(hidden, obs, done, last_action, train=True)[1]
     buffers = dict(network.named_buffers())
@@ -164,6 +173,7 @@ def rnn_train_q_values(
         action_dim=network.action_dim, add_last_action=network.add_last_action,
         norm_input=network.norm_input, cell_type=network.cell_type,
         input_norm_type=network.input_norm_type, pallas=pallas, compute_dtype=compute_dtype,
+        seeds=network.seeds,
     )
     with torch.no_grad():
         for name, value in new_stats.items():
@@ -185,8 +195,10 @@ def learn_minibatch(
     forward from its first stored hidden state, closure-form lambda targets
     from the stop-gradient of the same Q-values (the window's last step only
     bootstraps), 0.5 * MSE on the taken actions of the first T - 1 steps,
-    and clip + RAdam on every parameter. Returns the loss and the chosen
-    Q-values, detached."""
+    and clip + RAdam on every parameter; with seeds (the optimizer's) over
+    seed-major columns, the loss the sum over seeds of each seed's mean.
+    Returns the loss, (S,) with seeds, and the chosen Q-values (flattened
+    time-major), detached."""
     hs0 = list(tree_map(lambda x: x[0], minibatch.last_hs))
     q_vals = rnn_train_q_values(
         network, hs0, minibatch.obs, minibatch.last_done, minibatch.last_action,
@@ -202,11 +214,11 @@ def learn_minibatch(
         gamma,
         lam,
     ).reshape(-1)
-    chosen = q_vals.gather(-1, minibatch.action[..., None]).squeeze(-1)[:-1].reshape(-1)
-    loss = 0.5 * torch.square(chosen - target).mean()
-    grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True, materialize_grads=True)
+    chosen = q_vals.gather(-1, minibatch.action[..., None]).squeeze(-1)[:-1]
+    loss = seed_mean(0.5 * torch.square(chosen - target.reshape(chosen.shape)), optimizer.seeds, 1)
+    grads = torch.autograd.grad(loss.sum(), optimizer.params, allow_unused=True, materialize_grads=True)
     optimizer.step(grads)
-    return loss.detach(), chosen.detach()
+    return loss.detach(), chosen.detach().reshape(-1)
 
 
 def make_train(
@@ -216,12 +228,14 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False;
-    ``runner_state`` is (train_state, memory, (hidden, obs, done,
-    last_action, env_state), test_metrics).
+    (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
+    COLLECT_METRICS=False; ``runner_state`` is (train_state, memory,
+    (hidden, obs, done, last_action, env_state), test_metrics), the envs
+    seed-major with seeds.
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
+    seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
     config.setdefault("ARCH", "mlp")  # the recurrent trunk is dense: flatten the observations
@@ -250,11 +264,14 @@ def make_train(
     )
 
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
-        network = make_rnn_q_network(config, action_dim, obs_shape, generator=host_gen).to(device)
+        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+        host_gen = gens[0]
+        network = make_rnn_q_network(
+            config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen, seeds=seeds
+        ).to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         optimizer = make_optimizer(
-            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config)
+            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
         )
         train_state = PQNTrainState(network, optimizer)
         explore = make_eps_greedy(config, dev_gen, host_gen)
@@ -268,8 +285,12 @@ def make_train(
         def learn(memory: RNNTransition):
             losses, qvals = [], []
             for _ in range(n_epochs):
-                perm = torch.randperm(n_envs, generator=dev_gen, device=device)
-                for idx in perm.reshape(n_minibatches, -1):
+                # each seed's envs permuted, as columns of the seed-major
+                # memory; minibatch m takes block m of every seed's
+                perm = seed_permutations(dev_gen, seeds, n_envs, device)
+                if seeds > 1:
+                    perm = perm + n_envs * torch.arange(seeds, device=device)[:, None]
+                for idx in perm.reshape(seeds, n_minibatches, -1).transpose(0, 1).reshape(n_minibatches, -1):
                     minibatch = map_transitions(lambda x: x[:, idx], memory)
                     loss, chosen = learn_minibatch(
                         network, optimizer, minibatch, gamma, lam, fast_bptt, pallas, compute_dtype
@@ -279,20 +300,21 @@ def make_train(
                     qvals.append(chosen)
             if not collect_metrics:
                 return None, None
-            return torch.stack(losses).mean(), torch.stack(qvals).mean()
+            qvals = torch.stack(qvals).unflatten(1, (memory_len - 1, -1))  # (steps, T - 1, S * B)
+            return seed_mean(torch.stack(losses), seeds, -1), seed_mean(qvals, seeds, 2)
 
         def get_test_metrics() -> Dict[str, torch.Tensor]:
-            carry = start(test_env, config["TEST_NUM_ENVS"])
+            carry = start(test_env, seeds * config["TEST_NUM_ENVS"])
             _, _, infos = rnn_rollout(
                 network, test_env, env_params, dev_gen, carry, config["EPS_TEST"],
                 config["TEST_NUM_STEPS"], rew_scale,
             )
-            return episode_mean_metrics(infos)
+            return episode_mean_metrics(infos, seeds)
 
         test_metrics = get_test_metrics() if test_during_training else {}
         carry, memory, _ = rnn_rollout(
-            network, train_env, env_params, dev_gen, start(train_env, n_envs), 1.0, memory_len, rew_scale,
-            explore,
+            network, train_env, env_params, dev_gen, start(train_env, seeds * n_envs), 1.0, memory_len,
+            rew_scale, explore,
         )
         history = []
         for _ in range(config["NUM_UPDATES"]):
@@ -321,17 +343,17 @@ def make_train(
             if done_masked:
                 # the infos at episode ends only, a mean weighted by returned_episode
                 ended = infos["returned_episode"].float()
-                denom = ended.sum().clamp(min=1.0)
-                metrics.update({k: (v.float() * ended).sum() / denom for k, v in infos.items()})
+                denom = seed_sum(ended, seeds, 1).clamp(min=1.0)
+                metrics.update({k: seed_sum(v.float() * ended, seeds, 1) / denom for k, v in infos.items()})
             else:
-                metrics.update({k: v.float().mean() for k, v in infos.items()})
+                metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 
         return {
             "runner_state": (train_state, memory, carry, test_metrics),
-            "metrics": stack_metrics(history),
+            "metrics": stack_metrics(history, seeds),
         }
 
     return train

@@ -1,0 +1,111 @@
+"""The seed axis of the FF and recurrent trainers: NUM_SEEDS = S > 1 trains
+S seeds as one program, what ``jax.jit(jax.vmap(make_train(config)))`` over
+``jax.random.split(rng, NUM_SEEDS)`` computes in the JAX package
+(purejaxql_tpu/cli.py:72-88). Every leaf of ``runner_state`` and ``metrics``
+gets a leading seed axis of S.
+
+Layout. The network carries the seed axis in its parameters (models/
+stacked.py, ``seeds=S``); everything outside it sees *seed-major folded
+rows*: S * E envs, seed s's E envs the s-th block, so the envs, the Log
+wrapper, epsilon-greedy ((S * E, A) rows) and the lambda returns ((T, S * E)
+columns) run as for one seed with S times the envs. Each env steps on its
+own, so the fold is exact. What differs from one seed:
+
+- the loss is the sum over seeds of each seed's mean (``seed_mean``), so
+  each seed's gradient is the one its lane alone would take;
+- ``core/optim.py`` clips by each seed's own global norm;
+- each seed shuffles its own rows (``seed_permutations``): minibatch m of
+  every seed goes into one step, seed-major (``seed_minibatches``);
+- the metrics reduce per seed (``seed_mean``, ``seed_sum``), (S,) an
+  update; ``timesteps`` counts one seed's steps, as a vmapped lane does.
+
+Randomness (``seed_generators``): lane i's network is drawn from a host
+generator seeded SEED + i, so it is the network of a single-seed run with
+SEED + i, bit for bit. Lane 0's generator then seeds the device generator
+and the kernels, as a single-seed run's does; every env reset, exploration
+draw and permutation of all S lanes comes from those streams, so the lanes
+train on draws of their own, and no lane repeats a single-seed run past its
+initial weights (the streams cannot match JAX's anyway, ROADMAP.md). With
+NUM_SEEDS = 1 the trainers run the single-seed program as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from purejaxql_torch.models.factory import resolve_norms
+from purejaxql_torch.models.qnet import check_lanes
+
+# options whose program is single-seed in this port: the batched env modes
+# (each JAX lane has its own reset pool or bank, and folding would share
+# one) and the fused rollout kernels; the networks' own refusals
+# (BF16_COMPUTE, a BatchRenorm) are ``models/qnet.py:check_lanes``
+_SINGLE_SEED = ("USE_OPTIMISTIC_RESETS", "RESET_BANK", "BATCH_ENV", "FUSED_ROLLOUT")
+
+
+def check_seeds(config: Dict[str, Any]) -> None:
+    """Raise ``NotImplementedError`` naming the pair for an option that does
+    not run with NUM_SEEDS > 1 yet (``ValueError`` for NUM_SEEDS < 1)."""
+    seeds = config.get("NUM_SEEDS", 1)
+    if seeds < 1:
+        raise ValueError(f"NUM_SEEDS must be at least 1, got {seeds}")
+    if seeds == 1:
+        return
+    for key in _SINGLE_SEED:
+        if config.get(key):
+            raise NotImplementedError(f"{key} with NUM_SEEDS > 1 is not ported yet: run one seed")
+    dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
+    check_lanes(seeds, dtype, *resolve_norms(config))
+
+
+def seed_generators(seed: int, seeds: int) -> List[torch.Generator]:
+    """The host generators of the lanes: lane i's seeded ``seed + i``."""
+    return [torch.Generator().manual_seed(seed + i) for i in range(seeds)]
+
+
+def seed_sum(x: torch.Tensor, seeds: int, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x``, or with seeds > 1 each seed's sum, (S,), where
+    ``dim`` holds seed-major folded rows."""
+    if seeds == 1:
+        return x.sum()
+    dim %= x.dim()
+    return x.unflatten(dim, (seeds, -1)).movedim(dim, 0).reshape(seeds, -1).sum(1)
+
+
+def seed_mean(x: torch.Tensor, seeds: int, dim: int = 0) -> torch.Tensor:
+    """The mean of ``x``, or with seeds > 1 each seed's mean, (S,), where
+    ``dim`` holds seed-major folded rows."""
+    if seeds == 1:
+        return x.mean()
+    dim %= x.dim()
+    return x.unflatten(dim, (seeds, -1)).movedim(dim, 0).reshape(seeds, -1).mean(1)
+
+
+def seed_rows(x: torch.Tensor, seeds: int) -> torch.Tensor:
+    """(T, S * E, ...) rollout columns -> (S, T * E, ...): each seed's rows,
+    time-major as one seed's."""
+    return x.reshape(x.shape[0], seeds, -1, *x.shape[2:]).transpose(0, 1).reshape(seeds, -1, *x.shape[2:])
+
+
+def seed_permutations(generator: torch.Generator, seeds: int, n: int, device) -> torch.Tensor:
+    """(S, n): a permutation of n rows a seed. One seed draws
+    ``torch.randperm`` as the single-seed trainer does; several draw an
+    (S, n) uniform and sort it."""
+    if seeds == 1:
+        return torch.randperm(n, generator=generator, device=device)[None]
+    return torch.rand(seeds, n, generator=generator, device=device).argsort(1)
+
+
+def take_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x (S, n, ...) with each seed's rows in the order of its row of
+    ``perm`` (S, n)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], perm]
+
+
+def seed_minibatches(x: torch.Tensor, n_minibatches: int) -> torch.Tensor:
+    """(S, n, ...) -> (M, S * n / M, ...): minibatch m holds block m of
+    every seed's rows, seed-major."""
+    S = x.shape[0]
+    return x.reshape(S, n_minibatches, -1, *x.shape[2:]).transpose(0, 1).reshape(n_minibatches, -1, *x.shape[2:])

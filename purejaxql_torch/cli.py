@@ -15,6 +15,12 @@ DEVICE=cpu is given. Prints
 (flax wire format; the actor-critic family's as one tree ``{"actor": ...,
 "critic": ...}``) and ``<run>_config.yaml``, and replays the metrics into the
 LOG_JSONL file (none with COLLECT_METRICS=False, whose run returns none).
+
+NUM_SEEDS=S > 1 (FF and recurrent trainers) trains S seeds as one program
+(algo/seeds.py), prints the aggregate rate of all S seeds, writes one
+``<run>_vmap{i}.safetensors`` a seed and logs each seed's rows in turn, as
+purejaxql_tpu/cli.py does; FUSED_ROLLOUT with several seeds is refused here,
+as there.
 """
 
 from __future__ import annotations
@@ -74,8 +80,9 @@ def single_run(config):
     counter_state = train_state["actor"] if isinstance(train_state, dict) else train_state
     # the counters are host integers: wait for the device to finish the run
     # before the clock is read (the JAX CLI reads timesteps back from the
-    # device), with or without metrics
-    total = counter_state.timesteps
+    # device), with or without metrics; a seed's steps times the seeds
+    # (purejaxql_tpu/cli.py:103)
+    total = counter_state.timesteps * config.get("NUM_SEEDS", 1)
     device = next(counter_state.network.parameters()).device
     if device.type == "cuda":
         torch.cuda.synchronize(device)

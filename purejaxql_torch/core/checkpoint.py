@@ -15,12 +15,16 @@ Layouts: flax's ``scale`` of a ``LayerNorm_i``, ``BatchNorm_i`` or
 flax ``Dense.kernel`` is (in, out) and a torch ``Linear.weight`` is
 (out, in); a rank-3 kernel is a member-stacked Dense, (M, in, out) in flax
 and (M, out, in) here, the leading axis moved as a batch axis (flax's
-vmapped critic ensemble, models/actor_critic.py); a flax ``Conv.kernel`` is
-HWIO and a torch conv weight is OIHW. Batch statistics live in a separate
+vmapped critic ensemble, models/actor_critic.py, and the NUM_SEEDS networks'
+seed-stacked Dense, models/stacked.py); a flax ``Conv.kernel`` is HWIO and a
+torch conv weight is OIHW, and a seed-stacked one (rank 5) keeps its seed
+axis in front. Batch statistics live in a separate
 flax collection (``batch_stats``: ``mean``, ``var``, and a BatchRenorm's
 ``r_max``, ``d_max`` and int32 ``steps`` as well) and in the modules' buffers
 here, under the same leaf names; stacked ones keep their member axis in
-both.
+both. So the trees of a seed-stacked network are those of
+``jax.vmap(network.init)``, a leading seed axis on every leaf, and
+``save_run`` writes them one file a seed, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -87,6 +91,8 @@ def _to_flax_leaf(module: str, leaf: str, a: np.ndarray):
         return "kernel", np.ascontiguousarray(np.swapaxes(a, -1, -2))
     if a.ndim == 4:  # conv OIHW -> HWIO
         return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if a.ndim == 5:  # seed-stacked conv (S, O, I, H, W) -> (S, H, W, I, O)
+        return "kernel", np.ascontiguousarray(a.transpose(0, 3, 4, 2, 1))
     raise ValueError(f"no flax layout for a rank-{a.ndim} weight")
 
 
@@ -100,6 +106,8 @@ def _from_flax_leaf(leaf: str, t: torch.Tensor):
         return "weight", t.transpose(-1, -2).contiguous()
     if t.dim() == 4:  # conv HWIO -> OIHW
         return "weight", t.permute(3, 2, 0, 1).contiguous()
+    if t.dim() == 5:  # seed-stacked conv (S, H, W, I, O) -> (S, O, I, H, W)
+        return "weight", t.permute(0, 4, 3, 1, 2).contiguous()
     raise ValueError(f"no torch layout for a rank-{t.dim()} kernel")
 
 
@@ -145,16 +153,26 @@ def save_run(
     save_dir: str,
     run_name: str,
 ) -> str:
-    """Save the params (flax wire format) and a config snapshot, in the JAX
-    package's single-seed layout: ``<run_name>.safetensors`` and
-    ``<run_name>_config.yaml``. A dict of modules (the actor-critic family's
-    ``{"actor": ..., "critic": ...}``) is saved as one tree with a top level
-    per module, as purejaxql_tpu/cli.py saves it."""
+    """Save the params (flax wire format) and a config snapshot in the JAX
+    package's layout (purejaxql_tpu/core/checkpoint.py:37-61):
+    ``<run_name>_config.yaml`` and, for one seed, ``<run_name>.safetensors``;
+    with NUM_SEEDS > 1 (a seed-stacked network) one
+    ``<run_name>_vmap{i}.safetensors`` a seed, its leading seed axis
+    stripped. A dict of modules (the actor-critic family's ``{"actor": ...,
+    "critic": ...}``) is saved as one tree with a top level per module, as
+    purejaxql_tpu/cli.py saves it."""
     os.makedirs(save_dir, exist_ok=True)
     save_config(config, os.path.join(save_dir, f"{run_name}_config.yaml"))
     if isinstance(modules, torch.nn.Module):
         params = params_to_flax(modules)["params"]
     else:
         params = {name: params_to_flax(m)["params"] for name, m in modules.items()}
-    save_params(params, os.path.join(save_dir, f"{run_name}.safetensors"))
+    seeds = config.get("NUM_SEEDS", 1)
+    if seeds == 1:
+        save_params(params, os.path.join(save_dir, f"{run_name}.safetensors"))
+        return save_dir
+    flat = _flatten(params)
+    for i in range(seeds):
+        save_params(_unflatten({k: v[i] for k, v in flat.items()}),
+                    os.path.join(save_dir, f"{run_name}_vmap{i}.safetensors"))
     return save_dir

@@ -9,6 +9,12 @@ radam(lr))``), not ``torch.optim.RAdam``, which places eps differently:
 - the learning-rate schedule is read at the count *before* the increment,
   as ``optax.scale_by_schedule`` does.
 
+With ``seeds=S`` > 1 every parameter carries a leading seed axis (the
+NUM_SEEDS networks, models/stacked.py) and the clip takes each seed's own
+global norm, as optax's ``clip_by_global_norm`` under ``jax.vmap`` does;
+RAdam's moments are elementwise and its count is shared by every lane, so
+nothing else changes. One seed runs the single-seed update as it is.
+
 The step count is a host integer, so every scalar of the update (bias
 corrections, rho, the rectifier, the step size) is computed on the host in
 float32 with optax's order of operations; only the per-element work runs on
@@ -41,8 +47,10 @@ class ClipRAdam:
         b2: float = 0.999,
         eps: float = 1e-8,
         threshold: float = 5.0,
+        seeds: int = 1,
     ):
         self.params: List[torch.Tensor] = list(params)
+        self.seeds = seeds
         self.max_grad_norm = float(max_grad_norm)
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.threshold = b1, b2, eps, threshold
@@ -56,12 +64,19 @@ class ClipRAdam:
 
     @torch.no_grad()
     def clip(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.seeds > 1:
+            # each seed's norm over all its leaves' elements: (S,)
+            S = self.seeds
+            g_norm = torch.linalg.vector_norm(torch.cat([g.reshape(S, -1) for g in grads], 1), dim=1)
+        else:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         factor = torch.where(
             g_norm < self.max_grad_norm,
             torch.ones_like(g_norm),
             self.max_grad_norm / g_norm,
         )
+        if self.seeds > 1:
+            return [g * factor.reshape(-1, *(1,) * (g.dim() - 1)) for g in grads]
         return torch._foreach_mul(grads, factor)
 
     @torch.no_grad()
@@ -100,5 +115,5 @@ class ClipRAdam:
         torch._foreach_add_(self.params, updates)
 
 
-def make_optimizer(params, max_grad_norm: float, learning_rate) -> ClipRAdam:
-    return ClipRAdam(params, max_grad_norm, learning_rate)
+def make_optimizer(params, max_grad_norm: float, learning_rate, seeds: int = 1) -> ClipRAdam:
+    return ClipRAdam(params, max_grad_norm, learning_rate, seeds=seeds)

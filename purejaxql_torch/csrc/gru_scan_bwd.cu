@@ -47,7 +47,16 @@
 //
 // With one cluster (B <= R) this is the whole call. With several, each
 // writes its dW_h and db_hn partial to scratch and `gru_partial_sum_kernel`
-// adds them in cluster order. Every output has one owner and every sum a
+// adds them in cluster order.
+//
+// Seeds: with S seeds (NUM_SEEDS, what jax.vmap of the TPU kernel computes
+// with the seed as a grid axis), W_h is (S, H, 3H) and the rows are S
+// seed-major blocks of B, every (T, ., .) input (T, S B, .); dW_h comes out
+// (S, H, 3H) and db_hn (S, H). The grid is S ceil(B / R) clusters, seed by
+// seed: a cluster's rows never straddle two seeds, it reads only its own
+// seed's W_h, and where a seed spans several clusters the partial-sum pass
+// adds each seed's partials, in cluster order. With S = 1 this is the
+// single-seed kernel, bit for bit. Every output has one owner and every sum a
 // fixed order, without atomics, so two launches give the same bits. fp32
 // FFMA on the CUDA cores, not wgmma, for the reasons in gru_scan_fwd.cu.
 
@@ -70,8 +79,8 @@ struct Step {
 __device__ __forceinline__ Step load_step(const float* __restrict__ keep, const float* __restrict__ hprev,
                                           const float* __restrict__ r, const float* __restrict__ z,
                                           const float* __restrict__ n, const float* __restrict__ c,
-                                          const float* __restrict__ gy, int t, int B, int H, int b, int u) {
-  const size_t row = (size_t)t * B + b;
+                                          const float* __restrict__ gy, int t, int Bt, int H, int b, int u) {
+  const size_t row = (size_t)t * Bt + b;
   const size_t o = row * H + u;
   Step s;
   s.keep = keep[row];
@@ -95,20 +104,26 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
                     const float* __restrict__ c_in, const float* __restrict__ gy,
                     const float* __restrict__ ghT, float* __restrict__ dxi,
                     float* __restrict__ dh0, float* __restrict__ dw,
-                    float* __restrict__ db, int T, int B, int H, int Up) {
+                    float* __restrict__ db, int T, int S, int B, int H, int Up) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int H3 = 3 * H;
-  const int cid = blockIdx.x / C;
-  const int b0 = cid * R;
-  const int nb = min(R, B - b0);
+  // this cluster's seed and rows: B a seed, Bt = S B rows a step
+  const int K = (B + R - 1) / R;
+  const int cid = blockIdx.x / C, seed = cid / K;
+  const int lb0 = (cid - seed * K) * R;
+  const int b0 = seed * B + lb0;
+  const int nb = min(R, B - lb0);
+  const int Bt = S * B;
+  wh += (size_t)seed * H * H3;
   const int u0 = rank * Up;
   const int U = min(Up, H - u0);
   const int Wd = (3 * Up + 3) & ~3;  // a row of da_cat's own columns
   const int Ws = Wd + 4;             // a row of the slice: 4 floats apart in banks
   const int tid = threadIdx.x;
-  // this cluster's dW_h and db_hn (the outputs, or its slot of the scratch)
+  // this cluster's dW_h and db_hn (with one cluster a seed the seed's
+  // outputs, else its slot of the scratch, seed-major)
   dw += (size_t)cid * H * H3;
   db += (size_t)cid * H;
 
@@ -143,7 +158,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
   const bool gate = tid < nb * U;
   const int gb = gate ? tid / U : 0, gu = gate ? tid - gb * U : 0;
   Step pre;
-  if (T > 0 && gate) pre = load_step(keep, hprev, r_in, z_in, n_in, c_in, gy, T - 1, B, H, b0 + gb, u0 + gu);
+  if (T > 0 && gate) pre = load_step(keep, hprev, r_in, z_in, n_in, c_in, gy, T - 1, Bt, H, b0 + gb, u0 + gu);
   float gz = 0.0f, keep_next = 0.0f, db_sum = 0.0f;
 
   // thread k's row of the slice and its dW_h (REG), and hbar[b, k] a step ahead
@@ -157,7 +172,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
   float hb[R];
 #pragma unroll
   for (int b = 0; b < R; ++b) {
-    const size_t row = (size_t)(T - 1) * B + b0 + b;
+    const size_t row = (size_t)(T - 1) * Bt + b0 + b;
     hb[b] = REG && T > 0 && tid < H && b < nb ? hprev[row * H + tid] * keep[row] : 0.0f;
   }
 
@@ -175,7 +190,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
         for (int src = 0; src < C; ++src) sum += p[src * R * Up];
         carry = (gz + sum) * keep_next;
       }
-      const size_t row = (size_t)t * B + b0 + gb;
+      const size_t row = (size_t)t * Bt + b0 + gb;
       const int u = u0 + gu;
       const float gg = carry + pre.gy;
       const float r = pre.r, z = pre.z, n = pre.n, c = pre.c;
@@ -197,7 +212,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
       dx[2 * H + u] = da_n;
       gz = gg * z;
       keep_next = pre.keep;
-      if (t > 0) pre = load_step(keep, hprev, r_in, z_in, n_in, c_in, gy, t - 1, B, H, b0 + gb, u);
+      if (t > 0) pre = load_step(keep, hprev, r_in, z_in, n_in, c_in, gy, t - 1, Bt, H, b0 + gb, u);
     }
     __syncthreads();
     // db_hn[u] += the sum over rows b, in order
@@ -262,7 +277,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
     if (REG && t > 0 && tid < H) {
 #pragma unroll
       for (int b = 0; b < R; ++b) {
-        const size_t row = (size_t)(t - 1) * B + b0 + b;
+        const size_t row = (size_t)(t - 1) * Bt + b0 + b;
         hb[b] = b < nb ? hprev[row * H + tid] * keep[row] : 0.0f;
       }
     }
@@ -306,7 +321,7 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
 #pragma unroll
           for (int m = 0; m < kPost; ++m) tmp[m] = 0.0f;
           for (int b = 0; b < nb; ++b) {
-            const size_t row = (size_t)t * B + b0 + b;
+            const size_t row = (size_t)t * Bt + b0 + b;
             const float hbk = hprev[row * H + k] * keep[row];
 #pragma unroll
             for (int m = 0; m < kPost; ++m) {
@@ -333,35 +348,38 @@ gru_scan_bwd_kernel(const float* __restrict__ keep, const float* __restrict__ hp
   }
 }
 
-// out[i] = sum over clusters k, in order, of part[k, i]
+// out[s, i] = sum over a seed's clusters k, in order, of part[s, k, i]:
+// part (S, clusters, n), out (S, n), total = S n
 __global__ void gru_partial_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                       int n, int clusters) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = part[i];
-  for (int k = 1; k < clusters; ++k) s += part[(size_t)k * n + i];
-  out[i] = s;
+                                       int n, int total, int clusters) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= total) return;
+  const int seed = j / n, i = j - seed * n;
+  const float* p = part + (size_t)seed * clusters * n;
+  float s = p[i];
+  for (int k = 1; k < clusters; ++k) s += p[(size_t)k * n + i];
+  out[j] = s;
 }
 
 template <int R, bool RES, bool REG>
 int launch(const float* keep, const float* hprev, const float* wh, const float* r,
            const float* z, const float* n, const float* c, const float* gy,
            const float* ghT, float* dxi, float* dh0, float* dw, float* db, int T,
-           int B, int H, int C, int Up, int threads, int smem, cudaStream_t s) {
-  return launch_clusters(gru_scan_bwd_kernel<R, RES, REG>, C, (B + R - 1) / R, threads, smem, s,
-                         keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, B, H, Up);
+           int S, int B, int H, int C, int Up, int threads, int smem, cudaStream_t s) {
+  return launch_clusters(gru_scan_bwd_kernel<R, RES, REG>, C, S * ((B + R - 1) / R), threads, smem, s,
+                         keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, S, B, H, Up);
 }
 
 template <bool RES, bool REG>
 int launch_rows(const float* keep, const float* hprev, const float* wh, const float* r,
                 const float* z, const float* n, const float* c, const float* gy,
                 const float* ghT, float* dxi, float* dh0, float* dw, float* db, int T,
-                int B, int H, int C, int Up, int R, int threads, int smem, cudaStream_t s) {
+                int S, int B, int H, int C, int Up, int R, int threads, int smem, cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, B, H, C, Up, threads, smem, s);
-    case 2: return launch<2, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, B, H, C, Up, threads, smem, s);
-    case 4: return launch<4, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, B, H, C, Up, threads, smem, s);
-    case 8: return launch<8, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, B, H, C, Up, threads, smem, s);
+    case 1: return launch<1, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, S, B, H, C, Up, threads, smem, s);
+    case 2: return launch<2, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, S, B, H, C, Up, threads, smem, s);
+    case 4: return launch<4, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, S, B, H, C, Up, threads, smem, s);
+    case 8: return launch<8, RES, REG>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw, db, T, S, B, H, C, Up, threads, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -382,11 +400,12 @@ int active_rows(int R, int C, int threads, int smem) {
 
 extern "C" {
 
-// keep (T, B, 1), hprev, r, z, n, c, gy (T, B, H), wh (H, 3H), ghT (B, H)
-// in; dxi (T, B, 3H), dh0 (B, H), dw (H, 3H) = dW_h and db (H,) = db_hn
-// out; all float32 and contiguous. With more than one cluster (ceil(B /
-// rows) > 1) dw_part (clusters, H, 3H) and db_part (clusters, H) are the
-// scratch for the clusters' partial sums, else unused. The plan (cluster C,
+// keep (T, S B, 1), hprev, r, z, n, c, gy (T, S B, H), wh (S, H, 3H), ghT
+// (S B, H) in; dxi (T, S B, 3H), dh0 (S B, H), dw (S, H, 3H) = dW_h and db
+// (S, H) = db_hn out; all float32 and contiguous; S seeds of B rows each
+// (S = 1: wh and dw (H, 3H), db (H,)). With more than one cluster a seed
+// (ceil(B / rows) > 1) dw_part (S, clusters, H, 3H) and db_part (S,
+// clusters, H) are the scratch for the clusters' partial sums, else unused. The plan (cluster C,
 // units per CTA, rows R, threads per CTA, resident, dW_h in registers,
 // shared bytes per CTA) comes from ops/gru_scan.py:scan_plan. Launches on
 // `stream`; returns a cudaError_t (0 on success).
@@ -394,10 +413,11 @@ int gru_scan_bwd_f32(const float* keep, const float* hprev, const float* wh,
                      const float* r, const float* z, const float* n,
                      const float* c, const float* gy, const float* ghT,
                      float* dxi, float* dh0, float* dw, float* db, float* dw_part,
-                     float* db_part, int T, int B, int H, int cluster, int units,
+                     float* db_part, int T, int S, int B, int H, int cluster, int units,
                      int rows, int threads, int resident, int dw_in_loop,
                      int smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (S < 1) return (int)cudaErrorInvalidValue;
   const int clusters = (B + rows - 1) / rows;
   float* dw_out = clusters > 1 ? dw_part : dw;
   float* db_out = clusters > 1 ? db_part : db;
@@ -409,17 +429,17 @@ int gru_scan_bwd_f32(const float* keep, const float* hprev, const float* wh,
   int err;
   if (dw_in_loop)
     err = launch_rows<false, true>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw_out, db_out,
-                                   T, B, H, cluster, units, rows, threads, smem_bytes, s);
+                                   T, S, B, H, cluster, units, rows, threads, smem_bytes, s);
   else if (resident)
     err = launch_rows<true, false>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw_out, db_out,
-                                   T, B, H, cluster, units, rows, threads, smem_bytes, s);
+                                   T, S, B, H, cluster, units, rows, threads, smem_bytes, s);
   else
     err = launch_rows<false, false>(keep, hprev, wh, r, z, n, c, gy, ghT, dxi, dh0, dw_out, db_out,
-                                    T, B, H, cluster, units, rows, threads, smem_bytes, s);
+                                    T, S, B, H, cluster, units, rows, threads, smem_bytes, s);
   if (err != 0 || clusters == 1) return err;
   const int nw = H * 3 * H;
-  gru_partial_sum_kernel<<<(nw + 255) / 256, 256, 0, s>>>(dw_part, dw, nw, clusters);
-  gru_partial_sum_kernel<<<(H + 255) / 256, 256, 0, s>>>(db_part, db, H, clusters);
+  gru_partial_sum_kernel<<<(S * nw + 255) / 256, 256, 0, s>>>(dw_part, dw, nw, S * nw, clusters);
+  gru_partial_sum_kernel<<<(S * H + 255) / 256, 256, 0, s>>>(db_part, db, H, S * H, clusters);
   return (int)cudaGetLastError();
 }
 

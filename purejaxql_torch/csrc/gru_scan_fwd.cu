@@ -37,6 +37,13 @@
 // exchange is in flight. Where the slice does not fit (H > 512), the CTA
 // reads its columns of W_h from L2 every step instead.
 //
+// Seeds: with S seeds (NUM_SEEDS, what jax.vmap of the TPU kernel computes
+// with the seed as a grid axis), W_h is (S, H, 3H), b_hn (S, H), and the
+// rows are S seed-major blocks of B: xi (T, S B, 3H), keep (T, S B, 1), h0
+// (S B, H). The grid is S ceil(B / R) clusters, seed by seed, so a
+// cluster's rows never straddle two seeds and it loads only its own seed's
+// slice of W_h. With S = 1 this is the single-seed kernel, bit for bit.
+//
 // fp32 FFMA on the CUDA cores, not wgmma: B is 2 at the trainers' shapes and
 // wgmma wants 64-row tiles (N would pad from 2 to 8 even with W_h^T as A),
 // and its float32 path is TF32, whose 10 mantissa bits would break the 1e-5
@@ -62,15 +69,22 @@ gru_scan_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ keep
                     const float* __restrict__ bhn, float* __restrict__ y,
                     float* __restrict__ r_out, float* __restrict__ z_out,
                     float* __restrict__ n_out, float* __restrict__ c_out,
-                    int T, int B, int H, int Up) {
+                    int T, int S, int B, int H, int Up) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int H3 = 3 * H;
   const int Hp = (H + 4 * kLanes - 1) / (4 * kLanes) * (4 * kLanes);  // a row of hbar, zero-padded
   const int Hs = Hp + 4;              // a row of the slice: 4 floats apart in banks
-  const int b0 = (blockIdx.x / C) * R;
-  const int nb = min(R, B - b0);
+  // this cluster's seed and rows: B a seed, Bt = S B rows a step
+  const int K = (B + R - 1) / R;
+  const int cid = blockIdx.x / C, seed = cid / K;
+  const int lb0 = (cid - seed * K) * R;
+  const int b0 = seed * B + lb0;
+  const int nb = min(R, B - lb0);
+  const int Bt = S * B;
+  wh += (size_t)seed * H * H3;
+  bhn += (size_t)seed * H;
   const int u0 = rank * Up;
   const int U = min(Up, H - u0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -117,7 +131,7 @@ gru_scan_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ keep
     px_r = x[u_first];
     px_z = x[H + u_first];
     px_n = x[2 * H + u_first];
-    if (T > 1) p_keep = keep[B + b0 + s];
+    if (T > 1) p_keep = keep[Bt + b0 + s];
     b_first = bhn[u_first];
   }
   // REG: the lane's quads k = 4 s + 4 kLanes i of its unit's 3 rows
@@ -208,14 +222,14 @@ gru_scan_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ keep
       }
       if (live && s < nb) {
         const int b = s;
-        const size_t row = (size_t)t * B + b0 + b;
+        const size_t row = (size_t)t * Bt + b0 + b;
         float x_r, x_z, x_n, k_next, b_n;
         if (ub == warp * kUnitsPerWarp) {
           x_r = px_r, x_z = px_z, x_n = px_n, k_next = p_keep, b_n = b_first;
         } else {
           const float* x = xi + row * H3;
           x_r = x[u], x_z = x[H + u], x_n = x[2 * H + u];
-          k_next = t + 1 < T ? keep[row + B] : 0.0f;
+          k_next = t + 1 < T ? keep[row + Bt] : 0.0f;
           b_n = bhn[u];
         }
         const float r = sigmoidf(x_r + a_r);
@@ -241,11 +255,11 @@ gru_scan_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ keep
       n_out[o_first] = n_first;
       c_out[o_first] = c_first;
       if (t + 1 < T) {
-        const float* x = xi + ((size_t)(t + 1) * B + b0 + s) * H3;
+        const float* x = xi + ((size_t)(t + 1) * Bt + b0 + s) * H3;
         px_r = x[u_first];
         px_z = x[H + u_first];
         px_n = x[2 * H + u_first];
-        if (t + 2 < T) p_keep = keep[(size_t)(t + 2) * B + b0 + s];
+        if (t + 2 < T) p_keep = keep[(size_t)(t + 2) * Bt + b0 + s];
       }
     }
     if (t + 1 < T) {
@@ -262,21 +276,21 @@ gru_scan_fwd_kernel(const float* __restrict__ xi, const float* __restrict__ keep
 template <int R, bool RES, bool REG>
 int launch(const float* xi, const float* keep, const float* h0, const float* wh,
            const float* bhn, float* y, float* r, float* z, float* n, float* c,
-           int T, int B, int H, int C, int Up, int threads, int smem, cudaStream_t s) {
-  return launch_clusters(gru_scan_fwd_kernel<R, RES, REG>, C, (B + R - 1) / R, threads, smem, s,
-                         xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, Up);
+           int T, int S, int B, int H, int C, int Up, int threads, int smem, cudaStream_t s) {
+  return launch_clusters(gru_scan_fwd_kernel<R, RES, REG>, C, S * ((B + R - 1) / R), threads, smem, s,
+                         xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, Up);
 }
 
 template <bool RES, bool REG>
 int launch_rows(const float* xi, const float* keep, const float* h0, const float* wh,
                 const float* bhn, float* y, float* r, float* z, float* n, float* c,
-                int T, int B, int H, int C, int Up, int R, int threads, int smem,
+                int T, int S, int B, int H, int C, int Up, int R, int threads, int smem,
                 cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, C, Up, threads, smem, s);
-    case 2: return launch<2, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, C, Up, threads, smem, s);
-    case 4: return launch<4, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, C, Up, threads, smem, s);
-    case 8: return launch<8, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, C, Up, threads, smem, s);
+    case 1: return launch<1, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, C, Up, threads, smem, s);
+    case 2: return launch<2, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, C, Up, threads, smem, s);
+    case 4: return launch<4, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, C, Up, threads, smem, s);
+    case 8: return launch<8, RES, REG>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, C, Up, threads, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -297,30 +311,32 @@ int active_rows(int R, int C, int threads, int smem) {
 
 extern "C" {
 
-// xi (T, B, 3H), keep (T, B, 1), h0 (B, H), wh (H, 3H), bhn (H,) in; y, r,
-// z, n, c (T, B, H) out; all float32 and contiguous. The plan (cluster C,
+// xi (T, S B, 3H), keep (T, S B, 1), h0 (S B, H), wh (S, H, 3H), bhn (S, H)
+// in; y, r, z, n, c (T, S B, H) out; all float32 and contiguous; S seeds
+// of B rows each (S = 1: wh (H, 3H), bhn (H,)). The plan (cluster C,
 // units per CTA, rows R, threads per CTA, resident, in registers, shared
 // bytes per CTA)
 // comes from ops/gru_scan.py:scan_plan. Launches on `stream`; returns a
 // cudaError_t (0 on success).
 int gru_scan_fwd_f32(const float* xi, const float* keep, const float* h0,
                      const float* wh, const float* bhn, float* y, float* r,
-                     float* z, float* n, float* c, int T, int B, int H,
+                     float* z, float* n, float* c, int T, int S, int B, int H,
                      int cluster, int units, int rows, int threads, int resident,
                      int registers, int smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (S < 1) return (int)cudaErrorInvalidValue;
   // the resident kernels take at most 512 threads; the registers hold
   // H <= 4 kLanes kRegQuads of one unit a lane group
   if ((resident || registers) && threads > 512) return (int)cudaErrorInvalidValue;
   if (registers && (H > 4 * kLanes * kRegQuads || threads * kUnitsPerWarp < 32 * units))
     return (int)cudaErrorInvalidValue;
   if (registers)
-    return launch_rows<false, true>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, cluster, units,
+    return launch_rows<false, true>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, cluster, units,
                                     rows, threads, smem_bytes, s);
   if (resident)
-    return launch_rows<true, false>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, cluster, units,
+    return launch_rows<true, false>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, cluster, units,
                                     rows, threads, smem_bytes, s);
-  return launch_rows<false, false>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, B, H, cluster, units,
+  return launch_rows<false, false>(xi, keep, h0, wh, bhn, y, r, z, n, c, T, S, B, H, cluster, units,
                                    rows, threads, smem_bytes, s);
 }
 

@@ -18,7 +18,8 @@ so that weights cross between the packages unchanged (core/checkpoint.py):
 parameters carry a leading member axis, as flax's vmapped init gives them
 (``Dense_i.weight (M, out, in)``, ``LayerNorm_i.weight (M, H)``,
 ``BatchNorm_0`` params and statistics ``(M, F)``). It applies all members in
-one pass, each dense layer one batched matmul over the member axis.
+one pass, each dense layer one batched matmul over the member axis
+(models/stacked.py).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import BatchNorm, LayerNorm, _normalize, _stats
+from purejaxql_torch.models.qnet import BatchNorm, LayerNorm
+from purejaxql_torch.models.stacked import StackedBatchNorm, StackedDense, StackedLayerNorm
 
 
 def orthogonal_(weight: torch.Tensor, scale: float, generator: Optional[torch.Generator]) -> None:
@@ -125,58 +127,6 @@ class Critic(_MLP):
         return self.trunk(torch.cat([obs, action], -1), train).squeeze(-1)
 
 
-class StackedDense(nn.Module):
-    """M dense layers applied to (M, N, in) in one batched matmul; each
-    member's weight drawn orthogonal on its own."""
-
-    def __init__(self, members, in_f, out_f, init_scale, generator):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(members, out_f, in_f))
-        self.bias = nn.Parameter(torch.zeros(members, out_f))
-        orthogonal_(self.weight, init_scale, generator)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.baddbmm(self.bias[:, None, :], x, self.weight.transpose(1, 2))
-
-
-class StackedLayerNorm(nn.Module):
-    """``LayerNorm`` (eps 1e-6) with a scale and bias per member, (M, F)."""
-
-    def __init__(self, members, features, eps=1e-6):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(members, features))
-        self.bias = nn.Parameter(torch.zeros(members, features))
-
-    def forward(self, x):
-        mean, var = _stats(x, -1)
-        return _normalize(x, mean, var, self.eps, self.weight[:, None], self.bias[:, None])
-
-
-class StackedBatchNorm(nn.Module):
-    """``BatchNorm`` per member on (M, N, F): statistics over N; parameters
-    and running statistics (M, F)."""
-
-    def __init__(self, members, features, momentum=0.99, eps=1e-5):
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.weight = nn.Parameter(torch.ones(members, features))
-        self.bias = nn.Parameter(torch.zeros(members, features))
-        self.register_buffer("mean", torch.zeros(members, features))
-        self.register_buffer("var", torch.ones(members, features))
-
-    def forward(self, x, train: bool):
-        if train:
-            mean, var = _stats(x, 1)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean[:, 0])
-                self.var.copy_(m * self.var + (1 - m) * var[:, 0])
-        else:
-            mean, var = self.mean[:, None], self.var[:, None]
-        return _normalize(x, mean, var, self.eps, self.weight[:, None], self.bias[:, None])
-
-
 class CriticEnsemble(nn.Module):
     """NUM_CRITICS critics with member-stacked parameters (flax's vmapped
     ``Critic`` tree), applied in one pass: ``forward`` takes (N, obs_dim)
@@ -201,7 +151,9 @@ class CriticEnsemble(nn.Module):
         width = obs_dim + action_dim
         self.BatchNorm_0 = StackedBatchNorm(M, width)
         for i, hs in enumerate(self.hidden_sizes + (1,)):
-            self.add_module(f"Dense_{i}", StackedDense(M, width, hs, init_scale, generator))
+            layer = StackedDense(M, width, hs)
+            orthogonal_(layer.weight, init_scale, generator)
+            self.add_module(f"Dense_{i}", layer)
             if i < len(self.hidden_sizes):
                 if norm_type == "layer_norm":
                     self.add_module(f"LayerNorm_{i}", StackedLayerNorm(M, hs))

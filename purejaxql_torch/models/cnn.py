@@ -25,16 +25,22 @@ norm and the / input_scale run in float32, the trunk casts once to bfloat16,
 the conv and the dense layers compute in bfloat16 from the float32 master
 parameters, the LayerNorms in float32 returning bfloat16 (``models/qnet.py``),
 and the Q-values come back in float32.
+
+With ``seeds=S`` > 1 (NUM_SEEDS) the network holds S lanes with stacked
+parameters (models/stacked.py; the conv weight (S, O, I, H, W)), lane i
+drawn from ``generator[i]`` as the single network is, and ``forward`` takes
+seed-major rows (S * N, H, W, C); the conv is the same patches product,
+one batched matmul for all lanes. For one seed the network is the single
+one.
 """
 
 from __future__ import annotations
 
-from typing import Optional
 
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import BatchNorm, LayerNorm, dense, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, check_lanes, variance_scaling_
 
 KERNEL = 3
 CONV_FEATURES = 16
@@ -51,42 +57,60 @@ def conv_patches(x: torch.Tensor, k: int = KERNEL) -> torch.Tensor:
 
 
 def conv_weight_matrix(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW conv weight -> (k*k*C, O), rows in the (di, dj, c) order."""
-    o = weight.shape[0]
-    return weight.permute(2, 3, 1, 0).reshape(-1, o)
+    """OIHW conv weight -> (k*k*C, O), rows in the (di, dj, c) order; a
+    stacked (S, O, I, H, W) one -> (S, k*k*C, O)."""
+    lead = weight.dim() - 4
+    o = weight.shape[-4]
+    return weight.permute(*range(lead), lead + 2, lead + 3, lead + 1, lead).reshape(*weight.shape[:lead], -1, o)
 
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with a k x k kernel, stride 1, VALID padding, on
-    NHWC input; the weight is OIHW."""
+    NHWC input; the weight is OIHW. With ``seeds`` > 1, S lanes on (S, N,
+    H, W, C), lane i drawn from ``generator[i]``."""
 
-    def __init__(self, in_channels: int, features: int, generator: Optional[torch.Generator], k: int = KERNEL):
+    def __init__(self, in_channels: int, features: int, generator, k: int = KERNEL, seeds: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, in_channels, k, k))
-        self.bias = nn.Parameter(torch.zeros(features))
-        variance_scaling_(self.weight, k * k * in_channels, HE, generator)
+        lanes = () if seeds == 1 else (seeds,)
+        self.weight = nn.Parameter(torch.empty(*lanes, features, in_channels, k, k))
+        self.bias = nn.Parameter(torch.zeros(*lanes, features))
+        for w, g in [(self.weight, generator)] if seeds == 1 else zip(self.weight, generator):
+            variance_scaling_(w, k * k * in_channels, HE, g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
-        return conv_patches(x, k) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
+        if self.weight.dim() == 4:
+            return conv_patches(x, k) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
+        patches = conv_patches(x.flatten(0, 1), k)  # (S * N, h, w, k*k*C)
+        y = torch.baddbmm(self.bias[:, None], patches.reshape(x.shape[0], -1, patches.shape[-1]),
+                          conv_weight_matrix(self.weight))
+        return y.reshape(*x.shape[:2], *patches.shape[1:3], -1)
 
 
 class MinAtarCNN(nn.Module):
     """One 3x3 VALID conv (16 channels) and a Dense(hidden) trunk, each with
     LayerNorm and relu (cnn.py:50-78)."""
 
-    def __init__(self, obs_shape, hidden_size: int, generator: Optional[torch.Generator]):
+    def __init__(self, obs_shape, hidden_size: int, generator, seeds: int = 1):
         super().__init__()
         rows, cols, channels = obs_shape
         flat = (rows - KERNEL + 1) * (cols - KERNEL + 1) * CONV_FEATURES
-        self.Conv_0 = Conv(channels, CONV_FEATURES, generator)
-        self.LayerNorm_0 = LayerNorm(CONV_FEATURES)
-        self.Dense_0 = dense(flat, hidden_size, generator, scale=HE)
-        self.LayerNorm_1 = LayerNorm(hidden_size)
+        layers = Layers(generator, seeds)
+        self.seeds = seeds
+        self.Conv_0 = Conv(channels, CONV_FEATURES, generator, seeds=seeds)
+        self.LayerNorm_0 = layers.layer_norm(CONV_FEATURES)
+        self.Dense_0 = layers.dense(flat, hidden_size, scale=HE)
+        self.LayerNorm_1 = layers.layer_norm(hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.LayerNorm_0(self.Conv_0(x)))
-        x = x.reshape(x.shape[0], -1)  # (i, j, f), as flax flattens NHWC
+        """(N, H, W, C) -> (N, hidden), or with seeds (S, N, H, W, C) ->
+        (S, N, hidden)."""
+        x = self.Conv_0(x)
+        if self.seeds > 1:  # each lane's pixels as its rows
+            x = torch.relu(self.LayerNorm_0(x.reshape(self.seeds, -1, x.shape[-1]))).reshape(x.shape)
+        else:
+            x = torch.relu(self.LayerNorm_0(x))
+        x = x.reshape(*x.shape[:-3], -1)  # (i, j, f), as flax flattens NHWC
         return torch.relu(self.LayerNorm_1(self.Dense_0(x)))
 
 
@@ -104,10 +128,12 @@ class CNNQNetwork(nn.Module):
         norm_input: bool = False,
         trunk: str = "minatar",
         input_scale: float = 255.0,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         dtype: torch.dtype = torch.float32,
+        seeds: int = 1,
     ):
         super().__init__()
+        check_lanes(seeds, dtype)
         if trunk != "minatar":
             raise NotImplementedError(f"CNN_TRUNK '{trunk}' is not ported yet")
         if norm_type != "layer_norm":
@@ -118,11 +144,20 @@ class CNNQNetwork(nn.Module):
         self.hidden_size = hidden_size
         self.input_scale = input_scale
         self.dtype = dtype
-        self.BatchNorm_0 = BatchNorm(obs_shape[-1])
-        self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator)
-        self.Dense_0 = dense(hidden_size, action_dim, generator)
+        self.seeds = seeds
+        layers = Layers(generator, seeds)
+        self.BatchNorm_0 = layers.norm("batch_norm", obs_shape[-1])
+        self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator, seeds)
+        self.Dense_0 = layers.dense(hidden_size, action_dim)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        normed = self.BatchNorm_0(x, train)
+        if self.seeds > 1:
+            # seed-major rows: each lane's (S, N, H, W, C), its pixels the
+            # input norm's rows
+            x = x.reshape(self.seeds, -1, *x.shape[1:])
+            normed = self.BatchNorm_0(x.reshape(self.seeds, -1, x.shape[-1]), train).reshape(x.shape)
+        else:
+            normed = self.BatchNorm_0(x, train)
         x = normed if self.norm_input else x / self.input_scale
-        return self.Dense_0(self.CNN_0(x.to(self.dtype))).float()
+        q = self.Dense_0(self.CNN_0(x.to(self.dtype))).float()
+        return q.reshape(-1, self.action_dim)

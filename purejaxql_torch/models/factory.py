@@ -11,11 +11,15 @@ package's does, and the recurrent trainers' FAST_BPTT forward takes it
 (``ops/fast_rnn.py``). The Nature trunk, a BatchRenorm trunk in bfloat16 and
 a recurrent trunk norm other than layer_norm come with later slices and raise
 here.
+
+``seeds=S`` > 1 (NUM_SEEDS) gives the network S lanes with stacked
+parameters, the layout of ``jax.vmap(network.init)``'s (models/stacked.py),
+lane i drawn from ``generator[i]``, a sequence of S generators, as the
+single network is drawn from it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
 
 import torch
 from torch import nn
@@ -44,7 +48,7 @@ def resolve_norms(config):
 
 
 def make_q_network(
-    config, action_dim: int, obs_shape, generator: Optional[torch.Generator] = None
+    config, action_dim: int, obs_shape, generator=None, seeds: int = 1
 ) -> nn.Module:
     arch = config.get("ARCH") or ("cnn" if len(obs_shape) >= 3 else "mlp")
     dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
@@ -60,6 +64,7 @@ def make_q_network(
             input_norm_type=input_norm_type,
             generator=generator,
             dtype=dtype,
+            seeds=seeds,
         )
     if arch == "cnn":
         return CNNQNetwork(
@@ -72,6 +77,7 @@ def make_q_network(
             input_scale=config.get("INPUT_SCALE", 255.0),
             generator=generator,
             dtype=dtype,
+            seeds=seeds,
         )
     raise ValueError(f"Unknown ARCH '{arch}'")
 
@@ -96,9 +102,10 @@ def make_rnn_q_network(
     config,
     action_dim: int,
     obs_shape,
-    generator: Optional[torch.Generator] = None,
+    generator=None,
     norms=None,
     hidden_size: int = 128,
+    seeds: int = 1,
 ) -> RNNQNetwork:
     """The recurrent trainers' network (pqn_rnn.py:87-100, pqn_vdn.py:93-104):
     RNN_CELL's cells on a layer_norm trunk over flat observations, the input
@@ -120,4 +127,5 @@ def make_rnn_q_network(
         add_last_action=config.get("ADD_LAST_ACTION", False),
         dueling=config.get("DUELING", False),
         generator=generator,
+        seeds=seeds,
     )

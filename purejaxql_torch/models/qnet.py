@@ -33,6 +33,14 @@ BatchNorm computes its statistics and its normalize in float32 and returns
 bfloat16, as flax's norms with ``dtype=bfloat16`` do (a bfloat16 input less
 a float32 mean promotes to float32), and the Q-values come back in float32.
 For float32 every cast is the identity.
+
+With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
+(``Layers``, models/stacked.py), lane i drawn from ``generator[i]`` as the
+single network is from that generator, and ``forward`` takes and gives
+seed-major rows (S * N, ...), lane s's N rows the s-th block: what
+``jax.vmap`` of the single network computes, each lane with its own
+parameters and batch statistics. For one seed the network is the single
+one, module for module.
 """
 
 from __future__ import annotations
@@ -145,8 +153,9 @@ class BatchNorm(nn.Module):
 @contextlib.contextmanager
 def frozen_statistics(network: nn.Module):
     """Train-mode forwards of ``network`` inside leave every BatchNorm's and
-    BatchRenorm's buffers (a BatchRenorm's ``steps`` too) as they were."""
-    norms = [m for m in network.modules() if isinstance(m, (BatchNorm, BatchRenorm))]
+    BatchRenorm's buffers (a BatchRenorm's ``steps`` too), stacked ones
+    included, as they were: every module with a ``frozen`` flag."""
+    norms = [m for m in network.modules() if hasattr(m, "frozen")]
     for m in norms:
         m.frozen = True
     try:
@@ -156,7 +165,50 @@ def frozen_statistics(network: nn.Module):
             m.frozen = False
 
 
-_NORMS = {"batch_norm": ("BatchNorm", BatchNorm), "batch_renorm": ("BatchRenorm", BatchRenorm)}
+_NORMS = {"batch_norm": "BatchNorm", "batch_renorm": "BatchRenorm"}
+
+
+def check_lanes(seeds: int, dtype: torch.dtype = torch.float32, *norm_types: str) -> None:
+    """Raise for what a network with ``seeds`` > 1 lanes does not run:
+    BF16_COMPUTE and a BatchRenorm (input or trunk: the craftax family's, or
+    INPUT_NORM_TYPE=batch_renorm)."""
+    if seeds == 1:
+        return
+    if dtype != torch.float32:
+        raise NotImplementedError("BF16_COMPUTE with NUM_SEEDS > 1 is not ported yet: run one seed")
+    if "batch_renorm" in norm_types:
+        raise NotImplementedError("a BatchRenorm norm with NUM_SEEDS > 1 is not ported yet: run one seed")
+
+
+class Layers:
+    """The layers of a network with ``seeds`` lanes, drawn from
+    ``generator`` (one seed) or lane i from ``generator[i]``: for one seed
+    this module's own (``dense``, ``LayerNorm``, ``BatchNorm``,
+    ``BatchRenorm``), else the stacked ones of models/stacked.py."""
+
+    def __init__(self, generator, seeds: int = 1):
+        self.generator, self.seeds = generator, seeds
+        if seeds > 1:
+            if len(generator) != seeds:
+                raise ValueError(f"{seeds} lanes need {seeds} generators, got {len(generator)}")
+            from purejaxql_torch.models import stacked  # it imports this module
+
+            self.stacked = stacked
+
+    def dense(self, in_f: int, out_f: int, scale: float = 1.0) -> nn.Module:
+        if self.seeds == 1:
+            return dense(in_f, out_f, self.generator, scale)
+        return self.stacked.lane_dense(in_f, out_f, self.generator, scale)
+
+    def layer_norm(self, features: int) -> nn.Module:
+        return LayerNorm(features) if self.seeds == 1 else self.stacked.StackedLayerNorm(self.seeds, features)
+
+    def norm(self, kind: str, features: int) -> nn.Module:
+        """The BatchNorm or BatchRenorm of ``kind`` ("batch_norm" or
+        "batch_renorm"); stacked, only BatchNorm."""
+        if self.seeds > 1:
+            return self.stacked.StackedBatchNorm(self.seeds, features)
+        return BatchRenorm(features) if kind == "batch_renorm" else BatchNorm(features)
 
 
 class QNetwork(nn.Module):
@@ -169,12 +221,14 @@ class QNetwork(nn.Module):
         norm_type: str = "layer_norm",
         norm_input: bool = False,
         input_norm_type: str = "batch_norm",
-        generator: Optional[torch.Generator] = None,
+        generator=None,
         dtype: torch.dtype = torch.float32,
+        seeds: int = 1,
     ):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "batch_renorm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
+        check_lanes(seeds, dtype, norm_type, input_norm_type)
         if dtype != torch.float32 and norm_type == "batch_renorm":
             # the JAX module computes a BatchRenorm trunk's statistics in the
             # input's bfloat16 and returns float32 (qnet.py:79-88)
@@ -186,6 +240,8 @@ class QNetwork(nn.Module):
         self.norm_type = norm_type
         self.norm_input = norm_input
         self.dtype = dtype
+        self.seeds = seeds
+        layers = Layers(generator, seeds)
         counts = {}
 
         def add(kind, module):
@@ -194,24 +250,28 @@ class QNetwork(nn.Module):
             self.add_module(name, module)
             return name
 
-        kind, cls = _NORMS[input_norm_type]
-        self.input_norm = add(kind, cls(obs_dim))
+        self.input_norm = add(_NORMS[input_norm_type], layers.norm(input_norm_type, obs_dim))
         self.layers = []
         width = obs_dim
         for _ in range(num_layers):
-            dense_name = add("Dense", dense(width, hidden_size, generator))
+            dense_name = add("Dense", layers.dense(width, hidden_size))
             if norm_type == "layer_norm":
-                norm_name = add("LayerNorm", LayerNorm(hidden_size))
+                norm_name = add("LayerNorm", layers.layer_norm(hidden_size))
             elif norm_type in _NORMS:
-                kind, cls = _NORMS[norm_type]
-                norm_name = add(kind, cls(hidden_size))
+                norm_name = add(_NORMS[norm_type], layers.norm(norm_type, hidden_size))
             else:
                 norm_name = None
             self.layers.append((dense_name, norm_name))
             width = hidden_size
-        self.head = add("Dense", dense(width, action_dim, generator))
+        self.head = add("Dense", layers.dense(width, action_dim))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.seeds > 1:
+            # seed-major rows (S * N, F): each lane's (S, N, F)
+            return self._forward(x.reshape(self.seeds, -1, x.shape[-1]), train).reshape(-1, self.action_dim)
+        return self._forward(x, train)
+
+    def _forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         normed = getattr(self, self.input_norm)(x, train)
         if self.norm_input:
             x = normed

@@ -27,6 +27,14 @@ weights cross between the packages unchanged (core/checkpoint.py):
   ``Dense_<num_layers + 1>``, q = value + adv - mean(adv).
 
 Other trunk norms come with a later slice; the factory raises for them.
+
+With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
+(models/stacked.py), lane i drawn from ``generator[i]`` as the single
+network is from that generator, and ``forward`` takes and gives seed-major
+rows: x (T, S * B, F), done and last_action (T, S * B), carries (S * B, H),
+Q-values (T, S * B, A); inside, the lanes run as (T, S, B, .), what
+``jax.vmap`` of the single network computes. A BatchRenorm input norm is
+refused with seeds. For one seed the network is the single one.
 """
 
 from __future__ import annotations
@@ -36,8 +44,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from purejaxql_torch.models.batch_renorm import BatchRenorm
-from purejaxql_torch.models.qnet import BatchNorm, LayerNorm, dense, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, check_lanes, variance_scaling_
+from purejaxql_torch.models.stacked import lane_dense, lane_orthogonal, linear
 
 LSTM_GATES = ("i", "f", "g", "o")
 
@@ -55,16 +63,36 @@ def _orthogonal_linear(
     return layer
 
 
-class GRUCell(nn.Module):
-    """flax ``linen.GRUCell`` over (B, F) inputs and a (B, H) carry."""
+def _recurrent(features: int, bias: bool, generator, seeds: int) -> nn.Module:
+    """``_orthogonal_linear``, or with seeds its stacked form, lane i drawn
+    from ``generator[i]``."""
+    if seeds == 1:
+        return _orthogonal_linear(features, bias, generator)
+    return lane_orthogonal(features, bias, generator)
 
-    def __init__(self, in_features: int, hidden_size: int, generator: Optional[torch.Generator] = None):
+
+def _input_kernel(in_features: int, hidden_size: int, generator, seeds: int) -> nn.Module:
+    """An LSTM gate's input kernel: lecun-normal, no bias (stacked with
+    seeds)."""
+    if seeds > 1:
+        return lane_dense(in_features, hidden_size, generator, bias=False)
+    layer = torch.nn.utils.skip_init(nn.Linear, in_features, hidden_size, bias=False)
+    variance_scaling_(layer.weight, in_features, 1.0, generator)
+    return layer
+
+
+class GRUCell(nn.Module):
+    """flax ``linen.GRUCell`` over (B, F) inputs and a (B, H) carry (with
+    seeds, (S, B, F) and (S, B, H))."""
+
+    def __init__(self, in_features: int, hidden_size: int, generator=None, seeds: int = 1):
         super().__init__()
+        layers = Layers(generator, seeds)
         for gate in ("ir", "iz", "in"):
-            self.add_module(gate, dense(in_features, hidden_size, generator))
-        self.hr = _orthogonal_linear(hidden_size, False, generator)
-        self.hz = _orthogonal_linear(hidden_size, False, generator)
-        self.hn = _orthogonal_linear(hidden_size, True, generator)
+            self.add_module(gate, layers.dense(in_features, hidden_size))
+        self.hr = _recurrent(hidden_size, False, generator, seeds)
+        self.hz = _recurrent(hidden_size, False, generator, seeds)
+        self.hn = _recurrent(hidden_size, True, generator, seeds)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         r = torch.sigmoid(self.ir(x) + self.hr(h))
@@ -75,25 +103,23 @@ class GRUCell(nn.Module):
 
 class OptimizedLSTMCell(nn.Module):
     """flax ``linen.OptimizedLSTMCell`` over (B, F) inputs and a (c, h)
-    carry of two (B, H). As flax does, the four gates' kernels are
-    concatenated into one product for the input and one for the hidden
-    state."""
+    carry of two (B, H) (with seeds, (S, B, .)). As flax does, the four
+    gates' kernels are concatenated into one product for the input and one
+    for the hidden state."""
 
-    def __init__(self, in_features: int, hidden_size: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, hidden_size: int, generator=None, seeds: int = 1):
         super().__init__()
         for gate in LSTM_GATES:
-            layer = torch.nn.utils.skip_init(nn.Linear, in_features, hidden_size, bias=False)
-            variance_scaling_(layer.weight, in_features, 1.0, generator)
-            self.add_module(f"i{gate}", layer)
+            self.add_module(f"i{gate}", _input_kernel(in_features, hidden_size, generator, seeds))
         for gate in LSTM_GATES:
-            self.add_module(f"h{gate}", _orthogonal_linear(hidden_size, True, generator))
+            self.add_module(f"h{gate}", _recurrent(hidden_size, True, generator, seeds))
 
     def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor):
         c, h = carry
-        w_i = torch.cat([getattr(self, f"i{g}").weight for g in LSTM_GATES])
-        w_h = torch.cat([getattr(self, f"h{g}").weight for g in LSTM_GATES])
-        b_h = torch.cat([getattr(self, f"h{g}").bias for g in LSTM_GATES])
-        i, f, g, o = (nn.functional.linear(h, w_h, b_h) + nn.functional.linear(x, w_i)).chunk(4, -1)
+        w_i = torch.cat([getattr(self, f"i{g}").weight for g in LSTM_GATES], -2)
+        w_h = torch.cat([getattr(self, f"h{g}").weight for g in LSTM_GATES], -2)
+        b_h = torch.cat([getattr(self, f"h{g}").bias for g in LSTM_GATES], -1)
+        i, f, g, o = (linear(h, w_h, b_h) + linear(x, w_i)).chunk(4, -1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return c, torch.sigmoid(o) * torch.tanh(c)
 
@@ -102,21 +128,21 @@ class ScannedRNN(nn.Module):
     """One GRU or LSTM layer over the leading time axis, the carry (h, or
     the LSTM's (c, h)) zeroed wherever ``resets[t]`` is set."""
 
-    def __init__(self, in_features: int, hidden_size: int, generator: Optional[torch.Generator] = None,
-                 cell_type: str = "gru"):
+    def __init__(self, in_features: int, hidden_size: int, generator=None,
+                 cell_type: str = "gru", seeds: int = 1):
         super().__init__()
         self.cell_type = cell_type
         if cell_type == "lstm":
-            self.OptimizedLSTMCell_0 = OptimizedLSTMCell(in_features, hidden_size, generator)
+            self.OptimizedLSTMCell_0 = OptimizedLSTMCell(in_features, hidden_size, generator, seeds)
         else:  # any other cell type is a GRU, as in rnn.py:57-60
-            self.GRUCell_0 = GRUCell(in_features, hidden_size, generator)
+            self.GRUCell_0 = GRUCell(in_features, hidden_size, generator, seeds)
 
     def forward(self, carry, x: torch.Tensor, resets: torch.Tensor):
         """carry (B, H) or (c, h), x (T, B, F), resets (T, B) -> (carry at
-        T, ys (T, B, H))."""
+        T, ys (T, B, H)); with seeds B is (S, B)."""
         ys = []
         for t in range(x.shape[0]):
-            reset = resets[t][:, None]
+            reset = resets[t][..., None]
             if self.cell_type == "lstm":
                 carry = self.OptimizedLSTMCell_0(
                     tuple(torch.where(reset, torch.zeros_like(v), v) for v in carry), x[t]
@@ -126,6 +152,11 @@ class ScannedRNN(nn.Module):
                 carry = self.GRUCell_0(torch.where(reset, torch.zeros_like(carry), carry), x[t])
                 ys.append(carry)
         return carry, torch.stack(ys)
+
+
+def map_carry(fn, hidden) -> list:
+    """``fn`` over each layer's carry: (B, H), or an LSTM layer's (c, h)."""
+    return [tuple(fn(v) for v in h) if isinstance(h, (tuple, list)) else fn(h) for h in hidden]
 
 
 class RNNQNetwork(nn.Module):
@@ -150,9 +181,12 @@ class RNNQNetwork(nn.Module):
         input_norm_type: str = "batch_norm",
         add_last_action: bool = False,
         dueling: bool = False,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
+        seeds: int = 1,
     ):
         super().__init__()
+        check_lanes(seeds, torch.float32, input_norm_type)
+        self.seeds = seeds
         self.action_dim = action_dim
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -162,25 +196,27 @@ class RNNQNetwork(nn.Module):
         self.input_norm_type = input_norm_type
         self.add_last_action = add_last_action
         self.dueling = dueling
+        layers = Layers(generator, seeds)
+        norm = layers.norm(input_norm_type, obs_dim)
         if input_norm_type == "batch_renorm":
-            self.BatchRenorm_0 = BatchRenorm(obs_dim)
+            self.BatchRenorm_0 = norm
         else:
-            self.BatchNorm_0 = BatchNorm(obs_dim)
+            self.BatchNorm_0 = norm
         width = obs_dim
         for i in range(num_layers):
-            self.add_module(f"Dense_{i}", dense(width, hidden_size, generator))
-            self.add_module(f"LayerNorm_{i}", LayerNorm(hidden_size))
+            self.add_module(f"Dense_{i}", layers.dense(width, hidden_size))
+            self.add_module(f"LayerNorm_{i}", layers.layer_norm(hidden_size))
             width = hidden_size
         if add_last_action:
             width += action_dim
         for layer in range(num_rnn_layers):
-            self.add_module(f"ScannedRNN_{layer}", ScannedRNN(width, hidden_size, generator, cell_type))
+            self.add_module(f"ScannedRNN_{layer}", ScannedRNN(width, hidden_size, generator, cell_type, seeds))
             width = hidden_size
         if dueling:
-            self.add_module(f"Dense_{num_layers}", dense(width, 1, generator))
-            self.add_module(f"Dense_{num_layers + 1}", dense(width, action_dim, generator))
+            self.add_module(f"Dense_{num_layers}", layers.dense(width, 1))
+            self.add_module(f"Dense_{num_layers + 1}", layers.dense(width, action_dim))
         else:
-            self.add_module(f"Dense_{num_layers}", dense(width, action_dim, generator))
+            self.add_module(f"Dense_{num_layers}", layers.dense(width, action_dim))
 
     def initialize_carry(self, batch_size: int, device=None) -> list:
         """One zero carry a layer: (B, H), or a (c, h) pair for LSTM."""
@@ -195,6 +231,15 @@ class RNNQNetwork(nn.Module):
         last_action: torch.Tensor,
         train: bool,
     ) -> Tuple[list, torch.Tensor]:
+        if self.seeds == 1:
+            return self._forward(hidden, x, done, last_action, train)
+        lanes = lambda t, dim: t.unflatten(dim, (self.seeds, -1))  # noqa: E731
+        new_hidden, q_vals = self._forward(
+            map_carry(lambda h: lanes(h, 0), hidden), lanes(x, 1), lanes(done, 1), lanes(last_action, 1), train
+        )
+        return map_carry(lambda h: h.flatten(0, 1), new_hidden), q_vals.flatten(1, 2)
+
+    def _forward(self, hidden, x, done, last_action, train):
         normed = self.input_norm(x, train)
         if self.norm_input:
             x = normed

@@ -27,6 +27,13 @@ as in the JAX package (fast_rnn.py:438, 346-368).
 The functions take ``params`` and ``batch_stats`` as flat dicts in the
 network's own names and layouts (``dict(network.named_parameters())`` and
 ``dict(network.named_buffers())``: ``Dense_0.weight`` is (out, in)).
+
+With ``seeds=S`` > 1 (the NUM_SEEDS network, models/stacked.py) every
+parameter and statistic carries a leading seed axis and the rows are
+seed-major, x (T, S * B, F): the forward runs on (T, S, B, .), each product
+one batched matmul over the seeds (``_mp_matmul``), each input-norm
+statistic per seed, and each GRU layer's scan one launch of each kernel for
+all seeds (``gru_layer_scan_kernel``); float32 only.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
-from purejaxql_torch.models.rnn import LSTM_GATES
+from purejaxql_torch.models.rnn import LSTM_GATES, map_carry
+from purejaxql_torch.models.stacked import lane_matmul
 from purejaxql_torch.ops.gru_scan import GRUScan
 
 
@@ -46,31 +54,38 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return y * scale + bias
 
 
-def _moments(x):
-    axes = tuple(range(x.dim() - 1))
-    mean = x.mean(axes)
-    return mean, torch.square(x - mean).mean(axes)
+def _moments(x, lanes=False):
+    """The mean and biased variance over every axis but the last; with
+    ``lanes``, x (T, S, B, F), also but the seed axis, kept for broadcasting."""
+    axes = tuple(d for d in range(x.dim() - 1) if not (lanes and d == x.dim() - 3))
+    mean = x.mean(axes, keepdim=lanes)
+    return mean, torch.square(x - mean).mean(axes, keepdim=lanes)
 
 
-def _batch_stats_update(x, ra_mean, ra_var, momentum=0.99):
+def _batch_stats_update(x, ra_mean, ra_var, momentum=0.99, lanes=False):
     """flax nn.BatchNorm's running-average update (train mode): statistics
-    over every axis but the last, biased variance, EMA with ``momentum``."""
-    mean, var = _moments(x)
-    return momentum * ra_mean + (1 - momentum) * mean, momentum * ra_var + (1 - momentum) * var
+    over every axis but the last (and the seed axis), biased variance, EMA
+    with ``momentum``."""
+    mean, var = _moments(x, lanes)
+    return (momentum * ra_mean + (1 - momentum) * mean.reshape(ra_mean.shape),
+            momentum * ra_var + (1 - momentum) * var.reshape(ra_var.shape))
 
 
-def _batch_norm_train(x, scale, bias, eps=1e-5):
-    mean, var = _moments(x)
+def _batch_norm_train(x, scale, bias, eps=1e-5, lanes=False):
+    mean, var = _moments(x, lanes)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
 def _mp_matmul(a, b, dtype=torch.float32):
-    """a (..., K) @ b (K, N) (fast_rnn.py:50-62). For float32 the plain
-    product. For bfloat16 the operands are rounded to bfloat16 and multiplied
+    """a (..., K) @ b (K, N) (fast_rnn.py:50-62); for a stacked b (S, K, N),
+    a (..., S, B, K), lane by lane in one batched product (float32). For
+    float32 the plain product. For bfloat16 the operands are rounded to bfloat16 and multiplied
     in float32: a product of two bfloat16 numbers is exact in float32, so
     this is the JAX package's bfloat16-operand product with float32
     accumulation and a float32 result (``preferred_element_type``), whose
     gradients come back through the casts rounded to bfloat16 as there."""
+    if b.dim() == 3:
+        return lane_matmul(a, b)
     if dtype == torch.float32:
         return torch.matmul(a, b)
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
@@ -116,28 +131,29 @@ def _cell(params: Mapping[str, torch.Tensor], layer: int, cell_type: str) -> Dic
 def gru_weights(cell: Mapping[str, torch.Tensor]):
     """(w_i (F, 3H), b_i (3H,), w_h (H, 3H), b_hn (H,)) of a GRU cell's
     params (``ir.weight``, ..., ``hn.bias``), gates in the order r, z, n and
-    kernels in the (in, out) layout of fast_rnn.py:180-192."""
-    w_i = torch.cat([cell[f"{g}.weight"].t() for g in ("ir", "iz", "in")], 1)
-    b_i = torch.cat([cell[f"{g}.bias"] for g in ("ir", "iz", "in")])
-    w_h = torch.cat([cell[f"{g}.weight"].t() for g in ("hr", "hz", "hn")], 1)
+    kernels in the (in, out) layout of fast_rnn.py:180-192 (with a leading
+    seed axis where the cell is stacked)."""
+    w_i = torch.cat([cell[f"{g}.weight"].mT for g in ("ir", "iz", "in")], -1)
+    b_i = torch.cat([cell[f"{g}.bias"] for g in ("ir", "iz", "in")], -1)
+    w_h = torch.cat([cell[f"{g}.weight"].mT for g in ("hr", "hz", "hn")], -1)
     return w_i, b_i, w_h, cell["hn.bias"]
 
 
 def gru_layer_scan(x_seq, resets, h0, cell, compute_dtype=torch.float32):
     """One GRU layer over time with the input projections hoisted
     (fast_rnn.py:171-212). x_seq (T, B, F), resets (T, B) bool, h0 (B, H);
-    returns (h_T, y_seq (T, B, H))."""
+    returns (h_T, y_seq (T, B, H)); with seeds B is (S, B)."""
     w_i, b_i, w_h, b_hn = gru_weights(cell)
-    H = w_h.shape[0]
+    H = w_h.shape[-2]
     xi_seq = _mp_matmul(x_seq, w_i, compute_dtype) + b_i
     h, ys = h0, []
     for t in range(x_seq.shape[0]):
         xi = xi_seq[t]
-        h = torch.where(resets[t][:, None], torch.zeros_like(h), h)
+        h = torch.where(resets[t][..., None], torch.zeros_like(h), h)
         hh = _mp_matmul(h, w_h, compute_dtype)
-        r = torch.sigmoid(xi[:, :H] + hh[:, :H])
-        z = torch.sigmoid(xi[:, H:2 * H] + hh[:, H:2 * H])
-        n = torch.tanh(xi[:, 2 * H:] + r * (hh[:, 2 * H:] + b_hn))
+        r = torch.sigmoid(xi[..., :H] + hh[..., :H])
+        z = torch.sigmoid(xi[..., H:2 * H] + hh[..., H:2 * H])
+        n = torch.tanh(xi[..., 2 * H:] + r * (hh[..., 2 * H:] + b_hn))
         h = (1.0 - z) * n + z * h
         ys.append(h)
     return h, torch.stack(ys)
@@ -146,10 +162,11 @@ def gru_layer_scan(x_seq, resets, h0, cell, compute_dtype=torch.float32):
 def lstm_weights(cell: Mapping[str, torch.Tensor]):
     """(w_i (F, 4H), w_h (H, 4H), b_h (4H,)) of an LSTM cell's params
     (``ii.weight``, ..., ``ho.bias``), gates in the order i, f, g, o and
-    kernels in the (in, out) layout of fast_rnn.py:137-149."""
-    w_i = torch.cat([cell[f"i{g}.weight"].t() for g in LSTM_GATES], 1)
-    w_h = torch.cat([cell[f"h{g}.weight"].t() for g in LSTM_GATES], 1)
-    b_h = torch.cat([cell[f"h{g}.bias"] for g in LSTM_GATES])
+    kernels in the (in, out) layout of fast_rnn.py:137-149 (with a leading
+    seed axis where the cell is stacked)."""
+    w_i = torch.cat([cell[f"i{g}.weight"].mT for g in LSTM_GATES], -1)
+    w_h = torch.cat([cell[f"h{g}.weight"].mT for g in LSTM_GATES], -1)
+    b_h = torch.cat([cell[f"h{g}.bias"] for g in LSTM_GATES], -1)
     return w_i, w_h, b_h
 
 
@@ -158,7 +175,8 @@ def lstm_layer_scan(x_seq, resets, carry0, cell, compute_dtype=torch.float32):
     (fast_rnn.py:126-168): one window-wide (T*B, F) x (F, 4H) product, then
     per step the carry zeroed where ``resets`` is set, one (B, H) x (H, 4H)
     product and the gate math. x_seq (T, B, F), resets (T, B), carry0 the
-    pair (c, h) of (B, H); returns ((c_T, h_T), y_seq (T, B, H))."""
+    pair (c, h) of (B, H); returns ((c_T, h_T), y_seq (T, B, H)); with
+    seeds B is (S, B)."""
     w_i, w_h, b_h = lstm_weights(cell)
     xi_seq = _mp_matmul(x_seq, w_i, compute_dtype)
     keep = (1.0 - resets.to(torch.float32))[..., None]
@@ -176,11 +194,16 @@ def gru_layer_scan_kernel(x_seq, resets, h0, cell):
     """Same contract as ``gru_layer_scan``, with the time recurrence, forward
     and backward, in the CUDA kernels (counterpart of
     ``gru_layer_scan_pallas``, fast_rnn.py:346-368). On CPU tensors the
-    kernels' plain twins run."""
+    kernels' plain twins run. With seeds the kernels take the seed-major
+    rows (T, S * B, .) and the stacked W_h (S, H, 3H) and b_hn (S, H): one
+    launch of each for all seeds."""
     w_i, b_i, w_h, b_hn = gru_weights(cell)
-    xi_seq = (torch.matmul(x_seq, w_i) + b_i).contiguous()
-    keep = (1.0 - resets.to(torch.float32))[..., None].contiguous()
-    return GRUScan.apply(xi_seq, keep, h0.contiguous(), w_h.contiguous(), b_hn.contiguous())
+    T, H = x_seq.shape[0], w_h.shape[-2]
+    xi_seq = (_mp_matmul(x_seq, w_i) + b_i).reshape(T, -1, 3 * H).contiguous()
+    keep = (1.0 - resets.to(torch.float32)).reshape(T, -1, 1).contiguous()
+    h_T, y = GRUScan.apply(xi_seq, keep, h0.reshape(-1, H).contiguous(), w_h.contiguous(),
+                           b_hn.reshape(*w_h.shape[:-2], H).contiguous())
+    return h_T.reshape(h0.shape), y.reshape(*x_seq.shape[:-1], H)
 
 
 def supports_fast_bptt(config) -> bool:
@@ -218,6 +241,7 @@ def fast_rnn_train_forward(
     input_norm_type: str = "batch_norm",
     pallas: bool = False,
     compute_dtype: torch.dtype = torch.float32,
+    seeds: int = 1,
 ) -> Tuple[list, torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode forward of ``RNNQNetwork`` (fast_rnn.py:390-469). Returns
     (new_hidden, q_vals (T, B, A), new_batch_stats), the statistics detached
@@ -226,8 +250,17 @@ def fast_rnn_train_forward(
     x (T, B, F) obs, done (T, B), last_action (T, B) int, hidden a list of
     per-layer carries ((B, H), or (c, h) for ``cell_type="lstm"``);
     ``pallas`` runs each GRU layer's recurrence through the CUDA kernels
-    (``gru_layer_scan_kernel``); ``compute_dtype`` as the module says.
+    (``gru_layer_scan_kernel``); ``compute_dtype`` as the module says. With
+    ``seeds`` > 1 the params are stacked and every row axis B holds S * B
+    seed-major rows, in and out.
     """
+    lanes = seeds > 1
+    if lanes:
+        # the rows as (T, S, B, .) and the carries as (S, B, H); a stacked
+        # vector parameter (S, F) broadcast over each lane's rows
+        x, done, last_action = (t.unflatten(1, (seeds, -1)) for t in (x, done, last_action))
+        hidden = map_carry(lambda h: h.unflatten(0, (seeds, -1)), hidden)
+        params = {k: v[:, None] if v.dim() == 2 else v for k, v in params.items()}
     if input_norm_type == "batch_renorm":
         y, new_stats = _batch_renorm_train(
             x, params["BatchRenorm_0.weight"], params["BatchRenorm_0.bias"],
@@ -239,14 +272,14 @@ def fast_rnn_train_forward(
     else:
         with torch.no_grad():
             new_mean, new_var = _batch_stats_update(
-                x, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"]
+                x, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"], lanes=lanes
             )
         if norm_input:
-            x = _batch_norm_train(x, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"])
+            x = _batch_norm_train(x, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"], lanes=lanes)
         new_batch_stats = {"BatchNorm_0.mean": new_mean, "BatchNorm_0.var": new_var}
 
     for i in range(num_layers):
-        x = _mp_matmul(x, params[f"Dense_{i}.weight"].t(), compute_dtype) + params[f"Dense_{i}.bias"]
+        x = _mp_matmul(x, params[f"Dense_{i}.weight"].mT, compute_dtype) + params[f"Dense_{i}.bias"]
         x = _layer_norm(x, params[f"LayerNorm_{i}.weight"], params[f"LayerNorm_{i}.bias"])
         x = torch.relu(x)
 
@@ -267,5 +300,7 @@ def fast_rnn_train_forward(
         new_hidden.append(carry_T)
 
     head_w, head_b = params[f"Dense_{num_layers}.weight"], params[f"Dense_{num_layers}.bias"]
-    q_vals = _mp_matmul(x, head_w.t(), compute_dtype) + head_b
+    q_vals = _mp_matmul(x, head_w.mT, compute_dtype) + head_b
+    if lanes:
+        return map_carry(lambda h: h.flatten(0, 1), new_hidden), q_vals.flatten(1, 2), new_batch_stats
     return new_hidden, q_vals, new_batch_stats

@@ -12,6 +12,14 @@ Shapes (float32): xi (T, B, 3H) the hoisted input projections [r | z | n],
 keep (T, B, 1) the 0/1 mask 1 - reset, h0 (B, H), w_h (H, 3H) =
 [W_hr | W_hz | W_hn] in the (in, out) layout, b_hn (H,).
 
+Seeds (NUM_SEEDS): a stacked w_h (S, H, 3H) and b_hn (S, H) take S
+seed-major blocks of B rows, xi (T, S * B, 3H), keep (T, S * B, 1), h0
+(S * B, H), block s on seed s's weights; the backward returns dw_h (S, H,
+3H) and db_hn (S, H). This is ``jax.vmap`` of ``_gru_core``, whose
+``pallas_call`` batching rule adds the seed as a grid axis: here the grid
+is S x ceil(B / R) clusters, one launch of each kernel for all seeds, the
+plan per seed's B (a cluster's rows never straddle two seeds).
+
 Both kernels run as thread-block clusters: ``scan_plan`` splits the H hidden
 units over the C CTAs of a cluster and the B rows over clusters of R rows.
 Each CTA keeps the 3U columns of W_h that belong to its U units on chip for
@@ -38,34 +46,47 @@ import torch
 from purejaxql_torch.ops import build
 
 
+def _lanes(w_h, rows):
+    """With a stacked w_h, each tensor of ``rows`` (a seed-major row axis at
+    the given dim) split into (S, B) there; else as they are."""
+    if w_h.dim() == 2:
+        return [x for x, _ in rows]
+    return [x.unflatten(dim, (w_h.shape[0], -1)) for x, dim in rows]
+
+
 def gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn):
     """Returns (y, r, z, n, c), each (T, B, H): the new hidden state and the
-    gate residuals of every step (fast_rnn.py:224-245)."""
+    gate residuals of every step (fast_rnn.py:224-245); with seeds each
+    block of rows on its seed's weights."""
     H = h0.shape[-1]
+    xi, keep, h = _lanes(w_h, [(xi, 1), (keep, 1), (h0, 0)])
+    if w_h.dim() == 3:
+        b_hn = b_hn[:, None]
     steps = []
-    h = h0
     for t in range(xi.shape[0]):
         h = h * keep[t]
         hh = h @ w_h
         x = xi[t]
-        r = torch.sigmoid(x[:, :H] + hh[:, :H])
-        z = torch.sigmoid(x[:, H:2 * H] + hh[:, H:2 * H])
-        c = hh[:, 2 * H:] + b_hn
-        n = torch.tanh(x[:, 2 * H:] + r * c)
+        r = torch.sigmoid(x[..., :H] + hh[..., :H])
+        z = torch.sigmoid(x[..., H:2 * H] + hh[..., H:2 * H])
+        c = hh[..., 2 * H:] + b_hn
+        n = torch.tanh(x[..., 2 * H:] + r * c)
         h = (1.0 - z) * n + z * h
         steps.append((h, r, z, n, c))
-    return tuple(torch.stack(s) for s in zip(*steps))
+    return tuple(torch.stack(s).reshape(xi.shape[0], -1, H) for s in zip(*steps))
 
 
 def gru_scan_bwd_plain(keep, hprev, w_h, r, z, n, c, g_y, g_hT):
     """Returns (dxi (T, B, 3H), dh0 (B, H), dw_h (H, 3H), db_hn (H,)) from
     the forward residuals and the cotangents g_y (T, B, H) and g_hT (B, H)
-    (fast_rnn.py:248-285)."""
-    T = keep.shape[0]
-    dxi = g_y.new_empty(T, g_y.shape[1], 3 * g_y.shape[2])
+    (fast_rnn.py:248-285); with seeds dw_h and db_hn per seed."""
+    T, rows, H = hprev.shape
+    keep, hprev, r, z, n, c, g_y, g = _lanes(
+        w_h, [(keep, 1), (hprev, 1), (r, 1), (z, 1), (n, 1), (c, 1), (g_y, 1), (g_hT, 0)]
+    )
+    dxi = g_y.new_empty(*g_y.shape[:-1], 3 * H)
     dw_h = torch.zeros_like(w_h)
-    db_hn = w_h.new_zeros(w_h.shape[0])
-    g = g_hT
+    db_hn = w_h.new_zeros(w_h.shape[:-1])
     for t in range(T - 1, -1, -1):
         g = g + g_y[t]
         hbar = hprev[t] * keep[t]
@@ -78,11 +99,11 @@ def gru_scan_bwd_plain(keep, hprev, w_h, r, z, n, c, g_y, g_hT):
         da_z = dz * z[t] * (1.0 - z[t])
         da_cat = torch.cat([da_r, da_z, dc], -1)
         dxi[t] = torch.cat([da_r, da_z, da_n], -1)
-        dhbar = g * z[t] + da_cat @ w_h.T
-        dw_h += hbar.T @ da_cat
-        db_hn += dc.sum(0)
+        dhbar = g * z[t] + da_cat @ w_h.mT
+        dw_h += hbar.mT @ da_cat
+        db_hn += dc.sum(-2)
         g = dhbar * keep[t]
-    return dxi, g, dw_h, db_hn
+    return dxi.reshape(T, rows, 3 * H), g.reshape(rows, H), dw_h, db_hn
 
 
 # shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB)
@@ -205,15 +226,20 @@ def _function(name: str, n_pointers: int, n_ints: int):
     return lib, fn
 
 
-def _shapes(xi_or_hprev: torch.Tensor, h0_like: torch.Tensor):
-    if xi_or_hprev.dim() != 3 or h0_like.dim() != 2:
+def _shapes(xi_or_hprev: torch.Tensor, h0_like: torch.Tensor, w_h: torch.Tensor):
+    """(T, S, B, H, the weights' leading seed axes): S seeds of B rows."""
+    if xi_or_hprev.dim() != 3 or h0_like.dim() != 2 or w_h.dim() not in (2, 3):
         raise ValueError(
-            f"gru_scan: expected (T, B, .) and (B, H), got {tuple(xi_or_hprev.shape)} "
-            f"and {tuple(h0_like.shape)}"
+            f"gru_scan: expected (T, S * B, .), (S * B, H) and (S, H, 3H) or (H, 3H), got "
+            f"{tuple(xi_or_hprev.shape)}, {tuple(h0_like.shape)} and {tuple(w_h.shape)}"
         )
     T = xi_or_hprev.shape[0]
-    B, H = h0_like.shape
-    return T, B, H
+    rows, H = h0_like.shape
+    lanes = tuple(w_h.shape[:-2])
+    S = lanes[0] if lanes else 1
+    if rows % S:
+        raise ValueError(f"gru_scan: {rows} rows do not split into {S} seeds")
+    return T, S, rows // S, H, lanes
 
 
 def gru_scan_fwd(xi, keep, h0, w_h, b_hn):
@@ -223,18 +249,18 @@ def gru_scan_fwd(xi, keep, h0, w_h, b_hn):
         return gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn)
     if xi.device.type != "cuda":
         raise ValueError(f"gru_scan_fwd: unsupported device {xi.device}")
-    T, B, H = _shapes(xi, h0)
+    T, S, B, H, lanes = _shapes(xi, h0, w_h)
     _check(
-        "gru_scan_fwd", xi.device, xi=(xi, (T, B, 3 * H)), keep=(keep, (T, B, 1)),
-        h0=(h0, (B, H)), w_h=(w_h, (H, 3 * H)), b_hn=(b_hn, (H,)),
+        "gru_scan_fwd", xi.device, xi=(xi, (T, S * B, 3 * H)), keep=(keep, (T, S * B, 1)),
+        h0=(h0, (S * B, H)), w_h=(w_h, (*lanes, H, 3 * H)), b_hn=(b_hn, (*lanes, H)),
     )
-    outs = [xi.new_empty(T, B, H) for _ in range(5)]
+    outs = [xi.new_empty(T, S * B, H) for _ in range(5)]
     plan = scan_plan(B, H)
-    lib, fn = _function("gru_scan_fwd", 10, 10)
+    lib, fn = _function("gru_scan_fwd", 10, 11)
     with torch.cuda.device(xi.device):
         err = fn(
             xi.data_ptr(), keep.data_ptr(), h0.data_ptr(), w_h.data_ptr(), b_hn.data_ptr(),
-            *(o.data_ptr() for o in outs), T, B, H, plan.cluster, plan.units, plan.rows,
+            *(o.data_ptr() for o in outs), T, S, B, H, plan.cluster, plan.units, plan.rows,
             plan.threads, int(plan.resident), int(plan.registers), plan.fwd_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -250,36 +276,36 @@ def gru_scan_bwd(keep, hprev, w_h, r, z, n, c, g_y, g_hT):
     """``gru_scan_bwd_plain`` for CPU tensors, the CUDA kernel
     (csrc/gru_scan_bwd.cu) for CUDA tensors: one launch that runs the
     reverse scan over W_h as it is (no transposed copy, no scratch) and sums
-    dW_h and db_hn on chip. With several clusters (B > R) each writes its
-    partial sums to scratch and a second launch adds them in cluster
-    order."""
+    dW_h and db_hn on chip. With several clusters a seed (B > R) each
+    writes its partial sums to scratch and a second launch adds each
+    seed's in cluster order."""
     if hprev.device.type == "cpu":
         return gru_scan_bwd_plain(keep, hprev, w_h, r, z, n, c, g_y, g_hT)
     if hprev.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd: unsupported device {hprev.device}")
-    T, B, H = _shapes(hprev, g_hT)
-    seq = (T, B, H)
+    T, S, B, H, lanes = _shapes(hprev, g_hT, w_h)
+    seq = (T, S * B, H)
     _check(
-        "gru_scan_bwd", hprev.device, keep=(keep, (T, B, 1)), hprev=(hprev, seq),
-        w_h=(w_h, (H, 3 * H)), r=(r, seq), z=(z, seq), n=(n, seq), c=(c, seq),
-        g_y=(g_y, seq), g_hT=(g_hT, (B, H)),
+        "gru_scan_bwd", hprev.device, keep=(keep, (T, S * B, 1)), hprev=(hprev, seq),
+        w_h=(w_h, (*lanes, H, 3 * H)), r=(r, seq), z=(z, seq), n=(n, seq), c=(c, seq),
+        g_y=(g_y, seq), g_hT=(g_hT, (S * B, H)),
     )
     plan = scan_plan(B, H)
-    dxi = hprev.new_empty(T, B, 3 * H)
-    dh0 = hprev.new_empty(B, H)
-    dw_h = hprev.new_empty(H, 3 * H)
-    db_hn = hprev.new_empty(H)
+    dxi = hprev.new_empty(T, S * B, 3 * H)
+    dh0 = hprev.new_empty(S * B, H)
+    dw_h = hprev.new_empty(*lanes, H, 3 * H)
+    db_hn = hprev.new_empty(*lanes, H)
     parts = plan.clusters > 1
-    dw_part = hprev.new_empty(plan.clusters, H, 3 * H) if parts else None
-    db_part = hprev.new_empty(plan.clusters, H) if parts else None
-    lib, fn = _function("gru_scan_bwd", 15, 10)
+    dw_part = hprev.new_empty(S * plan.clusters, H, 3 * H) if parts else None
+    db_part = hprev.new_empty(S * plan.clusters, H) if parts else None
+    lib, fn = _function("gru_scan_bwd", 15, 11)
     with torch.cuda.device(hprev.device):
         err = fn(
             keep.data_ptr(), hprev.data_ptr(), w_h.data_ptr(), r.data_ptr(), z.data_ptr(),
             n.data_ptr(), c.data_ptr(), g_y.data_ptr(), g_hT.data_ptr(), dxi.data_ptr(),
             dh0.data_ptr(), dw_h.data_ptr(), db_hn.data_ptr(),
             dw_part.data_ptr() if parts else None, db_part.data_ptr() if parts else None,
-            T, B, H, plan.cluster, plan.units, plan.rows, plan.threads, int(plan.resident),
+            T, S, B, H, plan.cluster, plan.units, plan.rows, plan.threads, int(plan.resident),
             int(plan.registers), plan.bwd_bytes, torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, "gru_scan_bwd")
@@ -310,7 +336,8 @@ def active_clusters(name: str, plan: ScanPlan) -> int:
 class GRUScan(torch.autograd.Function):
     """``(h_T, y_seq) = GRUScan.apply(xi, keep, h0, w_h, b_hn)``: the GRU
     recurrence over T through ``gru_scan_fwd``, differentiated through
-    ``gru_scan_bwd`` (``_gru_core``, fast_rnn.py:288-343). It saves
+    ``gru_scan_bwd`` (``_gru_core``, fast_rnn.py:288-343), for one seed or,
+    with a stacked w_h, for all seeds at once. It saves
     keep, hprev, w_h, r, z, n and c as ``_gru_core_fwd`` does. A cotangent
     that autograd leaves undefined (the trainer's loss never reads h_T) is
     taken as zeros."""

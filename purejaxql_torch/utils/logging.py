@@ -74,14 +74,20 @@ class MetricLogger:
             sink.log(metrics, step)
 
     def log_history(self, metrics: Dict[str, Any], step_key: str = "update_steps") -> None:
-        """Replay stacked metrics (tensors of shape (num_updates,)) through
-        the sinks, one row per update. One device-to-host copy per key."""
+        """Replay stacked metrics (tensors of shape (num_updates,), or
+        (num_seeds, num_updates) with seeds: one seed after another, as
+        purejaxql_tpu/utils/logging.py:117-131 does) through the sinks, one
+        row per update. One device-to-host copy per key."""
         arrs = {
             k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
             for k, v in metrics.items()
         }
         arrs = {k: v for k, v in arrs.items() if v.ndim >= 1}
         if not arrs:
+            return
+        if next(iter(arrs.values())).ndim >= 2:  # a leading seed axis
+            for s in range(next(iter(arrs.values())).shape[0]):
+                self.log_history({k: v[s] for k, v in arrs.items()}, step_key)
             return
         for i in range(next(iter(arrs.values())).shape[0]):
             row = {k: v[i] for k, v in arrs.items()}

@@ -14,7 +14,11 @@ E 2), the recurrent trainer's minibatch windows on MemoryChain and on
 CartPole (MEMORY_WINDOW + NUM_STEPS - 1 steps of NUM_ENVS /
 NUM_MINIBATCHES envs), at (T 28, E 16) and (T 67, E 16), the VDN
 trainer's on Spread and on Skirmish / SMAX, and at (T 127, E 256),
-pqn_rnn_craftax's (epsilon-greedy's (1024, 34) is its rollout's too); and an
+pqn_rnn_craftax's (epsilon-greedy's (1024, 34) is its rollout's too); the
+seeded runs' folded shapes (NUM_SEEDS): epsilon-greedy at (256, 2), (2048,
+2) and (512, 3), pqn_cartpole with 8 and 64 seeds and Breakout with 4, the
+gymnax returns at (64, 256), (64, 2048) and (32, 512), the closure at (131,
+8) and (67, 8), MemoryChain and RNN CartPole with 4 seeds; and an
 empty kernel
 (``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
 through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
@@ -78,8 +82,9 @@ extern "C" int load_store_launch(int blocks, int threads, const float* q, long l
 }
 """
 EPS_GREEDY_SHAPE = (1024, 34)
-LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64))
-CLOSURE_SHAPES = ((131, 2), (67, 2), (28, 16), (67, 16), (127, 256))
+SEEDED_EPS_SHAPES = ((256, 2), (2048, 2), (512, 3))
+LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64), (64, 256), (64, 2048), (32, 512))
+CLOSURE_SHAPES = ((131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (131, 8), (67, 8))
 
 
 def events_ms(fn, iters: int) -> float:
@@ -299,6 +304,11 @@ def main() -> int:
         cases += [earlier, current, current, earlier]  # in turns
     else:
         cases.append(current)
+    for e, a in SEEDED_EPS_SHAPES:
+        qs = torch.randn(e, a, device=dev, generator=gen)
+        if not torch.equal(eg.eps_greedy(3, qs, 0.1), eg.eps_greedy_plain(3, qs, 0.1)):
+            raise AssertionError(f"eps_greedy at ({e}, {a}) differs from its twin")
+        cases.append(("eps_greedy", {"E": e, "A": a}, lambda qs=qs: eg.eps_greedy(3, qs, 0.1)))
     blocks = -(-E // 8)  # csrc/eps_greedy.cu: 8 warps a block, a warp a row
     floors = floor_library()
     cases.append(("empty_kernel", {"blocks": blocks, "threads": 256}, empty_kernel(floors, blocks, 256)))

@@ -721,6 +721,90 @@ def test_gru_scan_wrappers_reject_bad_inputs(dev):
         gs.gru_scan_bwd(keep, g_y, w_h, g_y, g_y, g_y, g_y, g_y, g_hT[:, :16])
 
 
+def _seeded_gru_inputs(dev, T, S, B, H, seed=0):
+    """S seeds' GRU scan inputs (each as ``_gru_inputs``), seed-major: xi
+    (T, S * B, 3H), keep, h0 (S * B, H), W_h (S, H, 3H), b_hn (S, H), g_y,
+    g_hT."""
+    lanes = [_gru_inputs(dev, T, B, H, seed + 100 * s) for s in range(S)]
+    dims = (1, 1, 0, None, None, 1, 0)
+    return [torch.stack(xs) if d is None else torch.cat(xs, d) for d, xs in zip(dims, zip(*lanes))]
+
+
+# the seeded trainers' windows (MemoryChain and RNN CartPole, 4 seeds of B
+# 2), several clusters a seed (the partial-sum pass per seed), ragged rows
+# and units, the slice in shared memory and read from L2
+SEEDED_GRU_SHAPES = [(132, 4, 2, 256), (68, 4, 2, 256), (29, 3, 48, 256), (13, 3, 3, 32), (7, 2, 3, 130),
+                     (9, 2, 2, 512), (5, 2, 3, 1024)]
+
+
+@pytest.mark.parametrize("T,S,B,H", SEEDED_GRU_SHAPES)
+def test_seeded_gru_scan_kernels_match_plain(dev, T, S, B, H):
+    """One launch for S seeds against the seeded twins: forward within 1e-5,
+    backward within 1e-4 absolute and relative, dW_h (S, H, 3H) and db_hn
+    (S, H)."""
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _seeded_gru_inputs(dev, T, S, B, H)
+    got = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+    want = gs.gru_scan_fwd_plain(xi, keep, h0, w_h, b_hn)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    res = (keep, torch.cat([h0[None], want[0][:-1]]), w_h, *want[1:])
+    got = gs.gru_scan_bwd(*res, g_y, g_hT)
+    want = gs.gru_scan_bwd_plain(*res, g_y, g_hT)
+    assert got[2].shape == (S, H, 3 * H) and got[3].shape == (S, H)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T,S,B,H", SEEDED_GRU_SHAPES)
+def test_seeded_gru_scan_lanes_equal_unseeded_launches(dev, T, S, B, H):
+    """Lane s of the seeded launch gives, bit for bit, what the unseeded
+    launch gives on seed s's rows and weights: forward and backward, and
+    each kernel counts one launch for all seeds."""
+    xi, keep, h0, w_h, b_hn, g_y, g_hT = _seeded_gru_inputs(dev, T, S, B, H, seed=5)
+    gs.gru_scan_fwd.launches = gs.gru_scan_bwd.launches = 0
+    fwd = gs.gru_scan_fwd(xi, keep, h0, w_h, b_hn)
+    res = (keep, torch.cat([h0[None], fwd[0][:-1]]), w_h, *fwd[1:])
+    bwd = gs.gru_scan_bwd(*res, g_y, g_hT)
+    assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == 1
+    for s in range(S):
+        rows = slice(s * B, (s + 1) * B)
+        one = gs.gru_scan_fwd(*(x[:, rows].contiguous() for x in (xi, keep)), h0[rows].contiguous(), w_h[s], b_hn[s])
+        assert all(torch.equal(a[:, rows], b) for a, b in zip(fwd, one)), s
+        res_s = [res[0][:, rows].contiguous(), res[1][:, rows].contiguous(), w_h[s],
+                 *(x[:, rows].contiguous() for x in res[3:])]
+        dxi, dh0, dw_h, db_hn = gs.gru_scan_bwd(*res_s, g_y[:, rows].contiguous(), g_hT[rows].contiguous())
+        assert torch.equal(bwd[0][:, rows], dxi) and torch.equal(bwd[1][rows], dh0), s
+        assert torch.equal(bwd[2][s], dw_h) and torch.equal(bwd[3][s], db_hn), s
+
+
+def test_tiny_seeded_trains_on_the_card_launch_each_kernel_as_one_seed(dev):
+    """NUM_SEEDS=3 on the card: pqn_cartpole through the epsilon-greedy
+    kernel (a launch a rollout step) and the returns (one an update), and
+    pqn_rnn_memory_chain through both GRU scan kernels and the closure
+    returns (one launch of each a grad step): the single-seed counts, every
+    metric (3, NUM_UPDATES), the parameters on the card."""
+    config = compose(alg="pqn_cartpole", overrides=[
+        "NUM_SEEDS=3", "TOTAL_TIMESTEPS=8192", "TOTAL_TIMESTEPS_DECAY=8192", "TEST_NUM_STEPS=32"])
+    assert config["EXPLORATION_KERNEL"] == "pallas" and "FUSED_ROLLOUT" not in config
+    for fn in (eg.eps_greedy, lr.lambda_returns, cr.cartpole_rollout):
+        fn.launches = 0
+    out = pqn.make_train(config)()
+    updates = 8192 // 64 // 32
+    assert (eg.eps_greedy.launches, lr.lambda_returns.launches, cr.cartpole_rollout.launches) == (updates * 64, updates, 0)
+    assert all(v.shape == (3, updates) for v in out["metrics"].values())
+    assert all(p.is_cuda and p.shape[0] == 3 for p in out["runner_state"][0].network.parameters())
+    config = compose(alg="pqn_rnn_memory_chain", overrides=[
+        "NUM_SEEDS=3", "TOTAL_TIMESTEPS=8192", "TOTAL_TIMESTEPS_DECAY=8192", "TEST_NUM_STEPS=16"])
+    assert config["FAST_BPTT"] is True and config["PALLAS_BPTT"] is True
+    for fn in (gs.gru_scan_fwd, gs.gru_scan_bwd, lr.lambda_returns_closure):
+        fn.launches = 0
+    out = pqn_rnn.make_train(config)()
+    grad_steps = 8192 // 128 // 32 * 4 * 16
+    assert gs.gru_scan_fwd.launches == gs.gru_scan_bwd.launches == lr.lambda_returns_closure.launches == grad_steps
+    assert all(v.shape == (3, 2) for v in out["metrics"].values())
+    assert torch.isfinite(out["metrics"]["td_loss"]).all()
+
+
 def test_tiny_rnn_train_on_the_card_launches_both_kernels(dev):
     config = compose(
         alg="pqn_rnn_memory_chain",

@@ -305,7 +305,7 @@ def test_unsupported_options_raise():
     # Q_LAMBDA=False, BATCH_ENV and USE_OPTIMISTIC_RESETS are ported now
     # (tests/test_torch_craftax.py), so are RESET_BANK, FAST_TARGETS and
     # SKIP_NOOP_PERMUTE (tests/test_torch_reset_bank.py); these are not
-    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_vdn"}):
+    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_vdn"}):
         with pytest.raises(NotImplementedError):
             pqn.make_train(tiny_config(**kw))
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):

@@ -492,7 +492,7 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
 
 
 def test_rnn_unsupported_options_raise():
-    for kw in ({"NORM_TYPE": "batch_norm"}, {"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}):
+    for kw in ({"NORM_TYPE": "batch_norm"}, {"LOG_VIA_CALLBACK": True}):
         with pytest.raises(NotImplementedError):
             pqn_rnn.make_train(tiny_rnn_config(**kw))
     with pytest.raises(ValueError, match="FAST_BPTT"):
