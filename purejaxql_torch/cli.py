@@ -3,6 +3,7 @@
     python -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_rnn_memory_chain [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_pendulum [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_locomotion [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_craftax [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_vdn_spread [KEY=val ...]
 
@@ -13,8 +14,10 @@ The trainer is picked by the config's ALG_NAME: ``pqn`` and ``pqn_craftax``
 DEVICE=cpu is given. Prints
 "Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
 (flax wire format; the actor-critic family's as one tree ``{"actor": ...,
-"critic": ...}``) and ``<run>_config.yaml``, and replays the metrics into the
-LOG_JSONL file (none with COLLECT_METRICS=False, whose run returns none).
+"critic": ...}``, with NORMALIZE_OBS also ``"norm_stats": {"mean", "var"}``,
+the training run's observation statistics) and ``<run>_config.yaml``, and
+replays the metrics into the LOG_JSONL file (none with COLLECT_METRICS=False,
+whose run returns none).
 
 NUM_SEEDS=S > 1 (FF and recurrent trainers) trains S seeds as one program
 (algo/seeds.py), prints the aggregate rate of all S seeds, writes one
@@ -98,11 +101,18 @@ def single_run(config):
     if config.get("SAVE_PATH"):
         save_dir = os.path.join(config["SAVE_PATH"], env_name)
         run_name = f"{config.get('ALG_NAME', 'pqn')}_{env_name}_seed{config['SEED']}"
+        extra = None
         if isinstance(train_state, dict):
             modules = {name: state.network for name, state in train_state.items()}
+            # the actor-critic family keeps the observation statistics beside
+            # the weights, so that a rollout replays the frozen normalization
+            # (purejaxql_tpu/cli.py:124-137, read by its scripts/rollout.py)
+            if config.get("NORMALIZE_OBS", False):
+                env_state = outs["runner_state"][1][1]
+                extra = {"norm_stats": {"mean": env_state.mean, "var": env_state.var}}
         else:
             modules = train_state.network
-        save_run(modules, config, save_dir, run_name)
+        save_run(modules, config, save_dir, run_name, extra=extra)
         print(f"Saved params to {save_dir}/")
     return outs
 

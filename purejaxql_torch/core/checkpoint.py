@@ -29,8 +29,9 @@ both. So the trees of a seed-stacked network are those of
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -152,6 +153,7 @@ def save_run(
     config: Dict[str, Any],
     save_dir: str,
     run_name: str,
+    extra: Optional[Mapping[str, Any]] = None,
 ) -> str:
     """Save the params (flax wire format) and a config snapshot in the JAX
     package's layout (purejaxql_tpu/core/checkpoint.py:37-61):
@@ -160,13 +162,15 @@ def save_run(
     ``<run_name>_vmap{i}.safetensors`` a seed, its leading seed axis
     stripped. A dict of modules (the actor-critic family's ``{"actor": ...,
     "critic": ...}``) is saved as one tree with a top level per module, as
-    purejaxql_tpu/cli.py saves it."""
+    purejaxql_tpu/cli.py saves it; ``extra`` adds subtrees of tensors beside
+    them (the actor-critic family's ``norm_stats``, one seed's)."""
     os.makedirs(save_dir, exist_ok=True)
     save_config(config, os.path.join(save_dir, f"{run_name}_config.yaml"))
     if isinstance(modules, torch.nn.Module):
         params = params_to_flax(modules)["params"]
     else:
         params = {name: params_to_flax(m)["params"] for name, m in modules.items()}
+    params.update(extra or {})
     seeds = config.get("NUM_SEEDS", 1)
     if seeds == 1:
         save_params(params, os.path.join(save_dir, f"{run_name}.safetensors"))
@@ -176,3 +180,26 @@ def save_run(
         save_params(_unflatten({k: v[i] for k, v in flat.items()}),
                     os.path.join(save_dir, f"{run_name}_vmap{i}.safetensors"))
     return save_dir
+
+
+def load_ac_params(tree: Mapping, actor: torch.nn.Module, critics: torch.nn.Module, norm_state=None):
+    """Carry an actor-critic run's saved tree (``{"actor", "critic"}`` and,
+    from a NORMALIZE_OBS run, ``"norm_stats": {"mean", "var"}``, in either
+    package's files) into the port: the weights into ``actor`` and the critic
+    ensemble (their batch statistics stay as they are), and the observation
+    statistics into ``norm_state``, an ``envs/wrappers.py``
+    ``NormalizeVecObsState`` (its count kept: the file holds none). Returns
+    that state, a new one; ``norm_state`` unchanged where the tree holds no
+    statistics or none is given. A weight the tree lacks, or one the
+    network lacks, raises KeyError."""
+    for name, module in (("actor", actor), ("critic", critics)):
+        missing, unexpected = module.load_state_dict(params_from_flax(tree[name]), strict=False)
+        buffers = {k for k, _ in module.named_buffers()}
+        wrong = sorted(set(missing) - buffers) + sorted(unexpected)
+        if wrong:
+            raise KeyError(f"{name}: the saved tree and the network differ in {wrong}")
+    stats = tree.get("norm_stats")
+    if stats is None or norm_state is None:
+        return norm_state
+    as_f32 = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=norm_state.mean.device)  # noqa: E731
+    return dataclasses.replace(norm_state, mean=as_f32(stats["mean"]), var=as_f32(stats["var"]))

@@ -8,12 +8,20 @@ defaults (gymnax-style ENV_KWARGS); the rest go to the env constructor.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, Dict, Tuple
 
 from purejaxql_torch.envs.base import Environment
+from purejaxql_torch.envs.classic.ball_in_cup import BallInCup
 from purejaxql_torch.envs.classic.cartpole import CartPole
+from purejaxql_torch.envs.classic.cartpole_swingup import CartPoleSwingUp
+from purejaxql_torch.envs.classic.hopper import Hopper
 from purejaxql_torch.envs.classic.memory_chain import MemoryChain
+from purejaxql_torch.envs.classic.mountain_car_continuous import MountainCarContinuous
 from purejaxql_torch.envs.classic.pendulum import Pendulum
+from purejaxql_torch.envs.classic.pusher import Pusher
+from purejaxql_torch.envs.classic.reacher import Reacher
+from purejaxql_torch.envs.classic.walker import Walker
 from purejaxql_torch.envs.gridworld.forager import Forager
 from purejaxql_torch.envs.minatar.asterix import MinAsterix
 from purejaxql_torch.envs.minatar.breakout import MinBreakout
@@ -34,6 +42,40 @@ _REGISTRY: Dict[str, Callable[..., Environment]] = {
     # the reference's name for the craftax workload resolves to Forager, as in
     # purejaxql_tpu/envs/registry.py:231-236
     "Craftax-Symbolic-v1": Forager,
+    # the continuous-control envs and their task variants, under every name
+    # purejaxql_tpu/envs/registry.py gives them (its "-v0" names and the
+    # playground dm-suite names, :52-66, :170-200)
+    "Reacher-v0": Reacher,
+    "ReacherEasy-v0": partial(Reacher, task="easy"),
+    "ReacherHard-v0": partial(Reacher, task="hard"),
+    "ReacherEasy": partial(Reacher, task="easy"),
+    "ReacherHard": partial(Reacher, task="hard"),
+    "MountainCarContinuous-v0": MountainCarContinuous,
+    "CartPoleSwingUp-v0": CartPoleSwingUp,
+    "CartPoleSwingUpSparse-v0": partial(CartPoleSwingUp, task="swingup_sparse"),
+    "CartpoleBalance-v0": partial(CartPoleSwingUp, task="balance"),
+    "CartpoleBalanceSparse-v0": partial(CartPoleSwingUp, task="balance_sparse"),
+    "CartpoleBalance": partial(CartPoleSwingUp, task="balance"),
+    "CartpoleBalanceSparse": partial(CartPoleSwingUp, task="balance_sparse"),
+    "CartpoleSwingup": CartPoleSwingUp,
+    "CartpoleSwingupSparse": partial(CartPoleSwingUp, task="swingup_sparse"),
+    "Hopper-v0": Hopper,
+    "HopperStand-v0": partial(Hopper, task="stand"),
+    "HopperHop": partial(Hopper, task="hop"),
+    "HopperHop-v0": partial(Hopper, task="hop"),
+    "HopperStand": partial(Hopper, task="stand"),
+    "Walker-v0": Walker,
+    "WalkerStand-v0": partial(Walker, task="stand"),
+    "WalkerRun-v0": partial(Walker, task="run"),
+    "WalkerWalk": partial(Walker, task="walk"),
+    "WalkerWalk-v0": partial(Walker, task="walk"),
+    "WalkerStand": partial(Walker, task="stand"),
+    "WalkerRun": partial(Walker, task="run"),
+    "Pusher-v0": Pusher,
+    "BallInCup-v0": BallInCup,
+    "BallInCup": BallInCup,
+    "PendulumSwingup": Pendulum,
+    "PendulumSwingup-v0": Pendulum,
 }
 
 

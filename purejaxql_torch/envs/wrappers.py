@@ -10,6 +10,9 @@ wrappers the ported trainers use:
 - ``LogVec`` (:691-742): ``Log`` for the continuous-control stack, with a
   scalar step counter and the raw reward as ``info["original_reward"]``;
 - ``ClipAction`` (:527-537): clip continuous actions to the box;
+- ``NormalizeVecObservation`` and ``NormalizeVecReward`` (:575-690): running
+  statistics of the observations and of the discounted return over the env
+  batch, for the continuous-control stack;
 - ``BatchEnv`` (:139-158): the env at a fixed number of envs;
 - ``OptimisticResetVecEnv`` (:214-280): auto-reset that makes only
   num_envs / reset_ratio fresh states a step and routes them to the done
@@ -21,8 +24,7 @@ wrappers the ported trainers use:
   (``scatter_resets``, :185-212).
 
 ``VecEnv`` has no counterpart: an env here already steps a whole batch. The
-other wrappers (the observation and reward normalizers among them) come with
-the slices that need them.
+other wrappers come with the slices that need them.
 """
 
 from __future__ import annotations
@@ -444,3 +446,106 @@ class LogVec(Wrapper):
         info["timestep"] = state.timestep.expand(done.shape)
         info["original_reward"] = reward
         return obs, state, reward, done, info
+
+
+@dataclass
+class NormalizeVecObsState:
+    mean: torch.Tensor  # (obs_dim,) f32
+    var: torch.Tensor  # (obs_dim,) f32
+    count: torch.Tensor  # () f32, 1e-4 plus every observation row seen
+    env_state: Any
+
+
+def _merge_moments(mean, var, count, batch_mean, batch_var, batch_count: int):
+    """The parallel-variance update of running (mean, var, count) with a
+    batch's population moments (wrappers.py:625-636), operation for
+    operation. Returns new tensors: the old ones are never written."""
+    delta = batch_mean - mean
+    tot_count = count + batch_count
+    new_mean = mean + delta * batch_count / tot_count
+    m_a = var * count
+    m_b = batch_var * batch_count
+    m2 = m_a + m_b + torch.square(delta) * count * batch_count / tot_count
+    return new_mean, m2 / tot_count, tot_count
+
+
+class NormalizeVecObservation(Wrapper):
+    """Running mean/var normalization of the observations over the env batch
+    (wrappers.py:575-637): every reset and step batch updates the statistics
+    (population variance over the envs) and the observations come out as
+    (obs - mean) / sqrt(var + 1e-8) with the updated ones. The count starts
+    at 1e-4 in float32, as JAX's. ``eval_step`` normalizes with the
+    statistics frozen. States are replaced, never written in place, so a
+    copy of the training statistics can be stepped on its own (the eval)."""
+
+    def reset(self, generator, num_envs, params=None):
+        obs, env_state = self._env.reset(generator, num_envs, params)
+        state = NormalizeVecObsState(
+            mean=torch.zeros_like(obs[0]), var=torch.ones_like(obs[0]),
+            count=torch.tensor(1e-4, dtype=torch.float32, device=obs.device), env_state=env_state,
+        )
+        return self._update_and_normalize(state, obs)
+
+    def step(self, generator, state, action, params=None):
+        obs, env_state, reward, done, info = self._env.step(generator, state.env_state, action, params)
+        norm_obs, state = self._update_and_normalize(dataclasses.replace(state, env_state=env_state), obs)
+        return norm_obs, state, reward, done, info
+
+    def eval_step(self, generator, state, action, params=None):
+        """A step normalized with the statistics frozen (wrappers.py:600-609)."""
+        obs, env_state, reward, done, info = self._env.step(generator, state.env_state, action, params)
+        state = dataclasses.replace(state, env_state=env_state)
+        return normalize_obs(obs, state.mean, state.var), state, reward, done, info
+
+    @staticmethod
+    def _update_and_normalize(state, obs):
+        mean, var, count = _merge_moments(
+            state.mean, state.var, state.count, obs.mean(0), torch.var(obs, 0, correction=0), obs.shape[0]
+        )
+        state = dataclasses.replace(state, mean=mean, var=var, count=count)
+        return normalize_obs(obs, mean, var), state
+
+
+def normalize_obs(obs: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """(obs - mean) / sqrt(var + 1e-8)."""
+    return (obs - mean) / torch.sqrt(var + 1e-8)
+
+
+@dataclass
+class NormalizeVecRewState:
+    mean: torch.Tensor  # () f32
+    var: torch.Tensor  # () f32
+    count: torch.Tensor  # () f32
+    return_val: torch.Tensor  # (E,) the running discounted return
+    env_state: Any
+
+
+class NormalizeVecReward(Wrapper):
+    """Rewards scaled by the running std of the discounted return
+    (wrappers.py:648-690): each step the return (reset only through
+    1 - done) updates running moments over the env batch, and the reward
+    comes out as reward / sqrt(var + 1e-8), no mean subtracted. The
+    observations pass through."""
+
+    def __init__(self, env, gamma: float):
+        super().__init__(env)
+        self.gamma = gamma
+
+    def reset(self, generator, num_envs, params=None):
+        obs, env_state = self._env.reset(generator, num_envs, params)
+        f32 = dict(dtype=torch.float32, device=obs.device)
+        state = NormalizeVecRewState(
+            mean=torch.tensor(0.0, **f32), var=torch.tensor(1.0, **f32), count=torch.tensor(1e-4, **f32),
+            return_val=torch.zeros(num_envs, **f32), env_state=env_state,
+        )
+        return obs, state
+
+    def step(self, generator, state, action, params=None):
+        obs, env_state, reward, done, info = self._env.step(generator, state.env_state, action, params)
+        return_val = state.return_val * self.gamma * (1 - done.float()) + reward
+        mean, var, count = _merge_moments(
+            state.mean, state.var, state.count, return_val.mean(), torch.var(return_val, correction=0),
+            return_val.shape[0],
+        )
+        state = NormalizeVecRewState(mean=mean, var=var, count=count, return_val=return_val, env_state=env_state)
+        return obs, state, reward / torch.sqrt(var + 1e-8), done, info

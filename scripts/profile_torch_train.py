@@ -10,6 +10,8 @@
     python scripts/profile_torch_train.py --alg pqn_rnn_memory_chain --steps 100000 \
         --set TEST_NUM_STEPS=64 --set ALG_NAME=pqn            # the FF trainer on the same config
     python scripts/profile_torch_train.py --alg pqn_pendulum --steps 400000    # actor-critic
+    python scripts/profile_torch_train.py --alg pqn_locomotion --steps 1000000   # Hopper, unfused
+    python scripts/profile_torch_train.py --alg pqn_manipulation --steps 1000000  # Pusher, unfused
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --profile-updates 64 \
         --set PARITY=strict --set EXPLORATION_KERNEL=pallas     # the strict Craftax program
@@ -24,6 +26,8 @@ steps; pqn_minatar: the MinAtar CNN, 128 envs x 32 steps, 32 minibatches x
 network, FAST_BPTT and PALLAS_BPTT on, the window of MEMORY_WINDOW +
 NUM_STEPS steps; pqn_pendulum: actor and two critics H 256, 64 envs x 32
 steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 200 steps every 10 %;
+pqn_reacher, pqn_dm_suite, pqn_locomotion, pqn_manipulation: the same
+trainer unfused on their envs, with the YAMLs' widths and normalizers;
 pqn_craftax: Forager, H 1024 x 4 with an input BatchRenorm, 1024 envs x 1
 step, resets at ratio 16, 1-step TD on one minibatch, no eval; by the cuda
 policy the fast program: the reset bank, FAST_TARGETS, SKIP_NOOP_PERMUTE;
@@ -41,7 +45,10 @@ FAST_BPTT, the epsilon-greedy kernel and the reset bank):
    ``ops.lambda_returns.lambda_returns_closure``, as the trainer calls it)
    and the GRU scan kernels; for the actor-critic
    trainer the fused rollout, the LogVec replay, the lambda targets, the
-   critic step, the actor step and the eval's episode sums; for pqn_craftax
+   critic step, the actor step and the eval's episode sums, and unfused
+   (every env but Pendulum) the wrapped env's step split into training and
+   eval calls by their batch, the raw env's ``step_env`` inside it (the
+   Hopper's and Walker's 16 substeps) and the greedy eval; for pqn_craftax
    the env step of the reset wrapper (the bank's or the optimistic one) and,
    inside it, the Forager step, the worldgen (``reset_env``: the optimistic
    wrapper's 64 fresh worlds a step, the bank's 64 a refresh burst), the
@@ -144,7 +151,9 @@ def main() -> int:
             t0 = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            if eps_arg is not None:
+            if isinstance(eps_arg, tuple):  # ("batch", the action's argument index)
+                key = f"{name}_{'train' if a[eps_arg[1]].shape[0] == config['NUM_ENVS'] else 'eval'}"
+            elif eps_arg is not None:
                 phase = "eval" if a[eps_arg] == eval_eps else "train"
                 # the VDN prefill: MEMORY_WINDOW + NUM_STEPS steps at epsilon 1
                 if vdn and phase == "train" and a[eps_arg + 1] == prefill_len != config["NUM_STEPS"]:
@@ -169,6 +178,14 @@ def main() -> int:
     elif actor_critic:  # (module, name, the noise's argument index)
         patches = [(pqn_ac, "fused_pendulum_rollout", 1), (pqn_ac, "eval_episode_metrics", None)]
         patches += [(pqn_ac, n, None) for n in ("log_vec_replay", "lambda_returns", "critic_step", "actor_step")]
+        if not config.get("FUSED_ROLLOUT", False):  # the wrapped env's step and the raw env's, by batch
+            _, raw_env, *_ = pqn_ac.build_ac_env(config)
+            outer = (wrappers.NormalizeVecObservation if config.get("NORMALIZE_OBS") else
+                     wrappers.NormalizeVecReward if config.get("NORMALIZE_REWARD") else wrappers.ClipAction)
+            patches += [(outer, "step", ("batch", 3)), (type(raw_env), "step_env", ("batch", 2)),
+                        (pqn_ac, "greedy_eval", None)]
+            if config["NUM_ENVS"] == config.get("TEST_NUM_ENVS", config["NUM_ENVS"]):
+                raise SystemExit("the training and eval batches must differ to tell their env steps apart")
     elif vdn:  # (module, name, the epsilon's argument index)
         patches = [(pqn_vdn, "vdn_rollout", 4), (pqn_vdn, "learn_minibatch", None),
                    (pqn_vdn, "rnn_train_q_values", None), (pqn_vdn, "vdn_targets", None),
@@ -200,7 +217,7 @@ def main() -> int:
     ts = ts["actor"] if actor_critic else ts
     phases = {k: {"s": v, "calls": counts[k]} for k, v in totals.items()}
     inner = ("rnn_train_q_values", "lambda_returns_closure", "vdn_targets", "gru_scan_fwd", "gru_scan_bwd", "step_env",
-             "reset_env", "refresh", "serve_resets", "lstm_layer_scan")
+             "reset_env", "refresh", "serve_resets", "lstm_layer_scan", "step_env_train", "step_env_eval", "step_eval")
     if recurrent:  # the epsilon-greedy kernel and the env step run inside the rollouts
         inner += ("eps_greedy", "step")
     accounted = sum(v for k, v in totals.items() if k not in inner)
@@ -237,7 +254,7 @@ def main() -> int:
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,
-            "eval_share_of_wall": sum(v for k, v in totals.items() if "eval" in k) / wall,
+            "eval_share_of_wall": sum(v for k, v in totals.items() if "eval" in k and k not in inner) / wall,
         },
         "profile": {
             "updates": n, "wall_s": pwall, "device_busy_s": device_us / 1e6,

@@ -18,7 +18,8 @@ pqn_rnn_craftax's (epsilon-greedy's (1024, 34) is its rollout's too); the
 seeded runs' folded shapes (NUM_SEEDS): epsilon-greedy at (256, 2), (2048,
 2) and (512, 3), pqn_cartpole with 8 and 64 seeds and Breakout with 4, the
 gymnax returns at (64, 256), (64, 2048) and (32, 512), the closure at (131,
-8) and (67, 8), MemoryChain and RNN CartPole with 4 seeds; and an
+8) and (67, 8), MemoryChain and RNN CartPole with 4 seeds; the gymnax
+returns at (T 32, E 256), pqn_locomotion's and pqn_manipulation's; and an
 empty kernel
 (``EMPTY_SOURCE``, built by nvcc with the port's flags into build/, launched
 through ctypes) on epsilon-greedy's grid at that shape (128 blocks of 256
@@ -83,7 +84,7 @@ extern "C" int load_store_launch(int blocks, int threads, const float* q, long l
 """
 EPS_GREEDY_SHAPE = (1024, 34)
 SEEDED_EPS_SHAPES = ((256, 2), (2048, 2), (512, 3))
-LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64), (64, 256), (64, 2048), (32, 512))
+LAMBDA_SHAPES = ((32, 128), (64, 32), (32, 64), (64, 256), (64, 2048), (32, 512), (32, 256))
 CLOSURE_SHAPES = ((131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (131, 8), (67, 8))
 
 
