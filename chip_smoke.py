@@ -58,26 +58,26 @@ Phases, each ending the run with a non-zero exit if it fails:
    learning gate is held over seeds (below, before phase 7);
 6e'. train the actor-critic trainer beyond Pendulum, unfused, each update's
    Q(lambda) targets through the returns kernel and no other kernel:
-   pqn_reacher at full width (actor and two critics H 256 x 2, 64 envs x 32
-   steps, 8 minibatches x 4 epochs, greedy eval 64 envs x 150 steps every 10 %
-   of the run) for 400k env steps, its learning gate held over seeds; then
-   pqn_dm_suite (CartPoleSwingUp, 128 envs, NORMALIZE_OBS),
+   pqn_reacher (Reacher, 64 envs, no normalizer: the one-seed path with
+   no observation statistics), pqn_dm_suite (CartPoleSwingUp, 128 envs,
+   NORMALIZE_OBS),
    pqn_locomotion (Hopper, 256 envs, both normalizers) and pqn_manipulation
    (Pusher, 256 envs, actor 256 x 128, critics 512 x 512, both normalizers)
-   at full width for 8 updates each with 3 greedy evals of the episode
-   limit (500, 1,000 and 150 steps); each run's env-step count, parameters
+   at full width for 8 updates each with 2 greedy evals of the episode
+   limit (150, 500, 1,000 and 150 steps); each run's env-step count, parameters
    on cuda, finite metrics, the observation statistics' count 1e-4 +
    E (1 + updates x NUM_STEPS) in float32, and the saved tree with
    norm_stats (obs_dim,) beside the actor's and the critics' Dense kernels;
-   the learning gates of Pendulum and Reacher are held over seeds: seed 0
-   is the run above, the other seeds run in worker processes
-   (scripts/ac_learning_bar.py, one a seed) beside phases 6e-6i, and the
+   the learning gate of Pendulum is held over seeds: seed 0 is the run
+   above, the other seeds run in worker processes
+   (scripts/ac_learning_bar.py, one a seed) beside phases 6e-6j, and the
    best greedy eval over the seeds must beat the JAX test's one-run bar
-   (-500, random play about -1300; -70, random play about -129), as a
-   single seed learns past it in about half of the runs; the workers are
-   waited for before phase 7, so that no kernel is timed beside them;
+   (-500, random play about -1300), as a single seed learns past it in
+   about half of the runs; the workers are waited for before phase 7, so
+   that no kernel is timed beside them (pqn_reacher's run and gate are
+   phase 6j's, 4 seeds as one program);
 6f. train pqn_craftax at full width (Forager, H 1024 x 4 with an input
-   BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^20
+   BatchRenorm, 1024 envs x 1 step, resets at ratio 16, 1-step TD) for 2^18
    env steps, the YAML unchanged, so the cuda policy gives it the fast
    program: RESET_BANK=256 (the reset bank, refreshed every 16 steps),
    FAST_TARGETS and SKIP_NOOP_PERMUTE. Every action of the training rollout
@@ -87,7 +87,7 @@ Phases, each ending the run with a non-zero exit if it fails:
    done-masked returns of its last 10 % printed (no learning bar: at this
    length learned and LR=0 runs do not separate, PERF.md section 7); then
    the strict program (PARITY=strict with the epsilon-greedy kernel:
-   optimistic resets, concat 1-step TD, a permuted minibatch) for 2^19
+   optimistic resets, concat 1-step TD, a permuted minibatch) for 2^18
    steps; then pqn_craftax with BF16_COMPUTE for 2^18 steps, its trunk's
    activations bfloat16 (forward hooks) and its parameters float32, and
    its bfloat16 forward held within BF16_BOUND of the float32 forward on the
@@ -130,13 +130,35 @@ Phases, each ending the run with a non-zero exit if it fails:
    seeds (the mean over seeds of the last-3 greedy eval above 0.8, the
    per-seed checkpoints read back); before them (3e') the seeded GRU scan
    kernels against their twins at the seeded windows (T 132 and 68, 4
-   seeds of B 2) and lane s against the unseeded launch, bit for bit;
+   seeds of B 2; T 29, 4 seeds of VDN's 24 rows at H 128) and lane s
+   against the unseeded launch, bit for bit;
+6j. the other families with seeds as one program, each through the CLI,
+   its lanes' numbers and its aggregate rate printed: pqn_craftax with 4
+   seeds in the fast program for 2^18 env steps a seed (a reset bank of 256
+   a seed, FAST_TARGETS under each lane's frozen statistics, every action of
+   the 4 x 1024 rows from one epsilon-greedy launch an update, as many
+   launches as phase 6f's one seed of the same length, whose rate is set
+   beside it; each lane's BatchRenorm stepped once a grad step, finite
+   metrics, lanes apart, one checkpoint a seed), then 16 updates of it with
+   BF16_COMPUTE (each lane's bfloat16 forward within BF16_BOUND of its
+   float32 one); pqn_rnn_craftax with 2 seeds for 3 updates of the fast
+   program (one seed's launches); pqn_vdn_spread with 4 seeds at the JAX
+   bar's settings (400k env steps a seed, 64 envs, H 128, no eval), each
+   GRU scan kernel and the closure returns launched once a grad step as for
+   one seed, and at least 3 of the 4 lanes' last tenth above their first by
+   3; pqn_reacher with 4 seeds for 400k env steps a seed (the returns once
+   an update over (32, 4 x 64) columns), the best greedy eval over the
+   lanes above -70; pqn_locomotion with 2 seeds for 8 updates with both
+   normalizers: statistics (2, obs_dim), the seeds' apart, each seed's file
+   holding its own norm_stats;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's, and the seeded
-   shapes: one seeded GRU launch against S unseeded ones), and torch.nn.GRU
-   (cuDNN) beside the GRU scan as a yardstick (S calls of it beside the
-   seeded launch);
-8. print the kernel table as one JSON line;
+   shapes: one seeded GRU launch against S unseeded ones, epsilon-greedy
+   at 4 x 1024 and 2 x 1024 Craftax rows, the returns at the seeded AC,
+   VDN and pqn_rnn_craftax columns), and torch.nn.GRU (cuDNN) beside the
+   GRU scan as a yardstick (S calls of it beside the seeded launch);
+8. print the kernel table as one JSON line (the four kernels of phase 6j's
+   runs at their seeded shapes, with those runs' launches);
 9. print {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero, printing no result, where no GPU is visible or where the
@@ -177,22 +199,23 @@ PENDULUM_GATE = -500.0
 # the Pendulum kernel at the trainer's shape (T, B, H, max_steps), at one
 # that forces resets, and at ragged groups with the W2 slices read from L2
 PENDULUM_SHAPES = ((32, 64, 256, 200), (40, 16, 64, 10), (12, 100, 1024, 5))
-# the actor-critic trainer beyond Pendulum (unfused): pqn_reacher for
-# tests/test_pqn_ac.py::test_ac_learns_reacher's 400k env steps, held to its
-# bar on the best greedy eval (random play is about -129); the other three
-# YAMLs for 8 updates each, their eval every TEST_INTERVAL of the run
+# the actor-critic trainer beyond Pendulum (unfused): the four YAMLs at one
+# seed for 8 updates each, their eval every TEST_INTERVAL of the run;
+# pqn_reacher with seeds (phase 6j) for tests/test_pqn_ac.py::
+# test_ac_learns_reacher's 400k env steps, held to its bar on the best
+# greedy eval (random play is about -129)
 REACHER_STEPS = 400_000
 REACHER_GATE = -70.0
-# the seeds 0..n-1 that the Pendulum and Reacher gates are held over: the
-# best greedy eval over them beats the bar. At 400k env steps one seed
-# learns past -500 in a quarter to a half of the runs, in JAX as in the
-# port, and past -70 in most (PERF.md section 7)
-AC_GATE_SEEDS = {"pendulum": 8, "reacher": 4}
+# the seeds 0..n-1 that the Pendulum gate is held over: the best greedy
+# eval over them beats the bar. At 400k env steps one seed learns past -500
+# in a quarter to a half of the runs, in JAX as in the port (PERF.md section
+# 7). Reacher's gate is held over the lanes of one 4-seed program (phase 6j)
+AC_GATE_SEEDS = {"pendulum": 8}
 # the workers' limit, from their start at phase 6e
 AC_GATE_TIMEOUT_S = 900
-AC_SHORT = ("pqn_dm_suite", "pqn_locomotion", "pqn_manipulation")
+AC_SHORT = ("pqn_reacher", "pqn_dm_suite", "pqn_locomotion", "pqn_manipulation")
 AC_SHORT_UPDATES = 8
-AC_SHORT_TEST_INTERVAL = 0.5
+AC_SHORT_TEST_INTERVAL = 1.0  # 2 evals: at the start and after the last update
 # the CartPole kernel at ragged groups that force resets (T, B, H,
 # max_steps): a lone env, warps past the last env, W2 slices in shared
 # memory and read from L2
@@ -214,8 +237,9 @@ GRU_SHAPES = ((132, 2, 256), (68, 2, 256), (29, 48, 256), (68, 80, 256), (32, 16
 # VDN's windows, timed beside the recurrent trainer's
 GRU_VDN_TIMED = ((29, 48, 256), (68, 80, 256))
 # the seeded recurrent trainer's windows (T, S, B, H): MemoryChain and RNN
-# CartPole with 4 seeds of B 2 rows
-SEEDED_GRU_SHAPES = ((132, 4, 2, 256), (68, 4, 2, 256))
+# CartPole with 4 seeds of B 2 rows; VDN Spread with 4 seeds at the JAX
+# bar's settings (phase 6j: H 128, 3 agents x 8 envs a seed's minibatch)
+SEEDED_GRU_SHAPES = ((132, 4, 2, 256), (68, 4, 2, 256), (29, 4, 24, 128))
 # the seeded runs (NUM_SEEDS): pqn_cartpole with 8 seeds, 200k env steps a
 # seed, held to the single-seed CartPole gate by the mean over seeds of each
 # seed's last-10 return; 64 seeds in the strict program (bench.py's
@@ -229,14 +253,15 @@ SEEDS64_STEPS = 16 * 64 * 32
 ASTERIX_GATE = 0.8
 # the same for Seaquest: tests/test_torch_seaquest.py::test_seaquest_learns
 SEAQUEST_GATE = 0.2
-# pqn_craftax's run: 1,024 updates of 1024 envs x 1 step (the YAML's 1e9 cut
-# to this length; 2,048 before the seeded phases came in). It has no learning
-# bar: at 2^21 steps on an H100, one of four learned seeds ended above random
-# play, three with the LR=0 runs (scripts/craftax_learning_bar.py, PERF.md
-# sections 2 and 7)
-CRAFTAX_STEPS = 2**20
+# pqn_craftax's run: 256 updates of 1024 envs x 1 step (the YAML's 1e9 cut
+# to this length; 2,048 before the seeded phases came in, 1,024 before the
+# seeded families'), the one-seed run beside phase 6j's 4 seeds of the same
+# length. It has no learning bar: at 2^21 steps on an H100, one of four
+# learned seeds ended above random play, three with the LR=0 runs
+# (scripts/craftax_learning_bar.py, PERF.md sections 2 and 7)
+CRAFTAX_STEPS = 2**18
 # the strict Craftax program (PARITY=strict) and the bfloat16 one, shorter
-CRAFTAX_STRICT_STEPS = 2**19
+CRAFTAX_STRICT_STEPS = 2**18
 CRAFTAX_BF16_STEPS = 2**18
 # pqn_rnn_craftax at full width (LSTM H 512, 1024 envs x 128 steps, 4 x 4
 # grad steps an update): 3 updates in the fast program, the YAML's
@@ -249,13 +274,29 @@ RNN_CRAFTAX_SHORT_STEPS = 1024 * 128
 # |Q| (bfloat16 keeps 8 significant bits; 0.7 % measured on the CPU at H 1024
 # x 4 from the init, tests/test_torch_bf16.py)
 BF16_BOUND = 0.03
+# the seeded families (phase 6j, NUM_SEEDS as one program): pqn_craftax with
+# 4 seeds in the fast program, CRAFTAX_STEPS a seed, beside phase 6f's one
+# seed of the same length, then 16 updates with BF16_COMPUTE; pqn_rnn_craftax
+# with 2 seeds, 3 updates fast; pqn_vdn_spread with 4 seeds at the JAX bar's
+# settings (tests/test_pqn_vdn.py::test_vdn_learns_spread: 400k env steps a
+# seed, 64 envs, H 128, no eval), at least SEED_VDN_PASS lanes past
+# VDN_SPREAD_GATE; pqn_reacher with 4 seeds for REACHER_STEPS a seed, the
+# best greedy eval over the lanes past REACHER_GATE (the bar once held over
+# seeds 0-3 as separate runs); pqn_locomotion with 2 seeds for 8 updates,
+# both normalizers, one statistics state a seed
+SEED_CRAFTAX, SEED_CRAFTAX_BF16_UPDATES, SEED_RNN_CRAFTAX = 4, 16, 2
+SEED_VDN, SEED_VDN_STEPS, SEED_VDN_PASS = 4, 400_000, 3
+SEED_VDN_EXTRA = ("NUM_ENVS=64", "HIDDEN_SIZE=128", "TEST_DURING_TRAINING=False")
+SEED_REACHER, SEED_LOCOMOTION = 4, 2
+CRAFTAX_FAST_POLICY = (("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256))
 # this script's wall on an NVIDIA H100 80GB HBM3 at 700 W, the build and
-# the seeded phases included (PERF.md section 2)
-RECORDED_WALL_S = 755.5
+# the seeded phases included, before the trims of the AC evals and the
+# strict Craftax run (PERF.md section 2)
+RECORDED_WALL_S = 1006.3
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
-# and the seeded FF runs' folded rows (S x NUM_ENVS, A): CartPole with 8 and
-# 64 seeds, Breakout with 4
-EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6), (256, 2), (2048, 2), (512, 3))
+# and the seeded runs' folded rows (S x NUM_ENVS, A): CartPole with 8 and
+# 64 seeds, Breakout with 4, Craftax with 4 and pqn_rnn_craftax with 2
+EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6), (256, 2), (2048, 2), (512, 3), (4096, 34), (2048, 34))
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
@@ -271,14 +312,16 @@ SOURCES = tuple(k for k in KERNELS if k != "lambda_returns_closure")
 # ragged ones, many blocks through the ring, a long T of few envs
 # the seeded runs' folded columns (T, S x E): CartPole with 8 and 64 seeds,
 # Breakout with 4, MemoryChain and RNN CartPole with 4 seeds of B 2; the
-# actor-critic trainer's at 256 envs (pqn_locomotion, pqn_manipulation;
-# pqn_reacher's 64 and pqn_dm_suite's 128 are above)
+# actor-critic trainer's at 256 envs (pqn_locomotion, pqn_manipulation, and
+# pqn_reacher with 4 seeds of 64; pqn_dm_suite's 128 is above) and
+# pqn_locomotion with 2 seeds; VDN Spread with 4 seeds of B 8 and
+# pqn_rnn_craftax with 2 seeds of B 256 (phase 6j)
 LAMBDA_SHAPES = ((64, 32), (32, 128), (32, 64), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2),
                  (63, 2), (1, 7), (2, 33), (64, 200), (300, 4096), (1024, 3),
-                 (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256))
+                 (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256), (28, 32), (127, 512))
 # where both forms are timed
 LAMBDA_TIMED = ((64, 32), (32, 128), (131, 2), (67, 2), (28, 16), (67, 16), (127, 256), (127, 2), (63, 2),
-                (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256))
+                (64, 256), (64, 2048), (32, 512), (131, 8), (67, 8), (32, 256), (28, 32), (127, 512))
 # the Breakout run and check as recorded on an H100 with the kernel's first
 # CNN, one block an env (PERF.md): the last-10 mean return, the last greedy
 # eval, the resets with the PRNG off. The cluster CNN sums the dense layer in
@@ -799,6 +842,238 @@ def gate_seed_results(workers, deadline: float):
                 results[(d["run"], d["seed"])] = d
         check(all((run, k) in results for run in runs), f"the gate seeds' worker {k} missed a run:\n{text[-3000:]}")
     return results
+
+
+def seeded_families(cli, compose, load_params, wrappers, counters, save_path, card, craftax_one_seed):
+    """Phase 6j: the families beyond FF and the recurrent trainer with
+    NUM_SEEDS as one program, each through the CLI's entry point with the
+    launch counters zeroed just before and read just after, each lane's
+    numbers and the aggregate rate (seeds x one seed's env steps over the
+    wall) printed. ``craftax_one_seed`` is phase 6f's one-seed run of the
+    same length, whose rate and launches the 4 seeds' are set beside.
+    Returns {run: launches} and the lanes' gate numbers."""
+    import numpy as np
+    import torch
+
+    launches_by_run, gates = {}, {}
+
+    def metrics_of(name, outs, seeds, n_updates):
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        check(all(v.shape == (seeds, n_updates) for v in m.values()),
+              f"{name}: metrics not ({seeds}, {n_updates}): { {k: v.shape for k, v in m.items()} }")
+        return m
+
+    def only(name, launches, expected):
+        for k, n in expected.items():
+            check(launches[k] == n, f"{name}: {k} launched {launches[k]} times, expected {n} (one seed's count)")
+        others = {k: v for k, v in launches.items() if k not in expected and v}
+        check(not others, f"{name}: another kernel launched: {others}")
+
+    def lanes_apart(name, modules, seeds, lead=1):
+        """Every parameter on the card with the seeds leading (``lead``
+        members a seed), and lane 0's first weight unlike lane 1's."""
+        params = [p for mod in modules for p in mod.parameters()]
+        check(all(p.device.type == "cuda" and p.shape[0] == seeds * lead for p in params[:1] + params[-1:]),
+              f"{name}: a parameter is not on cuda or has no seed axis")
+        w = next(p for p in modules[0].parameters() if p.dim() >= 3)  # a stacked Dense or conv weight
+        check(not torch.equal(w[0], w[lead]), f"{name}: the lanes' params are equal")
+
+    # ---- (a) pqn_craftax, 4 seeds, the fast program ----
+    ccfg = compose(alg="pqn_craftax")
+    S, steps = SEED_CRAFTAX, CRAFTAX_STEPS
+    updates = steps // ccfg["NUM_STEPS"] // ccfg["NUM_ENVS"]
+    wrappers.BankedResetVecEnv.refreshes = 0
+    outs, wall, launches = train(cli, compose, "pqn_craftax", steps, save_path, counters,
+                                 extra=[f"NUM_SEEDS={S}"], policy=CRAFTAX_FAST_POLICY)
+    bursts = wrappers.BankedResetVecEnv.refreshes
+    ts = outs["runner_state"][0]
+    m = metrics_of("craftax seeds", outs, S, updates)
+    only("craftax seeds", launches, {"eps_greedy": updates})
+    check(launches["eps_greedy"] == craftax_one_seed["launches"]["eps_greedy"],
+          f"craftax seeds: {launches['eps_greedy']} eps_greedy launches, one seed's run "
+          f"{craftax_one_seed['launches']['eps_greedy']}")
+    check(bursts == -(-updates // 16), f"craftax seeds: {bursts} refresh bursts, expected {-(-updates // 16)}")
+    env_state = outs["runner_state"][1][1]
+    check(isinstance(env_state, wrappers.BankedResetState) and env_state.bank_w32.shape[0] == S * 256,
+          "craftax seeds: the training env is not S banks of 256")
+    check(ts.network.BatchRenorm_0.steps.tolist() == [updates] * S,
+          f"craftax seeds: the input norms stepped {ts.network.BatchRenorm_0.steps.tolist()}, expected {updates} each")
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax seeds: non-finite td_loss or qvals")
+    check(len({tuple(r) for r in m["td_loss"].tolist()}) == S, "craftax seeds: two lanes have the same losses")
+    lanes_apart("craftax seeds", [ts.network], S)
+    lane_bar = [craftax_bar_metric({k: v[i] for k, v in m.items()}) for i in range(S)]
+    rate = S * ts.timesteps / wall
+    one_rate = craftax_one_seed["env_steps_per_s"]
+    print(f"train craftax, {S} seeds as one program (the fast program): {S} x {ts.timesteps} env steps in "
+          f"{wall:.2f} s wall ({rate:.0f} env-steps/s aggregate; one seed of the same length "
+          f"{one_rate:.0f}); launches {launches}; refresh bursts {bursts}; "
+          f"each lane's done-masked return over the last 10 % {[round(b[0], 4) for b in lane_bar]} "
+          f"({[b[1] for b in lane_bar]} updates with an end), last td_loss {m['td_loss'][:, -1].tolist()}")
+    check(all(os.path.exists(os.path.join(save_path, "Craftax-Symbolic-v1",
+                                          f"pqn_craftax_Craftax-Symbolic-v1_seed0_vmap{i}.safetensors"))
+              for i in range(S)), "craftax seeds: a per-seed checkpoint is missing")
+    print(json.dumps({"seeds_craftax_run": {
+        "seeds": S, "env_steps_per_s": rate, "one_seed_env_steps_per_s": one_rate, "wall_s": wall,
+        "bar_metric_by_seed": [b[0] for b in lane_bar], "refresh_bursts": bursts, "launches": launches,
+        "card": card}}))
+    launches_by_run["craftax"] = launches
+
+    # 16 updates with BF16_COMPUTE: each lane's trunk in bfloat16 over float32
+    # parameters, its forward held within BF16_BOUND of float32's
+    bsteps = SEED_CRAFTAX_BF16_UPDATES * ccfg["NUM_ENVS"]
+    outs, wall, launches = train(cli, compose, "pqn_craftax", bsteps, save_path, counters,
+                                 extra=[f"NUM_SEEDS={S}", "BF16_COMPUTE=True"], policy=CRAFTAX_FAST_POLICY)
+    net = outs["runner_state"][0].network
+    m = metrics_of("craftax seeds bf16", outs, S, SEED_CRAFTAX_BF16_UPDATES)
+    only("craftax seeds bf16", launches, {"eps_greedy": SEED_CRAFTAX_BF16_UPDATES})
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals")), "craftax seeds bf16: non-finite metrics")
+    obs = outs["runner_state"][1][0]
+    with torch.no_grad():
+        q_bf16 = net(obs, train=False)
+        f32_net = copy.deepcopy(net)
+        f32_net.dtype = torch.float32
+        q_f32 = f32_net(obs, train=False)
+    errs = (q_bf16 - q_f32).abs().reshape(S, -1).amax(1)
+    scales = q_f32.abs().reshape(S, -1).amax(1)
+    check(net.dtype == torch.bfloat16 and q_bf16.dtype == torch.float32
+          and all(p.dtype == torch.float32 for p in net.parameters()), "craftax seeds bf16: the dtypes are wrong")
+    print(f"train craftax, {S} seeds, BF16_COMPUTE: {S} x {outs['runner_state'][0].timesteps} env steps in "
+          f"{wall:.2f} s wall ({S * outs['runner_state'][0].timesteps / wall:.0f} env-steps/s aggregate); launches "
+          f"{launches}; each lane's bfloat16 forward against float32 on its weights: max |diff| "
+          f"{[round(float(e), 5) for e in errs]}, max |Q| {[round(float(x), 4) for x in scales]}")
+    check(bool((errs <= BF16_BOUND * scales).all()), f"craftax seeds bf16: a lane's forward is off float32: {errs}")
+
+    # ---- (b) pqn_rnn_craftax, 2 seeds, 3 updates of the fast program ----
+    rcfg = compose(alg="pqn_rnn_craftax")
+    S = SEED_RNN_CRAFTAX
+    r_updates = RNN_CRAFTAX_STEPS // rcfg["NUM_STEPS"] // rcfg["NUM_ENVS"]
+    r_grad = r_updates * rcfg["NUM_EPOCHS"] * rcfg["NUM_MINIBATCHES"]
+    outs, wall, launches = train(
+        cli, compose, "pqn_rnn_craftax", RNN_CRAFTAX_STEPS, save_path, counters,
+        extra=["TOTAL_TIMESTEPS_DECAY=1e9", f"NUM_SEEDS={S}"],
+        policy=("FAST_BPTT", ("EXPLORATION_KERNEL", "pallas"), ("RESET_BANK", 256)),
+    )
+    ts = outs["runner_state"][0]
+    m = metrics_of("rnn craftax seeds", outs, S, r_updates)
+    only("rnn craftax seeds", launches, {
+        "eps_greedy": rcfg["MEMORY_WINDOW"] + rcfg["NUM_STEPS"] + r_updates * rcfg["NUM_STEPS"],
+        "lambda_returns_closure": r_grad})
+    check(ts.network.BatchRenorm_0.steps.tolist() == [r_grad] * S,
+          f"rnn craftax seeds: the input norms stepped {ts.network.BatchRenorm_0.steps.tolist()}")
+    check(isinstance(outs["runner_state"][2][4], wrappers.BankedResetState), "rnn craftax seeds: not banked")
+    check(all(np.isfinite(v).all() for v in m.values()), "rnn craftax seeds: non-finite metrics")
+    check(not np.array_equal(m["td_loss"][0], m["td_loss"][1]), "rnn craftax seeds: the lanes' losses are equal")
+    lanes_apart("rnn craftax seeds", [ts.network], S)
+    rate = S * ts.timesteps / wall
+    print(f"train rnn craftax, {S} seeds as one program (LSTM H 512, the fast program): {S} x {ts.timesteps} env "
+          f"steps in {wall:.2f} s wall ({rate:.0f} env-steps/s aggregate); launches {launches}; td_loss by lane "
+          f"{m['td_loss'].round(5).tolist()}")
+    print(json.dumps({"seeds_rnn_craftax_run": {"seeds": S, "env_steps_per_s": rate, "wall_s": wall,
+                                                "launches": launches, "card": card}}))
+    launches_by_run["rnn_craftax"] = launches
+
+    # ---- (c) pqn_vdn_spread, 4 seeds, at the JAX bar's settings ----
+    S, steps = SEED_VDN, SEED_VDN_STEPS
+    vcfg = compose(alg="pqn_vdn_spread", overrides=list(SEED_VDN_EXTRA))
+    v_updates = steps // vcfg["NUM_STEPS"] // vcfg["NUM_ENVS"]
+    v_grad = v_updates * vcfg["NUM_EPOCHS"] * vcfg["NUM_MINIBATCHES"]
+    outs, wall, launches = train(cli, compose, "pqn_vdn_spread", steps, save_path, counters,
+                                 extra=[f"NUM_SEEDS={S}", *SEED_VDN_EXTRA], policy=("FAST_BPTT", "PALLAS_BPTT"))
+    ts = outs["runner_state"][0]
+    m = metrics_of("spread seeds", outs, S, v_updates)
+    # the GRU kernels and the closure returns once a grad step, as one seed's run
+    only("spread seeds", launches, {k: v_grad for k in ("gru_scan_fwd", "gru_scan_bwd", "lambda_returns_closure")})
+    check(all(np.isfinite(m[k]).all() for k in ("td_loss", "qvals", "returned_episode_returns")),
+          "spread seeds: non-finite metrics")
+    lanes_apart("spread seeds", [ts.network], S)
+    rets = m["returned_episode_returns"]
+    tenth = max(1, v_updates // 10)
+    early, late = rets[:, :tenth].mean(1), rets[:, -tenth:].mean(1)
+    passed = int((late > early + VDN_SPREAD_GATE).sum())
+    rate = S * ts.timesteps / wall
+    print(f"train spread (pqn_vdn), {S} seeds as one program: {S} x {ts.timesteps} env steps in {wall:.2f} s wall "
+          f"({rate:.0f} env-steps/s aggregate); launches {launches}; each lane's first / last tenth team return "
+          f"{[(round(float(a), 3), round(float(b), 3)) for a, b in zip(early, late)]}; {passed} of {S} lanes past "
+          f"first + {VDN_SPREAD_GATE} (gate: {SEED_VDN_PASS})")
+    check(passed >= SEED_VDN_PASS, f"the seeded VDN trainer did not learn Spread: {passed} of {S} lanes past the bar")
+    for i in range(S):
+        saved = load_params(os.path.join(save_path, "Spread-v0", f"pqn_vdn_rnn_Spread-v0_seed0_vmap{i}.safetensors"))
+        check(torch.equal(saved["ScannedRNN_0"]["GRUCell_0"]["hn"]["kernel"],
+                          ts.network.ScannedRNN_0.GRUCell_0.hn.weight[i].T.cpu()),
+              f"spread seeds: the checkpoint of seed {i} is not lane {i}")
+    print(json.dumps({"seeds_vdn_spread_run": {
+        "seeds": S, "env_steps_per_s": rate, "wall_s": wall, "early_tenth_by_seed": early.tolist(),
+        "late_tenth_by_seed": late.tolist(), "passed": passed, "gate": [VDN_SPREAD_GATE, SEED_VDN_PASS],
+        "launches": launches, "card": card}}))
+    launches_by_run["vdn"] = launches
+    gates["vdn_spread"] = passed
+
+    # ---- (d) the actor-critic trainer: pqn_reacher with 4 seeds, pqn_locomotion with 2 ----
+    def ac_seeded(alg, seeds, steps, extra=()):
+        cfg = compose(alg=alg, overrides=list(extra))
+        E, T = cfg["NUM_ENVS"], cfg["NUM_STEPS"]
+        n_updates = steps // (E * T)
+        outs, wall, launches = train(cli, compose, alg, steps, save_path, counters,
+                                     extra=[f"NUM_SEEDS={seeds}", *extra], policy=())
+        ts = outs["runner_state"][0]
+        m = metrics_of(f"{alg} seeds", outs, seeds, n_updates)
+        only(f"{alg} seeds", launches, {"lambda_returns": n_updates})
+        check(all(np.isfinite(v).all() for v in m.values()), f"{alg} seeds: non-finite metrics")
+        check(ts["actor"].timesteps == n_updates * E * T, f"{alg} seeds: wrong env-step count")
+        lanes_apart(f"{alg} seeds (actor)", [ts["actor"].network], seeds)
+        lanes_apart(f"{alg} seeds (critics)", [ts["critic"].network], seeds, cfg.get("NUM_CRITICS", 2))
+        check(not np.array_equal(m["value_loss"][0], m["value_loss"][1]), f"{alg} seeds: the lanes' losses are equal")
+        return outs, wall, launches, m, cfg
+
+    S = SEED_REACHER
+    outs, wall, launches, m, cfg = ac_seeded("pqn_reacher", S, REACHER_STEPS)
+    evals = m["test/returned_episode_returns"]
+    bests = evals.max(1)
+    rate = S * outs["runner_state"][0]["actor"].timesteps / wall
+    interval = max(1, int(evals.shape[1] * cfg["TEST_INTERVAL"]))
+    print(f"train reacher (pqn_ac), {S} seeds as one program: {S} x {outs['runner_state'][0]['actor'].timesteps} env "
+          f"steps in {wall:.2f} s wall ({rate:.0f} env-steps/s aggregate, eval included); launches {launches}; each "
+          f"lane's greedy evals {[[round(float(v), 1) for v in row[interval - 1 :: interval]] for row in evals]}; "
+          f"best by lane {[round(float(b), 1) for b in bests]}; gate: the best over the lanes > {REACHER_GATE}")
+    print(json.dumps({"reacher_gate_seeds": {
+        "best_evals": bests.tolist(), "passed": int((bests > REACHER_GATE).sum()), "seeds": S, "gate": REACHER_GATE,
+        "best": float(bests.max()), "env_steps_per_s": rate, "wall_s": wall, "launches": launches, "card": card}}))
+    check(float(bests.max()) > REACHER_GATE,
+          f"the actor-critic trainer did not learn Reacher in any of {S} lanes: best evals {bests.tolist()}")
+    launches_by_run["reacher"] = launches
+    gates["reacher"] = float(bests.max())
+
+    S = SEED_LOCOMOTION
+    lcfg = compose(alg="pqn_locomotion")
+    steps = AC_SHORT_UPDATES * lcfg["NUM_STEPS"] * lcfg["NUM_ENVS"]
+    outs, wall, launches, m, cfg = ac_seeded("pqn_locomotion", S, steps,
+                                             extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
+    env_state = outs["runner_state"][1][1]
+    E, obs_dim = cfg["NUM_ENVS"], env_state.mean.shape[-1]
+    count = np.float32(np.float32(1e-4) + np.float32(E))
+    for _ in range(AC_SHORT_UPDATES * cfg["NUM_STEPS"]):
+        count = np.float32(count + np.float32(E))
+    check(tuple(env_state.mean.shape) == (S, obs_dim) and tuple(env_state.count.shape) == (S,)
+          and env_state.count.tolist() == [float(count)] * S,
+          f"locomotion seeds: observation statistics {tuple(env_state.mean.shape)}, counts "
+          f"{env_state.count.tolist()}, expected ({S}, {obs_dim}) and {float(count)} each")
+    check(not torch.equal(env_state.mean[0], env_state.mean[1]), "locomotion seeds: the seeds' statistics are equal")
+    for i in range(S):
+        saved = load_params(os.path.join(save_path, cfg["ENV_NAME"],
+                                         f"pqn_ac_{cfg['ENV_NAME']}_seed0_vmap{i}.safetensors"))
+        check(set(saved) == {"actor", "critic", "norm_stats"}
+              and torch.equal(saved["norm_stats"]["mean"], env_state.mean[i].cpu())
+              and tuple(saved["critic"]["Dense_0"]["kernel"].shape)[0] == cfg.get("NUM_CRITICS", 2),
+              f"locomotion seeds: the file of seed {i} does not hold its own critics and statistics")
+    rate = S * outs["runner_state"][0]["actor"].timesteps / wall
+    print(f"train locomotion (Hopper, both normalizers), {S} seeds as one program: {wall:.2f} s wall ({rate:.0f} "
+          f"env-steps/s aggregate, 2 evals included); launches {launches}; norm_stats ({S}, {obs_dim}), each seed's "
+          f"count {float(count)}, var range by seed "
+          f"{[(round(float(v.min()), 4), round(float(v.max()), 4)) for v in env_state.var]}; the per-seed files "
+          f"hold their own norm_stats")
+    print(json.dumps({"seeds_locomotion_run": {"seeds": S, "env_steps_per_s": rate, "wall_s": wall,
+                                               "launches": launches, "card": card}}))
+    return launches_by_run, gates
 
 
 def main() -> int:
@@ -1839,24 +2114,19 @@ def main() -> int:
         }}))
         return evals, launches
 
-    ac_launches = []
-    evals, launches = ac_run("pqn_reacher", REACHER_STEPS)
-    ac_launches.append(launches)
-    gate_seed0 = {"pendulum": pd_best, "reacher": float(evals.max())}
+    # pqn_reacher's 400k run and its gate are phase 6j's, with 4 seeds as one program
+    gate_seed0 = {"pendulum": pd_best}
     for alg in AC_SHORT:
         acfg = compose(alg=alg)
-        _, launches = ac_run(alg, AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
-                             extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
-        ac_launches.append(launches)
-    launches_ac = {k: sum(la[k] for la in ac_launches) for k in counters}
+        ac_run(alg, AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
+               extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
 
     # ---- 6f. pqn_craftax at full width: the fast program, every action from eps_greedy ----
     ccfg = compose(alg="pqn_craftax")
     cx_updates = CRAFTAX_STEPS // ccfg["NUM_STEPS"] // ccfg["NUM_ENVS"]
     wrappers.BankedResetVecEnv.refreshes = 0
     outs, wall, launches_cx = train(
-        cli, compose, "pqn_craftax", CRAFTAX_STEPS, save_path, counters,
-        policy=(("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256)),
+        cli, compose, "pqn_craftax", CRAFTAX_STEPS, save_path, counters, policy=CRAFTAX_FAST_POLICY,
     )
     bursts = wrappers.BankedResetVecEnv.refreshes
     ts = outs["runner_state"][0]
@@ -1886,6 +2156,7 @@ def main() -> int:
     print(json.dumps({"craftax_run": {"program": "fast", "env_steps_per_s": cx_rate, "wall_s": wall,
                                       "bar_metric": cx_metric, "updates_with_an_end": cx_ended,
                                       "refresh_bursts": bursts, "launches": launches_cx, "card": card}}))
+    craftax_one_seed = {"env_steps_per_s": cx_rate, "launches": launches_cx, "refresh_bursts": bursts}
 
     # the strict program: optimistic resets, concat 1-step TD, a permuted minibatch
     outs, wall, launches_cs = train(
@@ -1907,7 +2178,7 @@ def main() -> int:
     # the fast program in bfloat16
     outs, wall, launches_cb = train(
         cli, compose, "pqn_craftax", CRAFTAX_BF16_STEPS, save_path, counters, extra=["BF16_COMPUTE=True"],
-        policy=(("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256)),
+        policy=CRAFTAX_FAST_POLICY,
     )
     ts = outs["runner_state"][0]
     net = ts.network
@@ -2235,11 +2506,15 @@ def main() -> int:
                                                  "last3_eval_by_seed": sm_last3.tolist(), "gate": MEMORY_GATE,
                                                  "launches": launches_sm, "card": card}}))
 
+    # ---- 6j. the other families with seeds: Craftax, pqn_rnn_craftax, VDN, AC ----
+    launches_6j, _ = seeded_families(cli, compose, load_params, wrappers, counters, save_path, card,
+                                     craftax_one_seed)
+
     # ---- the AC learning gates over seeds: seed 0 above, the workers' others ----
     t0 = time.perf_counter()
     gate_lines = gate_seed_results(gate_workers, gate_deadline)
     gate_wait = time.perf_counter() - t0
-    for run, bar in (("pendulum", PENDULUM_GATE), ("reacher", REACHER_GATE)):
+    for run, bar in (("pendulum", PENDULUM_GATE),):
         bests = [gate_seed0[run]] + [gate_lines[(run, k)]["best_eval"] for k in range(1, AC_GATE_SEEDS[run])]
         check(all(np.isfinite(bests)), f"{run}: a seed's best greedy eval is not finite: {bests}")
         passed = sum(b > bar for b in bests)
@@ -2343,9 +2618,9 @@ def main() -> int:
     print(json.dumps({"timing": "pendulum_ac_rollout", "shape": {"T": 32, "B": 64, "H": 256}, "ms": k_ms,
                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}))
 
-    # Craftax's shape, then the seeded FF runs' (CartPole 8 and 64 seeds,
-    # Breakout 4)
-    for shape in (EPS_GREEDY_SHAPES[0], (256, 2), (2048, 2), (512, 3)):
+    # Craftax's shape, then the seeded runs' (CartPole 8 and 64 seeds,
+    # Breakout 4, Craftax 4, pqn_rnn_craftax 2)
+    for shape in (EPS_GREEDY_SHAPES[0], (256, 2), (2048, 2), (512, 3), (4096, 34), (2048, 34)):
         qv = eps_inputs[shape]
         k_ms = cuda_time_ms(lambda: eg.eps_greedy(3, qv, 0.1), 200)
         p_ms = cuda_time_ms(lambda: eg.eps_greedy_plain(3, qv, 0.1), 20)
@@ -2360,15 +2635,16 @@ def main() -> int:
     # ---- 8. the kernel table -----------------------------------------------------
     # launches: each kernel's count from the run of its slice's path (the
     # Pendulum rollout's from the Pendulum run, each MinAtar game's and
-    # CartPole's from its fused run); eps_greedy's from pqn_cartpole with 8
-    # seeds, the GRU scan's and the closure returns' from
-    # pqn_rnn_memory_chain with 4 (the seeded runs, timed at their shapes);
-    # the lambda returns' from the four actor-critic runs beyond Pendulum,
-    # timed at their 256 envs
+    # CartPole's from its fused run); since the seeded families came in, the
+    # four kernels they run from those runs, each timed at its seeded shape:
+    # eps_greedy's from pqn_craftax with 4 seeds (4096 rows), the GRU scan's
+    # and the closure returns' from pqn_vdn_spread with 4 seeds (T 29, 4
+    # seeds of 24 rows; targets (28, 4 x 8)), the lambda returns' from
+    # pqn_reacher with 4 seeds ((32, 4 x 64))
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x256", launches_ac),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_32x256", launches_6j["reacher"]),
         ("cartpole_rollout", "purejaxql_torch/csrc/cartpole_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:465", "cartpole_rollout_B32", launches_cp),
         ("breakout_rollout", "purejaxql_torch/csrc/breakout_rollout.cu",
@@ -2383,15 +2659,15 @@ def main() -> int:
         ("seaquest_rollout", "purejaxql_torch/csrc/seaquest_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:1689", "seaquest_rollout", launches_sq),
         ("gru_scan_fwd", "purejaxql_torch/csrc/gru_scan_fwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T132_S4_B2", launches_sm),
+         "purejaxql_tpu/ops/fast_rnn.py:224", "gru_scan_fwd_T29_S4_B24", launches_6j["vdn"]),
         ("gru_scan_bwd", "purejaxql_torch/csrc/gru_scan_bwd.cu",
-         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T132_S4_B2", launches_sm),
+         "purejaxql_tpu/ops/fast_rnn.py:248", "gru_scan_bwd_T29_S4_B24", launches_6j["vdn"]),
         ("pendulum_ac_rollout", "purejaxql_torch/csrc/pendulum_ac_rollout.cu",
          "purejaxql_tpu/ops/pallas_rollout.py:2135", "pendulum_ac_rollout", launches_pd),
         ("eps_greedy", "purejaxql_torch/csrc/eps_greedy.cu",
-         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy_256x2", launches_s8),
+         "purejaxql_tpu/ops/pallas_explore.py:26", "eps_greedy_4096x34", launches_6j["craftax"]),
         ("lambda_returns_closure", "purejaxql_torch/csrc/lambda_returns.cu",
-         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_131x8", launches_sm),
+         "purejaxql_tpu/ops/pallas_returns.py:26", "lambda_returns_closure_28x32", launches_6j["vdn"]),
     ):
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({

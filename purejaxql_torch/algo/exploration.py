@@ -11,7 +11,7 @@
 - ``gaussian_noise_ladder`` (exploration.py:62-85): additive Gaussian noise
   for a deterministic continuous policy, env i of E at std
   i / (E - 1) * noise_std, so some envs always exploit and others always
-  explore.
+  explore (with seeds, each seed's E envs a ladder of their own).
 """
 
 from __future__ import annotations
@@ -91,14 +91,18 @@ def gaussian_noise_ladder(
     high: float,
     scale: float = 1.0,
     linspace: bool = True,
+    seeds: int = 1,
 ) -> torch.Tensor:
     """actions (E, D) plus N(0, std_i^2) noise times ``scale`` (the action
     half-range, so noise_std is in normalized action units), clipped to
     [low, high]. With ``linspace`` the stds run linspace(0, noise_std, E)
-    over the envs, else every env has noise_std."""
+    over the envs, else every env has noise_std. With ``seeds`` > 1 the
+    rows are S seed-major blocks of E envs, and each block has the E-long
+    ladder of its own, as each vmapped lane does."""
     n_envs = actions.shape[0]
     if linspace:
-        stds = torch.linspace(0.0, noise_std, n_envs, device=actions.device)[:, None]
+        ladder = torch.linspace(0.0, noise_std, n_envs // seeds, device=actions.device)
+        stds = ladder.repeat(seeds)[:, None]
     else:
         stds = torch.full((n_envs, 1), noise_std, device=actions.device)
     noise = torch.randn(actions.shape, generator=generator, device=actions.device) * stds * scale

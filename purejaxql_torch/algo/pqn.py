@@ -77,8 +77,12 @@ NUM_SEEDS = S > 1 trains S seeds as one program on the unfused rollout
 (``algo/seeds.py``: the stacked network, seed-major folded envs, each
 seed's own loss mean, clip, row permutation and metrics), what
 ``jax.vmap(make_train(config))`` computes; every metric is then (S,
-NUM_UPDATES). The batched env modes, a BatchRenorm, BF16_COMPUTE and
-FUSED_ROLLOUT are refused with seeds.
+NUM_UPDATES). The craftax family runs so too: each seed's reset pool or
+bank (``build_env``), its stacked BatchRenorm (FAST_TARGETS' bootstrap
+under its frozen statistics), SKIP_NOOP_PERMUTE and the done-masked metrics
+per seed, every action of the S x NUM_ENVS rows from one epsilon-greedy
+launch; BF16_COMPUTE too. FUSED_ROLLOUT is refused with seeds, as by the
+JAX CLI.
 """
 
 from __future__ import annotations
@@ -221,8 +225,10 @@ def build_env(config: Dict[str, Any]):
     (USE_OPTIMISTIC_RESETS) or ``BatchEnv`` (BATCH_ENV) at NUM_ENVS for
     training and TEST_NUM_ENVS for the eval; with RESET_BANK > 0 the
     training env is ``BankedResetVecEnv`` (pqn.py:72-86) and the eval's
-    stays optimistic. ``env`` is the env under Log.
-    Shared with the recurrent trainer, which runs the split mode."""
+    stays optimistic. ``env`` is the env under Log. With NUM_SEEDS = S > 1
+    the batched modes hold S seed-major blocks of envs, each with its own
+    reset pool or bank (``seeds=S``), and BATCH_ENV S times the envs.
+    Shared with the recurrent trainer."""
     env_kwargs = dict(config.get("ENV_KWARGS") or {})
     if config.get("LOG_ACHIEVEMENTS", False):
         env_kwargs["log_achievements"] = True
@@ -232,19 +238,21 @@ def build_env(config: Dict[str, Any]):
         env = wrappers.FlattenObservation(env)
     log_env = wrappers.Log(env)
     n_train, n_test = config["NUM_ENVS"], config["TEST_NUM_ENVS"]
+    seeds = config.get("NUM_SEEDS", 1)
     if config.get("USE_OPTIMISTIC_RESETS", False):
         ratio = config["OPTIMISTIC_RESET_RATIO"]
-        test_env = wrappers.OptimisticResetVecEnv(log_env, n_test, min(ratio, n_test))
+        test_env = wrappers.OptimisticResetVecEnv(log_env, n_test, min(ratio, n_test), seeds)
         if config.get("RESET_BANK", 0):
             train_env = wrappers.BankedResetVecEnv(
                 log_env, n_train, min(ratio, n_train), int(config["RESET_BANK"]),
-                int(config.get("RESET_BANK_REFRESH_EVERY", 16)),
+                int(config.get("RESET_BANK_REFRESH_EVERY", 16)), seeds,
             )
         else:
-            train_env = wrappers.OptimisticResetVecEnv(log_env, n_train, min(ratio, n_train))
+            train_env = wrappers.OptimisticResetVecEnv(log_env, n_train, min(ratio, n_train), seeds)
         return train_env, test_env, env, env_params
     if config.get("BATCH_ENV", False):
-        return wrappers.BatchEnv(log_env, n_train), wrappers.BatchEnv(log_env, n_test), env, env_params
+        return (wrappers.BatchEnv(log_env, seeds * n_train), wrappers.BatchEnv(log_env, seeds * n_test), env,
+                env_params)
     return log_env, log_env, env, env_params
 
 

@@ -43,6 +43,18 @@ As in the other trainers, counters and schedules are host numbers and
 metrics stay device tensors until the end, so the update loop makes no host
 sync. Parameters are initialised from a host generator seeded with SEED, so
 a CPU and a GPU run start from the same weights.
+
+NUM_SEEDS = S > 1 trains S seeds as one program on the unfused rollout
+(``algo/seeds.py``), what ``jax.vmap(make_train(config))`` computes: the
+stacked actor and an ensemble of NUM_CRITICS critics a seed
+(models/actor_critic.py), S * NUM_ENVS seed-major envs, each seed's E-long
+noise ladder, its own observation and reward statistics (envs/wrappers.py),
+its own row permutation (minibatch m takes block m of every seed's), its
+actor and critic losses each its own mean and clip, the Q(lambda) targets
+over (T, S * E) columns in one returns launch, each seed's greedy eval under
+a copy of its own statistics, and (S, NUM_UPDATES) metrics. FUSED_ROLLOUT
+is refused with seeds, as by the JAX CLI; the cuda policy fuses one seed
+only.
 """
 
 from __future__ import annotations
@@ -61,6 +73,16 @@ from purejaxql_torch.algo.metrics import (
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import stack_metrics
+from purejaxql_torch.algo.seeds import (
+    check_seeds,
+    seed_generators,
+    seed_mean,
+    seed_minibatches,
+    seed_permutations,
+    seed_rows,
+    seed_sum,
+    take_rows,
+)
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import linear_schedule
 from purejaxql_torch.core.train_state import PQNTrainState
@@ -119,8 +141,7 @@ def fused_ac_eligible(config: Dict[str, Any]) -> bool:
 def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "")) not in ("pqn_ac", "pqn_playground"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an actor-critic config")
-    if config.get("NUM_SEEDS", 1) != 1:
-        raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
+    check_seeds(config)
     if config.get("LOG_VIA_CALLBACK", False):
         raise NotImplementedError("LOG_VIA_CALLBACK is not ported yet")
     if config.get("FUSED_ROLLOUT", False) and not fused_ac_eligible(config):
@@ -137,18 +158,20 @@ def _check_supported(config: Dict[str, Any]) -> None:
 def build_ac_env(config: Dict[str, Any]):
     """The wrapped env (pqn_ac.py:85-101): ScrubNaN (unless SCRUB_NAN is
     False), LogVec, ClipAction to the action box's first bound pair (:88-89),
-    then NormalizeVecReward and NormalizeVecObservation where asked for.
-    Returns (wrapped env, env, env params, action low, action high)."""
+    then NormalizeVecReward and NormalizeVecObservation where asked for,
+    each with one statistics state a seed. Returns (wrapped env, env, env
+    params, action low, action high)."""
     env, env_params = make_env(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {}))
     space = env.action_space(env_params)
     low = float(np.asarray(space.low).reshape(-1)[0])
     high = float(np.asarray(space.high).reshape(-1)[0])
     wrapped = wrappers.ScrubNaN(env) if config.get("SCRUB_NAN", True) else env
     wrapped = wrappers.ClipAction(wrappers.LogVec(wrapped), low=low, high=high)
+    seeds = config.get("NUM_SEEDS", 1)
     if config.get("NORMALIZE_REWARD", False):
-        wrapped = wrappers.NormalizeVecReward(wrapped, config["GAMMA"])
+        wrapped = wrappers.NormalizeVecReward(wrapped, config["GAMMA"], seeds)
     if config.get("NORMALIZE_OBS", False):
-        wrapped = wrappers.NormalizeVecObservation(wrapped)
+        wrapped = wrappers.NormalizeVecObservation(wrapped, seeds)
     return wrapped, env, env_params, low, high
 
 
@@ -164,14 +187,15 @@ def eval_start(init_obs: torch.Tensor, reset_state, training_state):
 
 @torch.no_grad()
 def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_test: int, n_steps: int,
-                norm_state=None) -> Dict[str, torch.Tensor]:
+                norm_state=None, seeds: int = 1) -> Dict[str, torch.Tensor]:
     """The unfused greedy eval (pqn_ac.py:678-748): ``n_test`` fresh envs of
     the wrapped ``env`` stepped ``n_steps`` times under the eval-mode actor,
     each env's first episode latched. With ``norm_state`` (the training
     NormalizeVecObsState, NORMALIZE_OBS) the eval starts from a copy of
     those statistics (``eval_start``). Returns the returns' and lengths'
     sums over the envs that ended, each over their number, and the share
-    of envs that ended."""
+    of envs that ended; with ``seeds`` > 1, n_test is S seed-major blocks,
+    each seed's eval under its own statistics and each metric (S,)."""
     obs, state = env.reset(generator, n_test, env_params)
     if norm_state is not None:
         obs, state = eval_start(obs, state, norm_state)
@@ -184,11 +208,11 @@ def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_tes
         ret = torch.where(ended, ret, ret + info["original_reward"])
         length = torch.where(ended, length, length + 1)
         ended = ended | done
-    n_done = ended.sum()
+    n_done = seed_sum(ended, seeds)
     return {
-        "returned_episode_returns": ret.sum() / n_done,
-        "returned_episode_lengths": length.sum() / n_done,
-        "done_episodes": n_done / n_test,
+        "returned_episode_returns": seed_sum(ret, seeds) / n_done,
+        "returned_episode_lengths": seed_sum(length, seeds) / n_done,
+        "done_episodes": n_done / (n_test // seeds),
     }
 
 
@@ -252,15 +276,16 @@ def actor_step(
     actor pass (its batch norms' statistics move), the critic ensemble in
     eval mode at the new actions, -meanQ plus PENALTY_COEFF * smooth-L1 to
     the behavior (greedy) action where the normalized distance reaches
-    THRESHOLD, and clip + RAdam on the actor's parameters alone. Returns the
-    loss, detached."""
+    THRESHOLD, and clip + RAdam on the actor's parameters alone. With seeds
+    (the optimizer's) the rows are seed-major and the loss the sum over
+    seeds of each seed's mean. Returns the loss, (S,) with seeds, detached."""
     action = actor(obs, train=True)
     q = critics(obs, action, train=False).mean(0)
     norm_diff = ((action - behavior_action - action_bias) / action_scale).abs().mean(-1)
     pen = smooth_l1_loss(action, behavior_action).mean(-1)
     penalty = torch.where(norm_diff < threshold, 0.0, penalty_coeff * pen)
-    loss = (-q + penalty).mean()
-    grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True, materialize_grads=True)
+    loss = seed_mean(-q + penalty, optimizer.seeds)
+    grads = torch.autograd.grad(loss.sum(), optimizer.params, allow_unused=True, materialize_grads=True)
     optimizer.step(grads)
     return loss.detach()
 
@@ -277,18 +302,22 @@ def critic_step(
     target, averaged over the minibatch and summed over the members, and
     clip + RAdam on the critics' parameters. With ``target`` None the 1-step
     TD target is r + (1 - d) gamma meanQ(next_obs, next_action), both halves
-    in one double-batch pass. Returns the loss, detached."""
-    mb = minibatch
+    in one double-batch pass (with seeds each seed's obs, then its next_obs).
+    With seeds (the optimizer's) the loss is each seed's, summed for the
+    gradient. Returns the loss, (S,) with seeds, detached."""
+    mb, seeds = minibatch, optimizer.seeds
     if target is not None:
         values = critics(mb.obs, mb.action, train=True)
     else:
-        all_q = critics(
-            torch.cat([mb.obs, mb.next_obs]), torch.cat([mb.action, mb.next_action]), train=True
-        )
-        values, next_values = all_q.chunk(2, dim=1)
+        def both(a, b):  # each seed's rows, then its next rows
+            return torch.cat([a.unflatten(0, (seeds, -1)), b.unflatten(0, (seeds, -1))], 1).flatten(0, 1)
+
+        all_q = critics(both(mb.obs, mb.next_obs), both(mb.action, mb.next_action), train=True)
+        values, next_values = (q.flatten(1, 2) for q in all_q.unflatten(1, (seeds, -1)).chunk(2, dim=2))
         target = mb.reward + (1 - mb.done) * gamma * next_values.detach().mean(0)
-    loss = smooth_l1_loss(values, target.detach()).mean(1).sum()
-    grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True, materialize_grads=True)
+    per_row = smooth_l1_loss(values, target.detach())
+    loss = per_row.mean(1).sum() if seeds == 1 else per_row.unflatten(1, (seeds, -1)).mean(2).sum(0)
+    grads = torch.autograd.grad(loss.sum(), optimizer.params, allow_unused=True, materialize_grads=True)
     optimizer.step(grads)
     return loss.detach()
 
@@ -324,11 +353,12 @@ def make_train(
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False (pqn_ac.py:163,
-    611; the fused Log replay, the info stacks and the losses' means are
-    then skipped, the eval still runs); ``runner_state`` is ({"actor": PQNTrainState, "critic":
+    (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
+    COLLECT_METRICS=False (pqn_ac.py:163, 611; the fused Log replay, the
+    info stacks and the losses' means are then skipped, the eval still
+    runs); ``runner_state`` is ({"actor": PQNTrainState, "critic":
     PQNTrainState}, (obs, env_state), test_metrics), the counters on the
-    actor's state.
+    actor's state, the envs seed-major with seeds.
     """
     config = apply_eval_subsample(dict(config))
     config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
@@ -336,6 +366,7 @@ def make_train(
     n_minibatches, n_epochs = config["NUM_MINIBATCHES"], config["NUM_EPOCHS"]
     config["NUM_UPDATES"] = config["TOTAL_TIMESTEPS"] // n_steps // n_envs
     _check_supported(config)
+    seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
     env, base_env, env_params, act_low, act_high = build_ac_env(config)
@@ -366,16 +397,18 @@ def make_train(
     action_bias = (act_high + act_low) / 2.0
 
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
+        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+        host_gen = gens[0]
+        init_gen = gens if seeds > 1 else host_gen
         actor = Actor(
             obs_dim, action_dim, action_scale, action_bias, config["ACTOR_HIDDEN_SIZES"],
             activation=config.get("ACTIVATION", "relu"), norm_type=config["NORM_TYPE"],
-            init_scale=config.get("ACTOR_INIT_SCALE", 1.0), generator=host_gen,
+            init_scale=config.get("ACTOR_INIT_SCALE", 1.0), generator=init_gen, seeds=seeds,
         ).to(device)
         critics = CriticEnsemble(
             config.get("NUM_CRITICS", 2), obs_dim, action_dim, config["CRITIC_HIDDEN_SIZES"],
             norm_type=config["NORM_TYPE"], init_scale=config.get("CRITIC_INIT_SCALE", 1.0),
-            generator=host_gen,
+            generator=init_gen, seeds=seeds,
         ).to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
         # the evals draw from streams of their own, as JAX splits each eval a
@@ -384,9 +417,9 @@ def make_train(
         eval_host_gen = torch.Generator().manual_seed(draw_seed(host_gen))
         eval_gen = torch.Generator(device=device).manual_seed(draw_seed(eval_host_gen))
         train_state = {
-            "actor": PQNTrainState(actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr)),
+            "actor": PQNTrainState(actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr, seeds)),
             "critic": PQNTrainState(
-                critics, make_optimizer(critics.parameters(), config["MAX_GRAD_NORM"], lr)
+                critics, make_optimizer(critics.parameters(), config["MAX_GRAD_NORM"], lr, seeds)
             ),
         }
         actor_state, critic_state = train_state["actor"], train_state["critic"]
@@ -397,7 +430,7 @@ def make_train(
             ensemble-mean value of the explored action (pqn_ac.py:229-250)."""
             greedy = actor(obs, train=False)
             explored = gaussian_noise_ladder(
-                dev_gen, greedy, noise_std, act_low, act_high, scale=action_scale, linspace=linspace
+                dev_gen, greedy, noise_std, act_low, act_high, scale=action_scale, linspace=linspace, seeds=seeds
             )
             return greedy, explored, critics(obs, explored, train=False).mean(0)
 
@@ -432,20 +465,20 @@ def make_train(
 
         def learn(transitions: ACTransition, targets: torch.Tensor):
             n = n_steps * n_envs
-            flat = {
-                f.name: (x := getattr(transitions, f.name)).reshape(n, *x.shape[2:])
-                for f in fields(ACTransition)
-            }
-            targets = targets.reshape(n)
+            # each seed's n rows, (S, n, ...), time-major as one seed's
+            flat = {f.name: seed_rows(getattr(transitions, f.name), seeds) for f in fields(ACTransition)}
+            flat["target"] = seed_rows(targets, seeds)
             critic_losses, actor_losses = [], []
             for _ in range(n_epochs):
-                # one permutation per epoch, shared by every field and the targets
-                perm = torch.randperm(n, generator=dev_gen, device=device)
-                for idx in perm.reshape(n_minibatches, -1):
-                    mb = ACTransition(**{k: v[idx] for k, v in flat.items()})
+                # one permutation per epoch and seed, shared by every field
+                # and the targets; minibatch m takes block m of every seed's
+                perm = seed_permutations(dev_gen, seeds, n, device)
+                batches = {k: seed_minibatches(take_rows(v, perm), n_minibatches) for k, v in flat.items()}
+                for m in range(n_minibatches):
+                    mb = ACTransition(**{f.name: batches[f.name][m] for f in fields(ACTransition)})
                     critic_loss, actor_loss = learn_minibatch(
                         actor, critics, actor_state.optimizer, critic_state.optimizer, mb,
-                        targets[idx] if use_qlambda else None, config, action_scale, action_bias,
+                        batches["target"][m] if use_qlambda else None, config, action_scale, action_bias,
                     )
                     critic_losses.append(critic_loss)
                     actor_losses.append(actor_loss)
@@ -453,7 +486,7 @@ def make_train(
                     critic_state.grad_steps += 1
             if not collect_metrics:
                 return None, None
-            return torch.stack(critic_losses).mean(), torch.stack(actor_losses).mean()
+            return seed_mean(torch.stack(critic_losses), seeds, -1), seed_mean(torch.stack(actor_losses), seeds, -1)
 
         @torch.no_grad()
         def get_test_metrics(training_env_state) -> Dict[str, torch.Tensor]:
@@ -477,11 +510,11 @@ def make_train(
                 return eval_episode_metrics(torch.cat(rews)[:n_test_steps], torch.cat(dones)[:n_test_steps])
 
             norm_state = training_env_state if config.get("NORMALIZE_OBS", False) else None
-            return greedy_eval(env, env_params, actor, eval_gen, n_test, n_test_steps, norm_state)
+            return greedy_eval(env, env_params, actor, eval_gen, seeds * n_test, n_test_steps, norm_state, seeds)
 
         # the first eval reads the statistics the training envs' reset made,
         # so it follows that reset (pqn_ac.py:750-751)
-        obs, env_state = env.reset(dev_gen, n_envs, env_params)
+        obs, env_state = env.reset(dev_gen, seeds * n_envs, env_params)
         test_metrics = get_test_metrics(env_state) if test_during_training else {}
         history = []
         for _ in range(config["NUM_UPDATES"]):
@@ -513,14 +546,14 @@ def make_train(
                 "value_loss": value_loss,
                 "loss_actor": actor_loss,
             }
-            metrics.update({k: v.float().mean() for k, v in infos.items()})
+            metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 
         return {
             "runner_state": (train_state, (obs, env_state), test_metrics),
-            "metrics": stack_metrics(history),
+            "metrics": stack_metrics(history, seeds),
         }
 
     return train

@@ -49,8 +49,10 @@ stacked network, S * NUM_ENVS seed-major envs and carries, each seed's own
 env permutation (minibatch m of every seed in one grad step), the loss the
 sum of each seed's mean, the closure targets over (T, S * B) columns, on
 FAST_BPTT with PALLAS_BPTT each GRU layer's scan one launch of each kernel
-for all seeds, and (S, NUM_UPDATES) metrics. The batched env modes, a
-BatchRenorm input norm and BF16_COMPUTE are refused with seeds.
+for all seeds, and (S, NUM_UPDATES) metrics. ``pqn_rnn_craftax`` runs so
+too, in the strict and the fast program: each seed's reset pool or bank
+(``algo/pqn.py:build_env``), the stacked input BatchRenorm (each seed's
+statistics and step count) and BF16_COMPUTE in the FAST_BPTT forward.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from purejaxql_torch.algo.metrics import (
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import _NOT_PORTED, build_env, stack_metrics
-from purejaxql_torch.algo.seeds import check_seeds, seed_generators, seed_mean, seed_permutations, seed_sum
+from purejaxql_torch.algo.seeds import check_seeds, seed_column_minibatches, seed_generators, seed_mean, seed_sum
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core.config import derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
@@ -287,10 +289,7 @@ def make_train(
             for _ in range(n_epochs):
                 # each seed's envs permuted, as columns of the seed-major
                 # memory; minibatch m takes block m of every seed's
-                perm = seed_permutations(dev_gen, seeds, n_envs, device)
-                if seeds > 1:
-                    perm = perm + n_envs * torch.arange(seeds, device=device)[:, None]
-                for idx in perm.reshape(seeds, n_minibatches, -1).transpose(0, 1).reshape(n_minibatches, -1):
+                for idx in seed_column_minibatches(dev_gen, seeds, n_envs, n_minibatches, device):
                     minibatch = map_transitions(lambda x: x[:, idx], memory)
                     loss, chosen = learn_minibatch(
                         network, optimizer, minibatch, gamma, lam, fast_bptt, pallas, compute_dtype

@@ -42,6 +42,16 @@ Line references ``pqn_vdn.py:N`` are to that module.
 
 Counters and schedules are host numbers and metrics stay device tensors
 until the end, as in the other trainers: the update loop makes no host sync.
+
+NUM_SEEDS = S > 1 trains S seeds as one program (``algo/seeds.py``): the
+stacked network, S * NUM_ENVS seed-major envs (the env axis of every (A,
+S * E) tensor), each seed's own env permutation (minibatch m takes block m
+of every seed's), the loss the sum of each seed's mean, the closure targets
+over (T - 1, S * B) columns in one returns launch, and (S, NUM_UPDATES)
+metrics and evals. The network reads its rows (S, A, E) seed-major, agents
+within each seed (``agent_rows``): each seed's A x B rows stay one block, so
+on FAST_BPTT with PALLAS_BPTT each GRU layer's scan is one launch of each
+kernel for all seeds, no cluster straddling two seeds.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from purejaxql_torch.algo.exploration import draw_seed, greedy_legal_actions, ma
 from purejaxql_torch.algo.metrics import apply_eval_subsample, episode_mean_metrics, test_interval_updates
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values, tree_map
+from purejaxql_torch.algo.seeds import check_seeds, seed_column_minibatches, seed_generators, seed_mean
 from purejaxql_torch.algo.types import MARLTransition
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import epsilon_schedule, linear_schedule
@@ -75,8 +86,7 @@ _NOT_PORTED_VDN = {
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_vdn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_vdn config")
-    if config.get("NUM_SEEDS", 1) != 1:
-        raise NotImplementedError("NUM_SEEDS > 1 is not ported yet: run one seed")
+    check_seeds(config)
     for key, what in _NOT_PORTED_VDN.items():
         if config.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet")
@@ -94,17 +104,33 @@ def _check_supported(config: Dict[str, Any]) -> None:
         )
 
 
+def agent_rows(x: torch.Tensor, seeds: int, dim: int = 0) -> torch.Tensor:
+    """x with an agent axis at ``dim`` and S * E seed-major envs after it ->
+    the network's A * S * E rows at ``dim``, laid out (S, A, E): each seed's
+    agents-major rows ``a * E + e`` one block, seed-major."""
+    return x.unflatten(dim + 1, (seeds, -1)).transpose(dim, dim + 1).flatten(dim, dim + 2)
+
+
+def from_agent_rows(y: torch.Tensor, seeds: int, n_agents: int, dim: int = 0) -> torch.Tensor:
+    """The inverse of ``agent_rows``: rows (S, A, E) at ``dim`` -> (A,
+    S * E) there."""
+    return y.unflatten(dim, (seeds, n_agents, -1)).transpose(dim, dim + 1).flatten(dim + 1, dim + 2)
+
+
 def agents_forward(network: RNNQNetwork, hidden, obs: torch.Tensor, done: torch.Tensor):
     """The shared network on one step of every agent at once, in eval mode:
     hidden a list of (A, E, H), obs (A, E, D), done (A, E) 0/1 -> (new
     hidden, q (A, E, n)). One forward over the A x E rows in place of the
-    JAX trainer's vmap over agents (pqn_vdn.py:177-195)."""
-    n_agents, n_envs = done.shape
-    rows = n_agents * n_envs
-    flat_hidden = tree_map(lambda h: h.reshape(rows, -1), list(hidden))
-    zeros = torch.zeros(1, rows, dtype=torch.long, device=done.device)
-    new_hidden, q = network(flat_hidden, obs.reshape(1, rows, -1), done.reshape(1, rows), zeros, train=False)
-    return tree_map(lambda h: h.reshape(n_agents, n_envs, -1), new_hidden), q[0].reshape(n_agents, n_envs, -1)
+    JAX trainer's vmap over agents (pqn_vdn.py:177-195); with seeds, E holds
+    S * E seed-major envs, each seed's rows its lane's (``agent_rows``)."""
+    n_agents, seeds = done.shape[0], network.seeds
+    rows = lambda x: agent_rows(x, seeds)  # noqa: E731
+    flat_hidden = tree_map(rows, list(hidden))
+    r = rows(done)
+    zeros = torch.zeros(1, *r.shape, dtype=torch.long, device=done.device)
+    new_hidden, q = network(flat_hidden, rows(obs)[None], r[None], zeros, train=False)
+    back = lambda y: from_agent_rows(y, seeds, n_agents)  # noqa: E731
+    return tree_map(back, new_hidden), back(q[0])
 
 
 def stack_agents(manager: CTRolloutManager, values: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -187,22 +213,24 @@ def learn_minibatch(
     forward over the agents-major rows from its first stored hidden state,
     the VDN targets from the stop-gradient of the same Q-values, the MSE of
     the team's chosen Q on the first T - 1 steps, and clip + RAdam on every
-    parameter. Returns the loss and the chosen Q-values (T, A, B), detached."""
-    n_steps, n_agents, n_rows = minibatch.action.shape
-    rows = n_agents * n_rows
-    hs0 = list(tree_map(lambda h: h[0].reshape(rows, -1), minibatch.last_hs))
-    last_done = minibatch.last_done.reshape(n_steps, rows)
-    q_vals = rnn_train_q_values(
-        network, hs0, minibatch.obs.reshape(n_steps, rows, -1), last_done,
+    parameter. With seeds (the optimizer's) B holds S * B seed-major
+    columns, the network reads them as ``agent_rows`` and the loss is the
+    sum over seeds of each seed's mean. Returns the loss, (S,) with seeds,
+    and the chosen Q-values (T, A, B), detached."""
+    n_agents, seeds = minibatch.action.shape[1], optimizer.seeds
+    hs0 = list(tree_map(lambda h: agent_rows(h[0], seeds), minibatch.last_hs))
+    last_done = agent_rows(minibatch.last_done, seeds, 1)
+    q_vals = from_agent_rows(rnn_train_q_values(
+        network, hs0, agent_rows(minibatch.obs, seeds, 1), last_done,
         torch.zeros_like(last_done, dtype=torch.long), fast_bptt, pallas, compute_dtype,
-    ).reshape(n_steps, n_agents, n_rows, -1)
+    ), seeds, n_agents, 1)
     target = vdn_targets(
         q_vals.detach(), minibatch.avail_actions, minibatch.reward[:, 0], minibatch.done[:, 0], gamma, lam
-    ).reshape(-1)
+    )
     chosen = q_vals.gather(-1, minibatch.action[..., None]).squeeze(-1)  # (T, A, B)
-    vdn_chosen = chosen.sum(1)[:-1].reshape(-1)
-    loss = torch.square(vdn_chosen - target).mean()
-    grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True, materialize_grads=True)
+    vdn_chosen = chosen.sum(1)[:-1]
+    loss = seed_mean(torch.square(vdn_chosen - target), seeds, 1)
+    grads = torch.autograd.grad(loss.sum(), optimizer.params, allow_unused=True, materialize_grads=True)
     optimizer.step(grads)
     return loss.detach(), chosen.detach()
 
@@ -223,18 +251,20 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
-    (NUM_UPDATES,), and is empty with COLLECT_METRICS=False;
-    ``runner_state`` is (train_state, memory, (hidden, obs, dones,
-    env_state), test_metrics).
+    (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
+    COLLECT_METRICS=False; ``runner_state`` is (train_state, memory,
+    (hidden, obs, dones, env_state), test_metrics), the envs seed-major
+    with seeds.
     """
     config = apply_eval_subsample(dict(config))
     config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
     config["NUM_UPDATES"] = config["TOTAL_TIMESTEPS"] // config["NUM_STEPS"] // config["NUM_ENVS"]
     _check_supported(config)
+    seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
     env = MARLLogWrapper(make_marl(config["ENV_NAME"], **(config.get("ENV_KWARGS") or {})))
-    manager = CTRolloutManager(env, config["NUM_ENVS"])
+    manager = CTRolloutManager(env, seeds * config["NUM_ENVS"])
     action_dim, obs_size = manager.max_action_space, manager.obs_size
     net_config = {**config, "ADD_LAST_ACTION": False}  # pqn_vdn.py:102
 
@@ -249,19 +279,20 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
-    test_manager = CTRolloutManager(env, config["TEST_NUM_ENVS"]) if test_during_training else None
+    test_manager = CTRolloutManager(env, seeds * config["TEST_NUM_ENVS"]) if test_during_training else None
     eps_scheduler = epsilon_schedule(
         config["EPS_START"], config["EPS_FINISH"], config["EPS_DECAY"] * config["NUM_UPDATES"]
     )
 
     def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        host_gen = torch.Generator().manual_seed(config["SEED"] if seed is None else seed)
+        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+        host_gen = gens[0]
         network = make_rnn_q_network(
-            net_config, action_dim, (obs_size,), generator=host_gen, norms=(config["NORM_TYPE"], "batch_norm"),
-            hidden_size=256,
+            net_config, action_dim, (obs_size,), generator=gens if seeds > 1 else host_gen,
+            norms=(config["NORM_TYPE"], "batch_norm"), hidden_size=256, seeds=seeds,
         ).to(device)
         dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
-        optimizer = make_optimizer(network.parameters(), config["MAX_GRAD_NORM"], vdn_lr(config))
+        optimizer = make_optimizer(network.parameters(), config["MAX_GRAD_NORM"], vdn_lr(config), seeds)
         train_state = PQNTrainState(network, optimizer)
 
         def start(mgr: CTRolloutManager):
@@ -274,8 +305,8 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
         def learn(memory: MARLTransition):
             losses, qvals = [], []
             for _ in range(n_epochs):
-                perm = torch.randperm(n_envs, generator=dev_gen, device=device)
-                for idx in perm.reshape(n_minibatches, -1):
+                # each seed's envs permuted; minibatch m takes block m of every seed's
+                for idx in seed_column_minibatches(dev_gen, seeds, n_envs, n_minibatches, device):
                     minibatch = map_transitions(lambda x: x[:, :, idx], memory)
                     loss, chosen = learn_minibatch(
                         network, optimizer, minibatch, gamma, lam, fast_bptt, pallas, compute_dtype
@@ -285,13 +316,13 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
                     qvals.append(chosen)
             if not collect_metrics:
                 return None, None
-            return torch.stack(losses).mean(), torch.stack(qvals).mean()
+            return seed_mean(torch.stack(losses), seeds, -1), seed_mean(torch.stack(qvals), seeds, 3)
 
         def get_test_metrics() -> Dict[str, torch.Tensor]:
             _, _, infos = vdn_rollout(
                 network, test_manager, dev_gen, start(test_manager), 0.0, config["TEST_NUM_STEPS"], greedy=True
             )
-            return episode_mean_metrics(infos)
+            return episode_mean_metrics(infos, seeds)
 
         test_metrics = get_test_metrics() if test_during_training else {}
         # the random-policy prefill stores its rewards unscaled (pqn_vdn.py:515-520)
@@ -316,14 +347,14 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
                 "td_loss": td_loss,
                 "qvals": qvals,
             }
-            metrics.update({k: v.float().mean() for k, v in infos.items()})
+            metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             history.append(metrics)
 
         return {
             "runner_state": (train_state, memory, carry, test_metrics),
-            "metrics": stack_metrics(history),
+            "metrics": stack_metrics(history, seeds),
         }
 
     return train

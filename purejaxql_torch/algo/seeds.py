@@ -1,15 +1,22 @@
-"""The seed axis of the FF and recurrent trainers: NUM_SEEDS = S > 1 trains
-S seeds as one program, what ``jax.jit(jax.vmap(make_train(config)))`` over
+"""The seed axis of the trainers: NUM_SEEDS = S > 1 trains S seeds as one
+program, what ``jax.jit(jax.vmap(make_train(config)))`` over
 ``jax.random.split(rng, NUM_SEEDS)`` computes in the JAX package
-(purejaxql_tpu/cli.py:72-88). Every leaf of ``runner_state`` and ``metrics``
-gets a leading seed axis of S.
+(purejaxql_tpu/cli.py:72-88), in every trainer (FF, recurrent, VDN,
+actor-critic) and with every option the JAX CLI vmaps. Every leaf of
+``runner_state`` and ``metrics`` gets a leading seed axis of S.
 
 Layout. The network carries the seed axis in its parameters (models/
 stacked.py, ``seeds=S``); everything outside it sees *seed-major folded
 rows*: S * E envs, seed s's E envs the s-th block, so the envs, the Log
 wrapper, epsilon-greedy ((S * E, A) rows) and the lambda returns ((T, S * E)
 columns) run as for one seed with S times the envs. Each env steps on its
-own, so the fold is exact. What differs from one seed:
+own, so the fold is exact. Where a wrapper couples envs, it does so within
+each seed's block of E (envs/wrappers.py, ``seeds=S``): the optimistic
+resets' pool and the reset bank, one a seed, and the actor-critic family's
+observation and reward statistics, one state a seed. The VDN trainer keeps
+the agents inside each seed's block of rows (algo/pqn_vdn.py), and the
+critic ensemble holds M members a seed (models/actor_critic.py). What
+differs from one seed:
 
 - the loss is the sum over seeds of each seed's mean (``seed_mean``), so
   each seed's gradient is the one its lane alone would take;
@@ -35,19 +42,14 @@ from typing import Any, Dict, List
 
 import torch
 
-from purejaxql_torch.models.factory import resolve_norms
-from purejaxql_torch.models.qnet import check_lanes
-
-# options whose program is single-seed in this port: the batched env modes
-# (each JAX lane has its own reset pool or bank, and folding would share
-# one) and the fused rollout kernels; the networks' own refusals
-# (BF16_COMPUTE, a BatchRenorm) are ``models/qnet.py:check_lanes``
-_SINGLE_SEED = ("USE_OPTIMISTIC_RESETS", "RESET_BANK", "BATCH_ENV", "FUSED_ROLLOUT")
+# options whose program is single-seed: the fused rollout kernels, which
+# the JAX CLI refuses with seeds too (purejaxql_tpu/cli.py:71-83)
+_SINGLE_SEED = ("FUSED_ROLLOUT",)
 
 
 def check_seeds(config: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` naming the pair for an option that does
-    not run with NUM_SEEDS > 1 yet (``ValueError`` for NUM_SEEDS < 1)."""
+    """Raise ``NotImplementedError`` naming the pair for an option that runs
+    one seed only (``ValueError`` for NUM_SEEDS < 1)."""
     seeds = config.get("NUM_SEEDS", 1)
     if seeds < 1:
         raise ValueError(f"NUM_SEEDS must be at least 1, got {seeds}")
@@ -55,9 +57,9 @@ def check_seeds(config: Dict[str, Any]) -> None:
         return
     for key in _SINGLE_SEED:
         if config.get(key):
-            raise NotImplementedError(f"{key} with NUM_SEEDS > 1 is not ported yet: run one seed")
-    dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
-    check_lanes(seeds, dtype, *resolve_norms(config))
+            raise NotImplementedError(
+                f"{key} with NUM_SEEDS > 1: its kernels run one seed, as in the JAX CLI; drop the flag or run one seed"
+            )
 
 
 def seed_generators(seed: int, seeds: int) -> List[torch.Generator]:
@@ -102,6 +104,16 @@ def take_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """x (S, n, ...) with each seed's rows in the order of its row of
     ``perm`` (S, n)."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], perm]
+
+
+def seed_column_minibatches(generator: torch.Generator, seeds: int, n: int, n_minibatches: int,
+                            device) -> torch.Tensor:
+    """(M, S * n / M): the column indices of each minibatch over S * n
+    seed-major columns (the recurrent and VDN trainers' envs), each seed's n
+    permuted (``seed_permutations``); minibatch m takes block m of every
+    seed's, seed-major."""
+    perm = seed_permutations(generator, seeds, n, device) + n * torch.arange(seeds, device=device)[:, None]
+    return seed_minibatches(perm, n_minibatches)
 
 
 def seed_minibatches(x: torch.Tensor, n_minibatches: int) -> torch.Tensor:

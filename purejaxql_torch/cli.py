@@ -19,9 +19,10 @@ the training run's observation statistics) and ``<run>_config.yaml``, and
 replays the metrics into the LOG_JSONL file (none with COLLECT_METRICS=False,
 whose run returns none).
 
-NUM_SEEDS=S > 1 (FF and recurrent trainers) trains S seeds as one program
+NUM_SEEDS=S > 1 (every trainer) trains S seeds as one program
 (algo/seeds.py), prints the aggregate rate of all S seeds, writes one
-``<run>_vmap{i}.safetensors`` a seed and logs each seed's rows in turn, as
+``<run>_vmap{i}.safetensors`` a seed (the actor-critic family's with seed
+i's own ``norm_stats``) and logs each seed's rows in turn, as
 purejaxql_tpu/cli.py does; FUSED_ROLLOUT with several seeds is refused here,
 as there.
 """

@@ -24,7 +24,9 @@ flax collection (``batch_stats``: ``mean``, ``var``, and a BatchRenorm's
 here, under the same leaf names; stacked ones keep their member axis in
 both. So the trees of a seed-stacked network are those of
 ``jax.vmap(network.init)``, a leading seed axis on every leaf, and
-``save_run`` writes them one file a seed, as the JAX package does.
+``save_run`` writes them one file a seed, as the JAX package does; a seeded
+critic ensemble's (S * M, ...) member axis (``lane_members`` M) is split
+into (S, M, ...) first, so seed s's file holds its own M critics.
 """
 
 from __future__ import annotations
@@ -166,12 +168,20 @@ def save_run(
     them (the actor-critic family's ``norm_stats``, one seed's)."""
     os.makedirs(save_dir, exist_ok=True)
     save_config(config, os.path.join(save_dir, f"{run_name}_config.yaml"))
-    if isinstance(modules, torch.nn.Module):
-        params = params_to_flax(modules)["params"]
-    else:
-        params = {name: params_to_flax(m)["params"] for name, m in modules.items()}
-    params.update(extra or {})
     seeds = config.get("NUM_SEEDS", 1)
+
+    def tree(module):
+        params = params_to_flax(module)["params"]
+        members = getattr(module, "lane_members", None)
+        if seeds == 1 or not members:
+            return params
+        return _unflatten({k: v.reshape(seeds, members, *v.shape[1:]) for k, v in _flatten(params).items()})
+
+    if isinstance(modules, torch.nn.Module):
+        params = tree(modules)
+    else:
+        params = {name: tree(m) for name, m in modules.items()}
+    params.update(extra or {})
     if seeds == 1:
         save_params(params, os.path.join(save_dir, f"{run_name}.safetensors"))
         return save_dir
@@ -182,7 +192,19 @@ def save_run(
     return save_dir
 
 
-def load_ac_params(tree: Mapping, actor: torch.nn.Module, critics: torch.nn.Module, norm_state=None):
+def _stack_seed_trees(trees) -> Dict:
+    """S per-seed trees (the ``_vmap{i}`` files) as one tree of a seeded
+    actor-critic run: the actor's and the statistics' leaves stacked on a
+    new seed axis, the critics' members concatenated seed-major (S * M)."""
+    flats = [_flatten(t) for t in trees]
+    return _unflatten({
+        k: (torch.cat if k.startswith("critic,") else torch.stack)(
+            [torch.as_tensor(np.asarray(f[k])) for f in flats])
+        for k in flats[0]
+    })
+
+
+def load_ac_params(tree, actor: torch.nn.Module, critics: torch.nn.Module, norm_state=None):
     """Carry an actor-critic run's saved tree (``{"actor", "critic"}`` and,
     from a NORMALIZE_OBS run, ``"norm_stats": {"mean", "var"}``, in either
     package's files) into the port: the weights into ``actor`` and the critic
@@ -191,7 +213,11 @@ def load_ac_params(tree: Mapping, actor: torch.nn.Module, critics: torch.nn.Modu
     ``NormalizeVecObsState`` (its count kept: the file holds none). Returns
     that state, a new one; ``norm_state`` unchanged where the tree holds no
     statistics or none is given. A weight the tree lacks, or one the
-    network lacks, raises KeyError."""
+    network lacks, raises KeyError. A list of S trees, a NUM_SEEDS run's
+    per-seed files in seed order, loads into seeded networks (``seeds=S``),
+    seed s's tree into lane s and its statistics into row s."""
+    if isinstance(tree, (list, tuple)):
+        tree = _stack_seed_trees(tree)
     for name, module in (("actor", actor), ("critic", critics)):
         missing, unexpected = module.load_state_dict(params_from_flax(tree[name]), strict=False)
         buffers = {k for k, _ in module.named_buffers()}

@@ -9,8 +9,9 @@ radam(lr))``), not ``torch.optim.RAdam``, which places eps differently:
 - the learning-rate schedule is read at the count *before* the increment,
   as ``optax.scale_by_schedule`` does.
 
-With ``seeds=S`` > 1 every parameter carries a leading seed axis (the
-NUM_SEEDS networks, models/stacked.py) and the clip takes each seed's own
+With ``seeds=S`` > 1 every parameter's leading axis holds S seed-major
+blocks (the NUM_SEEDS networks, models/stacked.py: one lane a seed, or the
+critic ensemble's M members a seed) and the clip takes each seed's own
 global norm, as optax's ``clip_by_global_norm`` under ``jax.vmap`` does;
 RAdam's moments are elementwise and its count is shared by every lane, so
 nothing else changes. One seed runs the single-seed update as it is.
@@ -76,7 +77,7 @@ class ClipRAdam:
             self.max_grad_norm / g_norm,
         )
         if self.seeds > 1:
-            return [g * factor.reshape(-1, *(1,) * (g.dim() - 1)) for g in grads]
+            return [(g.reshape(self.seeds, -1) * factor[:, None]).reshape(g.shape) for g in grads]
         return torch._foreach_mul(grads, factor)
 
     @torch.no_grad()

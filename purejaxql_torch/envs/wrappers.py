@@ -25,6 +25,15 @@ wrappers the ported trainers use:
 
 ``VecEnv`` has no counterpart: an env here already steps a whole batch. The
 other wrappers come with the slices that need them.
+
+Seeds (NUM_SEEDS = S > 1, algo/seeds.py): the trainers fold S seeds' envs
+into seed-major rows, seed s's E envs the s-th block. A wrapper that couples
+envs takes ``seeds=S`` and keeps the coupling inside each block, as each
+``jax.vmap`` lane of the JAX package owns its own wrapper state: the
+optimistic resets draw E / reset_ratio resets a seed among that seed's done
+envs, the bank holds ``bank_size`` rows a seed, and the normalizers keep one
+statistics state a seed, each updated from that seed's envs alone. With
+``seeds=1`` every wrapper is the single-seed one, draw for draw.
 """
 
 from __future__ import annotations
@@ -152,7 +161,10 @@ class BatchEnv(Wrapper):
 def reset_slot_map(being_reset: torch.Tensor, num_envs: int, reset_ratio: int) -> torch.Tensor:
     """Which of the num_envs / reset_ratio fresh states each env takes
     (wrappers.py:254-262): env i the slot i // reset_ratio, and the sampled
-    envs ``being_reset`` (num_resets of them) slots 0, 1, ... of their own."""
+    envs ``being_reset`` (num_resets of them) slots 0, 1, ... of their own.
+    With seeds, num_envs is all S * E rows and ``being_reset`` seed-major
+    (``sample_being_reset``): seed s's envs take only slots of its own block
+    s * E / reset_ratio, ..., the slots seed s's fresh states fill."""
     num_resets = num_envs // reset_ratio
     slots = torch.arange(num_resets, device=being_reset.device)
     index = slots.repeat_interleave(reset_ratio)
@@ -160,16 +172,20 @@ def reset_slot_map(being_reset: torch.Tensor, num_envs: int, reset_ratio: int) -
     return index
 
 
-def sample_being_reset(generator: torch.Generator, done: torch.Tensor, num_resets: int) -> torch.Tensor:
+def sample_being_reset(generator: torch.Generator, done: torch.Tensor, num_resets: int, seeds: int = 1) -> torch.Tensor:
     """num_resets distinct envs, done ones first, by Gumbel top-k over
     log(done): the sampling without replacement weighted by ``done`` of the
     JAX wrapper's ``jax.random.choice(p=done, replace=False)``. Every done env
     is taken when at most num_resets are done, and only done ones when more
     are; ``torch.multinomial`` would raise on both of those cases' edges (too
-    few nonzero weights, all weights zero)."""
+    few nonzero weights, all weights zero). With ``seeds`` > 1, ``done``
+    holds S seed-major blocks of E envs and num_resets are drawn in each
+    block: (S * num_resets,) row indices, seed-major, seed s's in its block."""
     u = torch.rand(done.shape, generator=generator, device=done.device).clamp_(min=torch.finfo(torch.float32).tiny)
     scores = torch.log(done.float()) - torch.log(-torch.log(u))
-    return torch.topk(scores, num_resets).indices
+    lanes = scores.reshape(seeds, -1)
+    local = torch.topk(lanes, num_resets, dim=1).indices
+    return (local + lanes.shape[1] * torch.arange(seeds, device=done.device)[:, None]).reshape(-1)
 
 
 class OptimisticResetVecEnv(Wrapper):
@@ -179,29 +195,33 @@ class OptimisticResetVecEnv(Wrapper):
     env. Every env gets slot i // reset_ratio, and up to num_resets sampled
     done envs a slot of their own; every done env is reset, those beyond
     num_resets on a shared slot. Wraps an env's raw ``reset_env``/
-    ``step_env`` (a Log-wrapped env's)."""
+    ``step_env`` (a Log-wrapped env's). With ``seeds`` > 1 it holds S
+    seed-major blocks of num_envs and each block draws its own num_resets
+    fresh states and routes them to its own done envs."""
 
-    def __init__(self, env, num_envs: int, reset_ratio: int):
+    def __init__(self, env, num_envs: int, reset_ratio: int, seeds: int = 1):
         super().__init__(env)
         if num_envs % reset_ratio != 0:
             raise ValueError("reset_ratio must divide num_envs")
         self.num_envs = num_envs
         self.reset_ratio = reset_ratio
         self.num_resets = num_envs // reset_ratio
+        self.seeds = seeds
+        self.total = seeds * num_envs
 
     def reset(self, generator, num_envs=None, params=None):
-        if num_envs not in (None, self.num_envs):
-            raise ValueError(f"OptimisticResetVecEnv holds {self.num_envs} envs, asked for {num_envs}")
+        if num_envs not in (None, self.total):
+            raise ValueError(f"OptimisticResetVecEnv holds {self.total} envs, asked for {num_envs}")
         params = self.default_params if params is None else params
-        return self._env.reset_env(generator, self.num_envs, params)
+        return self._env.reset_env(generator, self.total, params)
 
     def step(self, generator, state, action, params=None):
         params = self.default_params if params is None else params
-        draws = self._env.step_draws(generator, self.num_envs)
+        draws = self._env.step_draws(generator, self.total)
         obs_st, state_st, reward, done, info = self._env.step_env(state, action, params, draws)
-        obs_re, state_re = self._env.reset_env(generator, self.num_resets, params)
-        being_reset = sample_being_reset(generator, done, self.num_resets)
-        index = reset_slot_map(being_reset, self.num_envs, self.reset_ratio)
+        obs_re, state_re = self._env.reset_env(generator, self.seeds * self.num_resets, params)
+        being_reset = sample_being_reset(generator, done, self.num_resets, self.seeds)
+        index = reset_slot_map(being_reset, self.total, self.reset_ratio)
         obs = select_env(done, obs_re[index], obs_st)
         state = select_state(done, map_state(lambda x: x[index], state_re), state_st)
         return obs, state, reward, done, info
@@ -321,11 +341,19 @@ class BankedResetVecEnv(Wrapper):
     ``p=done`` weighted draw), deferring the dones beyond num_resets to a
     later step (``scatter_resets``). A bank row is at most ~bank_size /
     num_resets * refresh_every steps old. ``refreshes`` counts the bursts
-    of every instance (reset's bank not included)."""
+    of every instance (reset's bank not included).
+
+    With ``seeds`` > 1 it holds S seed-major blocks of num_envs and a bank
+    of S * bank_size rows, seed s's bank the s-th block with a cursor of its
+    own (the S cursors move in step, so one host integer holds them); a
+    burst regenerates num_resets rows of every seed's bank in one reset of
+    S * num_resets envs, and each seed draws its candidates from its own
+    bank and routes them to its own done envs."""
 
     refreshes = 0
 
-    def __init__(self, env, num_envs: int, reset_ratio: int, bank_size: int = 256, refresh_every: int = 16):
+    def __init__(self, env, num_envs: int, reset_ratio: int, bank_size: int = 256, refresh_every: int = 16,
+                 seeds: int = 1):
         super().__init__(env)
         if num_envs % reset_ratio != 0:
             raise ValueError("reset_ratio must divide num_envs")
@@ -333,20 +361,27 @@ class BankedResetVecEnv(Wrapper):
         self.num_resets = num_envs // reset_ratio
         self.bank_size = bank_size
         self.refresh_every = refresh_every
+        self.seeds = seeds
+        self.total = seeds * num_envs
 
     def reset(self, generator, num_envs=None, params=None):
-        if num_envs not in (None, self.num_envs):
-            raise ValueError(f"BankedResetVecEnv holds {self.num_envs} envs, asked for {num_envs}")
+        if num_envs not in (None, self.total):
+            raise ValueError(f"BankedResetVecEnv holds {self.total} envs, asked for {num_envs}")
         params = self.default_params if params is None else params
-        obs, env_state = self._env.reset_env(generator, self.num_envs, params)
-        w8, w32 = pack_rows(self._env.reset_env(generator, self.bank_size, params))
+        obs, env_state = self._env.reset_env(generator, self.total, params)
+        w8, w32 = pack_rows(self._env.reset_env(generator, self.seeds * self.bank_size, params))
         return obs, BankedResetState(env_state, w8, w32, cursor=0, tick=0)
 
+    def _bank_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """(S, n) rows of each seed's bank -> (S * n,) rows of the whole bank."""
+        return (rows + self.bank_size * torch.arange(self.seeds, device=rows.device)[:, None]).reshape(-1)
+
     def refresh(self, generator, state: BankedResetState, params):
-        """A burst: num_resets fresh (obs, state) rows written over the bank
-        from the cursor on. Returns (bank_w8, bank_w32, cursor)."""
-        f8, f32 = pack_rows(self._env.reset_env(generator, self.num_resets, params))
+        """A burst: num_resets fresh (obs, state) rows a seed written over
+        its bank from the cursor on. Returns (bank_w8, bank_w32, cursor)."""
+        f8, f32 = pack_rows(self._env.reset_env(generator, self.seeds * self.num_resets, params))
         rows = (state.cursor + torch.arange(self.num_resets, device=f8.device)) % self.bank_size
+        rows = self._bank_rows(rows.expand(self.seeds, -1))
         BankedResetVecEnv.refreshes += 1
         return (
             state.bank_w8.index_copy(0, rows, f8),
@@ -356,13 +391,14 @@ class BankedResetVecEnv(Wrapper):
 
     def step(self, generator, state: BankedResetState, action, params=None):
         params = self.default_params if params is None else params
-        draws = self._env.step_draws(generator, self.num_envs)
+        draws = self._env.step_draws(generator, self.total)
         obs_st, env_st, reward, done, info = self._env.step_env(state.env_state, action, params, draws)
         w8, w32, cursor = state.bank_w8, state.bank_w32, state.cursor
         if state.tick % self.refresh_every == 0:
             w8, w32, cursor = self.refresh(generator, state, params)
-        cand = torch.randint(0, self.bank_size, (self.num_resets,), generator=generator, device=done.device)
-        being_reset = sample_being_reset(generator, done, self.num_resets)
+        cand = torch.randint(0, self.bank_size, (self.seeds, self.num_resets), generator=generator, device=done.device)
+        cand = self._bank_rows(cand)
+        being_reset = sample_being_reset(generator, done, self.num_resets, self.seeds)
         obs, env_state = serve_resets(done, being_reset, cand, (w8, w32), (obs_st, env_st))
         new_state = BankedResetState(env_state, w8, w32, cursor % self.bank_size, state.tick + 1)
         return obs, new_state, reward, done, info
@@ -450,9 +486,9 @@ class LogVec(Wrapper):
 
 @dataclass
 class NormalizeVecObsState:
-    mean: torch.Tensor  # (obs_dim,) f32
-    var: torch.Tensor  # (obs_dim,) f32
-    count: torch.Tensor  # () f32, 1e-4 plus every observation row seen
+    mean: torch.Tensor  # (obs_dim,) f32; (S, obs_dim) with seeds
+    var: torch.Tensor  # (obs_dim,) f32; (S, obs_dim) with seeds
+    count: torch.Tensor  # () f32, 1e-4 plus every observation row seen; (S,) with seeds
     env_state: Any
 
 
@@ -469,6 +505,15 @@ def _merge_moments(mean, var, count, batch_mean, batch_var, batch_count: int):
     return new_mean, m2 / tot_count, tot_count
 
 
+def _lane_moments(x: torch.Tensor, seeds: int):
+    """The population mean and variance of x's rows, (S, ...) each seed's
+    over its block of seed-major rows; with one seed over all rows."""
+    if seeds == 1:
+        return x.mean(0), torch.var(x, 0, correction=0)
+    lanes = x.reshape(seeds, -1, *x.shape[1:])
+    return lanes.mean(1), torch.var(lanes, 1, correction=0)
+
+
 class NormalizeVecObservation(Wrapper):
     """Running mean/var normalization of the observations over the env batch
     (wrappers.py:575-637): every reset and step batch updates the statistics
@@ -476,13 +521,20 @@ class NormalizeVecObservation(Wrapper):
     (obs - mean) / sqrt(var + 1e-8) with the updated ones. The count starts
     at 1e-4 in float32, as JAX's. ``eval_step`` normalizes with the
     statistics frozen. States are replaced, never written in place, so a
-    copy of the training statistics can be stepped on its own (the eval)."""
+    copy of the training statistics can be stepped on its own (the eval).
+    With ``seeds`` > 1 the state holds each seed's statistics, (S, obs_dim)
+    and a count (S,), each moved by its own block of E envs alone."""
+
+    def __init__(self, env, seeds: int = 1):
+        super().__init__(env)
+        self.seeds = seeds
 
     def reset(self, generator, num_envs, params=None):
         obs, env_state = self._env.reset(generator, num_envs, params)
+        lead = () if self.seeds == 1 else (self.seeds,)
         state = NormalizeVecObsState(
-            mean=torch.zeros_like(obs[0]), var=torch.ones_like(obs[0]),
-            count=torch.tensor(1e-4, dtype=torch.float32, device=obs.device), env_state=env_state,
+            mean=obs.new_zeros(*lead, *obs.shape[1:]), var=obs.new_ones(*lead, *obs.shape[1:]),
+            count=torch.full(lead, 1e-4, dtype=torch.float32, device=obs.device), env_state=env_state,
         )
         return self._update_and_normalize(state, obs)
 
@@ -497,26 +549,31 @@ class NormalizeVecObservation(Wrapper):
         state = dataclasses.replace(state, env_state=env_state)
         return normalize_obs(obs, state.mean, state.var), state, reward, done, info
 
-    @staticmethod
-    def _update_and_normalize(state, obs):
+    def _update_and_normalize(self, state, obs):
+        batch_mean, batch_var = _lane_moments(obs, self.seeds)
+        count = state.count if self.seeds == 1 else state.count[:, None]
         mean, var, count = _merge_moments(
-            state.mean, state.var, state.count, obs.mean(0), torch.var(obs, 0, correction=0), obs.shape[0]
+            state.mean, state.var, count, batch_mean, batch_var, obs.shape[0] // self.seeds
         )
-        state = dataclasses.replace(state, mean=mean, var=var, count=count)
+        state = dataclasses.replace(state, mean=mean, var=var, count=count if self.seeds == 1 else count[:, 0])
         return normalize_obs(obs, mean, var), state
 
 
 def normalize_obs(obs: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
-    """(obs - mean) / sqrt(var + 1e-8)."""
+    """(obs - mean) / sqrt(var + 1e-8); seeds' statistics (S, obs_dim) each
+    on its block of seed-major rows of obs (S * E, obs_dim)."""
+    if mean.dim() == obs.dim():
+        lanes = obs.reshape(mean.shape[0], -1, *obs.shape[1:])
+        return ((lanes - mean[:, None]) / torch.sqrt(var[:, None] + 1e-8)).reshape(obs.shape)
     return (obs - mean) / torch.sqrt(var + 1e-8)
 
 
 @dataclass
 class NormalizeVecRewState:
-    mean: torch.Tensor  # () f32
-    var: torch.Tensor  # () f32
-    count: torch.Tensor  # () f32
-    return_val: torch.Tensor  # (E,) the running discounted return
+    mean: torch.Tensor  # () f32; (S,) with seeds
+    var: torch.Tensor  # () f32; (S,) with seeds
+    count: torch.Tensor  # () f32; (S,) with seeds
+    return_val: torch.Tensor  # (E,) the running discounted return; (S * E,) with seeds
     env_state: Any
 
 
@@ -525,17 +582,20 @@ class NormalizeVecReward(Wrapper):
     (wrappers.py:648-690): each step the return (reset only through
     1 - done) updates running moments over the env batch, and the reward
     comes out as reward / sqrt(var + 1e-8), no mean subtracted. The
-    observations pass through."""
+    observations pass through. With ``seeds`` > 1 the moments are each
+    seed's, (S,), over its block of E envs."""
 
-    def __init__(self, env, gamma: float):
+    def __init__(self, env, gamma: float, seeds: int = 1):
         super().__init__(env)
         self.gamma = gamma
+        self.seeds = seeds
 
     def reset(self, generator, num_envs, params=None):
         obs, env_state = self._env.reset(generator, num_envs, params)
         f32 = dict(dtype=torch.float32, device=obs.device)
+        lead = () if self.seeds == 1 else (self.seeds,)
         state = NormalizeVecRewState(
-            mean=torch.tensor(0.0, **f32), var=torch.tensor(1.0, **f32), count=torch.tensor(1e-4, **f32),
+            mean=torch.zeros(lead, **f32), var=torch.ones(lead, **f32), count=torch.full(lead, 1e-4, **f32),
             return_val=torch.zeros(num_envs, **f32), env_state=env_state,
         )
         return obs, state
@@ -543,9 +603,12 @@ class NormalizeVecReward(Wrapper):
     def step(self, generator, state, action, params=None):
         obs, env_state, reward, done, info = self._env.step(generator, state.env_state, action, params)
         return_val = state.return_val * self.gamma * (1 - done.float()) + reward
+        batch_mean, batch_var = _lane_moments(return_val, self.seeds)
         mean, var, count = _merge_moments(
-            state.mean, state.var, state.count, return_val.mean(), torch.var(return_val, correction=0),
-            return_val.shape[0],
+            state.mean, state.var, state.count, batch_mean, batch_var, return_val.shape[0] // self.seeds,
         )
         state = NormalizeVecRewState(mean=mean, var=var, count=count, return_val=return_val, env_state=env_state)
-        return obs, state, reward / torch.sqrt(var + 1e-8), done, info
+        scale = torch.sqrt(var + 1e-8)
+        if self.seeds > 1:
+            scale = scale.repeat_interleave(return_val.shape[0] // self.seeds)
+        return obs, state, reward / scale, done, info

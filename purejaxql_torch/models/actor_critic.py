@@ -20,6 +20,15 @@ parameters carry a leading member axis, as flax's vmapped init gives them
 ``BatchNorm_0`` params and statistics ``(M, F)``). It applies all members in
 one pass, each dense layer one batched matmul over the member axis
 (models/stacked.py).
+
+With ``seeds=S`` > 1 (NUM_SEEDS) the actor holds S lanes with stacked
+parameters (``Dense_i.weight (S, out, in)``) and the ensemble M * S members,
+seed-major (seed s's M critics the s-th block), what ``jax.vmap`` over
+seeds of the single networks holds; lane i is drawn from ``generator[i]``
+as the single networks are drawn from that generator (the actor, then the
+critics). Both take seed-major rows (S * N, ...): the actor gives (S * N,
+action_dim), the ensemble (M, S * N), each row valued by its own seed's M
+critics only.
 """
 
 from __future__ import annotations
@@ -29,8 +38,20 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import BatchNorm, LayerNorm
+from purejaxql_torch.models.qnet import Layers
 from purejaxql_torch.models.stacked import StackedBatchNorm, StackedDense, StackedLayerNorm
+
+
+def _orthogonal_lanes_(weight: torch.Tensor, scale: float, generator) -> None:
+    """``orthogonal_`` for one generator, or for a list of S generators on a
+    weight whose leading axis holds S seed-major blocks: block s from
+    generator s."""
+    if not isinstance(generator, (list, tuple)):
+        orthogonal_(weight, scale, generator)
+        return
+    with torch.no_grad():
+        for block, g in zip(weight.chunk(len(generator)), generator):
+            orthogonal_(block, scale, g)
 
 
 def orthogonal_(weight: torch.Tensor, scale: float, generator: Optional[torch.Generator]) -> None:
@@ -55,31 +76,42 @@ def _activation(name: str):
 
 class _MLP(nn.Module):
     """The input BatchNorm and the Dense -> norm -> activation stack with a
-    linear head: the trunk the actor and the critic share."""
+    linear head: the trunk the actor and the critic share; with ``seeds`` >
+    1 every layer stacked, lane i drawn from ``generator[i]``, on (S, N, .)."""
 
-    def __init__(self, in_dim, out_dim, hidden_sizes, activation, norm_type, init_scale, generator):
+    def __init__(self, in_dim, out_dim, hidden_sizes, activation, norm_type, init_scale, generator, seeds=1):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
         self.hidden_sizes = tuple(hidden_sizes)
         self.norm_type = norm_type
         self.act = _activation(activation)
-        self.BatchNorm_0 = BatchNorm(in_dim)
+        self.seeds = seeds
+        layers = Layers(generator, seeds)
+        self.BatchNorm_0 = layers.norm("batch_norm", in_dim)
         width = in_dim
         for i, hs in enumerate(self.hidden_sizes + (out_dim,)):
-            layer = torch.nn.utils.skip_init(nn.Linear, width, hs)
-            orthogonal_(layer.weight, init_scale, generator)
-            with torch.no_grad():
-                layer.bias.zero_()
+            if seeds == 1:
+                layer = torch.nn.utils.skip_init(nn.Linear, width, hs)
+                with torch.no_grad():
+                    layer.bias.zero_()
+            else:
+                layer = StackedDense(seeds, width, hs)
+            _orthogonal_lanes_(layer.weight, init_scale, generator)
             self.add_module(f"Dense_{i}", layer)
             if i < len(self.hidden_sizes):
                 if norm_type == "layer_norm":
-                    self.add_module(f"LayerNorm_{i}", LayerNorm(hs))
+                    self.add_module(f"LayerNorm_{i}", layers.layer_norm(hs))
                 elif norm_type == "batch_norm":
-                    self.add_module(f"BatchNorm_{i + 1}", BatchNorm(hs))
+                    self.add_module(f"BatchNorm_{i + 1}", layers.norm("batch_norm", hs))
             width = hs
 
     def trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.seeds > 1:  # seed-major rows: each lane's (S, N, F)
+            return self._trunk(x.unflatten(0, (self.seeds, -1)), train).flatten(0, 1)
+        return self._trunk(x, train)
+
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         self.BatchNorm_0(x, train)
         for i in range(len(self.hidden_sizes)):
             x = getattr(self, f"Dense_{i}")(x)
@@ -102,9 +134,10 @@ class Actor(_MLP):
         activation: str = "relu",
         norm_type: str = "layer_norm",
         init_scale: float = 1.0,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
+        seeds: int = 1,
     ):
-        super().__init__(obs_dim, action_dim, hidden_sizes, activation, norm_type, init_scale, generator)
+        super().__init__(obs_dim, action_dim, hidden_sizes, activation, norm_type, init_scale, generator, seeds)
         self.action_scale, self.action_bias = float(action_scale), float(action_bias)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -130,7 +163,10 @@ class Critic(_MLP):
 class CriticEnsemble(nn.Module):
     """NUM_CRITICS critics with member-stacked parameters (flax's vmapped
     ``Critic`` tree), applied in one pass: ``forward`` takes (N, obs_dim)
-    and (N, action_dim) and gives (M, N) values."""
+    and (N, action_dim) and gives (M, N) values. With ``seeds`` > 1, M
+    critics a seed (``lane_members``), seed s's the s-th block of the
+    member axis: ``forward`` takes seed-major rows (S * N, .) and gives (M,
+    S * N), each seed's rows through its own critics."""
 
     def __init__(
         self,
@@ -140,19 +176,23 @@ class CriticEnsemble(nn.Module):
         hidden_sizes: Sequence[int],
         norm_type: str = "layer_norm",
         init_scale: float = 1.0,
-        generator: Optional[torch.Generator] = None,
+        generator=None,
+        seeds: int = 1,
     ):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
-        M = self.num_critics = num_critics
+        self.num_critics = num_critics
+        self.seeds = seeds
+        self.lane_members = num_critics if seeds > 1 else None
+        M = num_critics * seeds
         self.hidden_sizes = tuple(hidden_sizes)
         self.norm_type = norm_type
         width = obs_dim + action_dim
         self.BatchNorm_0 = StackedBatchNorm(M, width)
         for i, hs in enumerate(self.hidden_sizes + (1,)):
             layer = StackedDense(M, width, hs)
-            orthogonal_(layer.weight, init_scale, generator)
+            _orthogonal_lanes_(layer.weight, init_scale, generator)
             self.add_module(f"Dense_{i}", layer)
             if i < len(self.hidden_sizes):
                 if norm_type == "layer_norm":
@@ -163,7 +203,17 @@ class CriticEnsemble(nn.Module):
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor, train: bool) -> torch.Tensor:
         x = torch.cat([obs, action], -1)
-        x = x.expand(self.num_critics, *x.shape)
+        M, S = self.num_critics, self.seeds
+        if S == 1:
+            x = x.expand(M, *x.shape)
+        else:  # each seed's rows to each of its M critics: (S * M, N, F)
+            x = x.unflatten(0, (S, -1))[:, None].expand(S, M, -1, -1).flatten(0, 1)
+        q = self._members(x, train)
+        if S == 1:
+            return q
+        return q.unflatten(0, (S, M)).transpose(0, 1).flatten(1, 2)
+
+    def _members(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         self.BatchNorm_0(x, train)
         for i in range(len(self.hidden_sizes)):
             x = getattr(self, f"Dense_{i}")(x)

@@ -27,6 +27,37 @@ import torch
 from torch import nn
 
 
+def renorm_train(x, ra_mean, ra_var, r_max, d_max, steps, eps: float, momentum: float, warmup_steps: int,
+                 lanes: bool = False):
+    """One train-mode step of BatchRenorm on x, without its scale and bias:
+    the (mean, var) x is normalized by, and the running (mean, var) after
+    this step (detached). The batch statistics are over every axis but the
+    features and are corrected toward the running ones by r and d (clipped,
+    without gradient) once ``steps`` reaches ``warmup_steps``, as a float
+    blend. With ``lanes``, x is (..., S, N, F) and the state has a leading
+    seed axis, (S, F) and (S,): each lane's statistics over its own rows and
+    the leading axes, against its own state, as under ``jax.vmap``."""
+    axes = tuple(d for d in range(x.dim() - 1) if not (lanes and d == x.dim() - 3))
+    batch_mean = x.mean(axes, keepdim=lanes)
+    batch_var = torch.clamp((x * x).mean(axes, keepdim=lanes) - batch_mean * batch_mean, min=0.0)
+    shape = batch_mean.shape  # (F,), or (1, ..., S, 1, F) with lanes
+    per_lane = (lambda v: v.reshape(*shape[:-1], 1)) if lanes else (lambda v: v)  # noqa: E731
+    with torch.no_grad():
+        ra_std = torch.sqrt(ra_var.reshape(shape) + eps)
+        r = torch.minimum(torch.maximum(torch.sqrt(batch_var + eps) / ra_std, 1.0 / per_lane(r_max)), per_lane(r_max))
+        d = torch.minimum(torch.maximum((batch_mean - ra_mean.reshape(shape)) / ra_std, -per_lane(d_max)),
+                          per_lane(d_max))
+        warmed_up = (per_lane(steps) >= warmup_steps).float()
+        new_mean = momentum * ra_mean + (1 - momentum) * batch_mean.reshape(ra_mean.shape)
+        new_var = momentum * ra_var + (1 - momentum) * batch_var.reshape(ra_var.shape)
+    # normalizing by (var / r^2, mean - d * std / r) applies x * r + d
+    tmp_var = batch_var / (r ** 2)
+    tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r
+    var = warmed_up * tmp_var + (1.0 - warmed_up) * batch_var
+    mean = warmed_up * tmp_mean + (1.0 - warmed_up) * batch_mean
+    return mean, var, new_mean, new_var
+
+
 class BatchRenorm(nn.Module):
     def __init__(
         self,
@@ -52,27 +83,11 @@ class BatchRenorm(nn.Module):
         if not train:
             mean, var = self.mean, self.var
         else:
-            axes = tuple(range(x.dim() - 1))
-            batch_mean = x.mean(axes)
-            batch_var = torch.clamp((x * x).mean(axes) - batch_mean * batch_mean, min=0.0)
-            with torch.no_grad():
-                std = torch.sqrt(batch_var + self.eps)
-                ra_std = torch.sqrt(self.var + self.eps)
-                r = torch.minimum(torch.maximum(std / ra_std, 1.0 / self.r_max), self.r_max)
-                d = torch.minimum(torch.maximum((batch_mean - self.mean) / ra_std, -self.d_max), self.d_max)
-                warmed_up = (self.steps >= self.warmup_steps).float()
-            # normalizing by (var / r^2, mean - d * std / r) applies x * r + d
-            tmp_var = batch_var / (r ** 2)
-            tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r
-            var = warmed_up * tmp_var + (1.0 - warmed_up) * batch_var
-            mean = warmed_up * tmp_mean + (1.0 - warmed_up) * batch_mean
+            mean, var, new_mean, new_var = renorm_train(x, self.mean, self.var, self.r_max, self.d_max, self.steps,
+                                                        self.eps, self.momentum, self.warmup_steps)
             if not self.frozen:
-                self._update(batch_mean, batch_var)
+                with torch.no_grad():
+                    self.mean.copy_(new_mean)
+                    self.var.copy_(new_var)
+                    self.steps.add_(1)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-
-    @torch.no_grad()
-    def _update(self, batch_mean: torch.Tensor, batch_var: torch.Tensor) -> None:
-        m = self.momentum
-        self.mean.copy_(m * self.mean + (1 - m) * batch_mean)
-        self.var.copy_(m * self.var + (1 - m) * batch_var)
-        self.steps.add_(1)

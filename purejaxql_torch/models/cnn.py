@@ -30,8 +30,8 @@ With ``seeds=S`` > 1 (NUM_SEEDS) the network holds S lanes with stacked
 parameters (models/stacked.py; the conv weight (S, O, I, H, W)), lane i
 drawn from ``generator[i]`` as the single network is, and ``forward`` takes
 seed-major rows (S * N, H, W, C); the conv is the same patches product,
-one batched matmul for all lanes. For one seed the network is the single
-one.
+one batched matmul for all lanes, in float32 or bfloat16 as above. For one
+seed the network is the single one.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import Layers, check_lanes, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, variance_scaling_
 
 KERNEL = 3
 CONV_FEATURES = 16
@@ -82,8 +82,9 @@ class Conv(nn.Module):
         if self.weight.dim() == 4:
             return conv_patches(x, k) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
         patches = conv_patches(x.flatten(0, 1), k)  # (S * N, h, w, k*k*C)
-        y = torch.baddbmm(self.bias[:, None], patches.reshape(x.shape[0], -1, patches.shape[-1]),
-                          conv_weight_matrix(self.weight))
+        lanes = patches.reshape(x.shape[0], -1, patches.shape[-1])
+        # the product, then the bias added, as for one seed (two roundings in bfloat16)
+        y = torch.bmm(lanes, conv_weight_matrix(self.weight).to(x.dtype)) + self.bias.to(x.dtype)[:, None]
         return y.reshape(*x.shape[:2], *patches.shape[1:3], -1)
 
 
@@ -133,7 +134,6 @@ class CNNQNetwork(nn.Module):
         seeds: int = 1,
     ):
         super().__init__()
-        check_lanes(seeds, dtype)
         if trunk != "minatar":
             raise NotImplementedError(f"CNN_TRUNK '{trunk}' is not ported yet")
         if norm_type != "layer_norm":

@@ -12,7 +12,8 @@ package's does, and the recurrent trainers' FAST_BPTT forward takes it
 a recurrent trunk norm other than layer_norm come with later slices and raise
 here.
 
-``seeds=S`` > 1 (NUM_SEEDS) gives the network S lanes with stacked
+``seeds=S`` > 1 (NUM_SEEDS) gives the network (the FF, the recurrent and
+the VDN trainers') S lanes with stacked
 parameters, the layout of ``jax.vmap(network.init)``'s (models/stacked.py),
 lane i drawn from ``generator[i]``, a sequence of S generators, as the
 single network is drawn from it.

@@ -39,8 +39,9 @@ With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
 single network is from that generator, and ``forward`` takes and gives
 seed-major rows (S * N, ...), lane s's N rows the s-th block: what
 ``jax.vmap`` of the single network computes, each lane with its own
-parameters and batch statistics. For one seed the network is the single
-one, module for module.
+parameters and batch statistics (a BatchRenorm's ``steps`` too), in float32
+or in bfloat16 as above. For one seed the network is the single one, module
+for module.
 """
 
 from __future__ import annotations
@@ -168,18 +169,6 @@ def frozen_statistics(network: nn.Module):
 _NORMS = {"batch_norm": "BatchNorm", "batch_renorm": "BatchRenorm"}
 
 
-def check_lanes(seeds: int, dtype: torch.dtype = torch.float32, *norm_types: str) -> None:
-    """Raise for what a network with ``seeds`` > 1 lanes does not run:
-    BF16_COMPUTE and a BatchRenorm (input or trunk: the craftax family's, or
-    INPUT_NORM_TYPE=batch_renorm)."""
-    if seeds == 1:
-        return
-    if dtype != torch.float32:
-        raise NotImplementedError("BF16_COMPUTE with NUM_SEEDS > 1 is not ported yet: run one seed")
-    if "batch_renorm" in norm_types:
-        raise NotImplementedError("a BatchRenorm norm with NUM_SEEDS > 1 is not ported yet: run one seed")
-
-
 class Layers:
     """The layers of a network with ``seeds`` lanes, drawn from
     ``generator`` (one seed) or lane i from ``generator[i]``: for one seed
@@ -205,9 +194,10 @@ class Layers:
 
     def norm(self, kind: str, features: int) -> nn.Module:
         """The BatchNorm or BatchRenorm of ``kind`` ("batch_norm" or
-        "batch_renorm"); stacked, only BatchNorm."""
+        "batch_renorm"), stacked with seeds."""
         if self.seeds > 1:
-            return self.stacked.StackedBatchNorm(self.seeds, features)
+            cls = self.stacked.StackedBatchRenorm if kind == "batch_renorm" else self.stacked.StackedBatchNorm
+            return cls(self.seeds, features)
         return BatchRenorm(features) if kind == "batch_renorm" else BatchNorm(features)
 
 
@@ -228,7 +218,6 @@ class QNetwork(nn.Module):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "batch_renorm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
-        check_lanes(seeds, dtype, norm_type, input_norm_type)
         if dtype != torch.float32 and norm_type == "batch_renorm":
             # the JAX module computes a BatchRenorm trunk's statistics in the
             # input's bfloat16 and returns float32 (qnet.py:79-88)

@@ -33,8 +33,9 @@ With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
 network is from that generator, and ``forward`` takes and gives seed-major
 rows: x (T, S * B, F), done and last_action (T, S * B), carries (S * B, H),
 Q-values (T, S * B, A); inside, the lanes run as (T, S, B, .), what
-``jax.vmap`` of the single network computes. A BatchRenorm input norm is
-refused with seeds. For one seed the network is the single one.
+``jax.vmap`` of the single network computes (a BatchRenorm input norm with
+each lane's statistics and ``steps``). For one seed the network is the
+single one.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import Layers, check_lanes, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, variance_scaling_
 from purejaxql_torch.models.stacked import lane_dense, lane_orthogonal, linear
 
 LSTM_GATES = ("i", "f", "g", "o")
@@ -185,7 +186,6 @@ class RNNQNetwork(nn.Module):
         seeds: int = 1,
     ):
         super().__init__()
-        check_lanes(seeds, torch.float32, input_norm_type)
         self.seeds = seeds
         self.action_dim = action_dim
         self.hidden_size = hidden_size

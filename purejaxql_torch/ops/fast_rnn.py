@@ -32,8 +32,9 @@ With ``seeds=S`` > 1 (the NUM_SEEDS network, models/stacked.py) every
 parameter and statistic carries a leading seed axis and the rows are
 seed-major, x (T, S * B, F): the forward runs on (T, S, B, .), each product
 one batched matmul over the seeds (``_mp_matmul``), each input-norm
-statistic per seed, and each GRU layer's scan one launch of each kernel for
-all seeds (``gru_layer_scan_kernel``); float32 only.
+statistic per seed (a BatchRenorm's ``steps`` too), and each GRU layer's
+scan one launch of each kernel for all seeds (``gru_layer_scan_kernel``);
+``compute_dtype`` as for one seed.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
+from purejaxql_torch.models.batch_renorm import renorm_train
 from purejaxql_torch.models.rnn import LSTM_GATES, map_carry
 from purejaxql_torch.models.stacked import lane_matmul
 from purejaxql_torch.ops.gru_scan import GRUScan
@@ -78,48 +80,33 @@ def _batch_norm_train(x, scale, bias, eps=1e-5, lanes=False):
 
 def _mp_matmul(a, b, dtype=torch.float32):
     """a (..., K) @ b (K, N) (fast_rnn.py:50-62); for a stacked b (S, K, N),
-    a (..., S, B, K), lane by lane in one batched product (float32). For
+    a (..., S, B, K), lane by lane in one batched product. For
     float32 the plain product. For bfloat16 the operands are rounded to bfloat16 and multiplied
     in float32: a product of two bfloat16 numbers is exact in float32, so
     this is the JAX package's bfloat16-operand product with float32
     accumulation and a float32 result (``preferred_element_type``), whose
     gradients come back through the casts rounded to bfloat16 as there."""
     if b.dim() == 3:
-        return lane_matmul(a, b)
+        return lane_matmul(a, b, dtype)
     if dtype == torch.float32:
         return torch.matmul(a, b)
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
 
 
-def _batch_renorm_train(x, scale, bias, stats):
+def _batch_renorm_train(x, scale, bias, stats, lanes=False):
     """Train-mode BatchRenorm and its new statistics (fast_rnn.py:84-123),
     the arithmetic of ``models/batch_renorm.py``: the fast variance
     E[x^2] - E[x]^2 clamped at 0, r and d clipped by r_max and d_max and
     without gradient, the correction blended in once ``steps`` reaches 1,000,
     the d-shift by sqrt(var) without epsilon. ``stats`` holds ``mean``,
     ``var``, ``r_max``, ``d_max`` and ``steps``; the returned ones are
-    detached, ``steps`` one more."""
-    eps, momentum, warmup_steps = 1e-3, 0.999, 1000
-    axes = tuple(range(x.dim() - 1))
-    batch_mean = x.mean(axes)
-    batch_var = torch.clamp((x * x).mean(axes) - batch_mean * batch_mean, min=0.0)
-    with torch.no_grad():
-        std = torch.sqrt(batch_var + eps)
-        ra_std = torch.sqrt(stats["var"] + eps)
-        r = torch.minimum(torch.maximum(std / ra_std, 1.0 / stats["r_max"]), stats["r_max"])
-        d = torch.minimum(torch.maximum((batch_mean - stats["mean"]) / ra_std, -stats["d_max"]), stats["d_max"])
-        warmed = (stats["steps"] >= warmup_steps).float()
-        new_stats = {
-            "mean": momentum * stats["mean"] + (1 - momentum) * batch_mean,
-            "var": momentum * stats["var"] + (1 - momentum) * batch_var,
-            "r_max": stats["r_max"],
-            "d_max": stats["d_max"],
-            "steps": stats["steps"] + 1,
-        }
-    tmp_var = batch_var / (r ** 2)
-    tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r
-    var = warmed * tmp_var + (1.0 - warmed) * batch_var
-    mean = warmed * tmp_mean + (1.0 - warmed) * batch_mean
+    detached, ``steps`` one more. With ``lanes``, x (T, S, B, F) and each
+    statistic with a leading seed axis: each lane's own (``jax.vmap``)."""
+    eps = 1e-3
+    mean, var, new_mean, new_var = renorm_train(x, stats["mean"], stats["var"], stats["r_max"], stats["d_max"],
+                                                stats["steps"], eps, 0.999, 1000, lanes)
+    new_stats = {"mean": new_mean, "var": new_var, "r_max": stats["r_max"], "d_max": stats["d_max"],
+                 "steps": stats["steps"] + 1}
     return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias, new_stats
 
 
@@ -264,7 +251,7 @@ def fast_rnn_train_forward(
     if input_norm_type == "batch_renorm":
         y, new_stats = _batch_renorm_train(
             x, params["BatchRenorm_0.weight"], params["BatchRenorm_0.bias"],
-            {k: batch_stats[f"BatchRenorm_0.{k}"] for k in ("mean", "var", "r_max", "d_max", "steps")},
+            {k: batch_stats[f"BatchRenorm_0.{k}"] for k in ("mean", "var", "r_max", "d_max", "steps")}, lanes,
         )
         if norm_input:
             x = y

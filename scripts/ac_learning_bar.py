@@ -26,8 +26,9 @@ Each run trains through the trainer's entry point (algo/pqn_ac.py
   greedy eval above -500; ``reacher``: ``pqn_reacher`` for 400k env steps,
   held to tests/test_pqn_ac.py::test_ac_learns_reacher's: the best greedy
   eval above -70. One seed learns past them in about half of the runs, so
-  chip_smoke.py holds the best over several seeds to them, its seeds past 0
-  run by this script with --report.
+  chip_smoke.py holds the best over several seeds to them: Pendulum's seeds
+  past 0 run by this script with --report, Reacher's 4 seeds as one program
+  (NUM_SEEDS=4).
 
 --steps replaces every run's length. It prints one JSON line per run and
 seed: the greedy eval returns at every eval, the mean of the last 5, the

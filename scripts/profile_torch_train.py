@@ -18,6 +18,8 @@
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 524288 --set BF16_COMPUTE=True
     python scripts/profile_torch_train.py --alg pqn_vdn_spread --steps 1000000   # VDN, 3 agents
     python scripts/profile_torch_train.py --alg pqn_rnn_craftax --steps 1048576 --profile-updates 2
+    python scripts/profile_torch_train.py --alg pqn_craftax --steps 262144 --profile-updates 64 \
+        --set NUM_SEEDS=4                                      # 4 seeds as one program (aggregate rate)
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -253,6 +255,9 @@ def main() -> int:
                                                          "FAST_BPTT", "PALLAS_BPTT")}},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
+            # NUM_SEEDS as one program: a seed's steps times the seeds, as the CLI prints it
+            "seeds": config.get("NUM_SEEDS", 1),
+            "aggregate_env_steps_per_s": config.get("NUM_SEEDS", 1) * ts.timesteps / wall,
             "phases_synced": phases, "unaccounted_s": wall - accounted,
             "eval_share_of_wall": sum(v for k, v in totals.items() if "eval" in k and k not in inner) / wall,
         },

@@ -677,11 +677,11 @@ def test_fused_train_on_the_cpu_runs_the_twin_and_its_eval():
 
 
 def test_unsupported_options_raise():
-    """NUM_SEEDS > 1, LOG_VIA_CALLBACK and a non-AC ALG_NAME raise; an
+    """LOG_VIA_CALLBACK and a non-AC ALG_NAME raise; an
     unknown env raises from the registry, as in JAX; FUSED_ROLLOUT off its
     Pendulum shapes raises ValueError, a new env or either normalizer among
     them (pqn_ac.py:142-158)."""
-    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn"}):
+    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn"}):
         with pytest.raises(NotImplementedError):
             pqn_ac.make_train(ac_config(**kw))
     with pytest.raises(ValueError, match="Unknown env"):

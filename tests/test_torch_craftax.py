@@ -412,7 +412,7 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     rest), not FUSED_ROLLOUT; a recurrent config, whose rollout is unfused,
     gets it too (tests/test_torch_lstm.py); a fused config, the CPU,
     PARITY=strict and an explicit setting are left alone. What the FF
-    trainer still does not run raises: NUM_SEEDS > 1, LOG_VIA_CALLBACK."""
+    trainer still does not run raises: LOG_VIA_CALLBACK."""
     cfg = compose(alg="pqn_craftax")
     assert cfg["EXPLORATION_KERNEL"] == "pallas"
     assert cfg["FAST_TARGETS"] is True and cfg["SKIP_NOOP_PERMUTE"] is True and cfg["RESET_BANK"] == 256
@@ -423,7 +423,7 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     for ov in (["DEVICE=cpu"], ["PARITY=strict"]):
         assert "EXPLORATION_KERNEL" not in compose(alg="pqn_craftax", overrides=ov)
     assert compose(alg="pqn_craftax", overrides=["EXPLORATION_KERNEL=False"])["EXPLORATION_KERNEL"] is False
-    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}):
+    for kw in ({"LOG_VIA_CALLBACK": True},):
         with pytest.raises(NotImplementedError):
             pqn.make_train({**_tiny_craftax(), **kw})
 

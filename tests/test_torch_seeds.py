@@ -1,8 +1,10 @@
 """NUM_SEEDS > 1 in the port on the CPU: the seed-stacked networks, learn
 steps and GRU scan twins against ``jax.vmap`` of the JAX package's, and the
 seeded trainers inside the port (stacked against S single networks, lane
-init, NUM_SEEDS=1 unchanged, tiny runs, the CLI's per-seed checkpoints, the
-refusals and the cuda policy).
+init for every family, NUM_SEEDS=1 unchanged in every trainer, tiny runs,
+the CLI's per-seed checkpoints, FUSED_ROLLOUT's refusal, the options that
+train with seeds, and the cuda policy); tests/test_torch_seeds_modules.py,
+_envs.py and _trainers.py hold the rest against ``jax.vmap``.
 
 Sizes are tiny (S 2-3, H <= 32, a few envs); weights come from
 ``jax.vmap(network.init)`` over split keys and cross with
@@ -19,12 +21,13 @@ import pytest
 import torch
 
 from purejaxql_torch import cli
-from purejaxql_torch.algo import pqn, pqn_rnn, seeds
+from purejaxql_torch.algo import pqn, pqn_ac, pqn_rnn, pqn_vdn, seeds
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core import checkpoint as tckpt
 from purejaxql_torch.core.config import compose, derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import make_optimizer
 from purejaxql_torch.core.schedules import lr_schedule
+from purejaxql_torch.models.actor_critic import Actor, CriticEnsemble
 from purejaxql_torch.models.cnn import CNNQNetwork as TCNNQNetwork
 from purejaxql_torch.models.factory import make_q_network, make_rnn_q_network
 from purejaxql_torch.models.qnet import QNetwork as TQNetwork
@@ -443,31 +446,51 @@ def test_stacked_rnn_learn_step_equals_s_single_steps():
             torch.testing.assert_close(got[i], want, atol=1e-6, rtol=1e-5, msg=name)
 
 
+def _lane_networks(alg, extra, generator, n_seeds):
+    """The networks a trainer of ``alg`` draws, in its order, from one
+    generator or (``n_seeds`` > 1) from a list of them, and the members a
+    seed of each (the critic ensemble's M)."""
+    config = compose(alg=alg, overrides=["DEVICE=cpu", "HIDDEN_SIZE=16", "SEED=4"]
+                     + [f"{k}={v}" for k, v in extra.items()])
+    if alg == "pqn_pendulum":
+        kw = dict(generator=generator, seeds=n_seeds)
+        return [(Actor(3, 1, 2.0, 0.0, [16, 16], **kw), 1), (CriticEnsemble(2, 3, 1, [16, 16], **kw), 2)]
+    if alg.startswith("pqn_vdn"):
+        return [(make_rnn_q_network({**config, "ADD_LAST_ACTION": False}, 5, (14,), generator=generator,
+                                    norms=(config["NORM_TYPE"], "batch_norm"), hidden_size=256, seeds=n_seeds), 1)]
+    make = make_rnn_q_network if alg.startswith("pqn_rnn") else make_q_network
+    obs_shape = {"pqn_minatar": (10, 10, 4), "pqn_craftax": (2883,)}.get(alg, (3,) if alg.startswith("pqn_rnn") else (4,))
+    return [(make(config, 3, obs_shape, generator=generator, seeds=n_seeds), 1)]
+
+
 @pytest.mark.parametrize("alg,extra", [
     ("pqn_cartpole", {}), ("pqn_minatar", {"ENV_NAME": "Breakout-MinAtar"}),
     ("pqn_rnn_memory_chain", {}), ("pqn_rnn_memory_chain", {"RNN_CELL": "lstm"}),
+    ("pqn_craftax", {"NUM_LAYERS": 2}), ("pqn_rnn_craftax", {}), ("pqn_vdn_spread", {}), ("pqn_pendulum", {}),
 ])
 def test_lane_i_is_the_single_seed_network_of_seed_plus_i(alg, extra):
     """The seed rule (``algo/seeds.py:seed_generators``): lane i of the
     stacked network is, bit for bit, the network a single-seed run with
-    SEED + i draws (MLP, MinAtar CNN, GRU and LSTM networks)."""
-    config = compose(alg=alg, overrides=["DEVICE=cpu", "HIDDEN_SIZE=16", "SEED=4"]
-                     + [f"{k}={v}" for k, v in extra.items()])
-    make = make_rnn_q_network if alg.startswith("pqn_rnn") else make_q_network
-    obs_shape = (10, 10, 4) if "ENV_NAME" in extra else (3,) if alg.startswith("pqn_rnn") else (4,)
-    stacked = make(config, 3, obs_shape, generator=seeds.seed_generators(4, S), seeds=S)
+    SEED + i draws (MLP, MinAtar CNN, GRU and LSTM networks, the craftax
+    family's with their BatchRenorm input, the VDN network, and the
+    actor-critic pair, lane i's critics the i-th block of M members)."""
+    stacked = _lane_networks(alg, extra, seeds.seed_generators(4, S), S)
     for i in range(S):
-        single = make(config, 3, obs_shape, generator=torch.Generator().manual_seed(4 + i))
-        for (name, want), got in zip(single.state_dict().items(), stacked.state_dict().values()):
-            assert torch.equal(got[i], want), (i, name)
+        single = _lane_networks(alg, extra, torch.Generator().manual_seed(4 + i), 1)
+        for (net, m), (one, _) in zip(stacked, single):
+            for (name, want), got in zip(one.state_dict().items(), net.state_dict().values()):
+                lane = got[i * m:(i + 1) * m] if m > 1 else got[i]
+                assert torch.equal(lane, want), (i, name)
 
 
 def _digest(out):
     h = hashlib.sha256()
-    net = out["runner_state"][0].network
-    for name, t in sorted(list(net.named_parameters()) + list(net.named_buffers())):
-        h.update(name.encode())
-        h.update(t.detach().contiguous().numpy().tobytes())
+    state = out["runner_state"][0]
+    nets = [st.network for _, st in sorted(state.items())] if isinstance(state, dict) else [state.network]
+    for net in nets:
+        for name, t in sorted(list(net.named_parameters()) + list(net.named_buffers())):
+            h.update(name.encode())
+            h.update(t.detach().contiguous().numpy().tobytes())
     for k, v in sorted(out["metrics"].items()):
         h.update(k.encode())
         h.update(v.contiguous().numpy().tobytes())
@@ -477,8 +500,12 @@ def _digest(out):
 TINY = ["DEVICE=cpu", "TOTAL_TIMESTEPS=1024", "TOTAL_TIMESTEPS_DECAY=1024", "NUM_ENVS=8", "NUM_STEPS=16",
         "NUM_MINIBATCHES=2", "NUM_EPOCHS=2", "HIDDEN_SIZE=32", "TEST_DURING_TRAINING=True", "TEST_NUM_ENVS=8",
         "TEST_NUM_STEPS=24", "TEST_INTERVAL=0.5"]
+AC_TINY = ["ACTOR_HIDDEN_SIZES=[32,32]", "CRITIC_HIDDEN_SIZES=[32,32]"]
+CRAFTAX_TINY = ["OPTIMISTIC_RESET_RATIO=4", "NUM_LAYERS=2"]
 # sha256 of every final parameter, statistic and metric of a NUM_SEEDS=1
-# run, recorded on the commit before the seed axis came in
+# run, recorded on the commit before the seed axis came in (the FF and
+# recurrent trainers), or before it came to that trainer or option (craftax,
+# pqn_rnn_craftax, VDN, actor-critic)
 ONE_SEED_RUNS = {
     "cartpole": ("pqn_cartpole", [], "9b1752111a6ef42055182b9fc1c39f04"),
     "cartpole_td": ("pqn_cartpole", ["Q_LAMBDA=False", "DONE_MASKED_INFO_METRICS=True"],
@@ -490,19 +517,41 @@ ONE_SEED_RUNS = {
     "memory_chain": ("pqn_rnn_memory_chain", [], "9d2e3c16842af0b177206c1a16fe78a8"),
     "memory_chain_fast": ("pqn_rnn_memory_chain", ["FAST_BPTT=True", "PALLAS_BPTT=True"],
                           "f7192c5b41379dcb77a98228f3d97f19"),
+    "craftax": ("pqn_craftax", CRAFTAX_TINY, "2fddbbca7e8bd3e4c6250714cb70b3ca"),
+    "craftax_fast_bf16": ("pqn_craftax", CRAFTAX_TINY + [
+        "RESET_BANK=8", "RESET_BANK_REFRESH_EVERY=4", "FAST_TARGETS=True", "NUM_MINIBATCHES=1",
+        "SKIP_NOOP_PERMUTE=True", "BF16_COMPUTE=True"], "0a3b2cb9daf5b41053d4c095a15f3d5f"),
+    "rnn_craftax_fast_bf16": ("pqn_rnn_craftax", [
+        "OPTIMISTIC_RESET_RATIO=4", "NUM_LAYERS=1", "MEMORY_WINDOW=4", "RESET_BANK=8", "RESET_BANK_REFRESH_EVERY=4",
+        "FAST_BPTT=True", "BF16_COMPUTE=True"], "d8fd2075bc7a779f9ae02fb766dc2c80"),
+    "vdn_spread_fast": ("pqn_vdn_spread", ["MEMORY_WINDOW=2", "FAST_BPTT=True", "PALLAS_BPTT=True"],
+                        "f145e029776711b96032650a24929044"),
+    "pendulum": ("pqn_pendulum", AC_TINY, "cb0a3003aaca0a8f4571476a6edf5281"),
+    "pendulum_normalized": ("pqn_pendulum", AC_TINY + ["NORMALIZE_OBS=True", "NORMALIZE_REWARD=True"],
+                            "da9d46b6edacd1593f4fa3dfe7711eed"),
 }
+
+
+def _trainer(alg):
+    if alg.startswith("pqn_rnn"):
+        return pqn_rnn
+    if alg.startswith("pqn_vdn"):
+        return pqn_vdn
+    return pqn_ac if alg in ("pqn_pendulum", "pqn_reacher", "pqn_locomotion") else pqn
 
 
 @pytest.mark.parametrize("case", sorted(ONE_SEED_RUNS))
 def test_one_seed_runs_as_before_bit_for_bit(case):
     """NUM_SEEDS=1 runs the single-seed program: tiny CartPole (lambda
-    returns, concat 1-step TD, FAST_TARGETS), Breakout (the CNN, unfused)
-    and MemoryChain (module path, FAST_BPTT with the scan's twins) give the
-    final params, statistics and metrics recorded before the seed axis, to
-    the last bit."""
+    returns, concat 1-step TD, FAST_TARGETS), Breakout (the CNN, unfused),
+    MemoryChain (module path, FAST_BPTT with the scan's twins), pqn_craftax
+    (optimistic resets; the bank, FAST_TARGETS and bf16), pqn_rnn_craftax
+    (the bank, FAST_BPTT in bf16), VDN Spread (the scan's twins) and
+    Pendulum (unfused, with and without both normalizers) give the final
+    params, statistics and metrics recorded before the seed axis, to the
+    last bit."""
     alg, extra, want = ONE_SEED_RUNS[case]
-    trainer = pqn_rnn if alg.startswith("pqn_rnn") else pqn
-    assert _digest(trainer.make_train(compose(alg=alg, overrides=TINY + extra))()) == want
+    assert _digest(_trainer(alg).make_train(compose(alg=alg, overrides=TINY + extra))()) == want
 
 
 @pytest.mark.parametrize("alg,extra", [
@@ -592,25 +641,37 @@ def test_log_history_replays_each_seed_in_turn():
 
 @pytest.mark.parametrize("trainer,alg,kw", [
     (pqn, "pqn_cartpole", {"FUSED_ROLLOUT": True}),
-    (pqn, "pqn_cartpole", {"BATCH_ENV": True}),
-    (pqn, "pqn_cartpole", {"USE_OPTIMISTIC_RESETS": True, "OPTIMISTIC_RESET_RATIO": 4}),
-    (pqn, "pqn_cartpole", {"RESET_BANK": 8}),
-    (pqn, "pqn_cartpole", {"BF16_COMPUTE": True}),
-    (pqn, "pqn_cartpole", {"INPUT_NORM_TYPE": "batch_renorm"}),
-    (pqn_rnn, "pqn_rnn_memory_chain", {"BATCH_ENV": True}),
-    (pqn_rnn, "pqn_rnn_memory_chain", {"BF16_COMPUTE": True}),
-    (pqn_rnn, "pqn_rnn_memory_chain", {"INPUT_NORM_TYPE": "batch_renorm"}),
 ])
 def test_what_stays_single_seed_is_refused_with_seeds(trainer, alg, kw):
-    """The options whose program is single-seed in this slice raise
-    NotImplementedError naming the option with NUM_SEEDS > 1; the craftax
-    family (its BatchRenorm, its batched env modes) and the VDN and AC
-    trainers with it (tests/test_torch_craftax.py, test_torch_vdn.py,
-    test_torch_ac.py)."""
+    """FUSED_ROLLOUT, whose kernels run one seed (the JAX CLI refuses it
+    with seeds too), raises NotImplementedError naming it with NUM_SEEDS >
+    1; every other option trains with seeds
+    (``test_what_ran_single_seed_now_trains_with_seeds``)."""
     config = {**compose(alg=alg, overrides=TINY), "NUM_SEEDS": 2, **kw}
-    key = next(iter(kw))
-    with pytest.raises(NotImplementedError, match="BatchRenorm" if key == "INPUT_NORM_TYPE" else key):
+    with pytest.raises(NotImplementedError, match=next(iter(kw))):
         trainer.make_train(config)
+
+
+@pytest.mark.parametrize("trainer,alg,kw", [
+    (pqn, "pqn_cartpole", {"BATCH_ENV": True}),
+    (pqn, "pqn_cartpole", {"USE_OPTIMISTIC_RESETS": True, "OPTIMISTIC_RESET_RATIO": 4}),
+    (pqn, "pqn_cartpole", {"USE_OPTIMISTIC_RESETS": True, "OPTIMISTIC_RESET_RATIO": 4, "RESET_BANK": 8}),
+    (pqn, "pqn_cartpole", {"BF16_COMPUTE": True}),
+    (pqn, "pqn_cartpole", {"INPUT_NORM_TYPE": "batch_renorm", "NORM_INPUT": True}),
+    (pqn_rnn, "pqn_rnn_memory_chain", {"BATCH_ENV": True}),
+    (pqn_rnn, "pqn_rnn_memory_chain", {"BF16_COMPUTE": True, "FAST_BPTT": True}),
+    (pqn_rnn, "pqn_rnn_memory_chain", {"INPUT_NORM_TYPE": "batch_renorm", "NORM_INPUT": True}),
+])
+def test_what_ran_single_seed_now_trains_with_seeds(trainer, alg, kw):
+    """The options the port refused with seeds before (the batched env
+    modes, the reset bank, BF16_COMPUTE, a BatchRenorm input) train a tiny
+    NUM_SEEDS=2 run: every metric (2, NUM_UPDATES), the losses finite, the
+    lanes' losses apart."""
+    config = {**compose(alg=alg, overrides=TINY), "NUM_SEEDS": 2, **kw}
+    m = trainer.make_train(config)()["metrics"]
+    assert all(v.shape == (2, 1024 // 16 // 8) for v in m.values())
+    assert torch.isfinite(m["td_loss"]).all() and torch.isfinite(m["qvals"]).all()
+    assert not torch.equal(m["td_loss"][0], m["td_loss"][1])
 
 
 def test_cuda_policy_with_four_seeds():

@@ -457,7 +457,7 @@ def test_vdn_ignores_input_norm_type_as_jax():
 
 
 def test_vdn_unsupported_options_raise():
-    for kw in ({"NUM_SEEDS": 2}, {"LOG_VIA_CALLBACK": True}, {"RNN_CELL": "lstm"},
+    for kw in ({"LOG_VIA_CALLBACK": True}, {"RNN_CELL": "lstm"},
                {"NORM_TYPE": "batch_norm"}, {"ALG_NAME": "pqn_rnn"}):
         with pytest.raises(NotImplementedError):
             pqn_vdn.make_train(tiny_vdn_config(**kw))()
