@@ -45,16 +45,23 @@ import torch
 # options whose program is single-seed: the fused rollout kernels, which
 # the JAX CLI refuses with seeds too (purejaxql_tpu/cli.py:71-83)
 _SINGLE_SEED = ("FUSED_ROLLOUT",)
+# families whose envs are stateful host processes, one seed a run: the
+# JAX CLI's refusal (purejaxql_tpu/cli.py:57-60; pqn_atari.py:457-458)
+SINGLE_SEED_FAMILIES = {"pqn_host": "pqn_host supports NUM_SEEDS=1 only"}
 
 
 def check_seeds(config: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` naming the pair for an option that runs
-    one seed only (``ValueError`` for NUM_SEEDS < 1)."""
+    """Raise ``NotImplementedError`` naming the pair for an option or a
+    family (``SINGLE_SEED_FAMILIES``) that runs one seed only
+    (``ValueError`` for NUM_SEEDS < 1)."""
     seeds = config.get("NUM_SEEDS", 1)
     if seeds < 1:
         raise ValueError(f"NUM_SEEDS must be at least 1, got {seeds}")
     if seeds == 1:
         return
+    family = str(config.get("ALG_NAME"))
+    if family in SINGLE_SEED_FAMILIES:
+        raise NotImplementedError(SINGLE_SEED_FAMILIES[family])
     for key in _SINGLE_SEED:
         if config.get(key):
             raise NotImplementedError(

@@ -6,11 +6,14 @@
     python -m purejaxql_torch.cli +alg=pqn_locomotion [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_craftax [KEY=val ...]
     python -m purejaxql_torch.cli +alg=pqn_vdn_spread [KEY=val ...]
+    python -m purejaxql_torch.cli +alg=pqn_host_minatar [ASYNC_ENVS=True] [KEY=val ...]
 
 The trainer is picked by the config's ALG_NAME: ``pqn`` and ``pqn_craftax``
 (algo/pqn.py), ``pqn_rnn*`` (algo/pqn_rnn.py), ``pqn_vdn*``
 (algo/pqn_vdn.py: ``pqn_vdn_{spread,skirmish,smax,kitchen,hanabi}``) or
-``pqn_ac`` / ``pqn_playground`` (algo/pqn_ac.py). Runs on the GPU unless
+``pqn_ac`` / ``pqn_playground`` (algo/pqn_ac.py) or ``pqn_host``
+(algo/pqn_host.py: the C++ host env pool, ``make_train``, or with
+ASYNC_ENVS ``make_train_async``). Runs on the GPU unless
 DEVICE=cpu is given. Prints
 "Training took ...", writes ``<SAVE_PATH>/<ENV_NAME>/<run>.safetensors``
 (flax wire format; the actor-critic family's as one tree ``{"actor": ...,
@@ -23,8 +26,8 @@ NUM_SEEDS=S > 1 (every trainer) trains S seeds as one program
 (algo/seeds.py), prints the aggregate rate of all S seeds, writes one
 ``<run>_vmap{i}.safetensors`` a seed (the actor-critic family's with seed
 i's own ``norm_stats``) and logs each seed's rows in turn, as
-purejaxql_tpu/cli.py does; FUSED_ROLLOUT with several seeds is refused here,
-as there.
+purejaxql_tpu/cli.py does; FUSED_ROLLOUT and ``pqn_host`` with several seeds
+are refused here, as there.
 """
 
 from __future__ import annotations
@@ -35,10 +38,10 @@ import time
 
 
 def _select_make_train(config):
-    """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40
-    picks it: ``pqn`` / ``pqn_craftax``, ``pqn_rnn*``, ``pqn_vdn*`` or
-    ``pqn_ac`` / ``pqn_playground``; the host-env family (pqn_host) is not
-    ported."""
+    """The trainer of the config's family, as purejaxql_tpu/cli.py:20-40,
+    57-66 picks it: ``pqn`` / ``pqn_craftax``, ``pqn_rnn*``, ``pqn_vdn*``,
+    ``pqn_ac`` / ``pqn_playground`` or ``pqn_host`` (with ASYNC_ENVS the
+    lag-1 trainer)."""
     name = str(config.get("ALG_NAME", "pqn"))
     if name in ("pqn", "pqn_craftax"):
         from purejaxql_torch.algo.pqn import make_train
@@ -52,21 +55,25 @@ def _select_make_train(config):
     if name in ("pqn_ac", "pqn_playground"):
         from purejaxql_torch.algo.pqn_ac import make_train
         return make_train
-    raise SystemExit(
-        f"ALG_NAME '{name}' is not ported yet (ported: pqn, pqn_craftax, pqn_rnn, pqn_vdn, pqn_ac; still "
-        "to port: pqn_host)"
-    )
+    if name == "pqn_host":
+        from purejaxql_torch.algo import pqn_host
+        return pqn_host.make_train_async if config.get("ASYNC_ENVS", False) else pqn_host.make_train
+    raise SystemExit(f"Unknown ALG_NAME '{name}' (expected pqn / pqn_rnn / pqn_vdn / pqn_ac / pqn_host)")
 
 
 def single_run(config):
     import torch
 
+    from purejaxql_torch.algo.seeds import SINGLE_SEED_FAMILIES
     from purejaxql_torch.core.checkpoint import save_run
     from purejaxql_torch.utils.logging import make_logger
 
     if config.get("TRAINER", "fused") == "stepwise":
         raise SystemExit("TRAINER=stepwise is not ported yet")
     make_train = _select_make_train(config)
+    single_seed = SINGLE_SEED_FAMILIES.get(str(config.get("ALG_NAME")))
+    if single_seed and config["NUM_SEEDS"] != 1:
+        raise SystemExit(single_seed)
     if config.get("FUSED_ROLLOUT", False) and config["NUM_SEEDS"] != 1:
         raise SystemExit(
             "FUSED_ROLLOUT supports NUM_SEEDS=1 only (single-seed kernel); "

@@ -135,7 +135,9 @@ def resolve_fast_paths(
     On a ``cuda`` run, turn on FUSED_ROLLOUT and EVAL_EARLY_EXIT for an
     eligible feedforward config, as the JAX package does on a TPU, and
     EXPLORATION_KERNEL="pallas" for a feedforward config (``pqn``,
-    ``pqn_craftax``) that runs the unfused rollout; FUSED_ROLLOUT alone for
+    ``pqn_craftax``) that runs the unfused rollout and for the host-env
+    trainer (``pqn_host``: the kernel takes the NUM_ENVS training rows'
+    actions, the greedy TEST_ENVS rows an argmax); FUSED_ROLLOUT alone for
     an eligible actor-critic one (``pqn_ac``, ``pqn_playground``: the
     Pendulum kernel); and
     FAST_BPTT for a ``pqn_rnn*`` or ``pqn_vdn*`` config that
@@ -192,6 +194,8 @@ def resolve_fast_paths(
             _default("SKIP_NOOP_PERMUTE", True)
         if config.get("USE_OPTIMISTIC_RESETS", False):
             _default("RESET_BANK", 256)
+    elif str(config.get("ALG_NAME")) == "pqn_host":
+        _default("EXPLORATION_KERNEL", "pallas")
     elif str(config.get("ALG_NAME", "pqn")).startswith(("pqn_rnn", "pqn_vdn")):
         from purejaxql_torch.ops.fast_rnn import supports_fast_bptt
 

@@ -1,11 +1,12 @@
-"""The MinAtar convolutional Q-network.
+"""The convolutional Q-networks: the MinAtar CNN and the Nature-DQN CNN.
 
-Port of purejaxql_tpu/models/cnn.py (``MinAtarCNN``, ``CNNQNetwork``) for
-the MinAtar trunk with LayerNorm in float32. Flax conventions are kept so
-that weights cross between the packages unchanged (core/checkpoint.py):
+Port of purejaxql_tpu/models/cnn.py (``MinAtarCNN``, ``NatureCNN``,
+``CNNQNetwork``) with LayerNorm trunks. Flax conventions are kept so that
+weights cross between the packages unchanged (core/checkpoint.py):
 
 - modules carry flax's auto-names: ``BatchNorm_0``, ``CNN_0`` holding
-  ``Conv_0``, ``LayerNorm_0``, ``Dense_0``, ``LayerNorm_1``, and the head
+  ``Conv_0``, ``LayerNorm_0``, ``Dense_0``, ``LayerNorm_1`` (MinAtar) or
+  ``Conv_0..2``, ``LayerNorm_0..3``, ``Dense_0`` (Nature), and the head
   ``Dense_0``;
 - inputs and activations are channels-last (NHWC), as in flax; the conv
   weight is stored OIHW, as torch's;
@@ -15,10 +16,20 @@ that weights cross between the packages unchanged (core/checkpoint.py):
   variance 2 / fan_in), the head lecun-normal, all biases zero, drawn from
   the given generator only.
 
-The 3x3 VALID conv is a sum over its 9 taps of shifted slices times the
-tap's (C, O) weights, written as one matmul over the gathered patches
-(im2col): it runs in full float32 on the GPU, where a float32 cuDNN
-convolution would default to TF32.
+A k x k VALID conv of stride s is a sum over its k * k taps of strided
+slices times the tap's (C, O) weights, written as one matmul over the
+gathered patches (im2col): it runs in full float32 on the GPU, where a
+float32 cuDNN convolution would default to TF32.
+
+The Nature trunk (``trunk="nature"``, cnn.py:81-108, 143-149: the
+reference's pqn_atari.py CNN) has three VALID convs, 32 x 8x8 stride 4,
+64 x 4x4 stride 2 and 64 x 3x3 stride 1, each with a LayerNorm over the
+channels and relu, the NHWC flatten (7 x 7 x 64 = 3,136 on 84x84 frames),
+Dense(512), LayerNorm and relu. Its output sizes are XLA's for a VALID
+window, max(0, (n - k) // s + 1): on frames it cannot fit (10x10 MinAtar
+planes) the dense layer has no inputs and its init divides by a zero
+fan-in, as flax's does. It runs in float32 and for one seed; BF16_COMPUTE
+and a batch-stats trunk norm on it raise.
 
 With ``dtype=torch.bfloat16`` (BF16_COMPUTE, cnn.py:26-40, 124-159) the input
 norm and the / input_scale run in float32, the trunk casts once to bfloat16,
@@ -40,19 +51,31 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import Layers, variance_scaling_
+from purejaxql_torch.models.qnet import LayerNorm, Layers, dense, variance_scaling_
 
 KERNEL = 3
 CONV_FEATURES = 16
 HE = 2.0  # flax he_normal: variance_scaling(2, "fan_in", "truncated_normal")
 
 
-def conv_patches(x: torch.Tensor, k: int = KERNEL) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H-k+1, W-k+1, k*k*C): the VALID patches in the
-    (di, dj, c) order of a flax HWIO kernel reshaped to (k*k*C, O)."""
-    h, w = x.shape[1] - k + 1, x.shape[2] - k + 1
+# the Nature trunk's convs, (features, kernel, stride) (cnn.py:93), and its dense width
+NATURE_CONVS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+NATURE_HIDDEN = 512
+
+
+def conv_out(n: int, k: int, stride: int = 1) -> int:
+    """A VALID window's output size along an axis of n, as XLA's."""
+    return max(0, (n - k) // stride + 1)
+
+
+def conv_patches(x: torch.Tensor, k: int = KERNEL, stride: int = 1) -> torch.Tensor:
+    """(B, H, W, C) -> (B, h, w, k*k*C), h and w ``conv_out``: the VALID
+    patches of stride ``stride`` in the (di, dj, c) order of a flax HWIO
+    kernel reshaped to (k*k*C, O)."""
+    h, w = conv_out(x.shape[1], k, stride), conv_out(x.shape[2], k, stride)
     return torch.cat(
-        [x[:, di : di + h, dj : dj + w, :] for di in range(k) for dj in range(k)], -1
+        [x[:, di : di + stride * (h - 1) + 1 : stride, dj : dj + stride * (w - 1) + 1 : stride, :]
+         for di in range(k) for dj in range(k)], -1
     )
 
 
@@ -65,12 +88,15 @@ def conv_weight_matrix(weight: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with a k x k kernel, stride 1, VALID padding, on
-    NHWC input; the weight is OIHW. With ``seeds`` > 1, S lanes on (S, N,
-    H, W, C), lane i drawn from ``generator[i]``."""
+    """flax ``nn.Conv`` with a k x k kernel, VALID padding and the given
+    stride, on NHWC input; the weight is OIHW. With ``seeds`` > 1 (stride
+    1 only), S lanes on (S, N, H, W, C), lane i drawn from
+    ``generator[i]``."""
 
-    def __init__(self, in_channels: int, features: int, generator, k: int = KERNEL, seeds: int = 1):
+    def __init__(self, in_channels: int, features: int, generator, k: int = KERNEL, seeds: int = 1,
+                 stride: int = 1):
         super().__init__()
+        self.stride = stride
         lanes = () if seeds == 1 else (seeds,)
         self.weight = nn.Parameter(torch.empty(*lanes, features, in_channels, k, k))
         self.bias = nn.Parameter(torch.zeros(*lanes, features))
@@ -80,7 +106,7 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
         if self.weight.dim() == 4:
-            return conv_patches(x, k) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
+            return conv_patches(x, k, self.stride) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
         patches = conv_patches(x.flatten(0, 1), k)  # (S * N, h, w, k*k*C)
         lanes = patches.reshape(x.shape[0], -1, patches.shape[-1])
         # the product, then the bias added, as for one seed (two roundings in bfloat16)
@@ -115,10 +141,34 @@ class MinAtarCNN(nn.Module):
         return torch.relu(self.LayerNorm_1(self.Dense_0(x)))
 
 
+class NatureCNN(nn.Module):
+    """The Nature-DQN trunk (cnn.py:81-108): three VALID convs, each with
+    LayerNorm over the channels and relu, then Dense(512), LayerNorm and
+    relu, on float32 NHWC input."""
+
+    def __init__(self, obs_shape, generator):
+        super().__init__()
+        rows, cols, channels = obs_shape
+        for i, (features, k, stride) in enumerate(NATURE_CONVS):
+            setattr(self, f"Conv_{i}", Conv(channels, features, generator, k=k, stride=stride))
+            setattr(self, f"LayerNorm_{i}", LayerNorm(features))
+            rows, cols, channels = conv_out(rows, k, stride), conv_out(cols, k, stride), features
+        self.Dense_0 = dense(rows * cols * channels, NATURE_HIDDEN, generator, scale=HE)
+        self.LayerNorm_3 = LayerNorm(NATURE_HIDDEN)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, C) -> (N, 512)."""
+        for i in range(len(NATURE_CONVS)):
+            x = torch.relu(getattr(self, f"LayerNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
+        x = x.reshape(x.shape[0], -1)  # (i, j, f), as flax flattens NHWC
+        return torch.relu(self.LayerNorm_3(self.Dense_0(x)))
+
+
 class CNNQNetwork(nn.Module):
-    """Q-head over the MinAtar trunk with the input-norm convention of
-    cnn.py:111-159: a BatchNorm over the input when norm_input, else a dummy
-    BatchNorm (its statistics still move in train mode) and x / input_scale."""
+    """Q-head over the MinAtar or the Nature trunk with the input-norm
+    convention of cnn.py:111-159: a BatchNorm over the input when norm_input,
+    else a dummy BatchNorm (its statistics still move in train mode) and x /
+    input_scale."""
 
     def __init__(
         self,
@@ -134,20 +184,25 @@ class CNNQNetwork(nn.Module):
         seeds: int = 1,
     ):
         super().__init__()
-        if trunk != "minatar":
-            raise NotImplementedError(f"CNN_TRUNK '{trunk}' is not ported yet")
+        # any other CNN_TRUNK is the MinAtar trunk, as in cnn.py:143-157
+        if trunk == "nature" and (dtype != torch.float32 or seeds > 1):
+            raise NotImplementedError("CNN_TRUNK 'nature' runs in float32 for one seed: BF16_COMPUTE and "
+                                      "NUM_SEEDS > 1 on it are not ported yet")
         if norm_type != "layer_norm":
             raise NotImplementedError(f"NORM_TYPE '{norm_type}' in the CNN trunk is not ported yet")
         self.action_dim = action_dim
         self.norm_type = norm_type
         self.norm_input = norm_input
-        self.hidden_size = hidden_size
+        self.hidden_size = hidden_size = NATURE_HIDDEN if trunk == "nature" else hidden_size
         self.input_scale = input_scale
         self.dtype = dtype
         self.seeds = seeds
         layers = Layers(generator, seeds)
         self.BatchNorm_0 = layers.norm("batch_norm", obs_shape[-1])
-        self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator, seeds)
+        if trunk == "nature":
+            self.CNN_0 = NatureCNN(obs_shape, generator)
+        else:
+            self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator, seeds)
         self.Dense_0 = layers.dense(hidden_size, action_dim)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:

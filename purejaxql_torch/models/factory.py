@@ -2,15 +2,16 @@
 
 Port of purejaxql_tpu/models/factory.py for the MLP family, with the JAX
 package's per-family norms (``resolve_norms``: BatchRenorm for the craftax
-family), the MinAtar CNN (ARCH ``cnn``, or an observation of rank 3 or more)
-and the recurrent network (``make_rnn_q_network``: GRU or LSTM cells, a
+family), the CNNs (ARCH ``cnn``, or an observation of rank 3 or more: the
+MinAtar trunk, or with CNN_TRUNK ``nature`` the Nature-DQN trunk,
+factory.py:66) and the recurrent network (``make_rnn_q_network``: GRU or LSTM cells, a
 BatchNorm or BatchRenorm input norm, a dueling head). BF16_COMPUTE
 (factory.py:43) gives the MLP and the MinAtar CNN a bfloat16 trunk over
 float32 master parameters; the recurrent network ignores it, as the JAX
 package's does, and the recurrent trainers' FAST_BPTT forward takes it
-(``ops/fast_rnn.py``). The Nature trunk, a BatchRenorm trunk in bfloat16 and
-a recurrent trunk norm other than layer_norm come with later slices and raise
-here.
+(``ops/fast_rnn.py``). The Nature trunk in bfloat16, a BatchRenorm trunk in
+bfloat16 and a recurrent trunk norm other than layer_norm come with later
+slices and raise here.
 
 ``seeds=S`` > 1 (NUM_SEEDS) gives the network (the FF, the recurrent and
 the VDN trainers') S lanes with stacked

@@ -20,6 +20,10 @@
     python scripts/profile_torch_train.py --alg pqn_rnn_craftax --steps 1048576 --profile-updates 2
     python scripts/profile_torch_train.py --alg pqn_craftax --steps 262144 --profile-updates 64 \
         --set NUM_SEEDS=4                                      # 4 seeds as one program (aggregate rate)
+    python scripts/profile_torch_train.py --alg pqn_host_minatar --env Pong-EH --steps 131072 \
+        --profile-updates 2 --set CNN_TRUNK=nature             # the host pool, sync
+    python scripts/profile_torch_train.py --alg pqn_host_minatar --env Pong-EH --steps 131072 \
+        --profile-updates 2 --set CNN_TRUNK=nature --set ASYNC_ENVS=True   # lag-1, no phases
 
 Two measurements of the config at its YAML's widths (pqn_cartpole: H 256,
 32 envs x 64 steps, 16 minibatches x 4 epochs, greedy eval 128 envs x 500
@@ -38,7 +42,9 @@ resets, the concat 1-step TD, a permuted minibatch; pqn_vdn_*: one GRU
 network shared by the agents, FAST_BPTT and PALLAS_BPTT on;
 pqn_rnn_craftax: Forager, an LSTM H 512 after one dense layer, 1024 envs x
 128 steps, 4 x 4 grad steps of BPTT over the window, by the cuda policy
-FAST_BPTT, the epsilon-greedy kernel and the reset bank):
+FAST_BPTT, the epsilon-greedy kernel and the reset bank; pqn_host_minatar:
+the C++ host pool, 128 + 16 test envs x 32 steps, 32 minibatches x 2
+epochs, by the cuda policy the epsilon-greedy kernel):
 
 1. phase wall times over a whole run: each phase (fused rollout, Log replay,
    lambda targets, minibatch steps; for the recurrent trainer the rollouts,
@@ -63,7 +69,11 @@ FAST_BPTT, the epsilon-greedy kernel and the reset bank):
    kernels; for pqn_rnn_craftax also, inside the rollouts, the reset
    wrapper's env step, the Forager step, the worldgen, the bank's bursts
    and serve and the epsilon-greedy kernel, and inside the grad steps' forward
-   the LSTM loop, ``ops.fast_rnn.lstm_layer_scan``) is wrapped with a device
+   the LSTM loop, ``ops.fast_rnn.lstm_layer_scan``; for pqn_host the
+   rollouts, inside them the pool's ``step_into`` (host C++) and the
+   epsilon-greedy kernel, and the learn updates, inside them the closure
+   returns and the minibatch steps; with ASYNC_ENVS no phase is timed, as
+   the rollouts run in a worker thread beside the learn phase) is wrapped with a device
    synchronize before and after, so the top-level phases add up to the
    run's wall time (the syncs cost a little overlap, which the total shows;
    the inner phases' syncs lengthen the minibatch steps they sit in); a
@@ -100,7 +110,8 @@ ROLLOUTS = (
 def main() -> int:
     import torch
 
-    from purejaxql_torch.algo import exploration, pqn, pqn_ac, pqn_rnn, pqn_vdn
+    from purejaxql_torch.algo import exploration, pqn, pqn_ac, pqn_host, pqn_rnn, pqn_vdn
+    from purejaxql_torch.envs.hostpool import HostEnvPool
     from purejaxql_torch.core.config import compose
     from purejaxql_torch.envs import wrappers
     from purejaxql_torch.envs.gridworld.forager import Forager
@@ -135,8 +146,9 @@ def main() -> int:
     # are those at EPS_TEST, below every training epsilon (>= EPS_FINISH), or
     # for the actor-critic trainer at noise 0, below every training noise
     actor_critic = config["ALG_NAME"] in ("pqn_ac", "pqn_playground")
-    eval_eps, floor = (0.0, config["NOISE_FINISH"]) if actor_critic else (config["EPS_TEST"], config["EPS_FINISH"])
-    if not eval_eps < floor:
+    host = config["ALG_NAME"] == "pqn_host"  # its eval envs ride in the training rollout
+    eval_eps, floor = (0.0, config["NOISE_FINISH"]) if actor_critic else (config.get("EPS_TEST"), config["EPS_FINISH"])
+    if not host and not eval_eps < floor:
         raise SystemExit("the eval's epsilon (noise) must be below the training one to tell their calls apart")
     totals = defaultdict(float)
     counts = defaultdict(int)
@@ -170,8 +182,14 @@ def main() -> int:
         return wrapper
 
     recurrent = str(config["ALG_NAME"]).startswith("pqn_rnn")
-    trainer = pqn_rnn if recurrent else pqn_vdn if vdn else pqn_ac if actor_critic else pqn
-    if config["ALG_NAME"] == "pqn_craftax":  # the wrapper's env step, and its parts inside it
+    trainer = pqn_rnn if recurrent else pqn_vdn if vdn else pqn_ac if actor_critic else pqn_host if host else pqn
+    make_train = (pqn_host.make_train_async if host and config.get("ASYNC_ENVS", False) else trainer.make_train)
+    if host:  # a worker thread overlaps the async trainer's phases: none timed
+        patches = [] if config.get("ASYNC_ENVS", False) else [
+            (pqn_host, "host_rollout", None), (HostEnvPool, "step_into", None), (exploration, "eps_greedy", None),
+            (pqn_host, "learn_update", None), (pqn_host, "lambda_returns_closure", None),
+            (pqn_host, "learn_minibatch", None)]
+    elif config["ALG_NAME"] == "pqn_craftax":  # the wrapper's env step, and its parts inside it
         patches = [(wrappers.OptimisticResetVecEnv, "step", None), (wrappers.BankedResetVecEnv, "step", None),
                    (Forager, "step_env", None), (Forager, "reset_env", None),
                    (wrappers.BankedResetVecEnv, "refresh", None), (wrappers, "serve_resets", None),
@@ -207,7 +225,7 @@ def main() -> int:
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, eps_arg in patches:
         setattr(mod, name, timed(name, getattr(mod, name), eps_arg))
-    train = trainer.make_train(config)
+    train = make_train(config)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = train()
@@ -222,6 +240,8 @@ def main() -> int:
              "reset_env", "refresh", "serve_resets", "lstm_layer_scan", "step_env_train", "step_env_eval", "step_eval")
     if recurrent:  # the epsilon-greedy kernel and the env step run inside the rollouts
         inner += ("eps_greedy", "step")
+    if host:
+        inner += ("step_into", "eps_greedy", "learn_minibatch")
     accounted = sum(v for k, v in totals.items() if k not in inner)
 
     # ---- 2. device busy share over a short run without eval -----------------
@@ -232,7 +252,7 @@ def main() -> int:
         overrides=[f"TOTAL_TIMESTEPS={n * per_update}", f"TOTAL_TIMESTEPS_DECAY={n * per_update}",
                    "TEST_DURING_TRAINING=False", *env],
     )
-    ptrain = trainer.make_train(pconfig)
+    ptrain = make_train(pconfig)
     ptrain()  # warm-up: kernel build and load, allocator
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,7 +272,8 @@ def main() -> int:
         "config": {"alg": args.alg, "env": config["ENV_NAME"], "set": args.set,
                    "policy": {k: config.get(k) for k in ("FUSED_ROLLOUT", "EXPLORATION_KERNEL", "FAST_TARGETS",
                                                          "SKIP_NOOP_PERMUTE", "RESET_BANK", "BF16_COMPUTE",
-                                                         "FAST_BPTT", "PALLAS_BPTT")}},
+                                                         "FAST_BPTT", "PALLAS_BPTT", "ASYNC_ENVS",
+                                                         "CNN_TRUNK")}},
         "run": {
             "env_steps": ts.timesteps, "wall_s": wall, "env_steps_per_s": ts.timesteps / wall,
             # NUM_SEEDS as one program: a seed's steps times the seeds, as the CLI prints it

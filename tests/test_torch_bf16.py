@@ -215,7 +215,7 @@ def test_factory_gives_bf16_and_raises_where_not_ported():
         make_q_network(compose(alg="pqn_craftax", overrides=["DEVICE=cpu", "BF16_COMPUTE=True",
                                                              "NORM_TYPE=batch_norm", "HIDDEN_SIZE=16"]), 3, (OBS_DIM,))
     with pytest.raises(NotImplementedError, match="CNN_TRUNK"):
-        make_q_network({"NORM_TYPE": "layer_norm", "BF16_COMPUTE": True, "CNN_TRUNK": "nature"}, 3, (10, 10, 4))
+        make_q_network({"NORM_TYPE": "layer_norm", "BF16_COMPUTE": True, "CNN_TRUNK": "nature"}, 3, (84, 84, 4))
 
 
 def _cli(tmp_path, *args):

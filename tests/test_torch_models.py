@@ -312,13 +312,17 @@ def test_factory_builds_the_cnn_and_raises_for_unported_variants():
     # BF16_COMPUTE is ported for the MinAtar trunk (tests/test_torch_bf16.py)
     # and accepted by the recurrent network, which ignores it as the JAX
     # package's does (its FAST_BPTT forward takes it: tests/test_torch_lstm.py);
-    # the Nature trunk, in bfloat16 or not, and a recurrent trunk norm other
-    # than layer_norm still raise
+    # the Nature trunk builds on 84x84 frames (tests/test_torch_nature_cnn.py);
+    # in bfloat16 or with a batch-stats trunk norm it still raises, as does a
+    # recurrent trunk norm other than layer_norm
     assert make_q_network({**cfg, "BF16_COMPUTE": True}, 3, (10, 10, 4)).dtype == torch.bfloat16
-    for bad in ({"CNN_TRUNK": "nature"}, {"NORM_TYPE": "batch_norm"},
-                {"CNN_TRUNK": "nature", "BF16_COMPUTE": True}):
+    nature = make_q_network({**cfg, "CNN_TRUNK": "nature"}, 6, (84, 84, 4))
+    assert isinstance(nature, TCNNQNetwork) and nature.CNN_0.Dense_0.weight.shape == (512, 3136)
+    for bad, shape in (({"NORM_TYPE": "batch_norm"}, (10, 10, 4)),
+                       ({"CNN_TRUNK": "nature", "BF16_COMPUTE": True}, (84, 84, 4)),
+                       ({"CNN_TRUNK": "nature", "NORM_TYPE": "batch_norm"}, (84, 84, 4))):
         with pytest.raises(NotImplementedError):
-            make_q_network({**cfg, **bad}, 3, (10, 10, 4))
+            make_q_network({**cfg, **bad}, 3, shape)
     check_rnn_q_network({**cfg, "BF16_COMPUTE": True}, (4,))
     with pytest.raises(NotImplementedError, match="NORM_TYPE"):
         check_rnn_q_network({**cfg, "NORM_TYPE": "batch_norm", "BF16_COMPUTE": True}, (4,))

@@ -418,7 +418,12 @@ def test_breakout_fused_rollout_requires_layer_norm_and_raw_input():
     for kw in ({"NORM_INPUT": True}, {"NORM_TYPE": "batch_norm"}):
         with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
             pqn.make_train(tiny_config(**BREAKOUT, FUSED_ROLLOUT=True, **kw))
-    with pytest.raises(NotImplementedError, match="CNN_TRUNK"):
+    # the Nature trunk's VALID convs cannot fit 10x10 planes: its dense layer
+    # gets no inputs and the he-normal init divides by the zero fan-in, in the
+    # JAX package's network init as in the port's
+    with pytest.raises(ZeroDivisionError):
+        JCNNQNetwork(action_dim=3, trunk="nature").init(jax.random.PRNGKey(0), jnp.zeros((1, 10, 10, 4)), train=False)
+    with pytest.raises(ZeroDivisionError):
         pqn.make_train(tiny_config(**BREAKOUT, CNN_TRUNK="nature"))()
 
 

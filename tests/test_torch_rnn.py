@@ -551,9 +551,9 @@ def test_rnn_cli_recipe_writes_what_the_jax_loader_reads(tmp_path, capsys):
     assert (run_dir / "pqn_rnn_MemoryChain-bsuite_seed0_config.yaml").exists()
     rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
     assert len(rows) == 1024 // 16 // 8 and rows[-1]["env_step"] == 1024
-    # the family still to port is refused by name
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["+alg=pqn_rnn_memory_chain", "DEVICE=cpu", "ALG_NAME=pqn_host"])
+    # an ALG_NAME of no family is refused by name, as the JAX CLI refuses it
+    with pytest.raises(SystemExit, match="Unknown ALG_NAME 'pqn_nothing'"):
+        cli.main(["+alg=pqn_rnn_memory_chain", "DEVICE=cpu", "ALG_NAME=pqn_nothing"])
 
 
 @pytest.mark.slow
