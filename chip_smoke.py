@@ -33,7 +33,8 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    shape, at one that forces resets and at a ragged one whose W2 slices are
    read from L2, each with its plan and register counts), and the
    epsilon-greedy kernel (bit for bit, at
-   the Craftax trainer's shape and two others, at eps 0, 0.3 and 1, with a
+   the Craftax trainer's shape and two others, the seeded, host and classic
+   envs' rows among them, at eps 0, 0.3 and 1, with a
    tied and a NaN row, and on edge rows: signed zeros, NaN payloads,
    infinities);
 4. check the kernels' random streams by their statistics (Seaquest: the
@@ -175,12 +176,26 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    env steps, 64 envs x 32 steps): the last tenth's done rate below half
    the first tenth's (the PongRam-EH bar of tests/test_pong_plugin.py,
    1.2M env steps, runs in scripts/host_learning_bar.py);
+6l. the single-file classic envs: each of their 22 registry names built on
+   the card and stepped 16 times with random actions over 128 envs (finite
+   obs and rewards), each task's raw step_env time beside its step through
+   the trainer's wrappers; pqn_cartpole at full width (H 256, 32 envs x 64
+   steps, 16 minibatches x 4 epochs, greedy eval 128 envs at the start and
+   the end) for 16 updates on Acrobot-v1, MountainCar-v0,
+   Catch-bsuite and DeepSea-bsuite: 64 epsilon-greedy launches and one
+   returns launch an update (the cuda policy's EXPLORATION_KERNEL), no
+   other kernel, the env-step count, finite metrics with the test/* keys,
+   the saved tree; pqn_dm_suite at full width for 8 updates on one task of
+   each dm-suite module (AcrobotSwingup, PointMass, SwimmerSwimmer6,
+   CheetahRun, FingerTurnEasy, FishSwim), without evals, with 6e''s checks; the learning
+   bars of these envs run in scripts/classic_learning_bar.py;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's and the host
    trainer's (32, 64), and the seeded shapes: one seeded GRU launch against
    S unseeded ones, epsilon-greedy at 4 x 1024 and 2 x 1024 Craftax rows
    and the host trainer's (128, 3), (128, 6) and (64, 6), the returns at
-   the seeded AC, VDN and pqn_rnn_craftax columns), and torch.nn.GRU (cuDNN) beside the
+   the seeded AC, VDN and pqn_rnn_craftax columns; epsilon-greedy also at
+   the classic envs' (32, 3) and (32, 2)), and torch.nn.GRU (cuDNN) beside the
    GRU scan as a yardstick (S calls of it beside the seeded launch);
 8. print the kernel table as one JSON line (the four kernels of phase 6j's
    runs at their seeded shapes, with those runs' launches);
@@ -327,9 +342,11 @@ CRAFTAX_FAST_POLICY = (("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_N
 RECORDED_WALL_S = 1006.3
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
 # and the seeded runs' folded rows (S x NUM_ENVS, A): CartPole with 8 and
-# 64 seeds, Breakout with 4, Craftax with 4 and pqn_rnn_craftax with 2
+# 64 seeds, Breakout with 4, Craftax with 4 and pqn_rnn_craftax with 2; the
+# host trainer's rows; pqn_cartpole's 32 envs on Acrobot, MountainCar and
+# Catch (3 actions) and DeepSea (2)
 EPS_GREEDY_SHAPES = ((1024, 34), (1000, 34), (512, 6), (256, 2), (2048, 2), (512, 3), (4096, 34), (2048, 34),
-                     (128, 3), (128, 6), (64, 6))
+                     (128, 3), (128, 6), (64, 6), (32, 3), (32, 2))
 # the host-env trainer's training rows (NUM_ENVS, A): Breakout-MinAtar and
 # Pong-EH at the YAML's 128 envs, PongRam-EH at the learning gate's 64
 HOST_EPS_SHAPES = ((128, 3), (128, 6), (64, 6))
@@ -350,6 +367,26 @@ HOST_BREAKOUT_UPDATES, HOST_PONG_UPDATES = 16, 8
 HOST_GATE_STEPS = 200_000
 HOST_GATE_EXTRA = ("ALG_NAME=pqn_host", "NUM_ENVS=64", "NUM_STEPS=32", "NUM_MINIBATCHES=8", "NUM_EPOCHS=2",
                    "TEST_DURING_TRAINING=False")
+# phase 6l, the single-file classic envs: each of their registry names
+# built on the card and stepped CLASSIC_STEP_STEPS times with random actions
+# over CLASSIC_STEP_ENVS envs (a task's raw step_env timed beside its step
+# through the trainer's wrappers); the four discrete envs trained at
+# pqn_cartpole's full width for CLASSIC_FF_UPDATES updates (evals at the
+# start and the end: Catch's and DeepSea's 2,000 steps each); one task of
+# each dm-suite module at pqn_dm_suite's full width for AC_SHORT_UPDATES
+# without evals (their 1,000-step evals took 23-46 s of CheetahRun's,
+# Finger's and Fish's 34-56 s runs on an H100 80GB HBM3 at 700 W; phase 6l
+# took 241.3 s with them and a 0.5 interval, PERF.md section 6)
+CLASSIC_FF_ENVS = ("Acrobot-v1", "MountainCar-v0", "Catch-bsuite", "DeepSea-bsuite")
+CLASSIC_AC_NAMES = (
+    "AcrobotSwingup-v0", "AcrobotSwingupSparse-v0", "PointMass-v0", "SwimmerSwimmer6-v0", "CheetahRun-v0",
+    "FingerSpin-v0", "FingerTurnEasy-v0", "FingerTurnHard-v0", "FishSwim-v0", "AcrobotSwingup", "AcrobotSwingupSparse",
+    "PointMass", "SwimmerSwimmer6", "CheetahRun", "FingerSpin", "FingerTurnEasy", "FingerTurnHard", "FishSwim",
+)
+CLASSIC_AC_RUNS = ("AcrobotSwingup-v0", "PointMass-v0", "SwimmerSwimmer6-v0", "CheetahRun-v0", "FingerTurnEasy-v0",
+                   "FishSwim-v0")
+CLASSIC_STEP_ENVS, CLASSIC_STEP_STEPS = 128, 16
+CLASSIC_FF_UPDATES, CLASSIC_FF_TEST_INTERVAL = 16, 1.0
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
@@ -1137,6 +1174,75 @@ def seeded_families(cli, compose, load_params, wrappers, counters, save_path, ca
     return launches_by_run, gates
 
 
+def ac_run(cli, compose, make_env, load_params, counters, save_path, card, alg, steps, extra=()):
+    """One unfused actor-critic run at full width with the checks every
+    such run shares. Returns (greedy evals at each eval, none without
+    TEST_DURING_TRAINING, and launches)."""
+    import numpy as np
+    import torch
+
+    outs, wall, launches = train(cli, compose, alg, steps, save_path, counters, extra=extra, policy=())
+    cfg = compose(alg=alg, overrides=list(extra))
+    E, T, env_name = cfg["NUM_ENVS"], cfg["NUM_STEPS"], cfg["ENV_NAME"]
+    updates = steps // (E * T)
+    ts = outs["runner_state"][0]
+    env_state = outs["runner_state"][1][1]
+    m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+    interval = max(1, int(updates * cfg["TEST_INTERVAL"]))
+    tests = m.get("test/returned_episode_returns", np.zeros(0))
+    check((len(tests) > 0) == cfg.get("TEST_DURING_TRAINING", False), f"{alg} ({env_name}): test/* metrics missing or kept")
+    evals = np.concatenate([tests[:1], tests[interval - 1 :: interval]])
+    check(ts["actor"].timesteps == updates * E * T, f"{alg}: wrong env-step count")
+    check(all(p.device.type == "cuda" for st in ts.values() for p in st.network.parameters()),
+          f"{alg}: a parameter is not on cuda")
+    check(launches["lambda_returns"] == updates,
+          f"{alg}: lambda_returns launched {launches['lambda_returns']} times, expected {updates}")
+    others = {k: v for k, v in launches.items() if k != "lambda_returns" and v}
+    check(not others, f"{alg}: another kernel launched: {others}")
+    check(all(np.isfinite(v).all() for v in m.values()), f"{alg}: non-finite metrics")
+    env, env_params = make_env(env_name)
+    obs_dim, act_dim = env.observation_space(env_params).shape[0], env.action_space(env_params).shape[0]
+    norm = {}
+    if cfg["NORMALIZE_OBS"]:
+        count = np.float32(np.float32(1e-4) + np.float32(E))
+        for _ in range(updates * T):
+            count = np.float32(count + np.float32(E))
+        check(bool(torch.isfinite(env_state.mean).all() and torch.isfinite(env_state.var).all()),
+              f"{alg}: non-finite observation statistics")
+        check(env_state.count.item() == float(count),
+              f"{alg}: observation statistics' count {env_state.count.item()}, expected {float(count)}")
+        norm = {"count": env_state.count.item(),
+                "var_range": [env_state.var.min().item(), env_state.var.max().item()]}
+    saved = load_params(os.path.join(save_path, env_name, f"pqn_ac_{env_name}_seed0.safetensors"))
+    a_h, c_h = cfg["ACTOR_HIDDEN_SIZES"], cfg["CRITIC_HIDDEN_SIZES"]
+    shapes = {
+        ("actor", "Dense_0"): (obs_dim, a_h[0]), ("actor", f"Dense_{len(a_h)}"): (a_h[-1], act_dim),
+        ("critic", "Dense_0"): (2, obs_dim + act_dim, c_h[0]), ("critic", f"Dense_{len(c_h)}"): (2, c_h[-1], 1),
+    }
+    for (net, layer), shape in shapes.items():
+        check(tuple(saved[net][layer]["kernel"].shape) == shape,
+              f"{alg}: saved {net}/{layer} kernel {tuple(saved[net][layer]['kernel'].shape)}, expected {shape}")
+    if cfg["NORMALIZE_OBS"]:
+        check(set(saved) == {"actor", "critic", "norm_stats"}
+              and all(tuple(saved["norm_stats"][k].shape) == (obs_dim,) for k in ("mean", "var"))
+              and torch.equal(saved["norm_stats"]["mean"], env_state.mean.cpu()),
+              f"{alg}: the saved norm_stats are not the run's (obs_dim,) statistics")
+    else:
+        check(set(saved) == {"actor", "critic"}, f"{alg}: saved tree {sorted(saved)}")
+    print(
+        f"train {alg} ({env_name}, pqn_ac, unfused): {ts['actor'].timesteps} env steps in {wall:.2f} s wall "
+        f"({ts['actor'].timesteps / wall:.0f} env-steps/s, eval included); launches {launches}; greedy eval "
+        f"returns at each eval {[round(float(v), 2) for v in evals]}"
+    )
+    print(json.dumps({f"{alg}_run": {
+        "env": env_name, "env_steps": ts["actor"].timesteps, "updates": updates,
+        "env_steps_per_s": ts["actor"].timesteps / wall, "wall_s": wall, "evals": [float(v) for v in evals],
+        "best_eval_return": float(evals.max()) if len(evals) else None, "obs_norm": norm, "launches": launches,
+        "card": card,
+    }}))
+    return evals, launches
+
+
 def host_env_phase(cli, compose, load_params, counters, save_path, card):
     """Phase 6k, the host-env path: the port's envhost and plug-ins built
     with g++ (their build times), the pool's host env-steps/s on every
@@ -1249,6 +1355,89 @@ def host_env_phase(cli, compose, load_params, counters, save_path, card):
                       "card": card}))
     check(late < early / 2, f"pqn_host CartPole-v1 did not learn: done rate {early} -> {late}, not halved")
     return launches_by_run, rates
+
+
+def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, card, dev):
+    """Phase 6l, the single-file classic envs: every one of their registry
+    names built on the card and stepped with random actions, each task's
+    raw step_env time beside its step through the trainer's wrappers; the
+    four discrete envs trained at pqn_cartpole's width (one epsilon-greedy
+    launch a rollout step, one returns launch an update, no other kernel);
+    one task of each dm-suite module at pqn_dm_suite's (ac_run's checks).
+    Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.algo.pqn import build_env
+    from purejaxql_torch.algo.pqn_ac import build_ac_env
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    E = CLASSIC_STEP_ENVS
+    timed = set()
+    for name in CLASSIC_FF_ENVS + CLASSIC_AC_NAMES:
+        env, params = make_env(name)
+        space = env.action_space(params)
+        discrete = hasattr(space, "n")
+
+        def actions():
+            if discrete:
+                return torch.randint(0, space.n, (E,), generator=gen, device=dev)
+            return torch.rand(E, *space.shape, generator=gen, device=dev) * 2.4 - 1.2
+
+        obs, state = env.reset(gen, E, params)
+        for _ in range(CLASSIC_STEP_STEPS):
+            obs, state, rew, done, _ = env.step(gen, state, actions(), params)
+        check(obs.device == dev and obs.shape == (E, *env.observation_space(params).shape)
+              and bool(torch.isfinite(obs).all() and torch.isfinite(rew).all()),
+              f"{name}: non-finite obs or rewards on the card, or the wrong obs shape")
+        task = (type(env).__name__, getattr(env, "task", None), getattr(env, "sparse", None))
+        if task in timed:
+            continue
+        timed.add(task)
+        act = actions()
+        raw_ms = cuda_time_ms(lambda: env.step_env(state, act, params, env.step_draws(gen, E)), 16)
+        cfg = compose(alg="pqn_cartpole" if discrete else "pqn_dm_suite", overrides=[f"ENV_NAME={name}"])
+        wrapped = build_env(cfg)[0] if discrete else build_ac_env(cfg)[0]
+        _, wstate = wrapped.reset(gen, E, params)
+        wrapped_ms = cuda_time_ms(lambda: wrapped.step(gen, wstate, act, params), 16)
+        print(json.dumps({"classic_env_step": name, "envs": E, "raw_step_env_ms": raw_ms,
+                          "wrapped_step_ms": wrapped_ms, "wrappers": type(wrapped).__name__, "card": card}))
+
+    launches_by_run = {}
+    for name in CLASSIC_FF_ENVS:
+        updates = CLASSIC_FF_UPDATES
+        outs, wall, launches = train(cli, compose, "pqn_cartpole", updates * 64 * 32, save_path, counters,
+                                     extra=[f"ENV_NAME={name}", f"TEST_INTERVAL={CLASSIC_FF_TEST_INTERVAL}"],
+                                     policy=(("EXPLORATION_KERNEL", "pallas"),))
+        ts = outs["runner_state"][0]
+        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
+        check(launches["eps_greedy"] == updates * 64 and launches["lambda_returns"] == updates,
+              f"{name}: launches {launches}, expected {updates * 64} eps_greedy and {updates} lambda_returns")
+        others = {k: v for k, v in launches.items() if k not in ("eps_greedy", "lambda_returns") and v}
+        check(not others, f"{name}: another kernel launched: {others}")
+        check(ts.timesteps == updates * 64 * 32 and ts.n_updates == updates, f"{name}: wrong env-step count")
+        check(all(p.device.type == "cuda" for p in ts.network.parameters()), f"{name}: a parameter is not on cuda")
+        check({"test/returned_episode_returns", "test/returned_episode_lengths"} <= set(m)
+              and all(v.shape == (updates,) and np.isfinite(v).all() for v in m.values()),
+              f"{name}: metrics non-finite or without the test/* keys: {sorted(m)}")
+        saved = load_params(os.path.join(save_path, name, f"pqn_{name}_seed0.safetensors"))
+        obs_dim = make_env(name)[0].observation_space(make_env(name)[1]).shape[0]
+        check(tuple(saved["Dense_0"]["kernel"].shape) == (obs_dim, 256), f"{name}: saved Dense_0 not ({obs_dim}, 256)")
+        rate = ts.timesteps / wall
+        print(f"train {name} (pqn_cartpole, unfused): {ts.timesteps} env steps in {wall:.2f} s wall ({rate:.0f} "
+              f"env-steps/s, eval included); launches {launches}; last returned_episode_returns "
+              f"{m['returned_episode_returns'][-1]:.3f}, last greedy eval {m['test/returned_episode_returns'][-1]:.3f}")
+        print(json.dumps({"classic_ff_run": name, "updates": updates, "env_steps_per_s": rate, "wall_s": wall,
+                          "launches": launches, "last_eval": float(m["test/returned_episode_returns"][-1]),
+                          "card": card}))
+        launches_by_run[name] = launches
+    for name in CLASSIC_AC_RUNS:
+        acfg = compose(alg="pqn_dm_suite")
+        _, launches_by_run[name] = ac_run(
+            cli, compose, make_env, load_params, counters, save_path, card, "pqn_dm_suite",
+            AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
+            extra=(f"ENV_NAME={name}", "TEST_DURING_TRAINING=False"))
+    return launches_by_run
 
 
 def main() -> int:
@@ -2249,74 +2438,12 @@ def main() -> int:
                                        "launches": launches_pd, "card": card}}))
 
     # ---- 6e'. the actor-critic trainer beyond Pendulum, unfused ---------------------------
-    def ac_run(alg, steps, extra=()):
-        """One unfused actor-critic run at full width with the checks every
-        such run shares. Returns (greedy evals at each eval, launches)."""
-        outs, wall, launches = train(cli, compose, alg, steps, save_path, counters, extra=extra, policy=())
-        cfg = compose(alg=alg, overrides=list(extra))
-        E, T, env_name = cfg["NUM_ENVS"], cfg["NUM_STEPS"], cfg["ENV_NAME"]
-        updates = steps // (E * T)
-        ts = outs["runner_state"][0]
-        env_state = outs["runner_state"][1][1]
-        m = {k: v.cpu().numpy() for k, v in outs["metrics"].items()}
-        interval = max(1, int(updates * cfg["TEST_INTERVAL"]))
-        evals = np.concatenate([m["test/returned_episode_returns"][:1],
-                                m["test/returned_episode_returns"][interval - 1 :: interval]])
-        check(ts["actor"].timesteps == updates * E * T, f"{alg}: wrong env-step count")
-        check(all(p.device.type == "cuda" for st in ts.values() for p in st.network.parameters()),
-              f"{alg}: a parameter is not on cuda")
-        check(launches["lambda_returns"] == updates,
-              f"{alg}: lambda_returns launched {launches['lambda_returns']} times, expected {updates}")
-        others = {k: v for k, v in launches.items() if k != "lambda_returns" and v}
-        check(not others, f"{alg}: another kernel launched: {others}")
-        check(all(np.isfinite(v).all() for v in m.values()), f"{alg}: non-finite metrics")
-        env, env_params = make_env(env_name)
-        obs_dim, act_dim = env.observation_space(env_params).shape[0], env.action_space(env_params).shape[0]
-        norm = {}
-        if cfg["NORMALIZE_OBS"]:
-            count = np.float32(np.float32(1e-4) + np.float32(E))
-            for _ in range(updates * T):
-                count = np.float32(count + np.float32(E))
-            check(bool(torch.isfinite(env_state.mean).all() and torch.isfinite(env_state.var).all()),
-                  f"{alg}: non-finite observation statistics")
-            check(env_state.count.item() == float(count),
-                  f"{alg}: observation statistics' count {env_state.count.item()}, expected {float(count)}")
-            norm = {"count": env_state.count.item(),
-                    "var_range": [env_state.var.min().item(), env_state.var.max().item()]}
-        saved = load_params(os.path.join(save_path, env_name, f"pqn_ac_{env_name}_seed0.safetensors"))
-        a_h, c_h = cfg["ACTOR_HIDDEN_SIZES"], cfg["CRITIC_HIDDEN_SIZES"]
-        shapes = {
-            ("actor", "Dense_0"): (obs_dim, a_h[0]), ("actor", f"Dense_{len(a_h)}"): (a_h[-1], act_dim),
-            ("critic", "Dense_0"): (2, obs_dim + act_dim, c_h[0]), ("critic", f"Dense_{len(c_h)}"): (2, c_h[-1], 1),
-        }
-        for (net, layer), shape in shapes.items():
-            check(tuple(saved[net][layer]["kernel"].shape) == shape,
-                  f"{alg}: saved {net}/{layer} kernel {tuple(saved[net][layer]['kernel'].shape)}, expected {shape}")
-        if cfg["NORMALIZE_OBS"]:
-            check(set(saved) == {"actor", "critic", "norm_stats"}
-                  and all(tuple(saved["norm_stats"][k].shape) == (obs_dim,) for k in ("mean", "var"))
-                  and torch.equal(saved["norm_stats"]["mean"], env_state.mean.cpu()),
-                  f"{alg}: the saved norm_stats are not the run's (obs_dim,) statistics")
-        else:
-            check(set(saved) == {"actor", "critic"}, f"{alg}: saved tree {sorted(saved)}")
-        print(
-            f"train {alg} ({env_name}, pqn_ac, unfused): {ts['actor'].timesteps} env steps in {wall:.2f} s wall "
-            f"({ts['actor'].timesteps / wall:.0f} env-steps/s, eval included); launches {launches}; greedy eval "
-            f"returns at each eval {[round(float(v), 2) for v in evals]}"
-        )
-        print(json.dumps({f"{alg}_run": {
-            "env": env_name, "env_steps": ts["actor"].timesteps, "updates": updates,
-            "env_steps_per_s": ts["actor"].timesteps / wall, "wall_s": wall, "evals": [float(v) for v in evals],
-            "best_eval_return": float(evals.max()), "obs_norm": norm, "launches": launches, "card": card,
-        }}))
-        return evals, launches
-
     # pqn_reacher's 400k run and its gate are phase 6j's, with 4 seeds as one program
     gate_seed0 = {"pendulum": pd_best}
     for alg in AC_SHORT:
         acfg = compose(alg=alg)
-        ac_run(alg, AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
-               extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
+        ac_run(cli, compose, make_env, load_params, counters, save_path, card, alg,
+               AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"], extra=(f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",))
 
     # ---- 6f. pqn_craftax at full width: the fast program, every action from eps_greedy ----
     ccfg = compose(alg="pqn_craftax")
@@ -2735,6 +2862,12 @@ def main() -> int:
     host_env_phase(cli, compose, load_params, counters, save_path, card)
     print(f"phase 6k (host-env path): {time.perf_counter() - t_host:.1f} s wall")
 
+    # ---- 6l. the single-file classic envs: the FF trainer on the four
+    # discrete ones, the AC trainer on the dm-suite domains ----------------------
+    t_classic = time.perf_counter()
+    classic_env_phase(cli, compose, make_env, load_params, counters, save_path, card, dev)
+    print(f"phase 6l (classic envs): {time.perf_counter() - t_classic:.1f} s wall")
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -2827,7 +2960,8 @@ def main() -> int:
 
     # Craftax's shape, then the seeded runs' (CartPole 8 and 64 seeds,
     # Breakout 4, Craftax 4, pqn_rnn_craftax 2)
-    for shape in (EPS_GREEDY_SHAPES[0], (256, 2), (2048, 2), (512, 3), (4096, 34), (2048, 34), *HOST_EPS_SHAPES):
+    for shape in (EPS_GREEDY_SHAPES[0], (256, 2), (2048, 2), (512, 3), (4096, 34), (2048, 34), *HOST_EPS_SHAPES,
+                  (32, 3), (32, 2)):
         qv = eps_inputs[shape]
         k_ms = cuda_time_ms(lambda: eg.eps_greedy(3, qv, 0.1), 200)
         p_ms = cuda_time_ms(lambda: eg.eps_greedy_plain(3, qv, 0.1), 20)

@@ -102,7 +102,9 @@ def single_run(config):
         f"Training took {dt:.2f}s — {total} env steps "
         f"({total / dt:.0f} steps/s aggregate)."
     )
-    if outs["metrics"]:  # COLLECT_METRICS=False returns none (purejaxql_tpu/cli.py:108-111)
+    # gated on the config, as purejaxql_tpu/cli.py:108-111: pqn_host returns
+    # metrics under COLLECT_METRICS=False too
+    if not config.get("LOG_VIA_CALLBACK", False) and config.get("COLLECT_METRICS", True):
         logger.log_history(outs["metrics"])
     logger.close()
 

@@ -12,15 +12,25 @@ from functools import partial
 from typing import Callable, Dict, Tuple
 
 from purejaxql_torch.envs.base import Environment
+from purejaxql_torch.envs.classic.acrobot import Acrobot
+from purejaxql_torch.envs.classic.acrobot_swingup import AcrobotSwingup
 from purejaxql_torch.envs.classic.ball_in_cup import BallInCup
 from purejaxql_torch.envs.classic.cartpole import CartPole
 from purejaxql_torch.envs.classic.cartpole_swingup import CartPoleSwingUp
+from purejaxql_torch.envs.classic.catch import Catch
+from purejaxql_torch.envs.classic.cheetah import Cheetah
+from purejaxql_torch.envs.classic.deep_sea import DeepSea
+from purejaxql_torch.envs.classic.finger import Finger
+from purejaxql_torch.envs.classic.fish import Fish
 from purejaxql_torch.envs.classic.hopper import Hopper
 from purejaxql_torch.envs.classic.memory_chain import MemoryChain
+from purejaxql_torch.envs.classic.mountain_car import MountainCar
 from purejaxql_torch.envs.classic.mountain_car_continuous import MountainCarContinuous
 from purejaxql_torch.envs.classic.pendulum import Pendulum
+from purejaxql_torch.envs.classic.point_mass import PointMass
 from purejaxql_torch.envs.classic.pusher import Pusher
 from purejaxql_torch.envs.classic.reacher import Reacher
+from purejaxql_torch.envs.classic.swimmer import Swimmer
 from purejaxql_torch.envs.classic.walker import Walker
 from purejaxql_torch.envs.gridworld.forager import Forager
 from purejaxql_torch.envs.minatar.asterix import MinAsterix
@@ -31,6 +41,10 @@ from purejaxql_torch.envs.minatar.space_invaders import MinSpaceInvaders
 
 _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "CartPole-v1": CartPole,
+    "Acrobot-v1": Acrobot,
+    "MountainCar-v0": MountainCar,
+    "Catch-bsuite": Catch,
+    "DeepSea-bsuite": DeepSea,
     "MemoryChain-bsuite": MemoryChain,
     "Pendulum-v1": Pendulum,
     "Asterix-MinAtar": MinAsterix,
@@ -76,6 +90,26 @@ _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "BallInCup": BallInCup,
     "PendulumSwingup": Pendulum,
     "PendulumSwingup-v0": Pendulum,
+    # the rest of the dm-suite domains, each under its "-v0" name and its
+    # playground name (purejaxql_tpu/envs/registry.py:79-87, 174-211)
+    "AcrobotSwingup-v0": AcrobotSwingup,
+    "AcrobotSwingupSparse-v0": partial(AcrobotSwingup, sparse=True),
+    "AcrobotSwingup": AcrobotSwingup,
+    "AcrobotSwingupSparse": partial(AcrobotSwingup, sparse=True),
+    "PointMass-v0": PointMass,
+    "PointMass": PointMass,
+    "SwimmerSwimmer6-v0": Swimmer,
+    "SwimmerSwimmer6": Swimmer,
+    "CheetahRun-v0": Cheetah,
+    "CheetahRun": Cheetah,
+    "FingerSpin": partial(Finger, task="spin"),
+    "FingerTurnEasy": partial(Finger, task="turn_easy"),
+    "FingerTurnHard": partial(Finger, task="turn_hard"),
+    "FingerSpin-v0": partial(Finger, task="spin"),
+    "FingerTurnEasy-v0": partial(Finger, task="turn_easy"),
+    "FingerTurnHard-v0": partial(Finger, task="turn_hard"),
+    "FishSwim": Fish,
+    "FishSwim-v0": Fish,
 }
 
 

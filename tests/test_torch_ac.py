@@ -755,6 +755,12 @@ AC_TRAIN_CASES = {
     "walker": ("pqn_locomotion", ["ENV_NAME=Walker-v0", *TINY]),
     "pusher": ("pqn_manipulation", ["ENV_NAME=Pusher-v0", *TINY]),
     "reacher": ("pqn_reacher", TINY),
+    # the dm-suite domains of tests/test_dm_suite_tasks.py::
+    # test_ac_trains_on_dm_suite_new_envs at its size (4096 env steps), one
+    # task of each module
+    **{case: ("pqn_dm_suite", [f"ENV_NAME={env}", *TINY, "TOTAL_TIMESTEPS=4096"]) for case, env in (
+        ("acrobot_swingup", "AcrobotSwingup-v0"), ("point_mass", "PointMass-v0"), ("swimmer", "SwimmerSwimmer6-v0"),
+        ("cheetah", "CheetahRun-v0"), ("finger", "FingerTurnEasy-v0"), ("fish", "FishSwim-v0"))},
     "pendulum_normalized": ("pqn_pendulum", [
         "DEVICE=cpu", "TOTAL_TIMESTEPS=16384", "NUM_ENVS=16", "NUM_STEPS=32", "NUM_MINIBATCHES=4", "NUM_EPOCHS=2",
         "ACTOR_HIDDEN_SIZES=[32,32]", "CRITIC_HIDDEN_SIZES=[32,32]", "NORMALIZE_OBS=True", "NORMALIZE_REWARD=True",

@@ -100,8 +100,9 @@ def test_cuda_policy(capsys):
 def test_cuda_policy_breakout():
     """On cuda the policy fuses the rollout and eval of every MinAtar game
     the port has a kernel for, Breakout and the YAML's default game
-    (Asterix) among them; an env the port has not ported (Acrobot) is not
-    eligible and stays unknown to the port's registry."""
+    (Asterix) among them; an env without a rollout kernel (Acrobot) is not
+    eligible, and the port's registry builds it; a name no registry holds
+    raises."""
     for game in ("Asterix", "Breakout", "Freeway", "Seaquest", "SpaceInvaders"):
         cfg = tconfig.compose(alg="pqn_minatar", overrides=[f"ENV_NAME={game}-MinAtar"])
         assert cfg["FUSED_ROLLOUT"] is True and cfg["EVAL_EARLY_EXIT"] is True, game
@@ -110,8 +111,10 @@ def test_cuda_policy_breakout():
     )
     cfg = tconfig.compose(alg="pqn_minatar", overrides=["ENV_NAME=Acrobot-v1"])
     assert "FUSED_ROLLOUT" not in cfg and "EVAL_EARLY_EXIT" not in cfg
+    env, params = make_env(cfg["ENV_NAME"])
+    assert env.name == "Acrobot-v1" and env.action_space(params).n == 3
     with pytest.raises(ValueError, match="Unknown env"):
-        make_env(cfg["ENV_NAME"])
+        make_env("NoSuchEnv-v0")
     assert tconfig.compose(alg="pqn_minatar")["ENV_NAME"] == "Asterix-MinAtar"
 
 

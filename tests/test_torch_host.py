@@ -338,6 +338,21 @@ def test_cli_host_recipe(tmp_path, capsys, monkeypatch):
     assert called and [r["update"] for r in rows] == [0, 1, 2, 3]
 
 
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_cli_host_writes_no_rows_without_metrics(tmp_path, mode):
+    """With COLLECT_METRICS=False the port's CLI writes no JSONL row on
+    pqn_host_minatar, sync and ASYNC_ENVS, as the JAX CLI's gate on the
+    config (purejaxql_tpu/cli.py:108-111): the host trainers return their
+    metrics all the same."""
+    jsonl = tmp_path / "m.jsonl"
+    outs = cli.single_run(compose(overrides=[
+        "+alg=pqn_host_minatar", "DEVICE=cpu", "TOTAL_TIMESTEPS=1024", "TOTAL_TIMESTEPS_DECAY=1024",
+        "NUM_ENVS=16", "NUM_STEPS=16", "NUM_MINIBATCHES=2", "NUM_EPOCHS=1", "HIDDEN_SIZE=32", "TEST_ENVS=4",
+        "COLLECT_METRICS=False", f"ASYNC_ENVS={mode == 'async'}", f"LOG_JSONL={jsonl}"]))
+    assert outs["metrics"]
+    assert not jsonl.exists() or jsonl.read_text() == ""
+
+
 def test_cuda_policy_gives_pqn_host_the_eps_greedy_kernel():
     """On cuda the policy turns on EXPLORATION_KERNEL=pallas for pqn_host,
     as for the unfused FF trainer; an explicit flag wins, PARITY=strict and

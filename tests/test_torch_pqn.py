@@ -53,6 +53,15 @@ def tiny_config(alg="pqn_cartpole", **kw):
     )
 
 
+def _acrobot_obs(rng):
+    """128 Acrobot-v1 observations: cos, sin of both angles, both velocities
+    within their limits (4 pi, 9 pi)."""
+    a = rng.uniform(-np.pi, np.pi, (128, 2))
+    v = rng.uniform(-1, 1, (128, 2)) * [4 * np.pi, 9 * np.pi]
+    return np.stack([np.cos(a[:, 0]), np.sin(a[:, 0]), np.cos(a[:, 1]), np.sin(a[:, 1]), v[:, 0], v[:, 1]],
+                    -1).astype(np.float32)
+
+
 # per family: the alg config, the flax and port networks, an observation
 # batch (128 rows) from a numpy generator, and the number of actions
 FAMILIES = {
@@ -62,6 +71,13 @@ FAMILIES = {
         lambda: TQNetwork(obs_dim=4, action_dim=2, hidden_size=256),
         lambda rng: (rng.randn(128, 4) * [0.5, 1.0, 0.05, 1.0]).astype(np.float32),
         2,
+    ),
+    "acrobot": (
+        "pqn_cartpole",
+        lambda: JQNetwork(action_dim=3, hidden_size=256, num_layers=2),
+        lambda: TQNetwork(obs_dim=6, action_dim=3, hidden_size=256),
+        lambda rng: _acrobot_obs(rng),
+        3,
     ),
     "cnn": (
         "pqn_minatar",
@@ -80,7 +96,9 @@ def test_minibatch_steps_match_jax_composition(family):
     make_optimizer with the config's LR schedule, against learn_minibatch,
     for the MLP (pqn_cartpole) and the MinAtar CNN (pqn_minatar). Params
     within 1e-6, their updates within 1e-4 of the update's scale (or two
-    ulps of the params), batch statistics within 1e-5."""
+    ulps of the params), batch statistics within 1e-5. Also the MLP at
+    Acrobot-v1's widths (6 obs: cos, sin of both angles, the velocities; 3
+    actions)."""
     alg, make_jnet, make_tnet, make_obs, n_actions = FAMILIES[family]
     config = derive_pqn_schedule_keys(compose(alg=alg, overrides=["DEVICE=cpu"]))
     rng = np.random.RandomState(0)
@@ -311,7 +329,7 @@ def test_unsupported_options_raise():
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
         pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
     with pytest.raises(ValueError, match="Unknown env"):
-        pqn.make_train(tiny_config(ENV_NAME="Acrobot-v1"))
+        pqn.make_train(tiny_config(ENV_NAME="NoSuchEnv-v0"))
     if not torch.cuda.is_available():
         # the GPU is the default device, and its absence is an error
         with pytest.raises(RuntimeError, match="no CUDA device"):
