@@ -189,6 +189,18 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    each dm-suite module (AcrobotSwingup, PointMass, SwimmerSwimmer6,
    CheetahRun, FingerTurnEasy, FishSwim), without evals, with 6e''s checks; the learning
    bars of these envs run in scripts/classic_learning_bar.py;
+6m. the shared simulators, locomotion3d and manipulation2d: each of their 33
+   registry names built on the card and stepped 16 times with random
+   actions over 128 envs (finite obs and rewards, the obs shape), each
+   (class, task)'s raw step_env time beside its step through the AC
+   trainer's wrappers; pqn_locomotion at full width (actor and two critics
+   H 256 x 2, 256 envs x 32 steps, 8 minibatches x 4 epochs) on
+   Go1JoystickFlatTerrain and HumanoidWalk without evals (1,000-step
+   episodes), pqn_manipulation (actor [256, 128], critics [512, 512]) on a
+   task of each of the six manipulation classes, PegInsert-v0 with its two
+   evals, each for SIM_UPDATES (4) updates with 6e''s checks (one returns
+   launch an update, no other kernel); the learning runs of these envs are
+   scripts/classic_learning_bar.py's peg_insert, go1 and humanoid_walk;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's and the host
    trainer's (32, 64), and the seeded shapes: one seeded GRU launch against
@@ -386,6 +398,30 @@ CLASSIC_AC_NAMES = (
 CLASSIC_AC_RUNS = ("AcrobotSwingup-v0", "PointMass-v0", "SwimmerSwimmer6-v0", "CheetahRun-v0", "FingerTurnEasy-v0",
                    "FishSwim-v0")
 CLASSIC_STEP_ENVS, CLASSIC_STEP_STEPS = 128, 16
+# phase 6m, the shared simulators: every registry name of locomotion3d and
+# manipulation2d stepped as in 6l; pqn_locomotion on a quadruped and a biped
+# task without evals (their 1,000-step episodes), pqn_manipulation on a task
+# of each class, PegInsert-v0 (150-step episodes) with its two evals, each
+# for SIM_UPDATES updates (at AC_SHORT_UPDATES, 8, the phase took 129.9 s on
+# an H100 80GB HBM3 at 700 W, the Go1 run 18-31 s, PERF.md section 6)
+SIM_LOCOMOTION_NAMES = (
+    "Go1JoystickFlatTerrain", "Go1JoystickRoughTerrain", "Go1Getup", "Go1Handstand", "Go1Footstand",
+    "SpotFlatTerrainJoystick", "SpotGetup", "SpotJoystickGaitTracking", "BarkourJoystick", "G1JoystickFlatTerrain",
+    "G1JoystickRoughTerrain", "BerkeleyHumanoidJoystickFlatTerrain", "BerkeleyHumanoidJoystickRoughTerrain",
+    "T1JoystickFlatTerrain", "T1JoystickRoughTerrain", "ApolloJoystickFlatTerrain", "Op3Joystick",
+    "H1InplaceGaitTracking", "H1JoystickGaitTracking", "HumanoidStand", "HumanoidWalk", "HumanoidRun",
+)
+SIM_MANIPULATION_NAMES = (
+    "PickPlace-v0", "PegInsert-v0", "BlockRotate-v0", "PandaPickCubeCartesian", "PandaPickCube",
+    "PandaPickCubeOrientation", "PandaRobotiqPushCube", "AlohaHandOver", "AlohaSinglePegInsertion",
+    "LeapCubeReorient", "LeapCubeRotateZAxis",
+)
+SIM_RUNS = (("pqn_locomotion", "Go1JoystickFlatTerrain"), ("pqn_locomotion", "HumanoidWalk"),
+            ("pqn_manipulation", "PickPlace-v0"), ("pqn_manipulation", "PegInsert-v0"),
+            ("pqn_manipulation", "BlockRotate-v0"), ("pqn_manipulation", "PandaPickCube"),
+            ("pqn_manipulation", "PandaRobotiqPushCube"), ("pqn_manipulation", "AlohaHandOver"))
+SIM_EVAL_RUNS = ("PegInsert-v0",)
+SIM_UPDATES = 4
 CLASSIC_FF_UPDATES, CLASSIC_FF_TEST_INTERVAL = 16, 1.0
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
@@ -1357,15 +1393,13 @@ def host_env_phase(cli, compose, load_params, counters, save_path, card):
     return launches_by_run, rates
 
 
-def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, card, dev):
-    """Phase 6l, the single-file classic envs: every one of their registry
-    names built on the card and stepped with random actions, each task's
-    raw step_env time beside its step through the trainer's wrappers; the
-    four discrete envs trained at pqn_cartpole's width (one epsilon-greedy
-    launch a rollout step, one returns launch an update, no other kernel);
-    one task of each dm-suite module at pqn_dm_suite's (ac_run's checks).
-    Returns each run's launches."""
-    import numpy as np
+def step_envs(compose, make_env, card, dev, names, alg_of, tag):
+    """Each env of ``names`` built on the card and stepped CLASSIC_STEP_STEPS
+    times with random actions (beyond the box, for a Box) over
+    CLASSIC_STEP_ENVS envs: finite obs and rewards of the space's shape. For
+    each distinct (class, task) the raw step_env time beside the step
+    through the wrappers of ``alg_of(name, discrete)``'s trainer, one JSON
+    line under ``tag`` each."""
     import torch
 
     from purejaxql_torch.algo.pqn import build_env
@@ -1374,7 +1408,7 @@ def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, 
     gen = torch.Generator(device=dev).manual_seed(0)
     E = CLASSIC_STEP_ENVS
     timed = set()
-    for name in CLASSIC_FF_ENVS + CLASSIC_AC_NAMES:
+    for name in names:
         env, params = make_env(name)
         space = env.action_space(params)
         discrete = hasattr(space, "n")
@@ -1390,19 +1424,33 @@ def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, 
         check(obs.device == dev and obs.shape == (E, *env.observation_space(params).shape)
               and bool(torch.isfinite(obs).all() and torch.isfinite(rew).all()),
               f"{name}: non-finite obs or rewards on the card, or the wrong obs shape")
-        task = (type(env).__name__, getattr(env, "task", None), getattr(env, "sparse", None))
+        task = (type(env).__name__, getattr(env, "task", None), getattr(env, "sparse", None),
+                getattr(env, "orientation", None))
         if task in timed:
             continue
         timed.add(task)
         act = actions()
         raw_ms = cuda_time_ms(lambda: env.step_env(state, act, params, env.step_draws(gen, E)), 16)
-        cfg = compose(alg="pqn_cartpole" if discrete else "pqn_dm_suite", overrides=[f"ENV_NAME={name}"])
+        cfg = compose(alg=alg_of(name, discrete), overrides=[f"ENV_NAME={name}"])
         wrapped = build_env(cfg)[0] if discrete else build_ac_env(cfg)[0]
         _, wstate = wrapped.reset(gen, E, params)
         wrapped_ms = cuda_time_ms(lambda: wrapped.step(gen, wstate, act, params), 16)
-        print(json.dumps({"classic_env_step": name, "envs": E, "raw_step_env_ms": raw_ms,
-                          "wrapped_step_ms": wrapped_ms, "wrappers": type(wrapped).__name__, "card": card}))
+        print(json.dumps({tag: name, "envs": E, "raw_step_env_ms": raw_ms, "wrapped_step_ms": wrapped_ms,
+                          "wrappers": type(wrapped).__name__, "card": card}))
 
+
+def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, card, dev):
+    """Phase 6l, the single-file classic envs: every one of their registry
+    names built on the card and stepped with random actions, each task's
+    raw step_env time beside its step through the trainer's wrappers; the
+    four discrete envs trained at pqn_cartpole's width (one epsilon-greedy
+    launch a rollout step, one returns launch an update, no other kernel);
+    one task of each dm-suite module at pqn_dm_suite's (ac_run's checks).
+    Returns each run's launches."""
+    import numpy as np
+
+    step_envs(compose, make_env, card, dev, CLASSIC_FF_ENVS + CLASSIC_AC_NAMES,
+              lambda name, discrete: "pqn_cartpole" if discrete else "pqn_dm_suite", "classic_env_step")
     launches_by_run = {}
     for name in CLASSIC_FF_ENVS:
         updates = CLASSIC_FF_UPDATES
@@ -1437,6 +1485,28 @@ def classic_env_phase(cli, compose, make_env, load_params, counters, save_path, 
             cli, compose, make_env, load_params, counters, save_path, card, "pqn_dm_suite",
             AC_SHORT_UPDATES * acfg["NUM_STEPS"] * acfg["NUM_ENVS"],
             extra=(f"ENV_NAME={name}", "TEST_DURING_TRAINING=False"))
+    return launches_by_run
+
+
+def shared_sim_phase(cli, compose, make_env, load_params, counters, save_path, card, dev):
+    """Phase 6m, the shared simulators (locomotion3d, manipulation2d): every
+    one of their registry names built on the card and stepped with random
+    actions, each (class, task)'s raw step_env time beside its step through
+    the AC trainer's wrappers; pqn_locomotion on a quadruped and a biped
+    task, pqn_manipulation on a task of each class (ac_run's checks: one
+    returns launch an update, no other kernel). Returns each run's
+    launches."""
+    step_envs(compose, make_env, card, dev, SIM_LOCOMOTION_NAMES + SIM_MANIPULATION_NAMES,
+              lambda name, discrete: "pqn_locomotion" if name in SIM_LOCOMOTION_NAMES else "pqn_manipulation",
+              "sim_env_step")
+    launches_by_run = {}
+    for alg, name in SIM_RUNS:
+        cfg = compose(alg=alg)
+        evals = ((f"TEST_INTERVAL={AC_SHORT_TEST_INTERVAL}",) if name in SIM_EVAL_RUNS
+                 else ("TEST_DURING_TRAINING=False",))
+        _, launches_by_run[name] = ac_run(
+            cli, compose, make_env, load_params, counters, save_path, card, alg,
+            SIM_UPDATES * cfg["NUM_STEPS"] * cfg["NUM_ENVS"], extra=(f"ENV_NAME={name}", *evals))
     return launches_by_run
 
 
@@ -2867,6 +2937,12 @@ def main() -> int:
     t_classic = time.perf_counter()
     classic_env_phase(cli, compose, make_env, load_params, counters, save_path, card, dev)
     print(f"phase 6l (classic envs): {time.perf_counter() - t_classic:.1f} s wall")
+
+    # ---- 6m. the shared simulators: the AC trainer on locomotion3d's and
+    # manipulation2d's envs ------------------------------------------------------
+    t_sim = time.perf_counter()
+    shared_sim_phase(cli, compose, make_env, load_params, counters, save_path, card, dev)
+    print(f"phase 6m (shared simulators): {time.perf_counter() - t_sim:.1f} s wall")
 
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}

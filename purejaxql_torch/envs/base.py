@@ -22,6 +22,7 @@ JAX env makes from its own key. An env whose step draws nothing returns
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Tuple
 
 import torch
@@ -33,6 +34,13 @@ def select_env(done: torch.Tensor, on_true: torch.Tensor, on_false: torch.Tensor
     """Per-env select between two (E, ...) tensors of any rank."""
     mask = done.reshape(done.shape + (1,) * (on_true.dim() - done.dim()))
     return torch.where(mask, on_true, on_false)
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device) -> torch.Tensor:
+    """A float32 tensor of ``values`` on ``device``, made once: a step that
+    reads it copies nothing to the card."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def map_state(fn, *states):

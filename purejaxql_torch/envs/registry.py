@@ -1,8 +1,10 @@
 """Env registry: `make(env_name, **env_kwargs) -> (env, env_params)`.
 
-Port of purejaxql_tpu/envs/registry.py for the envs this package has so far.
-Keyword args matching fields of the env's params dataclass override the
-defaults (gymnax-style ENV_KWARGS); the rest go to the env constructor.
+Port of purejaxql_tpu/envs/registry.py: every name it registers, each with
+the same constructor, task, robot and name; its fallback to installed
+packages (purejaxql_tpu/envs/external.py) is not ported. Keyword args
+matching fields of the env's params dataclass override the defaults
+(gymnax-style ENV_KWARGS); the rest go to the env constructor.
 """
 
 from __future__ import annotations
@@ -23,6 +25,15 @@ from purejaxql_torch.envs.classic.deep_sea import DeepSea
 from purejaxql_torch.envs.classic.finger import Finger
 from purejaxql_torch.envs.classic.fish import Fish
 from purejaxql_torch.envs.classic.hopper import Hopper
+from purejaxql_torch.envs.classic.locomotion3d import Biped3D, Quadruped
+from purejaxql_torch.envs.classic.manipulation2d import (
+    BlockRotate,
+    HandOver,
+    PandaPickCube,
+    PegInsert,
+    PickPlace,
+    PushCube,
+)
 from purejaxql_torch.envs.classic.memory_chain import MemoryChain
 from purejaxql_torch.envs.classic.mountain_car import MountainCar
 from purejaxql_torch.envs.classic.mountain_car_continuous import MountainCarContinuous
@@ -110,7 +121,49 @@ _REGISTRY: Dict[str, Callable[..., Environment]] = {
     "FingerTurnHard-v0": partial(Finger, task="turn_hard"),
     "FishSwim": Fish,
     "FishSwim-v0": Fish,
+    # the manipulation block (purejaxql_tpu/envs/registry.py:91-123)
+    "PickPlace-v0": PickPlace,
+    "PegInsert-v0": PegInsert,
+    "BlockRotate-v0": BlockRotate,
+    "PandaPickCubeCartesian": partial(PickPlace, name="PandaPickCubeCartesian"),
+    "PandaPickCube": PandaPickCube,
+    "PandaPickCubeOrientation": partial(PandaPickCube, orientation=True),
+    "PandaRobotiqPushCube": PushCube,
+    "AlohaHandOver": HandOver,
+    "AlohaSinglePegInsertion": partial(PegInsert, name="AlohaSinglePegInsertion"),
+    "LeapCubeReorient": partial(BlockRotate, task="reorient", name="LeapCubeReorient"),
+    "LeapCubeRotateZAxis": partial(BlockRotate, task="spin"),
 }
+
+# the locomotion block (purejaxql_tpu/envs/registry.py:125-169): each name a
+# (robot preset, task) pair on the shared 3D SLIP model, named after itself
+_LOCOMOTION = {
+    "Go1JoystickFlatTerrain": (Quadruped, "joystick", "go1"),
+    "Go1JoystickRoughTerrain": (Quadruped, "joystick_rough", "go1"),
+    "Go1Getup": (Quadruped, "getup", "go1"),
+    "Go1Handstand": (Quadruped, "handstand", "go1"),
+    "Go1Footstand": (Quadruped, "footstand", "go1"),
+    "SpotFlatTerrainJoystick": (Quadruped, "joystick", "spot"),
+    "SpotGetup": (Quadruped, "getup", "spot"),
+    "SpotJoystickGaitTracking": (Quadruped, "inplace", "spot"),
+    "BarkourJoystick": (Quadruped, "joystick", "barkour"),
+    "G1JoystickFlatTerrain": (Biped3D, "joystick", "g1"),
+    "G1JoystickRoughTerrain": (Biped3D, "joystick_rough", "g1"),
+    "BerkeleyHumanoidJoystickFlatTerrain": (Biped3D, "joystick", "berkeley"),
+    "BerkeleyHumanoidJoystickRoughTerrain": (Biped3D, "joystick_rough", "berkeley"),
+    "T1JoystickFlatTerrain": (Biped3D, "joystick", "t1"),
+    "T1JoystickRoughTerrain": (Biped3D, "joystick_rough", "t1"),
+    "ApolloJoystickFlatTerrain": (Biped3D, "joystick", "apollo"),
+    "Op3Joystick": (Biped3D, "joystick", "op3"),
+    "H1InplaceGaitTracking": (Biped3D, "inplace", "h1"),
+    "H1JoystickGaitTracking": (Biped3D, "joystick", "h1"),
+    # the dm-suite humanoid rows
+    "HumanoidStand": (Biped3D, "stand", "humanoid"),
+    "HumanoidWalk": (Biped3D, "walk", "humanoid"),
+    "HumanoidRun": (Biped3D, "run", "humanoid"),
+}
+_REGISTRY.update({name: partial(cls, task=task, robot=robot, name=name)
+                  for name, (cls, task, robot) in _LOCOMOTION.items()})
 
 
 def make(env_name: str, **env_kwargs) -> Tuple[Environment, object]:

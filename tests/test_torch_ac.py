@@ -761,6 +761,16 @@ AC_TRAIN_CASES = {
     **{case: ("pqn_dm_suite", [f"ENV_NAME={env}", *TINY, "TOTAL_TIMESTEPS=4096"]) for case, env in (
         ("acrobot_swingup", "AcrobotSwingup-v0"), ("point_mass", "PointMass-v0"), ("swimmer", "SwimmerSwimmer6-v0"),
         ("cheetah", "CheetahRun-v0"), ("finger", "FingerTurnEasy-v0"), ("fish", "FishSwim-v0"))},
+    # the 3D legged envs of tests/test_locomotion3d.py::test_ac_trains_on_locomotion3d (the quadruped's
+    # 12-wide action the widest), at the dm-suite cases' length, the quadruped also with 2 seeds; a task of
+    # each manipulation class, as tests/test_manipulation2d.py::test_ac_trains_on_manipulation_tasks and
+    # tests/test_manipulation_playground.py::test_ac_trains_on_manipulation
+    **{case: ("pqn_locomotion", [f"ENV_NAME={env}", *TINY, "TOTAL_TIMESTEPS=4096", *extra]) for case, env, extra in (
+        ("go1", "Go1JoystickFlatTerrain", []), ("humanoid_walk", "HumanoidWalk", []),
+        ("go1_2_seeds", "Go1JoystickFlatTerrain", ["NUM_SEEDS=2"]))},
+    **{case: ("pqn_manipulation", [f"ENV_NAME={env}", *TINY]) for case, env in (
+        ("pick_place", "PickPlace-v0"), ("peg_insert", "PegInsert-v0"), ("block_rotate", "BlockRotate-v0"),
+        ("panda_pick_cube", "PandaPickCube"), ("push_cube", "PandaRobotiqPushCube"), ("hand_over", "AlohaHandOver"))},
     "pendulum_normalized": ("pqn_pendulum", [
         "DEVICE=cpu", "TOTAL_TIMESTEPS=16384", "NUM_ENVS=16", "NUM_STEPS=32", "NUM_MINIBATCHES=4", "NUM_EPOCHS=2",
         "ACTOR_HIDDEN_SIZES=[32,32]", "CRITIC_HIDDEN_SIZES=[32,32]", "NORMALIZE_OBS=True", "NORMALIZE_REWARD=True",
@@ -784,26 +794,28 @@ def test_ac_trains_on_the_continuous_envs(case):
     training statistics finite and their count 1e-4 + E (1 + updates x
     NUM_STEPS) in float32 (the reset's batch counted), with
     NORMALIZE_REWARD the reward statistics' count 1e-4 + E x updates x
-    NUM_STEPS; no kernel launched on the CPU."""
+    NUM_STEPS; with seeds, each metric and count one a seed; no kernel
+    launched on the CPU."""
     alg, overrides = AC_TRAIN_CASES[case]
     config = compose(alg=alg, overrides=overrides)
     before = tlr.lambda_returns.launches
     out = pqn_ac.make_train(config)()
     m = out["metrics"]
-    E, T = config["NUM_ENVS"], config["NUM_STEPS"]
+    E, T, seeds = config["NUM_ENVS"], config["NUM_STEPS"], config.get("NUM_SEEDS", 1)
     updates = config["TOTAL_TIMESTEPS"] // (E * T)
-    assert int(m["env_step"][-1]) == updates * E * T and m["env_step"].shape == (updates,)
+    lanes = (seeds,) if seeds > 1 else ()
+    assert (m["env_step"][..., -1] == updates * E * T).all() and m["env_step"].shape == (*lanes, updates)
     for k in ("value_loss", "loss_actor", "returned_episode_returns", "original_reward"):
         assert torch.isfinite(m[k]).all(), k
     env_state = out["runner_state"][1][1]
     if config["NORMALIZE_OBS"]:
         assert isinstance(env_state, twrap.NormalizeVecObsState)
         assert torch.isfinite(env_state.mean).all() and (env_state.var >= 0).all()
-        assert env_state.count.item() == _f32_count(E, E, updates * T)
+        assert env_state.count.shape == lanes and (env_state.count == _f32_count(E, E, updates * T)).all()
         env_state = env_state.env_state
     if config["NORMALIZE_REWARD"]:
         assert isinstance(env_state, twrap.NormalizeVecRewState)
-        assert env_state.count.item() == _f32_count(0, E, updates * T)
+        assert (env_state.count == _f32_count(0, E, updates * T)).all()
     if config["TEST_DURING_TRAINING"]:
         assert torch.isfinite(m["test/returned_episode_returns"]).all()
     assert tlr.lambda_returns.launches == before

@@ -251,17 +251,10 @@ def _space_key(space, jax_side):
 
 @pytest.mark.parametrize("name", _jax_names())
 def test_registry_resolves_every_jax_name(name):
-    """Every name of the JAX registry resolves in the port, but those of the
-    two shared simulators still to port (locomotion3d, manipulation2d), with
-    the same observation and action spaces; the JAX registry's fallback to
-    installed packages is not ported."""
-    ctor = jregistry._REGISTRY[name]
-    jenv = ctor()
-    if type(jenv).__module__.rsplit(".", 1)[-1] in ("locomotion3d", "manipulation2d"):
-        assert name not in TORCH_REGISTRY
-        with pytest.raises(ValueError, match="Unknown env"):
-            tmake(name)
-        return
+    """Every name of the JAX registry resolves in the port, to an env of the
+    same class and name with the same observation and action spaces; the
+    JAX registry's fallback to installed packages is not ported."""
+    assert name in TORCH_REGISTRY
     jenv, jparams = jmake(name)
     tenv, tparams = tmake(name)
     assert type(tenv).__name__ == type(jenv).__name__ and tenv.name == jenv.name
