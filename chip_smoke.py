@@ -201,6 +201,23 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    evals, each for SIM_UPDATES (4) updates with 6e''s checks (one returns
    launch an update, no other kernel); the learning runs of these envs are
    scripts/classic_learning_bar.py's peg_insert, go1 and humanoid_walk;
+6n. every network configuration the JAX modules take, through the normal
+   entry points at the YAMLs' full widths, NETWORK_UPDATES (2) updates each
+   without evals (pqn_craftax, one env step an update, NETWORK_CRAFTAX_UPDATES):
+   pqn_minatar Breakout NORM_TYPE=batch_norm, SpaceInvaders
+   NORM_TYPE=batch_renorm BF16_COMPUTE, Breakout batch_norm with
+   NUM_SEEDS=2 (unfused: one epsilon-greedy launch a rollout step, one
+   returns launch an update); pqn_craftax NORM_TYPE=batch_norm BF16_COMPUTE
+   (a BatchRenorm trunk in bfloat16; 1-step TD, so no returns launch);
+   pqn_rnn_cartpole NORM_TYPE=batch_norm and pqn_rnn_craftax
+   NORM_TYPE=batch_norm (an LSTM on a BatchRenorm trunk), on the module path
+   (no FAST_BPTT, no GRU kernel; epsilon-greedy on the prefill and every
+   rollout step, one closure returns launch a grad step); pqn_vdn_spread
+   RNN_CELL=lstm and pqn_vdn_smax NORM_TYPE=batch_norm (one closure
+   returns launch a grad step, nothing else); pqn_host_minatar on Pong-EH
+   with the Nature trunk, BF16_COMPUTE and NORM_TYPE=batch_norm, sync and
+   ASYNC_ENVS; each run's env-steps/s, launches, and the largest difference
+   between its trained network's forward on the card and on a CPU copy;
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's and the host
    trainer's (32, 64), and the seeded shapes: one seeded GRU launch against
@@ -421,6 +438,27 @@ SIM_RUNS = (("pqn_locomotion", "Go1JoystickFlatTerrain"), ("pqn_locomotion", "Hu
             ("pqn_manipulation", "BlockRotate-v0"), ("pqn_manipulation", "PandaPickCube"),
             ("pqn_manipulation", "PandaRobotiqPushCube"), ("pqn_manipulation", "AlohaHandOver"))
 SIM_EVAL_RUNS = ("PegInsert-v0",)
+# phase 6n, the network configurations: (name, alg, overrides, kind), kind
+# the family whose launches and forward the run is checked by
+NETWORK_UPDATES, NETWORK_CRAFTAX_UPDATES = 2, 64
+NETWORK_RUNS = (
+    ("minatar breakout batch_norm", "pqn_minatar", ("ENV_NAME=Breakout-MinAtar", "NORM_TYPE=batch_norm"), "ff"),
+    ("minatar space_invaders batch_renorm bf16", "pqn_minatar",
+     ("ENV_NAME=SpaceInvaders-MinAtar", "NORM_TYPE=batch_renorm", "BF16_COMPUTE=True"), "ff"),
+    ("minatar breakout batch_norm 2 seeds", "pqn_minatar",
+     ("ENV_NAME=Breakout-MinAtar", "NORM_TYPE=batch_norm", "NUM_SEEDS=2"), "ff"),
+    ("craftax batch_norm bf16", "pqn_craftax", ("NORM_TYPE=batch_norm", "BF16_COMPUTE=True"), "ff"),
+    ("rnn cartpole batch_norm", "pqn_rnn_cartpole", ("NORM_TYPE=batch_norm",), "rnn"),
+    ("rnn craftax batch_norm (lstm, batch_renorm trunk)", "pqn_rnn_craftax", ("NORM_TYPE=batch_norm",), "rnn"),
+    ("vdn spread lstm", "pqn_vdn_spread", ("RNN_CELL=lstm",), "vdn"),
+    ("vdn smax batch_norm", "pqn_vdn_smax", ("NORM_TYPE=batch_norm",), "vdn"),
+    ("host pong nature bf16 batch_norm (sync)", "pqn_host_minatar",
+     ("ENV_NAME=Pong-EH", "CNN_TRUNK=nature", "SCORE_GAME=Pong-v5", "BF16_COMPUTE=True", "NORM_TYPE=batch_norm"),
+     "host"),
+    ("host pong nature bf16 batch_norm (async)", "pqn_host_minatar",
+     ("ENV_NAME=Pong-EH", "CNN_TRUNK=nature", "SCORE_GAME=Pong-v5", "BF16_COMPUTE=True", "NORM_TYPE=batch_norm",
+      "ASYNC_ENVS=True"), "host"),
+)
 SIM_UPDATES = 4
 CLASSIC_FF_UPDATES, CLASSIC_FF_TEST_INTERVAL = 16, 1.0
 KERNELS = (
@@ -1507,6 +1545,115 @@ def shared_sim_phase(cli, compose, make_env, load_params, counters, save_path, c
         _, launches_by_run[name] = ac_run(
             cli, compose, make_env, load_params, counters, save_path, card, alg,
             SIM_UPDATES * cfg["NUM_STEPS"] * cfg["NUM_ENVS"], extra=(f"ENV_NAME={name}", *evals))
+    return launches_by_run
+
+
+def _to_cpu(tree):
+    """A tree of lists and tuples of tensors, each copied to the CPU."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+def forward_gap(network, args, call=None):
+    """(max |Q on the card - Q on a CPU copy|, max |Q on the CPU|): the
+    trained network's eval-mode forward on ``args`` and a copy of it, its
+    parameters and running statistics, with the args on the CPU. ``call``
+    applies a network to args (by default ``network(*args, train=False)``,
+    the Q-values the second output of a recurrent network)."""
+    import torch
+
+    def q_of(net, a):
+        out = call(net, *a) if call is not None else net(*a, train=False)
+        return out[1] if isinstance(out, tuple) else out
+
+    with torch.no_grad():
+        q = q_of(network, args).float().cpu()
+        q_cpu = q_of(copy.deepcopy(network).cpu(), _to_cpu(args)).float()
+    return float((q - q_cpu).abs().max()), float(q_cpu.abs().max())
+
+
+def network_variants_phase(cli, compose, counters, save_path, card, bars=False):
+    """Phase 6n: each run of NETWORK_RUNS through ``train`` (the counts set
+    to 0 just before, read just after), its launches held to its family's:
+    the unfused FF runs one epsilon-greedy launch a rollout step and one
+    returns launch an update (none under 1-step TD), the recurrent runs on
+    the module path one epsilon-greedy launch a prefill and rollout step and
+    one closure returns launch a grad step, VDN one closure launch a grad
+    step, the host runs one epsilon-greedy launch a rollout step and one
+    closure launch an update; no other kernel (no GRU scan: FAST_BPTT stays
+    off). The env-step count, finite losses, parameters on cuda, and the
+    forward on the card against a CPU copy: within 1e-4 of max(1, |Q|) in
+    float32, 2**-4 in bfloat16 (bfloat16 products that the card and the CPU
+    round apart). With ``bars``, then scripts/network_learning_bar.py, its
+    runs 7 at once, held to its bars. Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.algo.pqn_vdn import agents_forward
+
+    t_phase = time.perf_counter()
+    launches_by_run = {}
+    for name, alg, extra, kind in NETWORK_RUNS:
+        cfg = compose(alg=alg, overrides=list(extra))
+        seeds = cfg.get("NUM_SEEDS", 1)
+        per_update = cfg["NUM_STEPS"] * cfg["NUM_ENVS"]
+        updates = NETWORK_CRAFTAX_UPDATES if alg == "pqn_craftax" else NETWORK_UPDATES
+        policy = () if kind == "vdn" else (("EXPLORATION_KERNEL", "pallas"),)
+        outs, wall, launches = train(cli, compose, alg, updates * per_update, save_path, counters,
+                                     extra=[*extra, "TEST_DURING_TRAINING=False"], policy=policy)
+        check(not cfg.get("FUSED_ROLLOUT") and not cfg.get("FAST_BPTT") and not cfg.get("FAST_TARGETS"),
+              f"{name}: the cuda policy turned on a path this configuration does not take")
+        ts = outs["runner_state"][0]
+        grad_steps = updates * cfg["NUM_EPOCHS"] * cfg["NUM_MINIBATCHES"]
+        if kind == "ff":
+            want = {"eps_greedy": updates * cfg["NUM_STEPS"],
+                    "lambda_returns": updates if cfg.get("Q_LAMBDA", True) else 0}
+        elif kind == "rnn":
+            want = {"eps_greedy": cfg.get("MEMORY_WINDOW", 0) + (updates + 1) * cfg["NUM_STEPS"],
+                    "lambda_returns_closure": grad_steps}
+        elif kind == "vdn":
+            want = {"lambda_returns_closure": grad_steps}
+        else:
+            want = {"eps_greedy": updates * cfg["NUM_STEPS"], "lambda_returns_closure": updates}
+        got = {k: v for k, v in launches.items() if v}
+        check(got == {k: v for k, v in want.items() if v}, f"{name}: launches {got}, expected {want}")
+        check(ts.timesteps == updates * per_update, f"{name}: {ts.timesteps} env steps, expected {updates * per_update}")
+        check(all(p.device.type == "cuda" for p in ts.network.parameters()), f"{name}: a parameter is not on cuda")
+        loss = outs["metrics"]["td_loss"]
+        check(bool(torch.isfinite(loss).all()), f"{name}: non-finite td_loss")
+        net = ts.network
+        if kind == "ff":
+            gap, q_max = forward_gap(net, (outs["runner_state"][1][0],))
+        elif kind == "rnn":
+            hidden, obs, done, last_action, _ = outs["runner_state"][2]
+            gap, q_max = forward_gap(net, (hidden, obs[None], done[None], last_action[None]))
+        elif kind == "vdn":
+            hidden, obs, dones, _ = outs["runner_state"][2]
+            agents = [a for a in dones if a != "__all__"]
+            args = (hidden, torch.stack([obs[a] for a in agents]), torch.stack([dones[a] for a in agents]).float())
+            gap, q_max = forward_gap(net, args, call=agents_forward)
+        elif "async" in name:  # the async trainer keeps no obs: byte frames
+            gap, q_max = forward_gap(net, (torch.randint(0, 256, (64, 84, 84, 4), device="cuda").float(),))
+        else:
+            gap, q_max = forward_gap(net, (outs["runner_state"][1][:cfg["NUM_ENVS"]].view(-1, 84, 84, 4),))
+        bf16 = bool(cfg.get("BF16_COMPUTE"))
+        check(gap <= (2.0**-4 if bf16 else 1e-4) * max(1.0, q_max),
+              f"{name}: the forward on the card is {gap} off the CPU copy's (max |Q| {q_max})")
+        rate = ts.timesteps / wall
+        print(f"train {name} ({alg} {' '.join(extra)}): {ts.timesteps} env steps in {wall:.2f} s wall "
+              f"({rate:.0f} env-steps/s); launches {launches}; card vs CPU forward max |dQ| {gap:.3g} "
+              f"(max |Q| {q_max:.3g})")
+        print(json.dumps({"network_run": name, "alg": alg, "overrides": list(extra), "updates": updates,
+                          "env_steps_per_s": rate, "wall_s": wall, "launches": launches, "forward_gap": gap,
+                          "q_max": q_max, "bf16": bf16, "td_loss": [float(v) for v in np.ravel(loss.cpu())][-4:],
+                          "card": card}))
+        launches_by_run[name] = launches
+    print(f"phase 6n (network configurations): {time.perf_counter() - t_phase:.1f} s wall")
+    if bars:
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "network_learning_bar.py")
+        done = subprocess.run([sys.executable, script, "--jobs", "7"], timeout=3000)
+        check(done.returncode == 0, f"scripts/network_learning_bar.py failed (exit {done.returncode})")
     return launches_by_run
 
 
@@ -2943,6 +3090,11 @@ def main() -> int:
     t_sim = time.perf_counter()
     shared_sim_phase(cli, compose, make_env, load_params, counters, save_path, card, dev)
     print(f"phase 6m (shared simulators): {time.perf_counter() - t_sim:.1f} s wall")
+
+    # ---- 6n. every network configuration the JAX modules take: batch-stat
+    # trunk norms in the CNN and recurrent networks, LSTM in VDN, the Nature
+    # trunk in bfloat16, BatchRenorm under BF16_COMPUTE ----------------------------
+    network_variants_phase(cli, compose, counters, save_path, card, bars)
 
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}

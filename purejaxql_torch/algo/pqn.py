@@ -93,6 +93,7 @@ import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.seeds import (
+    check_ported,
     check_seeds,
     seed_generators,
     seed_mean,
@@ -153,12 +154,6 @@ from purejaxql_torch.ops.space_invaders_rollout import (
 )
 from purejaxql_torch.utils.platform import resolve_device
 
-# options of the JAX trainer that later slices port; asking for one raises
-_NOT_PORTED = {
-    "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
-}
-
-
 # games whose kernel, as its TPU kernel, keeps its env params built in but
 # max_steps: the CartPole physics, Asterix's cadences and `ramping`,
 # SpaceInvaders' cooldowns and reset march interval, Seaquest's six
@@ -195,9 +190,7 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
 def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "pqn")) not in ("pqn", "pqn_craftax"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an FF-PQN config")
-    for key, what in _NOT_PORTED.items():
-        if config.get(key, False):
-            raise NotImplementedError(f"{what} is not ported yet")
+    check_ported(config)
     check_seeds(config)
     if config.get("FAST_TARGETS", False) and config.get("NORM_TYPE") != "layer_norm":
         raise ValueError(

@@ -74,6 +74,7 @@ from purejaxql_torch.algo.metrics import (
 )
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.seeds import (
+    check_ported,
     check_seeds,
     seed_generators,
     seed_mean,
@@ -142,8 +143,7 @@ def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "")) not in ("pqn_ac", "pqn_playground"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an actor-critic config")
     check_seeds(config)
-    if config.get("LOG_VIA_CALLBACK", False):
-        raise NotImplementedError("LOG_VIA_CALLBACK is not ported yet")
+    check_ported(config)
     if config.get("FUSED_ROLLOUT", False) and not fused_ac_eligible(config):
         raise ValueError(
             "FUSED_ROLLOUT (AC family) supports Pendulum-v1 with layer_norm, relu, 2 hidden "

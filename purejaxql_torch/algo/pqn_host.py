@@ -30,14 +30,20 @@ One update (pqn_host.py:119-303):
   (pqn_host.py:238-249). The test envs are stripped from the learn batch
   and ``timesteps`` counts the training envs only.
 
+The network is ``models/factory.py:make_q_network``'s: the MinAtar CNN, or
+with CNN_TRUNK=nature the Nature CNN, with any NORM_TYPE (a batch-stat
+trunk's statistics move in the learn phase's train-mode forwards; the
+rollout reads them in eval mode) and BF16_COMPUTE.
+
 Only the training rows' obs stream is kept on the device, not JAX's
 ``next_obs`` copy of it: the closure targets need the last obs alone.
 
 ``make_train_async`` is the lag-1 double-buffered trainer
 (pqn_host.py:306-597): a worker thread steps the pool for batch u + 1 while
 the main thread learns on batch u. The worker acts through a network of
-its own whose parameters and buffers are a snapshot of the learner's after
-exactly u updates, copied on the learner's stream before batch u's learn
+its own whose parameters and buffers (the running statistics,
+pqn_host.py:374-376) are a snapshot of the learner's after exactly u
+updates, copied on the learner's stream before batch u's learn
 launches (PyTorch steps parameters in place, so acting through the
 learner's module would read them half updated); on the GPU its forwards
 run on a stream of their own, ordered after that copy by an event, and it

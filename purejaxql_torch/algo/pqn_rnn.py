@@ -1,9 +1,10 @@
 """RNN-PQN: the trainer for recurrent Q-networks (GRU or LSTM).
 
-Port of purejaxql_tpu/algo/pqn_rnn.py `make_train` for GRU and LSTM cells on
-a layer_norm trunk (``+alg=pqn_rnn_memory_chain``, ``+alg=pqn_rnn_cartpole``,
-``+alg=pqn_rnn_craftax``). Line references ``pqn_rnn.py:N`` are to that
-module.
+Port of purejaxql_tpu/algo/pqn_rnn.py `make_train` for GRU and LSTM cells
+on a trunk of any NORM_TYPE (``+alg=pqn_rnn_memory_chain``,
+``+alg=pqn_rnn_cartpole``, ``+alg=pqn_rnn_craftax``; the norms of
+``models/factory.py:resolve_norms``). Line references ``pqn_rnn.py:N`` are
+to that module.
 
 - The envs come from ``algo/pqn.py:build_env``, as in the FF trainer: the
   Log-wrapped env, or in the batched modes (BATCH_ENV, optimistic resets,
@@ -26,6 +27,10 @@ module.
   form, from the stop-gradient of the same forward (:275-330), through
   ``ops/lambda_returns.py:lambda_returns_closure`` (on ``cuda`` one launch
   of the returns kernel a minibatch step, on the CPU its plain twin).
+- A batch_norm or batch_renorm trunk runs the module path (FAST_BPTT takes
+  a layer_norm trunk only, as in JAX): its statistics over all T x B rows
+  of the window's train-mode forward, the rollout's length-1 steps on the
+  running statistics.
 - With FAST_BPTT the forward is ``ops/fast_rnn.py:fast_rnn_train_forward``
   (BF16_COMPUTE: its products with bfloat16 operands, :296-300; the module
   path ignores the flag, as the JAX trainer does), and with PALLAS_BPTT its
@@ -68,8 +73,15 @@ from purejaxql_torch.algo.metrics import (
     episode_mean_metrics,
     test_interval_updates,
 )
-from purejaxql_torch.algo.pqn import _NOT_PORTED, build_env, stack_metrics
-from purejaxql_torch.algo.seeds import check_seeds, seed_column_minibatches, seed_generators, seed_mean, seed_sum
+from purejaxql_torch.algo.pqn import build_env, stack_metrics
+from purejaxql_torch.algo.seeds import (
+    check_ported,
+    check_seeds,
+    seed_column_minibatches,
+    seed_generators,
+    seed_mean,
+    seed_sum,
+)
 from purejaxql_torch.algo.types import RNNTransition
 from purejaxql_torch.core.config import derive_pqn_schedule_keys
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
@@ -84,9 +96,7 @@ from purejaxql_torch.utils.platform import resolve_device
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_rnn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_rnn config")
-    for key, what in _NOT_PORTED.items():
-        if config.get(key, False):
-            raise NotImplementedError(f"{what} is not ported yet")
+    check_ported(config)
     check_seeds(config)
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
@@ -245,7 +255,7 @@ def make_train(
     config.setdefault("TEST_NUM_STEPS", env_params.max_steps_in_episode)
     action_dim = env.action_space(env_params).n
     obs_shape = env.observation_space(env_params).shape
-    check_rnn_q_network(config, obs_shape)
+    check_rnn_q_network(obs_shape)
 
     n_envs, n_steps = config["NUM_ENVS"], config["NUM_STEPS"]
     n_minibatches, n_epochs = config["NUM_MINIBATCHES"], config["NUM_EPOCHS"]

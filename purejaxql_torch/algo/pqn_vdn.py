@@ -7,12 +7,18 @@ Line references ``pqn_vdn.py:N`` are to that module.
   the JAX trainer builds it (:93-104): without the last action as an input
   whatever the config says, HIDDEN_SIZE 256 by default, NORM_TYPE as given
   and the BatchNorm input norm whatever INPUT_NORM_TYPE says (no per-family
-  mapping). GRU cells only: the JAX trainer's FAST_BPTT forward takes no
-  cell type (:322-341), so an LSTM there would read a ``GRUCell_0``.
-  Where the JAX trainer ``vmap``s it over the agents during the rollout
+  mapping). RNN_CELL gru or lstm (an LSTM layer's carry is a (c, h) pair
+  through the rollout, the memory and the minibatch's first hidden state).
+  An LSTM trains on the module path only: the JAX trainer's FAST_BPTT
+  forward takes no cell type (:322-341) and raises ``KeyError:
+  'GRUCell_0'`` on an LSTM's parameters, so the port raises the same
+  KeyError, and its cuda policy leaves FAST_BPTT off for it. Where the JAX
+  trainer ``vmap``s the network over the agents during the rollout
   (:177-195), the port runs one forward over the A x E rows: exact, since
   in eval mode no norm reads batch statistics and the LayerNorm works per
-  row.
+  row. A BatchNorm or BatchRenorm trunk (NORM_TYPE) trains on the module
+  path too, its train-mode statistics over all T x A x B rows of the
+  minibatch window, as JAX's one forward over the agents-major rows.
 - Epsilon-greedy over legal actions only, greedy and random branch alike
   (``algo/exploration.py:masked_eps_greedy``, :41-66).
 - Before training, a random-policy prefill of MEMORY_WINDOW + NUM_STEPS
@@ -64,7 +70,13 @@ from purejaxql_torch.algo.exploration import draw_seed, greedy_legal_actions, ma
 from purejaxql_torch.algo.metrics import apply_eval_subsample, episode_mean_metrics, test_interval_updates
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values, tree_map
-from purejaxql_torch.algo.seeds import check_seeds, seed_column_minibatches, seed_generators, seed_mean
+from purejaxql_torch.algo.seeds import (
+    check_ported,
+    check_seeds,
+    seed_column_minibatches,
+    seed_generators,
+    seed_mean,
+)
 from purejaxql_torch.algo.types import MARLTransition
 from purejaxql_torch.core.optim import ClipRAdam, make_optimizer
 from purejaxql_torch.core.schedules import epsilon_schedule, linear_schedule
@@ -77,30 +89,25 @@ from purejaxql_torch.ops.fast_rnn import supports_fast_bptt
 from purejaxql_torch.ops.lambda_returns import lambda_returns_closure
 from purejaxql_torch.utils.platform import resolve_device
 
-# options of the JAX trainer that the port does not run yet
-_NOT_PORTED_VDN = {
-    "LOG_VIA_CALLBACK": "LOG_VIA_CALLBACK",
-}
-
-
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_vdn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_vdn config")
     check_seeds(config)
-    for key, what in _NOT_PORTED_VDN.items():
-        if config.get(key, False):
-            raise NotImplementedError(f"{what} is not ported yet")
-    if config.get("RNN_CELL", "gru") == "lstm":
-        raise NotImplementedError(
-            "RNN_CELL=lstm in the VDN trainer is not ported yet: the JAX trainer's FAST_BPTT "
-            "forward takes no cell type (pqn_vdn.py:322-341)"
-        )
+    check_ported(config)
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
     if config.get("FAST_BPTT", False) and not supports_fast_bptt(config):
         raise ValueError(
             "FAST_BPTT supports the GRU + layer_norm trunk family (RNN_CELL=gru, "
             "NORM_TYPE=layer_norm, no dueling): see ops/fast_rnn.py"
+        )
+    if config.get("FAST_BPTT", False) and config.get("RNN_CELL", "gru") != "gru":
+        # supports_fast_bptt takes an LSTM, but the JAX trainer's FAST_BPTT
+        # forward gets no cell type (pqn_vdn.py:322-341) and reads a GRU
+        # cell that the LSTM network lacks: JAX raises this KeyError
+        raise KeyError(
+            "GRUCell_0: the VDN trainer's FAST_BPTT forward reads a GRU cell (pqn_vdn.py:322-341); "
+            "RNN_CELL=lstm trains on the module path, FAST_BPTT=False"
         )
 
 

@@ -69,7 +69,9 @@ def save_params(params: Mapping, filename: str) -> None:
     def _tensor(v):
         if torch.is_tensor(v):
             return v.detach().cpu().contiguous()
-        return torch.from_numpy(np.ascontiguousarray(v))
+        # np.array, not np.ascontiguousarray, which makes a 0-d leaf (a
+        # BatchRenorm's r_max, d_max, steps) shape (1,)
+        return torch.from_numpy(np.array(v, order="C"))
 
     save_file({k: _tensor(v) for k, v in _flatten(params).items()}, filename)
 

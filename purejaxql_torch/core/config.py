@@ -142,7 +142,10 @@ def resolve_fast_paths(
     Pendulum kernel); and
     FAST_BPTT for a ``pqn_rnn*`` or ``pqn_vdn*`` config that
     ``ops/fast_rnn.py:supports_fast_bptt`` accepts
-    (purejaxql_tpu/core/config.py:203-208),
+    (purejaxql_tpu/core/config.py:203-208; a layer_norm trunk, so a
+    batch-stats trunk stays on the module path), but for an LSTM VDN
+    config, which the VDN trainer refuses on the fast path as JAX's does
+    (the JAX policy turns it on there, and its trainer then raises),
     with PALLAS_BPTT beside it for a GRU stack (an LSTM stack keeps its
     recurrence in PyTorch, as the JAX package keeps it in a ``lax.scan``);
     and for a ``pqn_rnn*`` config EXPLORATION_KERNEL="pallas" (its rollout
@@ -199,7 +202,9 @@ def resolve_fast_paths(
     elif str(config.get("ALG_NAME", "pqn")).startswith(("pqn_rnn", "pqn_vdn")):
         from purejaxql_torch.ops.fast_rnn import supports_fast_bptt
 
-        if supports_fast_bptt(config):
+        # an LSTM VDN config trains on the module path only (algo/pqn_vdn.py)
+        vdn_lstm = str(config.get("ALG_NAME")).startswith("pqn_vdn") and config.get("RNN_CELL", "gru") != "gru"
+        if supports_fast_bptt(config) and not vdn_lstm:
             _default("FAST_BPTT", True)
             if config["FAST_BPTT"] and supports_fast_bptt({**config, "PALLAS_BPTT": True}):
                 _default("PALLAS_BPTT", True)

@@ -7,6 +7,9 @@ so that weights cross between the packages unchanged (core/checkpoint.py):
 - flax's auto-names (``BatchNorm_0`` for the input norm, ``Dense_i``,
   ``LayerNorm_i`` or ``BatchNorm_{i+1}``), LayerNorm eps 1e-6, BatchNorm eps
   1e-5 with momentum 0.99 (models/qnet.py);
+- NORM_TYPE layer_norm or batch_norm gives the trunk its norms; any other
+  value (none, batch_renorm, ...) gives no trunk norm, no module and no
+  leaf, as JAX's ``_normalizer`` does (actor_critic.py:19-26);
 - the input BatchNorm is always built and, in train mode, updates its
   running statistics though its output is unused (actor_critic.py:43-50,78-85:
   the JAX trainer never sets norm_input, so the port has no such option);
@@ -81,8 +84,6 @@ class _MLP(nn.Module):
 
     def __init__(self, in_dim, out_dim, hidden_sizes, activation, norm_type, init_scale, generator, seeds=1):
         super().__init__()
-        if norm_type not in ("layer_norm", "batch_norm", "none"):
-            raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
         self.hidden_sizes = tuple(hidden_sizes)
         self.norm_type = norm_type
         self.act = _activation(activation)
@@ -180,8 +181,6 @@ class CriticEnsemble(nn.Module):
         seeds: int = 1,
     ):
         super().__init__()
-        if norm_type not in ("layer_norm", "batch_norm", "none"):
-            raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
         self.num_critics = num_critics
         self.seeds = seeds
         self.lane_members = num_critics if seeds > 1 else None

@@ -19,9 +19,20 @@ float blend, and flax's ``_normalize`` order, (x - mean) * (rsqrt(var + eps)
 * scale) + bias. Train mode updates the buffers in place, unless the module
 is ``frozen`` (``models/qnet.py:frozen_statistics``): then it normalizes as
 in train mode and leaves the buffers, ``steps`` included, as they were.
+
+The module has no dtype (batch_renorm.py:31-129). On a bfloat16 input (a
+trunk under BF16_COMPUTE) it computes as jnp does: the batch mean and E[x^2]
+are float32 sums rounded to bfloat16, the variance, sqrt(var + eps) and the
+(1 - momentum) * mean of the running update are rounded to bfloat16, each
+Python constant first rounded to bfloat16 (a weak-typed scalar takes the
+array's dtype); everything that meets the float32 running statistics, the
+normalize included, is float32, so the module returns float32. The running
+statistics stay float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -38,18 +49,27 @@ def renorm_train(x, ra_mean, ra_var, r_max, d_max, steps, eps: float, momentum: 
     seed axis, (S, F) and (S,): each lane's statistics over its own rows and
     the leading axes, against its own state, as under ``jax.vmap``."""
     axes = tuple(d for d in range(x.dim() - 1) if not (lanes and d == x.dim() - 3))
-    batch_mean = x.mean(axes, keepdim=lanes)
-    batch_var = torch.clamp((x * x).mean(axes, keepdim=lanes) - batch_mean * batch_mean, min=0.0)
+    if x.dtype == torch.float32:
+        const = lambda v: v  # noqa: E731
+        batch_mean = x.mean(axes, keepdim=lanes)
+        mean2 = (x * x).mean(axes, keepdim=lanes)
+    else:  # jnp.mean: a float32 sum over the rows, divided, rounded to x's dtype
+        const = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa: E731
+        n = x.numel() // math.prod(x.shape[d] for d in range(x.dim()) if d not in axes)
+        batch_mean = (x.float().sum(axes, keepdim=lanes) / n).to(x.dtype)
+        mean2 = ((x * x).float().sum(axes, keepdim=lanes) / n).to(x.dtype)
+    batch_var = torch.clamp(mean2 - batch_mean * batch_mean, min=0.0)
     shape = batch_mean.shape  # (F,), or (1, ..., S, 1, F) with lanes
     per_lane = (lambda v: v.reshape(*shape[:-1], 1)) if lanes else (lambda v: v)  # noqa: E731
     with torch.no_grad():
         ra_std = torch.sqrt(ra_var.reshape(shape) + eps)
-        r = torch.minimum(torch.maximum(torch.sqrt(batch_var + eps) / ra_std, 1.0 / per_lane(r_max)), per_lane(r_max))
+        r = torch.minimum(torch.maximum(torch.sqrt(batch_var + const(eps)) / ra_std, 1.0 / per_lane(r_max)),
+                          per_lane(r_max))
         d = torch.minimum(torch.maximum((batch_mean - ra_mean.reshape(shape)) / ra_std, -per_lane(d_max)),
                           per_lane(d_max))
         warmed_up = (per_lane(steps) >= warmup_steps).float()
-        new_mean = momentum * ra_mean + (1 - momentum) * batch_mean.reshape(ra_mean.shape)
-        new_var = momentum * ra_var + (1 - momentum) * batch_var.reshape(ra_var.shape)
+        new_mean = momentum * ra_mean + const(1 - momentum) * batch_mean.reshape(ra_mean.shape)
+        new_var = momentum * ra_var + const(1 - momentum) * batch_var.reshape(ra_var.shape)
     # normalizing by (var / r^2, mean - d * std / r) applies x * r + d
     tmp_var = batch_var / (r ** 2)
     tmp_mean = batch_mean - d * torch.sqrt(batch_var) / r

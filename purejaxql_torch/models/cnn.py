@@ -1,16 +1,24 @@
 """The convolutional Q-networks: the MinAtar CNN and the Nature-DQN CNN.
 
 Port of purejaxql_tpu/models/cnn.py (``MinAtarCNN``, ``NatureCNN``,
-``CNNQNetwork``) with LayerNorm trunks. Flax conventions are kept so that
-weights cross between the packages unchanged (core/checkpoint.py):
+``CNNQNetwork``; both trunks are ``ConvTrunk`` here) with every trunk norm
+the JAX module takes (``_make_normalizer``, cnn.py:22-46): NORM_TYPE
+layer_norm, batch_norm, batch_renorm, and none for any other value, taken as
+written (no craftax mapping, factory.py:63). Flax conventions are kept so
+that weights cross between the packages unchanged (core/checkpoint.py):
 
 - modules carry flax's auto-names: ``BatchNorm_0``, ``CNN_0`` holding
   ``Conv_0``, ``LayerNorm_0``, ``Dense_0``, ``LayerNorm_1`` (MinAtar) or
   ``Conv_0..2``, ``LayerNorm_0..3``, ``Dense_0`` (Nature), and the head
-  ``Dense_0``;
+  ``Dense_0``; a batch_norm trunk has ``CNN_0.BatchNorm_i`` and a
+  batch_renorm one ``CNN_0.BatchRenorm_i`` where the LayerNorms stand
+  (their running statistics in the ``batch_stats`` tree), none has no
+  norm;
 - inputs and activations are channels-last (NHWC), as in flax; the conv
   weight is stored OIHW, as torch's;
-- the LayerNorm after the conv normalises over the channels of each pixel;
+- the LayerNorm after a conv normalises over the channels of each pixel; a
+  BatchNorm or BatchRenorm there takes per-channel statistics over the
+  N x H' x W' pixels of the batch (after the dense layer over the N rows);
 - the flatten before the dense layer is in flax's (i, j, f) order;
 - the conv and the trunk's dense layer start he-normal (truncated,
   variance 2 / fan_in), the head lecun-normal, all biases zero, drawn from
@@ -28,21 +36,25 @@ channels and relu, the NHWC flatten (7 x 7 x 64 = 3,136 on 84x84 frames),
 Dense(512), LayerNorm and relu. Its output sizes are XLA's for a VALID
 window, max(0, (n - k) // s + 1): on frames it cannot fit (10x10 MinAtar
 planes) the dense layer has no inputs and its init divides by a zero
-fan-in, as flax's does. It runs in float32 and for one seed; BF16_COMPUTE
-and a batch-stats trunk norm on it raise.
+fan-in, as flax's does. It takes every norm, dtype and seed count the
+MinAtar trunk takes.
 
 With ``dtype=torch.bfloat16`` (BF16_COMPUTE, cnn.py:26-40, 124-159) the input
 norm and the / input_scale run in float32, the trunk casts once to bfloat16,
 the conv and the dense layers compute in bfloat16 from the float32 master
-parameters, the LayerNorms in float32 returning bfloat16 (``models/qnet.py``),
-and the Q-values come back in float32.
+parameters, the LayerNorms and BatchNorms in float32 returning bfloat16
+(``models/qnet.py``; flax's ``BatchNorm(dtype=bfloat16)`` takes its
+statistics in float32), a BatchRenorm, which has no dtype, its statistics in
+bfloat16 returning float32 (``models/batch_renorm.py``), which the next conv
+or dense layer casts back, and the Q-values come back in float32.
 
 With ``seeds=S`` > 1 (NUM_SEEDS) the network holds S lanes with stacked
 parameters (models/stacked.py; the conv weight (S, O, I, H, W)), lane i
 drawn from ``generator[i]`` as the single network is, and ``forward`` takes
-seed-major rows (S * N, H, W, C); the conv is the same patches product,
-one batched matmul for all lanes, in float32 or bfloat16 as above. For one
-seed the network is the single one.
+seed-major rows (S * N, H, W, C); the conv is the same patches product at
+its stride, one batched matmul for all lanes, in float32 or bfloat16 as
+above, and each lane's batch statistics are over its own pixels or rows, as
+under ``jax.vmap``. For one seed the network is the single one.
 """
 
 from __future__ import annotations
@@ -51,7 +63,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import LayerNorm, Layers, dense, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, add_named, variance_scaling_
 
 KERNEL = 3
 CONV_FEATURES = 16
@@ -89,9 +101,8 @@ def conv_weight_matrix(weight: torch.Tensor) -> torch.Tensor:
 
 class Conv(nn.Module):
     """flax ``nn.Conv`` with a k x k kernel, VALID padding and the given
-    stride, on NHWC input; the weight is OIHW. With ``seeds`` > 1 (stride
-    1 only), S lanes on (S, N, H, W, C), lane i drawn from
-    ``generator[i]``."""
+    stride, on NHWC input; the weight is OIHW. With ``seeds`` > 1, S lanes
+    on (S, N, H, W, C), lane i drawn from ``generator[i]``."""
 
     def __init__(self, in_channels: int, features: int, generator, k: int = KERNEL, seeds: int = 1,
                  stride: int = 1):
@@ -107,61 +118,61 @@ class Conv(nn.Module):
         k = self.weight.shape[-1]
         if self.weight.dim() == 4:
             return conv_patches(x, k, self.stride) @ conv_weight_matrix(self.weight).to(x.dtype) + self.bias.to(x.dtype)
-        patches = conv_patches(x.flatten(0, 1), k)  # (S * N, h, w, k*k*C)
+        patches = conv_patches(x.flatten(0, 1), k, self.stride)  # (S * N, h, w, k*k*C)
         lanes = patches.reshape(x.shape[0], -1, patches.shape[-1])
         # the product, then the bias added, as for one seed (two roundings in bfloat16)
         y = torch.bmm(lanes, conv_weight_matrix(self.weight).to(x.dtype)) + self.bias.to(x.dtype)[:, None]
         return y.reshape(*x.shape[:2], *patches.shape[1:3], -1)
 
 
-class MinAtarCNN(nn.Module):
-    """One 3x3 VALID conv (16 channels) and a Dense(hidden) trunk, each with
-    LayerNorm and relu (cnn.py:50-78)."""
+class ConvTrunk(nn.Module):
+    """VALID convs, each followed by the trunk norm and relu, the NHWC
+    flatten, then a dense layer with the norm and relu (cnn.py:50-108): the
+    MinAtar trunk (one 3x3 conv of 16 channels, Dense(hidden)) or the
+    Nature trunk (``NATURE_CONVS``, Dense(512)). The norms carry flax's
+    names in call order, ``<Kind>_0`` after the first conv up to the one
+    after the dense layer; with NORM_TYPE none (or any other value) there
+    are none. Every conv and the dense layer compute in ``dtype``, casting
+    their input to it (a BatchRenorm hands on float32, as in JAX)."""
 
-    def __init__(self, obs_shape, hidden_size: int, generator, seeds: int = 1):
+    def __init__(self, obs_shape, convs, hidden_size: int, generator, norm_type: str = "layer_norm",
+                 dtype: torch.dtype = torch.float32, seeds: int = 1):
         super().__init__()
         rows, cols, channels = obs_shape
-        flat = (rows - KERNEL + 1) * (cols - KERNEL + 1) * CONV_FEATURES
         layers = Layers(generator, seeds)
-        self.seeds = seeds
-        self.Conv_0 = Conv(channels, CONV_FEATURES, generator, seeds=seeds)
-        self.LayerNorm_0 = layers.layer_norm(CONV_FEATURES)
-        self.Dense_0 = layers.dense(flat, hidden_size, scale=HE)
-        self.LayerNorm_1 = layers.layer_norm(hidden_size)
+        self.seeds, self.dtype = seeds, dtype
+        self.convs = len(convs)
+        self.norms, counts = [], {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        def add_norm(features):
+            norm = layers.trunk_norm(norm_type, features)
+            self.norms.append(norm and add_named(self, counts, *norm))
+
+        for i, (features, k, stride) in enumerate(convs):
+            setattr(self, f"Conv_{i}", Conv(channels, features, generator, k=k, seeds=seeds, stride=stride))
+            add_norm(features)
+            rows, cols, channels = conv_out(rows, k, stride), conv_out(cols, k, stride), features
+        self.Dense_0 = layers.dense(rows * cols * channels, hidden_size, scale=HE)
+        add_norm(hidden_size)
+
+    def _norm(self, i: int, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """Norm i and relu; with seeds each lane's pixels (or rows) as its
+        rows, the lane axis first."""
+        if self.norms[i] is not None:
+            norm = getattr(self, self.norms[i])
+            if self.seeds > 1:
+                x = norm(x.reshape(self.seeds, -1, x.shape[-1]), train).reshape(x.shape)
+            else:
+                x = norm(x, train)
+        return torch.relu(x)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """(N, H, W, C) -> (N, hidden), or with seeds (S, N, H, W, C) ->
         (S, N, hidden)."""
-        x = self.Conv_0(x)
-        if self.seeds > 1:  # each lane's pixels as its rows
-            x = torch.relu(self.LayerNorm_0(x.reshape(self.seeds, -1, x.shape[-1]))).reshape(x.shape)
-        else:
-            x = torch.relu(self.LayerNorm_0(x))
+        for i in range(self.convs):
+            x = self._norm(i, getattr(self, f"Conv_{i}")(x.to(self.dtype)), train)
         x = x.reshape(*x.shape[:-3], -1)  # (i, j, f), as flax flattens NHWC
-        return torch.relu(self.LayerNorm_1(self.Dense_0(x)))
-
-
-class NatureCNN(nn.Module):
-    """The Nature-DQN trunk (cnn.py:81-108): three VALID convs, each with
-    LayerNorm over the channels and relu, then Dense(512), LayerNorm and
-    relu, on float32 NHWC input."""
-
-    def __init__(self, obs_shape, generator):
-        super().__init__()
-        rows, cols, channels = obs_shape
-        for i, (features, k, stride) in enumerate(NATURE_CONVS):
-            setattr(self, f"Conv_{i}", Conv(channels, features, generator, k=k, stride=stride))
-            setattr(self, f"LayerNorm_{i}", LayerNorm(features))
-            rows, cols, channels = conv_out(rows, k, stride), conv_out(cols, k, stride), features
-        self.Dense_0 = dense(rows * cols * channels, NATURE_HIDDEN, generator, scale=HE)
-        self.LayerNorm_3 = LayerNorm(NATURE_HIDDEN)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, C) -> (N, 512)."""
-        for i in range(len(NATURE_CONVS)):
-            x = torch.relu(getattr(self, f"LayerNorm_{i}")(getattr(self, f"Conv_{i}")(x)))
-        x = x.reshape(x.shape[0], -1)  # (i, j, f), as flax flattens NHWC
-        return torch.relu(self.LayerNorm_3(self.Dense_0(x)))
+        return self._norm(self.convs, self.Dense_0(x.to(self.dtype)), train)
 
 
 class CNNQNetwork(nn.Module):
@@ -184,25 +195,19 @@ class CNNQNetwork(nn.Module):
         seeds: int = 1,
     ):
         super().__init__()
-        # any other CNN_TRUNK is the MinAtar trunk, as in cnn.py:143-157
-        if trunk == "nature" and (dtype != torch.float32 or seeds > 1):
-            raise NotImplementedError("CNN_TRUNK 'nature' runs in float32 for one seed: BF16_COMPUTE and "
-                                      "NUM_SEEDS > 1 on it are not ported yet")
-        if norm_type != "layer_norm":
-            raise NotImplementedError(f"NORM_TYPE '{norm_type}' in the CNN trunk is not ported yet")
         self.action_dim = action_dim
         self.norm_type = norm_type
         self.norm_input = norm_input
-        self.hidden_size = hidden_size = NATURE_HIDDEN if trunk == "nature" else hidden_size
+        # any other CNN_TRUNK is the MinAtar trunk, as in cnn.py:143-157
+        nature = trunk == "nature"
+        self.hidden_size = hidden_size = NATURE_HIDDEN if nature else hidden_size
         self.input_scale = input_scale
         self.dtype = dtype
         self.seeds = seeds
         layers = Layers(generator, seeds)
         self.BatchNorm_0 = layers.norm("batch_norm", obs_shape[-1])
-        if trunk == "nature":
-            self.CNN_0 = NatureCNN(obs_shape, generator)
-        else:
-            self.CNN_0 = MinAtarCNN(obs_shape, hidden_size, generator, seeds)
+        convs = NATURE_CONVS if nature else ((CONV_FEATURES, KERNEL, 1),)
+        self.CNN_0 = ConvTrunk(obs_shape, convs, hidden_size, generator, norm_type, dtype, seeds)
         self.Dense_0 = layers.dense(hidden_size, action_dim)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -214,5 +219,5 @@ class CNNQNetwork(nn.Module):
         else:
             normed = self.BatchNorm_0(x, train)
         x = normed if self.norm_input else x / self.input_scale
-        q = self.Dense_0(self.CNN_0(x.to(self.dtype))).float()
+        q = self.Dense_0(self.CNN_0(x.to(self.dtype), train).to(self.dtype)).float()
         return q.reshape(-1, self.action_dim)

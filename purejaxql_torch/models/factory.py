@@ -6,12 +6,12 @@ family), the CNNs (ARCH ``cnn``, or an observation of rank 3 or more: the
 MinAtar trunk, or with CNN_TRUNK ``nature`` the Nature-DQN trunk,
 factory.py:66) and the recurrent network (``make_rnn_q_network``: GRU or LSTM cells, a
 BatchNorm or BatchRenorm input norm, a dueling head). BF16_COMPUTE
-(factory.py:43) gives the MLP and the MinAtar CNN a bfloat16 trunk over
-float32 master parameters; the recurrent network ignores it, as the JAX
-package's does, and the recurrent trainers' FAST_BPTT forward takes it
-(``ops/fast_rnn.py``). The Nature trunk in bfloat16, a BatchRenorm trunk in
-bfloat16 and a recurrent trunk norm other than layer_norm come with later
-slices and raise here.
+(factory.py:43) gives the MLP and both CNN trunks a bfloat16 trunk over
+float32 master parameters, whatever their norm; the recurrent network
+ignores it, as the JAX package's does, and the recurrent trainers' FAST_BPTT
+forward takes it (``ops/fast_rnn.py``). Every NORM_TYPE builds: the CNN
+takes it as written (factory.py:63), the MLP and the recurrent network
+through ``resolve_norms``.
 
 ``seeds=S`` > 1 (NUM_SEEDS) gives the network (the FF, the recurrent and
 the VDN trainers') S lanes with stacked
@@ -84,16 +84,10 @@ def make_q_network(
     raise ValueError(f"Unknown ARCH '{arch}'")
 
 
-def check_rnn_q_network(config, obs_shape, norms=None) -> None:
-    """Raise for the recurrent variants that are not ported yet. ``norms``
-    is the (norm_type, input_norm_type) the trainer builds, by default
-    ``resolve_norms(config)``."""
-    norm_type = (norms if norms is not None else resolve_norms(config))[0]
-    if norm_type != "layer_norm":
-        raise NotImplementedError(
-            f"NORM_TYPE={config.get('NORM_TYPE')!r} is not ported yet: the recurrent network "
-            "has a layer_norm trunk"
-        )
+def check_rnn_q_network(obs_shape) -> None:
+    """Raise for an observation the recurrent network does not take: it
+    takes flat observations (the recurrent trainers flatten images, ARCH
+    mlp)."""
     if len(obs_shape) != 1:
         raise NotImplementedError(
             f"the recurrent network takes flat observations, got shape {tuple(obs_shape)}"
@@ -110,13 +104,14 @@ def make_rnn_q_network(
     seeds: int = 1,
 ) -> RNNQNetwork:
     """The recurrent trainers' network (pqn_rnn.py:87-100, pqn_vdn.py:93-104):
-    RNN_CELL's cells on a layer_norm trunk over flat observations, the input
-    norm of ``norms`` (default ``resolve_norms(config)``, the recurrent
-    trainer's), the last action as an input where ADD_LAST_ACTION says so,
+    RNN_CELL's cells over flat observations, the trunk and input norms of
+    ``norms`` (default ``resolve_norms(config)``, the recurrent trainer's;
+    the VDN trainer passes NORM_TYPE as written and a BatchNorm input), the
+    last action as an input where ADD_LAST_ACTION says so,
     a dueling head where DUELING does; HIDDEN_SIZE defaults to
     ``hidden_size`` (the recurrent trainer's 128, pqn_rnn.py:90)."""
     norms = norms if norms is not None else resolve_norms(config)
-    check_rnn_q_network(config, obs_shape, norms)
+    check_rnn_q_network(obs_shape)
     return RNNQNetwork(
         obs_dim=int(obs_shape[0]),
         action_dim=action_dim,
@@ -125,6 +120,7 @@ def make_rnn_q_network(
         num_rnn_layers=config.get("NUM_RNN_LAYERS", 1),
         cell_type=config.get("RNN_CELL", "gru"),
         norm_input=config.get("NORM_INPUT", False),
+        norm_type=norms[0],
         input_norm_type=norms[1],
         add_last_action=config.get("ADD_LAST_ACTION", False),
         dueling=config.get("DUELING", False),

@@ -32,7 +32,10 @@ bfloat16 from the float32 master parameters (``Dense``), each LayerNorm or
 BatchNorm computes its statistics and its normalize in float32 and returns
 bfloat16, as flax's norms with ``dtype=bfloat16`` do (a bfloat16 input less
 a float32 mean promotes to float32), and the Q-values come back in float32.
-For float32 every cast is the identity.
+A BatchRenorm trunk norm has no dtype in JAX (qnet.py:79-88): it computes
+its batch statistics in bfloat16 and returns float32
+(``models/batch_renorm.py``), and the next Dense casts its input back to
+bfloat16. For float32 every cast is the identity.
 
 With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
 (``Layers``, models/stacked.py), lane i drawn from ``generator[i]`` as the
@@ -117,8 +120,9 @@ class LayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x):
-        # statistics and normalize in float32, the result in x's dtype
+    def forward(self, x, train: bool = False):
+        # statistics and normalize in float32, the result in x's dtype; no
+        # batch statistics, so train mode changes nothing
         h = x.float()
         mean, var = _stats(h, -1)
         return _normalize(h, mean, var, self.eps, self.weight, self.bias).to(x.dtype)
@@ -169,6 +173,16 @@ def frozen_statistics(network: nn.Module):
 _NORMS = {"batch_norm": "BatchNorm", "batch_renorm": "BatchRenorm"}
 
 
+def add_named(parent: nn.Module, counts: dict, kind: str, child: nn.Module) -> str:
+    """Register ``child`` on ``parent`` under flax's auto-name for its class
+    ``kind``, ``<kind>_<i>`` with i counted per class in ``counts`` in call
+    order, and return the name."""
+    name = f"{kind}_{counts.get(kind, 0)}"
+    counts[kind] = counts.get(kind, 0) + 1
+    parent.add_module(name, child)
+    return name
+
+
 class Layers:
     """The layers of a network with ``seeds`` lanes, drawn from
     ``generator`` (one seed) or lane i from ``generator[i]``: for one seed
@@ -200,6 +214,17 @@ class Layers:
             return cls(self.seeds, features)
         return BatchRenorm(features) if kind == "batch_renorm" else BatchNorm(features)
 
+    def trunk_norm(self, norm_type: str, features: int):
+        """(flax class name, module) of a trunk's NORM_TYPE: LayerNorm,
+        BatchNorm or BatchRenorm, stacked with seeds; None for any other
+        value, no norm, as the JAX modules' normalizers give (cnn.py:22-46,
+        rnn.py:96-109). Each module is called as ``norm(x, train)``."""
+        if norm_type == "layer_norm":
+            return "LayerNorm", self.layer_norm(features)
+        if norm_type in _NORMS:
+            return _NORMS[norm_type], self.norm(norm_type, features)
+        return None
+
 
 class QNetwork(nn.Module):
     def __init__(
@@ -218,10 +243,6 @@ class QNetwork(nn.Module):
         super().__init__()
         if norm_type not in ("layer_norm", "batch_norm", "batch_renorm", "none"):
             raise ValueError(f"unsupported NORM_TYPE '{norm_type}'")
-        if dtype != torch.float32 and norm_type == "batch_renorm":
-            # the JAX module computes a BatchRenorm trunk's statistics in the
-            # input's bfloat16 and returns float32 (qnet.py:79-88)
-            raise NotImplementedError("BF16_COMPUTE with a BatchRenorm trunk is not ported yet")
         if input_norm_type not in _NORMS:
             raise ValueError(f"unsupported INPUT_NORM_TYPE '{input_norm_type}'")
         self.action_dim = action_dim
@@ -234,23 +255,15 @@ class QNetwork(nn.Module):
         counts = {}
 
         def add(kind, module):
-            name = f"{kind}_{counts.get(kind, 0)}"
-            counts[kind] = counts.get(kind, 0) + 1
-            self.add_module(name, module)
-            return name
+            return add_named(self, counts, kind, module)
 
         self.input_norm = add(_NORMS[input_norm_type], layers.norm(input_norm_type, obs_dim))
         self.layers = []
         width = obs_dim
         for _ in range(num_layers):
             dense_name = add("Dense", layers.dense(width, hidden_size))
-            if norm_type == "layer_norm":
-                norm_name = add("LayerNorm", layers.layer_norm(hidden_size))
-            elif norm_type in _NORMS:
-                norm_name = add(_NORMS[norm_type], layers.norm(norm_type, hidden_size))
-            else:
-                norm_name = None
-            self.layers.append((dense_name, norm_name))
+            norm = layers.trunk_norm(norm_type, hidden_size)
+            self.layers.append((dense_name, norm and add(*norm)))
             width = hidden_size
         self.head = add("Dense", layers.dense(width, action_dim))
 
@@ -264,12 +277,11 @@ class QNetwork(nn.Module):
         normed = getattr(self, self.input_norm)(x, train)
         if self.norm_input:
             x = normed
-        x = x.to(self.dtype)
         for dense_name, norm_name in self.layers:
-            x = getattr(self, dense_name)(x)
-            if self.norm_type == "layer_norm":
-                x = getattr(self, norm_name)(x)
-            elif norm_name is not None:
+            # a BatchRenorm hands on float32: each Dense casts its input
+            # (flax's Dense(dtype) promotes it)
+            x = getattr(self, dense_name)(x.to(self.dtype))
+            if norm_name is not None:
                 x = getattr(self, norm_name)(x, train)
             x = torch.relu(x)
-        return getattr(self, self.head)(x).float()
+        return getattr(self, self.head)(x.to(self.dtype)).float()

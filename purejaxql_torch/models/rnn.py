@@ -2,8 +2,10 @@
 reset-on-done, and the Q head.
 
 Port of purejaxql_tpu/models/rnn.py (``ScannedRNN``, ``RNNQNetwork``) for
-GRU and LSTM cells on a layer_norm trunk. flax conventions are kept so that
-weights cross between the packages unchanged (core/checkpoint.py):
+GRU and LSTM cells on a trunk of any NORM_TYPE the JAX module takes
+(rnn.py:96-109): layer_norm, batch_norm, batch_renorm, and none for any
+other value. flax conventions are kept so that weights cross between the
+packages unchanged (core/checkpoint.py):
 
 - the GRU cell is flax's ``GRUCell``, not ``torch.nn.GRU``: r and z take no
   hidden bias (``hr``, ``hz`` have none), and n = tanh(W_in x + b_in +
@@ -19,14 +21,21 @@ weights cross between the packages unchanged (core/checkpoint.py):
 - the input norm, BatchNorm or (``input_norm_type="batch_renorm"``, the
   craftax family) BatchRenorm, is always built, and in train mode updates
   its running statistics even when NORM_INPUT=False (rnn.py:110-128);
-- submodules carry flax's names: ``BatchNorm_0`` or ``BatchRenorm_0``,
-  ``Dense_i``, ``LayerNorm_i``, ``ScannedRNN_l.GRUCell_0.{ir,iz,in,hr,hz,hn}``
+- submodules carry flax's names, counted per class in construction order:
+  the input norm ``BatchNorm_0`` or ``BatchRenorm_0``, built before the
+  trunk's norms (rnn.py:114-128 against the lambdas at :96-109), so a
+  batch_norm trunk over a BatchNorm input has ``BatchNorm_1..`` and a
+  batch_renorm one over a BatchNorm input ``BatchRenorm_0..``; ``Dense_i``,
+  ``LayerNorm_i``, ``ScannedRNN_l.GRUCell_0.{ir,iz,in,hr,hz,hn}``
   or ``ScannedRNN_l.OptimizedLSTMCell_0.{ii,if,ig,io,hi,hf,hg,ho}`` and the
   head ``Dense_<num_layers>``; a dueling head (rnn.py:146-151) is the value
   ``Dense_<num_layers>`` (one output) and the advantage
   ``Dense_<num_layers + 1>``, q = value + adv - mean(adv).
 
-Other trunk norms come with a later slice; the factory raises for them.
+A BatchNorm or BatchRenorm trunk takes its statistics in train mode over
+all T x B rows of the window (each lane's own with seeds), in eval mode
+(the rollout's length-1 steps) reads its running statistics. The network
+has no compute dtype: it ignores BF16_COMPUTE, as the JAX module does.
 
 With ``seeds=S`` > 1 (NUM_SEEDS) every layer takes its stacked form
 (models/stacked.py), lane i drawn from ``generator[i]`` as the single
@@ -45,7 +54,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from purejaxql_torch.models.qnet import Layers, variance_scaling_
+from purejaxql_torch.models.qnet import Layers, add_named, variance_scaling_
 from purejaxql_torch.models.stacked import lane_dense, lane_orthogonal, linear
 
 LSTM_GATES = ("i", "f", "g", "o")
@@ -179,6 +188,7 @@ class RNNQNetwork(nn.Module):
         num_rnn_layers: int = 1,
         cell_type: str = "gru",
         norm_input: bool = False,
+        norm_type: str = "layer_norm",
         input_norm_type: str = "batch_norm",
         add_last_action: bool = False,
         dueling: bool = False,
@@ -196,16 +206,20 @@ class RNNQNetwork(nn.Module):
         self.input_norm_type = input_norm_type
         self.add_last_action = add_last_action
         self.dueling = dueling
+        self.norm_type = norm_type
         layers = Layers(generator, seeds)
         norm = layers.norm(input_norm_type, obs_dim)
         if input_norm_type == "batch_renorm":
             self.BatchRenorm_0 = norm
         else:
             self.BatchNorm_0 = norm
+        counts = {"BatchRenorm" if input_norm_type == "batch_renorm" else "BatchNorm": 1}  # the input norm's
+        self.norms = []
         width = obs_dim
         for i in range(num_layers):
             self.add_module(f"Dense_{i}", layers.dense(width, hidden_size))
-            self.add_module(f"LayerNorm_{i}", layers.layer_norm(hidden_size))
+            norm = layers.trunk_norm(norm_type, hidden_size)
+            self.norms.append(norm and add_named(self, counts, *norm))
             width = hidden_size
         if add_last_action:
             width += action_dim
@@ -243,8 +257,10 @@ class RNNQNetwork(nn.Module):
         normed = self.input_norm(x, train)
         if self.norm_input:
             x = normed
-        for i in range(self.num_layers):
-            x = getattr(self, f"LayerNorm_{i}")(getattr(self, f"Dense_{i}")(x))
+        for i, norm in enumerate(self.norms):
+            x = getattr(self, f"Dense_{i}")(x)
+            if norm is not None:
+                x = getattr(self, norm)(x, train)
             x = torch.relu(x)
         if self.add_last_action:
             one_hot = nn.functional.one_hot(last_action.long(), self.action_dim)

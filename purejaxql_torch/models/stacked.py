@@ -95,7 +95,7 @@ class StackedLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(members, features))
         self.bias = nn.Parameter(torch.zeros(members, features))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         h = x.float()
         mean, var = _stats(h, -1)
         return _normalize(h, mean, var, self.eps, self.weight[:, None], self.bias[:, None]).to(x.dtype)

@@ -204,18 +204,27 @@ def test_bf16_learn_step_matches_jax(kind):
 
 def test_factory_gives_bf16_and_raises_where_not_ported():
     """make_q_network with BF16_COMPUTE: a bfloat16 trunk for the MLP and the
-    MinAtar CNN; a BatchRenorm trunk (craftax with NORM_TYPE batch_norm), the
-    Nature trunk and the recurrent network still raise."""
+    MinAtar CNN; a BatchRenorm trunk (craftax with NORM_TYPE batch_norm) and
+    the Nature trunk build in bfloat16 too, and their forwards hand back
+    float32 Q-values (both held against flax in
+    tests/test_torch_norm_variants.py)."""
     for alg, shape, cls in (("pqn_craftax", (OBS_DIM,), TQNetwork), ("pqn_minatar", (10, 10, 4), TCNNQNetwork),
                             ("pqn_cartpole", (4,), TQNetwork)):
         net = make_q_network(compose(alg=alg, overrides=["DEVICE=cpu", "BF16_COMPUTE=True", "HIDDEN_SIZE=16"]),
                              3, shape)
         assert isinstance(net, cls) and net.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="BatchRenorm trunk"):
-        make_q_network(compose(alg="pqn_craftax", overrides=["DEVICE=cpu", "BF16_COMPUTE=True",
-                                                             "NORM_TYPE=batch_norm", "HIDDEN_SIZE=16"]), 3, (OBS_DIM,))
-    with pytest.raises(NotImplementedError, match="CNN_TRUNK"):
-        make_q_network({"NORM_TYPE": "layer_norm", "BF16_COMPUTE": True, "CNN_TRUNK": "nature"}, 3, (84, 84, 4))
+    renorm = make_q_network(compose(alg="pqn_craftax", overrides=["DEVICE=cpu", "BF16_COMPUTE=True",
+                                                                  "NORM_TYPE=batch_norm", "HIDDEN_SIZE=16"]),
+                            3, (OBS_DIM,))
+    assert renorm.dtype == torch.bfloat16
+    assert [n for _, n in renorm.layers] == [f"BatchRenorm_{i + 1}" for i in range(len(renorm.layers))]
+    nature = make_q_network({"NORM_TYPE": "layer_norm", "BF16_COMPUTE": True, "CNN_TRUNK": "nature"}, 3,
+                            (84, 84, 4))
+    assert nature.dtype == torch.bfloat16
+    for net, x in ((renorm, torch.tensor(_forager_like_obs(np.random.RandomState(0), 8))),
+                   (nature, torch.rand(2, 84, 84, 4) * 255)):
+        q = net(x, train=True)
+        assert q.dtype == torch.float32 and torch.isfinite(q).all()
 
 
 def _cli(tmp_path, *args):

@@ -309,20 +309,23 @@ def test_factory_builds_the_cnn_and_raises_for_unported_variants():
     assert isinstance(make_q_network(cfg, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network({**cfg, "ARCH": "cnn"}, 3, (10, 10, 4)), TCNNQNetwork)
     assert isinstance(make_q_network(cfg, 2, (4,)), TQNetwork)
-    # BF16_COMPUTE is ported for the MinAtar trunk (tests/test_torch_bf16.py)
-    # and accepted by the recurrent network, which ignores it as the JAX
-    # package's does (its FAST_BPTT forward takes it: tests/test_torch_lstm.py);
-    # the Nature trunk builds on 84x84 frames (tests/test_torch_nature_cnn.py);
-    # in bfloat16 or with a batch-stats trunk norm it still raises, as does a
-    # recurrent trunk norm other than layer_norm
+    # BF16_COMPUTE is ported for both CNN trunks (tests/test_torch_bf16.py,
+    # tests/test_torch_norm_variants.py) and accepted by the recurrent
+    # network, which ignores it as the JAX package's does (its FAST_BPTT
+    # forward takes it: tests/test_torch_lstm.py); the Nature trunk builds on
+    # 84x84 frames (tests/test_torch_nature_cnn.py); every CNN trunk norm
+    # builds, in either dtype, and trains (held against flax and the JAX
+    # trainer in tests/test_torch_norm_variants.py)
     assert make_q_network({**cfg, "BF16_COMPUTE": True}, 3, (10, 10, 4)).dtype == torch.bfloat16
     nature = make_q_network({**cfg, "CNN_TRUNK": "nature"}, 6, (84, 84, 4))
     assert isinstance(nature, TCNNQNetwork) and nature.CNN_0.Dense_0.weight.shape == (512, 3136)
-    for bad, shape in (({"NORM_TYPE": "batch_norm"}, (10, 10, 4)),
-                       ({"CNN_TRUNK": "nature", "BF16_COMPUTE": True}, (84, 84, 4)),
-                       ({"CNN_TRUNK": "nature", "NORM_TYPE": "batch_norm"}, (84, 84, 4))):
-        with pytest.raises(NotImplementedError):
-            make_q_network({**cfg, **bad}, 3, shape)
-    check_rnn_q_network({**cfg, "BF16_COMPUTE": True}, (4,))
-    with pytest.raises(NotImplementedError, match="NORM_TYPE"):
-        check_rnn_q_network({**cfg, "NORM_TYPE": "batch_norm", "BF16_COMPUTE": True}, (4,))
+    for extra, shape, norms in (({"NORM_TYPE": "batch_norm"}, (10, 10, 4), ("BatchNorm_0", "BatchNorm_1")),
+                                ({"CNN_TRUNK": "nature", "BF16_COMPUTE": True}, (84, 84, 4), ("LayerNorm_3",)),
+                                ({"CNN_TRUNK": "nature", "NORM_TYPE": "batch_norm"}, (84, 84, 4), ("BatchNorm_3",))):
+        net = make_q_network({**cfg, **extra}, 3, shape)
+        assert all(hasattr(net.CNN_0, n) for n in norms), extra
+        q = net(torch.rand(2, *shape) * 255, train=True)
+        assert q.shape == (2, 3) and q.dtype == torch.float32 and torch.isfinite(q).all()
+    check_rnn_q_network((4,))
+    with pytest.raises(NotImplementedError, match="flat observations"):
+        check_rnn_q_network((10, 10, 4))

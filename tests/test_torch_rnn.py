@@ -492,9 +492,14 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
 
 
 def test_rnn_unsupported_options_raise():
-    for kw in ({"NORM_TYPE": "batch_norm"}, {"LOG_VIA_CALLBACK": True}):
-        with pytest.raises(NotImplementedError):
-            pqn_rnn.make_train(tiny_rnn_config(**kw))
+    with pytest.raises(NotImplementedError):
+        pqn_rnn.make_train(tiny_rnn_config(LOG_VIA_CALLBACK=True))
+    # a batch_norm trunk trains on the module path (held against the JAX
+    # trainer in tests/test_torch_norm_variants.py)
+    out = pqn_rnn.make_train(tiny_rnn_config(NORM_TYPE="batch_norm", TOTAL_TIMESTEPS=256))()
+    net = out["runner_state"][0].network
+    assert net.norms == ["BatchNorm_1", "BatchNorm_2"] and torch.isfinite(out["metrics"]["td_loss"]).all()
+    assert not torch.equal(net.BatchNorm_1.mean, torch.zeros(32))
     with pytest.raises(ValueError, match="FAST_BPTT"):
         pqn_rnn.make_train(tiny_rnn_config(FAST_BPTT=True, NORM_TYPE="batch_norm"))
     with pytest.raises(ValueError, match="FAST_BPTT"):

@@ -457,10 +457,17 @@ def test_vdn_ignores_input_norm_type_as_jax():
 
 
 def test_vdn_unsupported_options_raise():
-    for kw in ({"LOG_VIA_CALLBACK": True}, {"RNN_CELL": "lstm"},
-               {"NORM_TYPE": "batch_norm"}, {"ALG_NAME": "pqn_rnn"}):
+    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_rnn"}):
         with pytest.raises(NotImplementedError):
             pqn_vdn.make_train(tiny_vdn_config(**kw))()
+    # an LSTM and a batch_norm trunk train on the module path (held against
+    # the JAX trainer in tests/test_torch_vdn_lstm.py); an LSTM on FAST_BPTT
+    # raises the KeyError JAX's trainer raises
+    for kw, norm in (({"RNN_CELL": "lstm"}, "LayerNorm_1"), ({"NORM_TYPE": "batch_norm"}, "BatchNorm_2")):
+        out = pqn_vdn.make_train(tiny_vdn_config(TOTAL_TIMESTEPS=128, NUM_EPOCHS=1, **kw))()
+        assert out["runner_state"][0].network.norms[-1] == norm and torch.isfinite(out["metrics"]["td_loss"]).all()
+    with pytest.raises(KeyError, match="GRUCell_0"):
+        pqn_vdn.make_train(tiny_vdn_config(RNN_CELL="lstm", FAST_BPTT=True))
     with pytest.raises(ValueError, match="FAST_BPTT"):
         pqn_vdn.make_train(tiny_vdn_config(FAST_BPTT=True, DUELING=True))
     with pytest.raises(ValueError, match="NUM_MINIBATCHES"):
