@@ -218,6 +218,21 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    with the Nature trunk, BF16_COMPUTE and NORM_TYPE=batch_norm, sync and
    ASYNC_ENVS; each run's env-steps/s, launches, and the largest difference
    between its trained network's forward on the card and on a CPU copy;
+6o. the staged API and its tooling at full width: the stepwise CLI
+   (TRAINER=stepwise) on pqn_cartpole for 8 updates with CHECKPOINT_EVERY=4,
+   then RESUME_FROM its state to 12 (one epsilon-greedy launch a rollout
+   step, one returns launch an update; the state file round-trips bit for
+   bit); the rollout tool on the stepwise run's weights and with --gif on
+   the saved Breakout run; train_segmented against one train on pqn_cartpole
+   fused (4 segments of 4 updates: one CartPole rollout and one returns
+   launch an update) and on pqn_rnn_memory_chain (2 segments of 1: the GRU
+   scan kernels and the closure returns a grad step), the counters equal
+   and the params bit-equal or within 1e-5 (the gap printed); with
+   --learning-bars also tests/test_segmented.py's CartPole learning check at
+   its length; LOG_VIA_CALLBACK=True LOG_INTERVAL=2 on pqn_cartpole,
+   pqn_rnn_memory_chain, pqn_vdn_spread and pqn_pendulum for 4 updates each
+   (2 finite rows each); HYP_TUNE with 2 trials of 4 updates; the stage
+   timings (ms a stage, the stages' unfused rollout at full width);
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's and the host
    trainer's (32, 64), and the seeded shapes: one seeded GRU launch against
@@ -227,7 +242,7 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    the classic envs' (32, 3) and (32, 2)), and torch.nn.GRU (cuDNN) beside the
    GRU scan as a yardstick (S calls of it beside the seeded launch);
 8. print the kernel table as one JSON line (the four kernels of phase 6j's
-   runs at their seeded shapes, with those runs' launches);
+   runs at their seeded shapes, with those runs' launches, phase 6o's added);
 9. print {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero, printing no result, where no GPU is visible or where the
@@ -366,9 +381,9 @@ SEED_VDN_EXTRA = ("NUM_ENVS=64", "HIDDEN_SIZE=128", "TEST_DURING_TRAINING=False"
 SEED_REACHER, SEED_LOCOMOTION = 4, 2
 CRAFTAX_FAST_POLICY = (("EXPLORATION_KERNEL", "pallas"), "FAST_TARGETS", "SKIP_NOOP_PERMUTE", ("RESET_BANK", 256))
 # this script's wall with --learning-bars on an NVIDIA H100 80GB HBM3 at
-# 700 W, the build and the seeded phases included, before the trims of the
-# AC evals and the strict Craftax run (PERF.md section 2)
-RECORDED_WALL_S = 1006.3
+# 700 W, every phase through 6o and scripts/network_learning_bar.py
+# included, the kernels already built (PERF.md section 2)
+RECORDED_WALL_S = 1784.7
 # the epsilon-greedy kernel at the Craftax trainer's shape (E, A) and two others
 # and the seeded runs' folded rows (S x NUM_ENVS, A): CartPole with 8 and
 # 64 seeds, Breakout with 4, Craftax with 4 and pqn_rnn_craftax with 2; the
@@ -461,6 +476,20 @@ NETWORK_RUNS = (
 )
 SIM_UPDATES = 4
 CLASSIC_FF_UPDATES, CLASSIC_FF_TEST_INTERVAL = 16, 1.0
+# phase 6o, the staged API and its tooling: the stepwise CLI on pqn_cartpole
+# for STEPWISE_UPDATES updates, then resumed to STEPWISE_RESUME_TO; the
+# segmented trainer against one train, pqn_cartpole fused in SEG_FF segments
+# of SEG_FF_UPDATES / SEG_FF updates, MemoryChain in 2 of SEG_RNN_UPDATES / 2;
+# LOG_VIA_CALLBACK at LOG_INTERVAL CALLBACK_INTERVAL on each of the four
+# trainers for CALLBACK_UPDATES updates; HYP_TUNE with SWEEP_TRIALS trials of
+# SWEEP_UPDATES updates; with --learning-bars the segmented CartPole learning
+# check of tests/test_segmented.py:36-52 at its length and config (4 segments)
+STEPWISE_UPDATES, STEPWISE_CHECKPOINT_EVERY, STEPWISE_RESUME_TO = 8, 4, 12
+SEG_FF_UPDATES, SEG_FF, SEG_RNN_UPDATES = 16, 4, 2
+CALLBACK_UPDATES, CALLBACK_INTERVAL = 4, 2
+CALLBACK_RUNS = ("pqn_cartpole", "pqn_rnn_memory_chain", "pqn_vdn_spread", "pqn_pendulum")
+SWEEP_TRIALS, SWEEP_UPDATES = 2, 4
+SEG_LEARNING_STEPS = 131072
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
@@ -1655,6 +1684,224 @@ def network_variants_phase(cli, compose, counters, save_path, card, bars=False):
         done = subprocess.run([sys.executable, script, "--jobs", "7"], timeout=3000)
         check(done.returncode == 0, f"scripts/network_learning_bar.py failed (exit {done.returncode})")
     return launches_by_run
+
+
+def _same_state_files(a: str, b: str) -> bool:
+    """Two safetensors files with the same keys, dtypes, shapes and bits."""
+    import torch
+    from safetensors.torch import load_file
+
+    x, y = load_file(a), load_file(b)
+    return x.keys() == y.keys() and all(
+        x[k].dtype == y[k].dtype and x[k].shape == y[k].shape and torch.equal(x[k], y[k]) for k in x)
+
+
+def _param_gap(a, b):
+    """The largest |difference| over two networks' parameters and buffers,
+    0.0 where they are bit-equal."""
+    import torch
+
+    gap = 0.0
+    for x, y in zip([*a.parameters(), *a.buffers()], [*b.parameters(), *b.buffers()]):
+        if not torch.equal(x, y):
+            gap = max(gap, float((x.double() - y.double()).abs().max()))
+    return gap
+
+
+def staged_tooling_phase(cli, compose, counters, save_path, card, bars=False):
+    """Phase 6o, the staged API and its tooling at full width, each run with
+    the counts set to 0 just before and read just after: the stepwise CLI
+    (one epsilon-greedy launch a rollout step, one returns launch an update;
+    the state file round-trips bit for bit and the resumed run continues its
+    counters); the segmented trainer against one train on pqn_cartpole
+    (fused: one CartPole rollout and one returns launch an update) and on
+    pqn_rnn_memory_chain (the GRU scan kernels and the closure returns a grad
+    step), bit for bit or within 1e-5; LOG_VIA_CALLBACK on the four trainers
+    (one finite row every CALLBACK_INTERVAL updates); HYP_TUNE; the rollout
+    tool on the stepwise run's weights and --gif on a saved Breakout run;
+    the stage timings. Returns the launches of the phase's runs, summed."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.algo import pqn, pqn_rnn
+    from purejaxql_torch.algo.segmented import train_segmented
+    from purejaxql_torch.algo.stages import make_stages
+    from purejaxql_torch.core.checkpoint import load_state, save_run, save_state
+    from purejaxql_torch.scripts import rollout
+    from purejaxql_torch.utils.profiling import stage_timings
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters}
+
+    def counted(fn, *args, **kw):
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters.items()}
+        for k, v in got.items():
+            total[k] += v
+        return out, wall, {k: v for k, v in got.items() if v}
+
+    # stepwise: 8 updates with a checkpoint every 4, then resumed to 12
+    sw_dir = os.path.join(save_path, "stepwise")
+    shutil.rmtree(sw_dir, ignore_errors=True)
+    ckpt = os.path.join(sw_dir, "CartPole-v1_state.safetensors")
+    cp = compose(alg="pqn_cartpole", overrides=["TRAINER=stepwise"])
+    per_update = cp["NUM_ENVS"] * cp["NUM_STEPS"]
+    sw_args = ["+alg=pqn_cartpole", "TRAINER=stepwise", f"SAVE_PATH={sw_dir}",
+               f"TOTAL_TIMESTEPS_DECAY={STEPWISE_RESUME_TO * per_update}"]
+    check(cp.get("EXPLORATION_KERNEL") == "pallas" and not cp.get("FUSED_ROLLOUT"),
+          "stepwise: the cuda policy did not leave the config unfused with the epsilon-greedy kernel")
+    for tag, updates, extra in (
+        ("stepwise", STEPWISE_UPDATES, [f"CHECKPOINT_EVERY={STEPWISE_CHECKPOINT_EVERY}"]),
+        ("stepwise resumed", STEPWISE_RESUME_TO - STEPWISE_UPDATES, [f"RESUME_FROM={ckpt}"]),
+    ):
+        steps = (STEPWISE_UPDATES if tag == "stepwise" else STEPWISE_RESUME_TO) * per_update
+        _, wall, got = counted(cli.main, [*sw_args, f"TOTAL_TIMESTEPS={steps}", *extra])
+        want = {"eps_greedy": updates * cp["NUM_STEPS"], "lambda_returns": updates}
+        check(got == want, f"{tag}: launches {got}, expected {want}")
+        print(f"{tag} (pqn_cartpole, TRAINER=stepwise): {updates} updates in {wall:.2f} s wall "
+              f"({updates * per_update / wall:.0f} env-steps/s); launches {got}")
+        if tag == "stepwise":
+            stages = make_stages(cp)
+            state = load_state(stages.init_agent(torch.Generator().manual_seed(1)), ckpt)
+            again = os.path.join(sw_dir, "again.safetensors")
+            save_state(state, again)
+            check(_same_state_files(ckpt, again), "stepwise: the state file does not round-trip bit for bit")
+            check(next(state.network.parameters()).device.type == "cuda", "stepwise: the state did not load on cuda")
+            check((state.n_updates, state.grad_steps, state.timesteps) == (
+                STEPWISE_UPDATES, STEPWISE_UPDATES * cp["NUM_EPOCHS"] * cp["NUM_MINIBATCHES"],
+                STEPWISE_UPDATES * per_update), "stepwise: wrong counters in the state")
+    state = load_state(make_stages(cp).init_agent(torch.Generator().manual_seed(1)), ckpt)
+    check(state.n_updates == STEPWISE_RESUME_TO, f"stepwise resumed: {state.n_updates} updates in the state")
+
+    # the rollout tool on the stepwise run's weights, and --gif on Breakout
+    run_dir = os.path.join(sw_dir, "run")
+    save_run(state.network, cp, run_dir, "pqn_CartPole-v1_stepwise")
+    traj = os.path.join(sw_dir, "traj.npz")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(rollout.main(["--run-dir", run_dir, "--episodes", "8", "--save-traj", traj]) == 0, "rollout tool failed")
+    rets = np.load(traj)["returns"]
+    check(rets.shape == (8,) and np.isfinite(rets).all(), f"rollout tool: returns {rets}")
+    bo_dir = os.path.join(sw_dir, "breakout")
+    os.makedirs(bo_dir)
+    for name in ("pqn_Breakout-MinAtar_seed0.safetensors", "pqn_Breakout-MinAtar_seed0_config.yaml"):
+        shutil.copy(os.path.join(save_path, "Breakout-MinAtar", name), bo_dir)
+    gif = os.path.join(sw_dir, "breakout.gif")
+    with contextlib.redirect_stdout(buf):
+        check(rollout.main(["--run-dir", bo_dir, "--episodes", "2", "--max-steps", "500", "--gif", gif]) == 0,
+              "rollout tool --gif failed")
+    with open(gif, "rb") as f:
+        check(f.read(6) == b"GIF89a", "rollout tool: not a GIF")
+    print(f"rollout tool: {time.perf_counter() - t0:.2f} s wall; the stepwise CartPole weights' greedy returns "
+          f"{[float(r) for r in rets]}; Breakout --gif {os.path.getsize(gif)} bytes; "
+          + " | ".join(line for line in buf.getvalue().splitlines() if line.startswith(("returns", "gif"))))
+
+    # the segmented trainer against one train: CartPole fused, MemoryChain
+    for alg, updates, segments, make_train in (
+        ("pqn_cartpole", SEG_FF_UPDATES, SEG_FF, pqn.make_train),
+        ("pqn_rnn_memory_chain", SEG_RNN_UPDATES, 2, pqn_rnn.make_train),
+    ):
+        cfg = compose(alg=alg, overrides=["TEST_DURING_TRAINING=False"])
+        per = cfg["NUM_ENVS"] * cfg["NUM_STEPS"]
+        cfg.update(TOTAL_TIMESTEPS=updates * per, TOTAL_TIMESTEPS_DECAY=updates * per)
+        mono, mono_wall, mono_launches = counted(lambda: make_train(cfg)())
+        seg, seg_wall, seg_launches = counted(train_segmented, cfg, segments, make_train=make_train)
+        check(mono_launches == seg_launches, f"segmented {alg}: launches {seg_launches} against {mono_launches}")
+        grad_steps = updates * cfg["NUM_EPOCHS"] * cfg["NUM_MINIBATCHES"]
+        if alg == "pqn_cartpole":
+            check(cfg.get("FUSED_ROLLOUT") is True, "segmented pqn_cartpole: not fused")
+            want = {"cartpole_rollout": updates, "lambda_returns": updates}
+        else:
+            check(cfg.get("PALLAS_BPTT") is True, "segmented MemoryChain: no GRU scan kernels")
+            want = {"gru_scan_fwd": grad_steps, "gru_scan_bwd": grad_steps, "lambda_returns_closure": grad_steps,
+                    "eps_greedy": cfg.get("MEMORY_WINDOW", 0) + (updates + 1) * cfg["NUM_STEPS"]}
+        check(seg_launches == want, f"segmented {alg}: launches {seg_launches}, expected {want}")
+        ts, mts = seg["runner_state"][0], mono["runner_state"][0]
+        check((ts.timesteps, ts.n_updates, ts.grad_steps, ts.step) == (
+            mts.timesteps, mts.n_updates, mts.grad_steps, mts.step) == (updates * per, updates, grad_steps, grad_steps),
+              f"segmented {alg}: counters differ")
+        gap = _param_gap(mts.network, ts.network)
+        check(gap <= 1e-5, f"segmented {alg}: params {gap} off one train's")
+        check(all(v.shape[:2] == (1, updates) for v in seg["metrics"].values()), f"segmented {alg}: metrics shape")
+        print(f"segmented {alg}: {segments} segments of {updates // segments} updates in {seg_wall:.2f} s wall, "
+              f"one train of {updates} in {mono_wall:.2f} s; launches {seg_launches}; params "
+              + ("bit-equal" if gap == 0.0 else f"max |difference| {gap:.3g}"))
+        print(json.dumps({"segmented": alg, "segments": segments, "updates": updates, "wall_s": seg_wall,
+                          "monolith_wall_s": mono_wall, "launches": seg_launches, "param_gap": gap, "card": card}))
+    if bars:
+        cfg = compose(alg="pqn_cartpole", overrides=[
+            f"TOTAL_TIMESTEPS={SEG_LEARNING_STEPS}", f"TOTAL_TIMESTEPS_DECAY={SEG_LEARNING_STEPS}", "NUM_ENVS=16",
+            "NUM_STEPS=32", "NUM_MINIBATCHES=4", "NUM_EPOCHS=2", "TEST_DURING_TRAINING=False"])
+        outs, wall, got = counted(train_segmented, cfg, 4)
+        rets = outs["metrics"]["returned_episode_returns"][0].cpu().numpy()
+        first, last = float(rets[:20].mean()), float(rets[-20:].mean())
+        print(f"segmented CartPole learning check ({SEG_LEARNING_STEPS} env steps, 4 segments): first 20 updates' "
+              f"mean return {first:.2f}, last 20's {last:.2f} in {wall:.2f} s wall; launches {got}")
+        check(last > 2 * first, f"segmented CartPole did not learn: last 20 {last} <= 2 x first 20 {first}")
+
+    # LOG_VIA_CALLBACK on the four trainers
+    for alg in CALLBACK_RUNS:
+        cfg = compose(alg=alg)
+        jsonl = os.path.join(sw_dir, "callback.jsonl")
+        if os.path.exists(jsonl):
+            os.remove(jsonl)
+        steps = CALLBACK_UPDATES * cfg["NUM_ENVS"] * cfg["NUM_STEPS"]
+        args = [f"+alg={alg}", f"TOTAL_TIMESTEPS={steps}", "TEST_DURING_TRAINING=False", "LOG_VIA_CALLBACK=True",
+                f"LOG_INTERVAL={CALLBACK_INTERVAL}", f"LOG_JSONL={jsonl}", f"SAVE_PATH={os.path.join(sw_dir, 'runs')}"]
+        if "TOTAL_TIMESTEPS_DECAY" in cfg:
+            args.append(f"TOTAL_TIMESTEPS_DECAY={steps}")
+        _, wall, got = counted(cli.main, args)
+        with open(jsonl) as f:
+            rows = [json.loads(line) for line in f]
+        want = list(range(CALLBACK_INTERVAL, CALLBACK_UPDATES + 1, CALLBACK_INTERVAL))
+        check([r["update_steps"] for r in rows] == want, f"callback {alg}: rows {[r.get('update_steps') for r in rows]}")
+        check(all(np.isfinite(v) for r in rows for v in r.values() if isinstance(v, (int, float))),
+              f"callback {alg}: a row is not finite")
+        print(f"callback {alg}: {len(rows)} rows of {len(rows[0])} keys over {CALLBACK_UPDATES} updates in "
+              f"{wall:.2f} s wall; launches {got}")
+
+    # HYP_TUNE: the local random search, the port's train() a trial. Where
+    # wandb is installed, run_sweep takes wandb's sweep, which needs its
+    # service: the machine has no network, so wandb's import is blocked here
+    buf = io.StringIO()
+    wandb = sys.modules.get("wandb")
+    sys.modules["wandb"] = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, wall, got = counted(cli.main, [
+                "+alg=pqn_cartpole", "HYP_TUNE=True", f"SWEEP_COUNT={SWEEP_TRIALS}", "TEST_DURING_TRAINING=False",
+                f"TOTAL_TIMESTEPS={SWEEP_UPDATES * per_update}", f"TOTAL_TIMESTEPS_DECAY={SWEEP_UPDATES * per_update}"])
+    finally:
+        if wandb is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = wandb
+    best = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(best["best"]["LR"] in (0.001, 0.0005, 0.0001, 0.00005) and np.isfinite(best["score"]),
+          f"sweep: {best}")
+    print(f"sweep (HYP_TUNE, {SWEEP_TRIALS} trials of {SWEEP_UPDATES} updates): {wall:.2f} s wall; best {best}; "
+          f"launches {got}")
+
+    # the stage timings at full width (the eval: 128 envs x 500 steps)
+    stages = make_stages(compose(alg="pqn_cartpole", overrides=["TRAINER=stepwise", "TEST_DURING_TRAINING=True"]))
+    ms = {k.replace("_s", "_ms"): 1e3 * v for k, v in stage_timings(stages).items()}
+    print(f"stage timings (pqn_cartpole, the stages' unfused rollout, best of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" on {card}")
+    print(json.dumps({"stage_timings_ms": ms, "card": card}))
+    launched = {k: v for k, v in total.items() if v}
+    print(f"phase 6o (staged API and tooling): {time.perf_counter() - t_phase:.1f} s wall; launches {launched}")
+    return total
 
 
 def main() -> int:
@@ -3096,6 +3343,10 @@ def main() -> int:
     # trunk in bfloat16, BatchRenorm under BF16_COMPUTE ----------------------------
     network_variants_phase(cli, compose, counters, save_path, card, bars)
 
+    # ---- 6o. the staged API and its tooling: stepwise with resume, segmented
+    # training, LOG_VIA_CALLBACK, HYP_TUNE, the rollout tool, stage timings ------
+    launches_6o = staged_tooling_phase(cli, compose, counters, save_path, card, bars)
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -3209,7 +3460,8 @@ def main() -> int:
     # eps_greedy's from pqn_craftax with 4 seeds (4096 rows), the GRU scan's
     # and the closure returns' from pqn_vdn_spread with 4 seeds (T 29, 4
     # seeds of 24 rows; targets (28, 4 x 8)), the lambda returns' from
-    # pqn_reacher with 4 seeds ((32, 4 x 64))
+    # pqn_reacher with 4 seeds ((32, 4 x 64)); to each, phase 6o's runs'
+    # (the staged API and its tooling)
     kernels = []
     for name, src, replaces, key, launches in (
         ("lambda_returns", "purejaxql_torch/csrc/lambda_returns.cu",
@@ -3241,7 +3493,7 @@ def main() -> int:
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errors[name], "ms": k_ms,
+            "launches": launches[name] + launches_6o[name], "max_abs_err": errors[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "

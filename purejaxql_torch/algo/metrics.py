@@ -1,11 +1,12 @@
 """Metric helpers for the in-loop evaluators (port of
-purejaxql_tpu/algo/metrics.py, single device), and the step-order episode
+purejaxql_tpu/algo/metrics.py, single device), the step-order episode
 sums that the FF and actor-critic trainers replay their fused rollouts'
-(reward, done) streams with."""
+(reward, done) streams with, and the LOG_VIA_CALLBACK hook of the FF,
+recurrent, VDN and actor-critic trainers."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -67,3 +68,33 @@ def eval_episode_metrics(rew: torch.Tensor, done: torch.Tensor) -> Dict[str, tor
         "returned_episode_lengths": nel,
         "returned_episode": done.bool(),
     })
+
+
+def metric_callback(config: Dict[str, Any], logger) -> Optional[Callable]:
+    """The trainers' LOG_VIA_CALLBACK hook: the logger's callback where the
+    config turns the option on and a logger is given, else None."""
+    if logger is None or not config.get("LOG_VIA_CALLBACK", False):
+        return None
+    return logger.make_callback()
+
+
+def emit_metric_rows(callback: Callable, metrics: Dict[str, Any], seeds: int = 1,
+                     last_seed_first: bool = False) -> None:
+    """Hand one update's metrics to ``callback(row, seed)`` once a seed, in
+    the order the JAX package's vmapped ``jax.debug.callback`` calls its host
+    function: seed 0 first where the call sits in a ``lax.cond`` (the FF
+    trainer's LOG_INTERVAL test), the last seed first where it does not (the
+    recurrent, VDN and actor-critic trainers), as measured on the CPU. With
+    seeds, seed s gets the s-th value of each (S,) tensor. One device-to-host
+    copy for all the tensors."""
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    flat = [metrics[k].detach().reshape(-1) for k in keys]
+    host = torch.cat([v.double() for v in flat]).cpu() if flat else None
+    values, start = {}, 0
+    for k, v in zip(keys, flat):
+        values[k] = host[start:start + v.numel()].to(v.dtype).numpy()
+        start += v.numel()
+    for s in (reversed(range(seeds)) if last_seed_first else range(seeds)):
+        row = {k: (values[k][s] if values[k].size > 1 else values[k][0]) if k in values else v
+               for k, v in metrics.items()}
+        callback(row, s)

@@ -41,13 +41,14 @@ parameters, as the JAX package's does.
 Where the JAX package scans, this trainer loops in Python; it keeps host
 syncs out of the update loop: counters and schedules are host integers and
 floats, metrics stay device tensors and are stacked once at the end. The
-only sync is the fused eval's early-exit test, once per chunk. With
+only sync is the fused eval's early-exit test, once per chunk (and with
+LOG_VIA_CALLBACK one copy to the host a logged update). With
 COLLECT_METRICS=False (pqn.py:260, 638) no metrics are returned and the
 work that only feeds them is skipped (the fused rollout's Log replay, the
-unfused rollout's info stacks, the losses' means, the per-update dicts);
-the eval still runs, as its draws and the runner state's test metrics
-follow the JAX trainer, so the params are those of the same run with the
-metrics on.
+unfused rollout's info stacks, the losses' means, the per-update dicts)
+unless LOG_VIA_CALLBACK asks for them; the eval still runs, as its draws
+and the runner state's test metrics follow the JAX trainer, so the params
+are those of the same run with the metrics on.
 
 Two rollout paths:
 
@@ -93,7 +94,6 @@ import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.seeds import (
-    check_ported,
     check_seeds,
     seed_generators,
     seed_mean,
@@ -105,8 +105,10 @@ from purejaxql_torch.algo.seeds import (
 )
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
+    emit_metric_rows,
     episode_mean_metrics,
     eval_episode_metrics,
+    metric_callback,
     running_episode_sums,
     test_interval_updates,
 )
@@ -190,7 +192,6 @@ def fused_ff_eligible(config: Dict[str, Any]) -> bool:
 def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "pqn")) not in ("pqn", "pqn_craftax"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an FF-PQN config")
-    check_ported(config)
     check_seeds(config)
     if config.get("FAST_TARGETS", False) and config.get("NORM_TYPE") != "layer_norm":
         raise ValueError(
@@ -424,15 +425,26 @@ def learn_minibatch_fast_td(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None
 ) -> Callable[..., Dict[str, Any]]:
-    """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
+    """Build ``train(seed=None, runner_state=None) -> {"runner_state",
+    "metrics"}``.
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
     (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
     COLLECT_METRICS=False; ``runner_state`` is (train_state, (obs,
-    env_state), test_metrics), the envs seed-major with seeds.
+    env_state), test_metrics, (host generator, device generator)), the envs
+    seed-major with seeds. Given a ``runner_state`` from an earlier call,
+    ``train`` continues that run for NUM_UPDATES more updates (pqn.py:
+    271-278, 767-780): no new network, reset or first eval, and the
+    schedules follow the carried counters, so that segments of a run
+    (algo/segmented.py) draw what the whole run draws.
+
+    With LOG_VIA_CALLBACK and a ``logger`` (utils/logging.py), every update
+    whose count is a multiple of LOG_INTERVAL hands its metrics, once a seed,
+    to ``logger.make_callback()`` (pqn.py:627-634), COLLECT_METRICS=False
+    or not.
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
@@ -455,6 +467,11 @@ def make_train(
     skip_permute = n_minibatches == 1 and config.get("SKIP_NOOP_PERMUTE", fast_targets)
     done_masked = config.get("DONE_MASKED_INFO_METRICS", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
+    callback = metric_callback(config, logger)
+    log_interval = config.get("LOG_INTERVAL", 1)
+    # the metrics are computed for the callback too, as JAX computes them
+    # regardless and only drops them from the output (pqn.py:626-638)
+    need_metrics = collect_metrics or callback is not None
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     eps_scheduler = epsilon_schedule(
         config["EPS_START"],
@@ -462,17 +479,21 @@ def make_train(
         config["EPS_DECAY"] * config["NUM_UPDATES_DECAY"],
     )
 
-    def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
-        host_gen = gens[0]
-        network = make_q_network(config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen,
-                                 seeds=seeds)
-        network = network.to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
-        optimizer = make_optimizer(
-            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
-        )
-        train_state = PQNTrainState(network, optimizer)
+    def train(seed: Optional[int] = None, runner_state=None) -> Dict[str, Any]:
+        if runner_state is None:
+            gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+            host_gen = gens[0]
+            network = make_q_network(config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen,
+                                     seeds=seeds)
+            network = network.to(device)
+            dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+            optimizer = make_optimizer(
+                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
+            )
+            train_state = PQNTrainState(network, optimizer)
+        else:
+            train_state, (obs, log_state), test_metrics, (host_gen, dev_gen) = runner_state
+            network, optimizer = train_state.network, train_state.optimizer
         env_name = config["ENV_NAME"]
         explore = make_eps_greedy(config, dev_gen, host_gen)
 
@@ -493,7 +514,7 @@ def make_train(
                     q_val=q_seq,
                 )
                 infos = None
-                if collect_metrics:
+                if need_metrics:
                     log_state, infos = log_replay(log_state, rew, done)
                 log_state.env_state = env_state
                 return final_obs, log_state, transitions, infos
@@ -510,7 +531,7 @@ def make_train(
                     obs = new_obs
             fields = list(zip(*steps))
             transitions = Transition(*(torch.stack(f) for f in fields[:6]))
-            infos = {k: torch.stack([i[k] for i in fields[6]]) for k in fields[6][0]} if collect_metrics else None
+            infos = {k: torch.stack([i[k] for i in fields[6]]) for k in fields[6][0]} if need_metrics else None
             return obs, log_state, transitions, infos
 
         def learn(transitions, targets):
@@ -540,7 +561,7 @@ def make_train(
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
-            if not collect_metrics:
+            if not need_metrics:
                 return None, None
             return seed_mean(torch.stack(losses), seeds, -1), seed_mean(torch.stack(qvals), seeds, 1)
 
@@ -586,8 +607,9 @@ def make_train(
                 {k: torch.stack([i[k] for i in infos]) for k in infos[0]}, seeds
             )
 
-        test_metrics = get_test_metrics() if test_during_training else {}
-        obs, log_state = train_env.reset(dev_gen, seeds * n_envs, env_params)
+        if runner_state is None:
+            test_metrics = get_test_metrics() if test_during_training else {}
+            obs, log_state = train_env.reset(dev_gen, seeds * n_envs, env_params)
         history = []
         for _ in range(config["NUM_UPDATES"]):
             obs, log_state, transitions, infos = rollout(obs, log_state)
@@ -609,7 +631,7 @@ def make_train(
             train_state.n_updates += 1
             if test_during_training and train_state.n_updates % test_interval_updates(config) == 0:
                 test_metrics = get_test_metrics()
-            if not collect_metrics:
+            if not need_metrics:
                 continue
 
             metrics = {
@@ -628,10 +650,13 @@ def make_train(
                 metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
-            history.append(metrics)
+            if callback is not None and train_state.n_updates % log_interval == 0:
+                emit_metric_rows(callback, metrics, seeds)
+            if collect_metrics:
+                history.append(metrics)
 
         return {
-            "runner_state": (train_state, (obs, log_state), test_metrics),
+            "runner_state": (train_state, (obs, log_state), test_metrics, (host_gen, dev_gen)),
             "metrics": stack_metrics(history, seeds),
         }
 

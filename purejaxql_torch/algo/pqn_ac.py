@@ -68,13 +68,14 @@ import torch
 from purejaxql_torch.algo.exploration import draw_seed, gaussian_noise_ladder
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
+    emit_metric_rows,
     eval_episode_metrics,
+    metric_callback,
     running_episode_sums,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.seeds import (
-    check_ported,
     check_seeds,
     seed_generators,
     seed_mean,
@@ -143,7 +144,6 @@ def _check_supported(config: Dict[str, Any]) -> None:
     if str(config.get("ALG_NAME", "")) not in ("pqn_ac", "pqn_playground"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not an actor-critic config")
     check_seeds(config)
-    check_ported(config)
     if config.get("FUSED_ROLLOUT", False) and not fused_ac_eligible(config):
         raise ValueError(
             "FUSED_ROLLOUT (AC family) supports Pendulum-v1 with layer_norm, relu, 2 hidden "
@@ -347,7 +347,7 @@ def learn_minibatch(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None
 ) -> Callable[..., Dict[str, Any]]:
     """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
 
@@ -358,7 +358,11 @@ def make_train(
     info stacks and the losses' means are then skipped, the eval still
     runs); ``runner_state`` is ({"actor": PQNTrainState, "critic":
     PQNTrainState}, (obs, env_state), test_metrics), the counters on the
-    actor's state, the envs seed-major with seeds.
+    actor's state, the envs seed-major with seeds. With LOG_VIA_CALLBACK and
+    a ``logger``, every update whose count is a multiple of LOG_INTERVAL
+    hands its metrics, once a seed, to ``logger.make_callback()``
+    (pqn_ac.py:607-608, which calls it every update), COLLECT_METRICS=False
+    or not.
     """
     config = apply_eval_subsample(dict(config))
     config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
@@ -392,6 +396,9 @@ def make_train(
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
+    callback = metric_callback(config, logger)
+    log_interval = config.get("LOG_INTERVAL", 1)
+    need_metrics = collect_metrics or callback is not None
     max_steps = env_params.max_steps_in_episode
     action_scale = (act_high - act_low) / 2.0
     action_bias = (act_high + act_low) / 2.0
@@ -447,7 +454,7 @@ def make_train(
                     next_obs=torch.cat([obs_seq[1:], final_obs[None]]),
                 )
                 infos = None
-                if collect_metrics:
+                if need_metrics:
                     env_state, infos = log_vec_replay(env_state, rew, done)
                 env_state.env_state = raw_state
                 return final_obs, env_state, transitions, infos
@@ -460,7 +467,7 @@ def make_train(
                 infos.append(info)
                 obs = new_obs
             transitions = ACTransition(*(torch.stack(f) for f in zip(*steps)))
-            infos = {k: torch.stack([i[k] for i in infos]) for k in infos[0]} if collect_metrics else None
+            infos = {k: torch.stack([i[k] for i in infos]) for k in infos[0]} if need_metrics else None
             return obs, env_state, transitions, infos
 
         def learn(transitions: ACTransition, targets: torch.Tensor):
@@ -484,7 +491,7 @@ def make_train(
                     actor_losses.append(actor_loss)
                     actor_state.grad_steps += 1
                     critic_state.grad_steps += 1
-            if not collect_metrics:
+            if not need_metrics:
                 return None, None
             return seed_mean(torch.stack(critic_losses), seeds, -1), seed_mean(torch.stack(actor_losses), seeds, -1)
 
@@ -534,7 +541,7 @@ def make_train(
             actor_state.timesteps = actor_state.n_updates * n_envs * n_steps * timestep_scale
             if test_during_training and actor_state.n_updates % test_interval_updates(config) == 0:
                 test_metrics = get_test_metrics(env_state)
-            if not collect_metrics:
+            if not need_metrics:
                 continue
 
             metrics = {
@@ -549,7 +556,10 @@ def make_train(
             metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
-            history.append(metrics)
+            if callback is not None and actor_state.n_updates % log_interval == 0:
+                emit_metric_rows(callback, metrics, seeds, last_seed_first=True)
+            if collect_metrics:
+                history.append(metrics)
 
         return {
             "runner_state": (train_state, (obs, env_state), test_metrics),

@@ -70,12 +70,13 @@ import torch
 from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
+    emit_metric_rows,
     episode_mean_metrics,
+    metric_callback,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import build_env, stack_metrics
 from purejaxql_torch.algo.seeds import (
-    check_ported,
     check_seeds,
     seed_column_minibatches,
     seed_generators,
@@ -96,7 +97,6 @@ from purejaxql_torch.utils.platform import resolve_device
 def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_rnn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_rnn config")
-    check_ported(config)
     check_seeds(config)
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
@@ -234,16 +234,24 @@ def learn_minibatch(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None
 ) -> Callable[..., Dict[str, Any]]:
-    """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
+    """Build ``train(seed=None, runner_state=None) -> {"runner_state",
+    "metrics"}``.
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
     (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
     COLLECT_METRICS=False; ``runner_state`` is (train_state, memory,
-    (hidden, obs, done, last_action, env_state), test_metrics), the envs
-    seed-major with seeds.
+    (hidden, obs, done, last_action, env_state), test_metrics, (host
+    generator, device generator)), the envs seed-major with seeds. Given a
+    ``runner_state``, ``train`` continues that run (pqn_rnn.py:120-125,
+    454-483): no new network, reset, prefill or first eval.
+
+    With LOG_VIA_CALLBACK and a ``logger``, every update whose count is a
+    multiple of LOG_INTERVAL hands its metrics, once a seed, to
+    ``logger.make_callback()`` (pqn_rnn.py:403-404, which calls it every
+    update), COLLECT_METRICS=False or not.
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
@@ -269,23 +277,30 @@ def make_train(
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
+    callback = metric_callback(config, logger)
+    log_interval = config.get("LOG_INTERVAL", 1)
+    need_metrics = collect_metrics or callback is not None
     eps_scheduler = epsilon_schedule(
         config["EPS_START"],
         config["EPS_FINISH"],
         config["EPS_DECAY"] * config["NUM_UPDATES_DECAY"],
     )
 
-    def train(seed: Optional[int] = None) -> Dict[str, Any]:
-        gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
-        host_gen = gens[0]
-        network = make_rnn_q_network(
-            config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen, seeds=seeds
-        ).to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
-        optimizer = make_optimizer(
-            network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
-        )
-        train_state = PQNTrainState(network, optimizer)
+    def train(seed: Optional[int] = None, runner_state=None) -> Dict[str, Any]:
+        if runner_state is None:
+            gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
+            host_gen = gens[0]
+            network = make_rnn_q_network(
+                config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen, seeds=seeds
+            ).to(device)
+            dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+            optimizer = make_optimizer(
+                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
+            )
+            train_state = PQNTrainState(network, optimizer)
+        else:
+            train_state, memory, carry, test_metrics, (host_gen, dev_gen) = runner_state
+            network, optimizer = train_state.network, train_state.optimizer
         explore = make_eps_greedy(config, dev_gen, host_gen)
 
         def start(env_, n: int):
@@ -307,7 +322,7 @@ def make_train(
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
-            if not collect_metrics:
+            if not need_metrics:
                 return None, None
             qvals = torch.stack(qvals).unflatten(1, (memory_len - 1, -1))  # (steps, T - 1, S * B)
             return seed_mean(torch.stack(losses), seeds, -1), seed_mean(qvals, seeds, 2)
@@ -320,11 +335,12 @@ def make_train(
             )
             return episode_mean_metrics(infos, seeds)
 
-        test_metrics = get_test_metrics() if test_during_training else {}
-        carry, memory, _ = rnn_rollout(
-            network, train_env, env_params, dev_gen, start(train_env, seeds * n_envs), 1.0, memory_len,
-            rew_scale, explore,
-        )
+        if runner_state is None:
+            test_metrics = get_test_metrics() if test_during_training else {}
+            carry, memory, _ = rnn_rollout(
+                network, train_env, env_params, dev_gen, start(train_env, seeds * n_envs), 1.0, memory_len,
+                rew_scale, explore,
+            )
         history = []
         for _ in range(config["NUM_UPDATES"]):
             eps = eps_scheduler(train_state.n_updates)
@@ -339,7 +355,7 @@ def make_train(
             train_state.n_updates += 1
             if test_during_training and train_state.n_updates % test_interval_updates(config) == 0:
                 test_metrics = get_test_metrics()
-            if not collect_metrics:
+            if not need_metrics:
                 continue
 
             metrics = {
@@ -358,10 +374,13 @@ def make_train(
                 metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
-            history.append(metrics)
+            if callback is not None and train_state.n_updates % log_interval == 0:
+                emit_metric_rows(callback, metrics, seeds, last_seed_first=True)
+            if collect_metrics:
+                history.append(metrics)
 
         return {
-            "runner_state": (train_state, memory, carry, test_metrics),
+            "runner_state": (train_state, memory, carry, test_metrics, (host_gen, dev_gen)),
             "metrics": stack_metrics(history, seeds),
         }
 

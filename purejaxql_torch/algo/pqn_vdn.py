@@ -67,11 +67,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, greedy_legal_actions, masked_eps_greedy
-from purejaxql_torch.algo.metrics import apply_eval_subsample, episode_mean_metrics, test_interval_updates
+from purejaxql_torch.algo.metrics import (
+    apply_eval_subsample,
+    emit_metric_rows,
+    episode_mean_metrics,
+    metric_callback,
+    test_interval_updates,
+)
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values, tree_map
 from purejaxql_torch.algo.seeds import (
-    check_ported,
     check_seeds,
     seed_column_minibatches,
     seed_generators,
@@ -93,7 +98,6 @@ def _check_supported(config: Dict[str, Any]) -> None:
     if not str(config.get("ALG_NAME", "")).startswith("pqn_vdn"):
         raise NotImplementedError(f"ALG_NAME '{config.get('ALG_NAME')}' is not a pqn_vdn config")
     check_seeds(config)
-    check_ported(config)
     if config["NUM_ENVS"] % config["NUM_MINIBATCHES"] != 0:
         raise ValueError("NUM_MINIBATCHES must divide NUM_ENVS (env-axis minibatching)")
     if config.get("FAST_BPTT", False) and not supports_fast_bptt(config):
@@ -253,7 +257,9 @@ def vdn_lr(config: Dict[str, Any]):
     )
 
 
-def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable[..., Dict[str, Any]]:
+def make_train(
+    config: Dict[str, Any], device: Optional[str] = None, logger=None
+) -> Callable[..., Dict[str, Any]]:
     """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
@@ -261,7 +267,10 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
     (NUM_UPDATES,), (NUM_SEEDS, NUM_UPDATES) with seeds, and is empty with
     COLLECT_METRICS=False; ``runner_state`` is (train_state, memory,
     (hidden, obs, dones, env_state), test_metrics), the envs seed-major
-    with seeds.
+    with seeds. With LOG_VIA_CALLBACK and a ``logger``, every update whose
+    count is a multiple of LOG_INTERVAL hands its metrics, once a seed, to
+    ``logger.make_callback()`` (pqn_vdn.py:446-447, which calls it every
+    update), COLLECT_METRICS=False or not.
     """
     config = apply_eval_subsample(dict(config))
     config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
@@ -286,6 +295,9 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
     timestep_scale = config.get("TIMESTEP_SCALE", 1)
     test_during_training = config.get("TEST_DURING_TRAINING", False)
     collect_metrics = config.get("COLLECT_METRICS", True)
+    callback = metric_callback(config, logger)
+    log_interval = config.get("LOG_INTERVAL", 1)
+    need_metrics = collect_metrics or callback is not None
     test_manager = CTRolloutManager(env, seeds * config["TEST_NUM_ENVS"]) if test_during_training else None
     eps_scheduler = epsilon_schedule(
         config["EPS_START"], config["EPS_FINISH"], config["EPS_DECAY"] * config["NUM_UPDATES"]
@@ -321,7 +333,7 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
                     train_state.grad_steps += 1
                     losses.append(loss)
                     qvals.append(chosen)
-            if not collect_metrics:
+            if not need_metrics:
                 return None, None
             return seed_mean(torch.stack(losses), seeds, -1), seed_mean(torch.stack(qvals), seeds, 3)
 
@@ -344,7 +356,7 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
             train_state.n_updates += 1
             if test_during_training and train_state.n_updates % test_interval_updates(config) == 0:
                 test_metrics = get_test_metrics()
-            if not collect_metrics:
+            if not need_metrics:
                 continue
 
             metrics = {
@@ -357,7 +369,10 @@ def make_train(config: Dict[str, Any], device: Optional[str] = None) -> Callable
             metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
-            history.append(metrics)
+            if callback is not None and train_state.n_updates % log_interval == 0:
+                emit_metric_rows(callback, metrics, seeds, last_seed_first=True)
+            if collect_metrics:
+                history.append(metrics)
 
         return {
             "runner_state": (train_state, memory, carry, test_metrics),

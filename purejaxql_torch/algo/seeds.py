@@ -69,19 +69,6 @@ def check_seeds(config: Dict[str, Any]) -> None:
             )
 
 
-# options of the JAX trainers that the port does not run yet (item 7 of
-# ROADMAP.md); the FF, recurrent, VDN and actor-critic trainers refuse them
-NOT_PORTED = ("LOG_VIA_CALLBACK",)
-
-
-def check_ported(config: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` for an option of ``NOT_PORTED`` that
-    the config turns on."""
-    for key in NOT_PORTED:
-        if config.get(key, False):
-            raise NotImplementedError(f"{key} is not ported yet")
-
-
 def seed_generators(seed: int, seeds: int) -> List[torch.Generator]:
     """The host generators of the lanes: lane i's seeded ``seed + i``."""
     return [torch.Generator().manual_seed(seed + i) for i in range(seeds)]

@@ -27,7 +27,21 @@ NUM_SEEDS=S > 1 (every trainer) trains S seeds as one program
 ``<run>_vmap{i}.safetensors`` a seed (the actor-critic family's with seed
 i's own ``norm_stats``) and logs each seed's rows in turn, as
 purejaxql_tpu/cli.py does; FUSED_ROLLOUT and ``pqn_host`` with several seeds
-are refused here, as there.
+are refused here, as there. LOG_VIA_CALLBACK=True (with LOG_INTERVAL) logs
+each update's rows as the run goes, through the FF, recurrent, VDN and
+actor-critic trainers' callbacks, and replays nothing after it.
+
+    python -m purejaxql_torch.cli +alg=pqn_cartpole TRAINER=stepwise CHECKPOINT_EVERY=4 \
+        [RESUME_FROM=<path>] [CHECKPOINT_PATH=<path>]
+    python -m purejaxql_torch.cli +alg=pqn_cartpole HYP_TUNE=True SWEEP_COUNT=8
+
+TRAINER=stepwise runs the host-loop trainer over the staged API
+(algo/stages.py), saving the full state (core/checkpoint.py:save_state) to
+CHECKPOINT_PATH (default ``<SAVE_PATH or .>/<ENV_NAME>_state.safetensors``)
+every CHECKPOINT_EVERY updates and at the end; RESUME_FROM continues a saved
+state (either package's) up to NUM_UPDATES. HYP_TUNE=True runs a sweep
+(utils/sweep.py): wandb's where it is installed, else a local random search
+over SWEEP_SPACE, SWEEP_COUNT trials.
 """
 
 from __future__ import annotations
@@ -68,8 +82,9 @@ def single_run(config):
     from purejaxql_torch.core.checkpoint import save_run
     from purejaxql_torch.utils.logging import make_logger
 
+    logger = make_logger(config)
     if config.get("TRAINER", "fused") == "stepwise":
-        raise SystemExit("TRAINER=stepwise is not ported yet")
+        return _stepwise_run(config, logger)
     make_train = _select_make_train(config)
     single_seed = SINGLE_SEED_FAMILIES.get(str(config.get("ALG_NAME")))
     if single_seed and config["NUM_SEEDS"] != 1:
@@ -80,8 +95,9 @@ def single_run(config):
             "drop the flag or run one seed"
         )
     env_name = config["ENV_NAME"]
-    logger = make_logger(config)
-    train = make_train(config)
+    # the host-env trainers take no logger, as the JAX package's
+    # (purejaxql_tpu/cli.py:57-87)
+    train = make_train(config) if config.get("ALG_NAME") == "pqn_host" else make_train(config, logger=logger)
 
     t0 = time.time()
     outs = train()
@@ -127,6 +143,55 @@ def single_run(config):
     return outs
 
 
+def _stepwise_run(config, logger):
+    """The host-loop trainer (purejaxql_tpu/cli.py:143-206): CHECKPOINT_EVERY
+    (updates), CHECKPOINT_PATH and RESUME_FROM (a state saved by an earlier
+    stepwise run, of either package)."""
+    import torch
+
+    from purejaxql_torch.algo.exploration import draw_seed
+    from purejaxql_torch.algo.stages import make_stages, train_stepwise
+    from purejaxql_torch.core.checkpoint import load_state, save_state
+
+    ckpt_path = config.get("CHECKPOINT_PATH") or os.path.join(
+        config.get("SAVE_PATH") or ".", f"{config['ENV_NAME']}_state.safetensors"
+    )
+
+    def on_update(update, metrics):
+        logger.log(metrics, update)
+
+    resume_from = config.get("RESUME_FROM")
+    if resume_from:
+        stages = make_stages(config)
+        host_gen = torch.Generator().manual_seed(config["SEED"])
+        train_state = load_state(stages.init_agent(host_gen), resume_from)
+        print(
+            f"Resumed from {resume_from} at {train_state.n_updates} updates / "
+            f"{train_state.timesteps} env steps"
+        )
+        # continue with the restored counters driving the schedules, from a
+        # fresh reset of the envs
+        gen = torch.Generator(device=stages.device).manual_seed(draw_seed(host_gen))
+        obs, env_state = stages.reset(gen)
+        remaining = stages.config["NUM_UPDATES"] - train_state.n_updates
+        for update in range(max(remaining, 0)):
+            obs, env_state, transitions, _ = stages.rollout(train_state, obs, env_state, gen, host_gen)
+            targets = stages.compute_targets(train_state, transitions)
+            train_state, loss, _ = stages.learn(train_state, transitions, targets, gen)
+            on_update(train_state.n_updates, {"td_loss": float(loss)})
+            if config.get("CHECKPOINT_EVERY") and (update + 1) % config["CHECKPOINT_EVERY"] == 0:
+                save_state(train_state, ckpt_path)
+    else:
+        train_state, _ = train_stepwise(
+            config, checkpoint_every=config.get("CHECKPOINT_EVERY"), checkpoint_path=ckpt_path,
+            on_update=on_update,
+        )
+    save_state(train_state, ckpt_path)
+    print(f"State saved to {ckpt_path}")
+    logger.close()
+    return train_state
+
+
 def main(argv=None):
     from purejaxql_torch.core.config import CONFIG_DIR, compose
 
@@ -145,8 +210,11 @@ def main(argv=None):
             "(see python -m purejaxql_torch.cli --help)"
         )
     if config.get("HYP_TUNE"):
-        raise SystemExit("HYP_TUNE sweeps are not ported yet")
-    single_run(config)
+        from purejaxql_torch.utils.sweep import run_sweep
+
+        run_sweep(config)
+    else:
+        single_run(config)
     return 0
 
 

@@ -2,10 +2,17 @@
 crossing between flax and torch layouts.
 
 Port of purejaxql_tpu/core/checkpoint.py (``save_params``, ``load_params``,
-``save_run``). Files hold the flax params tree flattened with ``sep=","``
-(``Dense_0,kernel``, ``LayerNorm_0,scale``, ...), so a file written by one
-package loads in the other. Full-state resume (``save_state`` /
-``load_state``) is not ported yet.
+``save_run``, ``save_state``, ``load_state``). Files hold the flax params
+tree flattened with ``sep=","`` (``Dense_0,kernel``, ``LayerNorm_0,scale``,
+...), so a file written by one package loads in the other.
+
+Full-state resume (``save_state`` / ``load_state``) writes JAX's key
+layout: ``params/<flat>``, ``batch_stats/<flat>``, ``opt_state/{i}`` (the
+leaves of optax's ``chain(clip_by_global_norm, radam(lr))`` state in its
+flatten order: RAdam's count, every ``mu``, every ``nu``, the params tree's
+leaves in sorted key order and flax layout, and where the learning rate is a
+schedule, the schedule's count) and ``counters/{step, timesteps, n_updates,
+grad_steps}``, 0-d int32 as the JAX train state's.
 
 Names: a torch parameter ``CNN_0.Conv_0.weight`` is the flax leaf
 ``params/CNN_0/Conv_0/kernel``; nested modules map level for level.
@@ -64,15 +71,16 @@ def _unflatten(flat: Mapping[str, Any], sep: str = ",") -> Dict:
     return tree
 
 
+def _tensor(v) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.detach().cpu().contiguous()
+    # np.array, not np.ascontiguousarray, which makes a 0-d leaf (a
+    # BatchRenorm's r_max, d_max, steps) shape (1,)
+    return torch.from_numpy(np.array(v, order="C"))
+
+
 def save_params(params: Mapping, filename: str) -> None:
     """Write a flax-layout params tree (tensors or arrays) to safetensors."""
-    def _tensor(v):
-        if torch.is_tensor(v):
-            return v.detach().cpu().contiguous()
-        # np.array, not np.ascontiguousarray, which makes a 0-d leaf (a
-        # BatchRenorm's r_max, d_max, steps) shape (1,)
-        return torch.from_numpy(np.array(v, order="C"))
-
     save_file({k: _tensor(v) for k, v in _flatten(params).items()}, filename)
 
 
@@ -231,3 +239,79 @@ def load_ac_params(tree, actor: torch.nn.Module, critics: torch.nn.Module, norm_
         return norm_state
     as_f32 = lambda v: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=norm_state.mean.device)  # noqa: E731
     return dataclasses.replace(norm_state, mean=as_f32(stats["mean"]), var=as_f32(stats["var"]))
+
+
+# -- full-state resume (purejaxql_tpu/core/checkpoint.py:63-135) -------------
+
+_COUNTERS = ("step", "timesteps", "n_updates", "grad_steps")
+
+
+def _opt_order(module: torch.nn.Module):
+    """(module name, torch leaf, flax leaf) of each parameter in parameter
+    order, and the parameter indices in the order optax flattens a moment
+    tree: the params tree's leaves by sorted keys, level by level."""
+    names = []
+    for name, p in module.named_parameters():
+        mod, leaf = name.rsplit(".", 1)
+        names.append((mod, leaf, _to_flax_leaf(mod, leaf, np.empty(p.shape, np.float32))[0]))
+    order = sorted(range(len(names)), key=lambda i: (*names[i][0].split("."), names[i][2]))
+    return order, names
+
+
+def save_state(train_state, filename: str) -> None:
+    """Persist a ``PQNTrainState`` (params, batch statistics, optimizer
+    state, counters) to one safetensors file in the JAX package's layout, so
+    that its ``load_state`` reads it."""
+    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+    network, optimizer = train_state.network, train_state.optimizer
+    variables = params_to_flax(network)
+    tensors = {f"params/{k}": v for k, v in _flatten(variables["params"]).items()}
+    tensors.update({f"batch_stats/{k}": v for k, v in _flatten(variables["batch_stats"]).items()})
+    state = optimizer.state_dict()
+    count = np.asarray(state["count"], np.int32)
+    order, names = _opt_order(network)
+    leaves = [count]
+    for moments in (state["mu"], state["nu"]):
+        for i in order:
+            mod, leaf, _ = names[i]
+            leaves.append(_to_flax_leaf(mod, leaf, moments[i].detach().cpu().numpy())[1])
+    if callable(optimizer.learning_rate):  # optax's scale_by_schedule keeps a count of its own
+        leaves.append(count)
+    tensors.update({f"opt_state/{i}": v for i, v in enumerate(leaves)})
+    tensors.update({f"counters/{k}": np.asarray(getattr(train_state, k), np.int32) for k in _COUNTERS})
+    save_file({k: _tensor(v) for k, v in tensors.items()}, filename)
+
+
+def load_state(train_state, filename: str):
+    """Restore a state written by ``save_state`` (in either package) into a
+    template ``PQNTrainState`` of the same network and optimizer config, in
+    place: its weights and batch statistics, the optimizer's count and
+    moments, and the counters. Returns the template. A weight or moment that
+    the file and the network do not share raises KeyError."""
+    tensors = load_file(filename)
+
+    def section(prefix):
+        return _unflatten({k[len(prefix):]: v for k, v in tensors.items() if k.startswith(prefix)})
+
+    network, optimizer = train_state.network, train_state.optimizer
+    missing, unexpected = network.load_state_dict(
+        params_from_flax({"params": section("params/"), "batch_stats": section("batch_stats/")}), strict=False
+    )
+    buffers = {k for k, _ in network.named_buffers()}
+    wrong = sorted(set(missing) - buffers) + sorted(unexpected)
+    if wrong:
+        raise KeyError(f"the saved state and the network differ in {wrong}")
+
+    order, names = _opt_order(network)
+    n = len(order)
+    n_leaves = sum(k.startswith("opt_state/") for k in tensors)
+    if n_leaves != 1 + 2 * n + callable(optimizer.learning_rate):
+        raise KeyError(f"{n_leaves} optimizer leaves in {filename} for {n} parameters")
+    moments = ([None] * n, [None] * n)
+    for m, moment in enumerate(moments):
+        for j, i in enumerate(order):
+            moment[i] = _from_flax_leaf(names[i][2], tensors[f"opt_state/{1 + m * n + j}"])[1]
+    optimizer.load_state_dict({"count": int(tensors["opt_state/0"]), "mu": moments[0], "nu": moments[1]})
+    for k in _COUNTERS[1:]:
+        setattr(train_state, k, int(tensors[f"counters/{k}"]))
+    return train_state

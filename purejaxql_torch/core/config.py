@@ -133,7 +133,8 @@ def resolve_fast_paths(
     """GPU default-performance policy.
 
     On a ``cuda`` run, turn on FUSED_ROLLOUT and EVAL_EARLY_EXIT for an
-    eligible feedforward config, as the JAX package does on a TPU, and
+    eligible feedforward config, as the JAX package does on a TPU (not
+    under TRAINER=stepwise, whose stages run the unfused rollout), and
     EXPLORATION_KERNEL="pallas" for a feedforward config (``pqn``,
     ``pqn_craftax``) that runs the unfused rollout and for the host-env
     trainer (``pqn_host``: the kernel takes the NUM_ENVS training rows'
@@ -184,7 +185,8 @@ def resolve_fast_paths(
             config[key] = value
             enabled.append(f"{key}={value}")
 
-    if _fused_rollout_eligible(config):
+    # the stepwise trainer's stages run the unfused rollout (algo/stages.py)
+    if _fused_rollout_eligible(config) and config.get("TRAINER", "fused") != "stepwise":
         _default("FUSED_ROLLOUT", True)
         if config["FUSED_ROLLOUT"] and str(config.get("ALG_NAME", "pqn")) == "pqn":
             _default("EVAL_EARLY_EXIT", True)

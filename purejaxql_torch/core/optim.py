@@ -59,6 +59,21 @@ class ClipRAdam:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
+    def state_dict(self) -> dict:
+        """The optimizer's state: its step ``count`` and the first and
+        second moments ``mu`` and ``nu``, one tensor a parameter in the
+        order of ``params``."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a ``state_dict``: the moments are copied into tensors on
+        the parameters' devices and dtypes."""
+        if not len(state["mu"]) == len(state["nu"]) == len(self.params):
+            raise ValueError(f"{len(state['mu'])} moments for {len(self.params)} parameters")
+        self.count = int(state["count"])
+        self.mu = [torch.as_tensor(m).to(p).clone() for m, p in zip(state["mu"], self.params)]
+        self.nu = [torch.as_tensor(v).to(p).clone() for v, p in zip(state["nu"], self.params)]
+
     def _lr(self, count: int) -> float:
         lr = self.learning_rate
         return lr(count) if callable(lr) else lr

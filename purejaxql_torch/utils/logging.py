@@ -1,7 +1,12 @@
 """Metric sinks (port of purejaxql_tpu/utils/logging.py): console
-(throttled) and JSONL file. The trainer returns stacked metrics
-and ``MetricLogger.log_history`` replays them through the sinks after the
-run. The wandb sink is not ported yet.
+(throttled), JSONL file, in-memory (for tests) and wandb where the package
+is importable. The trainer returns stacked metrics and
+``MetricLogger.log_history`` replays them through the sinks after the run;
+with LOG_VIA_CALLBACK the trainers hand each update's metrics, one seed at
+a time, to ``MetricLogger.make_callback()`` as they go (the JAX package's
+``jax.debug.callback``). With WANDB_LOG_ALL_SEEDS each row is repeated under
+``rng{i}/<key>``, ``i`` the seed's lane index (the JAX package tags rows with
+the seed key's first word).
 """
 
 from __future__ import annotations
@@ -63,15 +68,46 @@ class JsonlSink(Sink):
         self._f.close()
 
 
-class MetricLogger:
-    """Fan-out logger over a list of sinks."""
+class MemorySink(Sink):
+    def __init__(self):
+        self.rows: List[Dict[str, Any]] = []
 
-    def __init__(self, sinks: Optional[List[Sink]] = None):
+    def log(self, metrics, step):
+        self.rows.append({"step": int(step), **metrics})
+
+
+class WandbSink(Sink):
+    def __init__(self, **init_kwargs):
+        import wandb  # optional dependency
+
+        self._wandb = wandb
+        if wandb.run is None:
+            wandb.init(**init_kwargs)
+
+    def log(self, metrics, step):
+        self._wandb.log(metrics, step=step)
+
+
+class MetricLogger:
+    """Fan-out logger over a list of sinks. ``make_callback()`` returns the
+    ``callback(metrics, seed_id)`` the trainers call under LOG_VIA_CALLBACK."""
+
+    def __init__(self, sinks: Optional[List[Sink]] = None, log_all_seeds: bool = False):
         self.sinks = sinks if sinks is not None else []
+        self.log_all_seeds = log_all_seeds
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
         for sink in self.sinks:
             sink.log(metrics, step)
+
+    def make_callback(self, step_key: str = "update_steps"):
+        def callback(metrics, seed_id):
+            metrics = {k: np.asarray(v).item() if np.ndim(v) == 0 else np.asarray(v) for k, v in metrics.items()}
+            if self.log_all_seeds:
+                metrics = {**metrics, **{f"rng{int(seed_id)}/{k}": v for k, v in metrics.items()}}
+            self.log(metrics, int(metrics.get(step_key, 0)))
+
+        return callback
 
     def log_history(self, metrics: Dict[str, Any], step_key: str = "update_steps") -> None:
         """Replay stacked metrics (tensors of shape (num_updates,), or
@@ -100,10 +136,14 @@ class MetricLogger:
 
 def make_logger(config: Dict[str, Any]) -> MetricLogger:
     sinks: List[Sink] = []
+    mode = str(config.get("LOG_MODE", config.get("WANDB_MODE", "disabled")))
     if config.get("LOG_CONSOLE", False):
         sinks.append(ConsoleSink())
     if config.get("LOG_JSONL"):
         sinks.append(JsonlSink(config["LOG_JSONL"]))
-    if str(config.get("LOG_MODE", "disabled")) == "online":
-        print("the wandb sink is not ported yet; logging to the other sinks", file=sys.stderr)
-    return MetricLogger(sinks)
+    if mode == "online":
+        try:
+            sinks.append(WandbSink(entity=config.get("ENTITY", ""), project=config.get("PROJECT", ""), config=config))
+        except ImportError:
+            print("wandb not available; skipping wandb sink", file=sys.stderr)
+    return MetricLogger(sinks, log_all_seeds=config.get("WANDB_LOG_ALL_SEEDS", False))

@@ -37,6 +37,7 @@ from purejaxql_torch.models.actor_critic import Critic as TCritic
 from purejaxql_torch.models.actor_critic import CriticEnsemble
 from purejaxql_torch.ops import lambda_returns as tlr
 from purejaxql_torch.ops import pendulum_rollout as tpr
+from purejaxql_torch.utils.logging import MemorySink, MetricLogger
 from purejaxql_tpu.algo import pqn_ac as jax_pqn_ac
 from purejaxql_tpu.core import checkpoint as jckpt
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
@@ -677,13 +678,16 @@ def test_fused_train_on_the_cpu_runs_the_twin_and_its_eval():
 
 
 def test_unsupported_options_raise():
-    """LOG_VIA_CALLBACK and a non-AC ALG_NAME raise; an
+    """A non-AC ALG_NAME raises; LOG_VIA_CALLBACK trains and hands each
+    update's row to the logger's callback, as JAX's; an
     unknown env raises from the registry, as in JAX; FUSED_ROLLOUT off its
     Pendulum shapes raises ValueError, a new env or either normalizer among
     them (pqn_ac.py:142-158)."""
-    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn"}):
-        with pytest.raises(NotImplementedError):
-            pqn_ac.make_train(ac_config(**kw))
+    with pytest.raises(NotImplementedError):
+        pqn_ac.make_train(ac_config(ALG_NAME="pqn"))
+    mem = MemorySink()
+    pqn_ac.make_train(ac_config(LOG_VIA_CALLBACK=True, TOTAL_TIMESTEPS=1024), logger=MetricLogger([mem]))()
+    assert [r["update_steps"] for r in mem.rows] == [1, 2] and all(np.isfinite(r["value_loss"]) for r in mem.rows)
     with pytest.raises(ValueError, match="Unknown env"):
         pqn_ac.make_train(ac_config(ENV_NAME="NoSuchEnv-v0"))
     for kw in ({"ENV_KWARGS": "{'g': 9.8}"}, {"NUM_CRITICS": 3}, {"ACTIVATION": "tanh"},

@@ -31,6 +31,7 @@ from purejaxql_torch.models.factory import make_q_network
 from purejaxql_torch.models.qnet import QNetwork as TQNetwork
 from purejaxql_torch.ops import eps_greedy as teg
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_torch.utils.logging import MemorySink, MetricLogger
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
 from purejaxql_tpu.core.schedules import lr_schedule as jax_lr_schedule
 from purejaxql_tpu.models.batch_renorm import BatchRenorm as JBatchRenorm
@@ -411,8 +412,9 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     the JAX policy gives them (tests/test_torch_reset_bank.py holds the
     rest), not FUSED_ROLLOUT; a recurrent config, whose rollout is unfused,
     gets it too (tests/test_torch_lstm.py); a fused config, the CPU,
-    PARITY=strict and an explicit setting are left alone. What the FF
-    trainer still does not run raises: LOG_VIA_CALLBACK."""
+    PARITY=strict and an explicit setting are left alone. LOG_VIA_CALLBACK
+    trains the fast program and hands the logger every LOG_INTERVAL-th
+    update's row (the YAML's 100; 32 updates here, so the 4th with 8)."""
     cfg = compose(alg="pqn_craftax")
     assert cfg["EXPLORATION_KERNEL"] == "pallas"
     assert cfg["FAST_TARGETS"] is True and cfg["SKIP_NOOP_PERMUTE"] is True and cfg["RESET_BANK"] == 256
@@ -423,9 +425,9 @@ def test_cuda_policy_turns_on_the_exploration_kernel():
     for ov in (["DEVICE=cpu"], ["PARITY=strict"]):
         assert "EXPLORATION_KERNEL" not in compose(alg="pqn_craftax", overrides=ov)
     assert compose(alg="pqn_craftax", overrides=["EXPLORATION_KERNEL=False"])["EXPLORATION_KERNEL"] is False
-    for kw in ({"LOG_VIA_CALLBACK": True},):
-        with pytest.raises(NotImplementedError):
-            pqn.make_train({**_tiny_craftax(), **kw})
+    mem = MemorySink()
+    pqn.make_train({**_tiny_craftax(), "LOG_VIA_CALLBACK": True, "LOG_INTERVAL": 8}, logger=MetricLogger([mem]))()
+    assert [r["update_steps"] for r in mem.rows] == [8, 16, 24, 32]
 
 
 def test_exploration_kernel_flag_picks_the_kernel_wrapper(monkeypatch):

@@ -331,7 +331,7 @@ def test_tiny_craftax_fast_bptt_matches_the_module_path():
     outs = [pqn_rnn.make_train(tiny_craftax_config(*extra))() for extra in ((), ("FAST_BPTT=True",))]
     assert (teg.eps_greedy.launches, tlr.lambda_returns_closure.launches) == before
     for out in outs:
-        train_state, memory, carry, _ = out["runner_state"]
+        train_state, memory, carry, _, _ = out["runner_state"]
         assert train_state.grad_steps == 16 * 2 and int(train_state.network.BatchRenorm_0.steps) == 32
         assert isinstance(carry[4], wrappers.LogEnvState) and isinstance(carry[0][0], tuple)
         c, h = memory.last_hs[0]

@@ -157,7 +157,9 @@ def test_collect_metrics_false_returns_no_metrics_and_the_same_params(case):
             assert torch.equal(got[k], want[k]), (name, k)
         assert states_off[name].timesteps == states_on[name].timesteps
         assert states_off[name].grad_steps == states_on[name].grad_steps
-    test_on, test_off = on["runner_state"][-1], off["runner_state"][-1]
+    # the test metrics: the runner state's last dict (the FF and recurrent
+    # trainers carry their generators after it)
+    test_on, test_off = (next(x for x in reversed(r["runner_state"]) if isinstance(x, dict)) for r in (on, off))
     assert test_on.keys() == test_off.keys() and test_on
     for k in test_on:
         assert torch.isfinite(test_on[k]).all() and torch.equal(test_on[k], test_off[k]), k

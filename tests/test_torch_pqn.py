@@ -3,6 +3,7 @@ a JAX composition of the package's pieces, tiny end-to-end runs (fused and
 unfused), the Log replay and the chunked eval, and the CLI recipe."""
 
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from purejaxql_torch.models.qnet import QNetwork as TQNetwork
 from purejaxql_torch.ops import breakout_rollout as tbr
 from purejaxql_torch.ops import cartpole_rollout as tcr
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_torch.utils.logging import MemorySink, MetricLogger
 from purejaxql_tpu.core import checkpoint as jckpt
 from purejaxql_tpu.core.config import derive_pqn_schedule_keys
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
@@ -322,10 +324,16 @@ def test_fused_eval_chunks_and_early_exit(monkeypatch, early_exit, expected):
 def test_unsupported_options_raise():
     # Q_LAMBDA=False, BATCH_ENV and USE_OPTIMISTIC_RESETS are ported now
     # (tests/test_torch_craftax.py), so are RESET_BANK, FAST_TARGETS and
-    # SKIP_NOOP_PERMUTE (tests/test_torch_reset_bank.py); these are not
-    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_vdn"}):
-        with pytest.raises(NotImplementedError):
-            pqn.make_train(tiny_config(**kw))
+    # SKIP_NOOP_PERMUTE (tests/test_torch_reset_bank.py); a non-FF ALG_NAME
+    # is not
+    with pytest.raises(NotImplementedError):
+        pqn.make_train(tiny_config(ALG_NAME="pqn_vdn"))
+    # LOG_VIA_CALLBACK trains and hands each update's row to the logger's
+    # callback, as JAX's (tests/test_torch_tooling.py holds the rows to
+    # log_history's and to JAX's)
+    mem = MemorySink()
+    out = pqn.make_train(tiny_config(LOG_VIA_CALLBACK=True), logger=MetricLogger([mem]))()
+    assert [r["update_steps"] for r in mem.rows] == out["metrics"]["update_steps"].tolist() == list(range(1, 17))
     with pytest.raises(ValueError, match="FUSED_ROLLOUT"):
         pqn.make_train(tiny_config(FUSED_ROLLOUT=True, NUM_LAYERS=3))
     with pytest.raises(ValueError, match="Unknown env"):
@@ -336,7 +344,7 @@ def test_unsupported_options_raise():
             pqn.make_train({**tiny_config(), "DEVICE": None})
 
 
-def test_cli_recipe(tmp_path, capsys):
+def test_cli_recipe(tmp_path, capsys, monkeypatch):
     jsonl = tmp_path / "m.jsonl"
     cli.main([
         "+alg=pqn_cartpole", "DEVICE=cpu", "TOTAL_TIMESTEPS=2048", "TOTAL_TIMESTEPS_DECAY=2048",
@@ -350,8 +358,15 @@ def test_cli_recipe(tmp_path, capsys):
     assert (run_dir / "pqn_CartPole-v1_seed0_config.yaml").exists()
     rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
     assert len(rows) == 16 and rows[-1]["env_step"] == 2048 and "td_loss" in rows[-1]
-    with pytest.raises(SystemExit):
-        cli.main(["+alg=pqn_cartpole", "DEVICE=cpu", "HYP_TUNE=True"])
+    # HYP_TUNE runs the local random search, as the JAX CLI does without wandb
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    cli.main([
+        "+alg=pqn_cartpole", "DEVICE=cpu", "HYP_TUNE=True", "SWEEP_COUNT=2", "TOTAL_TIMESTEPS=512",
+        "TOTAL_TIMESTEPS_DECAY=512", "NUM_ENVS=8", "NUM_STEPS=16", "NUM_MINIBATCHES=2", "NUM_EPOCHS=1",
+        "HIDDEN_SIZE=16", "TEST_DURING_TRAINING=False",
+    ])
+    best = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert best["best"]["LR"] in (0.001, 0.0005, 0.0001, 0.00005) and np.isfinite(best["score"])
 
 
 BREAKOUT = dict(alg="pqn_minatar", ENV_NAME="Breakout-MinAtar")

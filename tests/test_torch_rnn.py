@@ -36,6 +36,7 @@ from purejaxql_torch.models.rnn import RNNQNetwork as TRNNQNetwork
 from purejaxql_torch.ops import fast_rnn as tfast
 from purejaxql_torch.ops import gru_scan as tgs
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_torch.utils.logging import MemorySink, MetricLogger
 from purejaxql_tpu.algo.returns import lambda_returns_closure as jax_lambda_returns_closure
 from purejaxql_tpu.core import checkpoint as jckpt
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
@@ -478,7 +479,7 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
     assert all(v.shape == (n_updates,) for v in m.values())
     assert torch.isfinite(m["td_loss"]).all() and torch.isfinite(m["qvals"]).all()
     assert torch.isfinite(m["test/returned_episode_returns"]).all()
-    train_state, memory, carry, _ = out["runner_state"]
+    train_state, memory, carry, _, _ = out["runner_state"]
     assert memory.obs.shape[0] == config.get("MEMORY_WINDOW", 4) + 16
     assert memory.last_hs[0].shape == (memory.obs.shape[0], 8, 32)
     assert train_state.step == n_updates * 4
@@ -492,8 +493,11 @@ def test_tiny_rnn_train_counts_and_determinism(alg, extra):
 
 
 def test_rnn_unsupported_options_raise():
-    with pytest.raises(NotImplementedError):
-        pqn_rnn.make_train(tiny_rnn_config(LOG_VIA_CALLBACK=True))
+    # LOG_VIA_CALLBACK trains and hands each update's row to the logger's
+    # callback, as JAX's
+    mem = MemorySink()
+    pqn_rnn.make_train(tiny_rnn_config(LOG_VIA_CALLBACK=True, TOTAL_TIMESTEPS=256), logger=MetricLogger([mem]))()
+    assert [r["update_steps"] for r in mem.rows] == [1, 2] and all(np.isfinite(r["td_loss"]) for r in mem.rows)
     # a batch_norm trunk trains on the module path (held against the JAX
     # trainer in tests/test_torch_norm_variants.py)
     out = pqn_rnn.make_train(tiny_rnn_config(NORM_TYPE="batch_norm", TOTAL_TIMESTEPS=256))()

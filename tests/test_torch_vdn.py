@@ -29,6 +29,7 @@ from purejaxql_torch.envs.marl import make_marl
 from purejaxql_torch.models.rnn import RNNQNetwork as TRNNQNetwork
 from purejaxql_torch.ops import gru_scan as tgs
 from purejaxql_torch.ops import lambda_returns as tlr
+from purejaxql_torch.utils.logging import MemorySink, MetricLogger
 from purejaxql_tpu.algo.pqn_vdn import get_greedy_actions
 from purejaxql_tpu.core import checkpoint as jckpt
 from purejaxql_tpu.core.optim import make_optimizer as jax_make_optimizer
@@ -457,9 +458,13 @@ def test_vdn_ignores_input_norm_type_as_jax():
 
 
 def test_vdn_unsupported_options_raise():
-    for kw in ({"LOG_VIA_CALLBACK": True}, {"ALG_NAME": "pqn_rnn"}):
-        with pytest.raises(NotImplementedError):
-            pqn_vdn.make_train(tiny_vdn_config(**kw))()
+    with pytest.raises(NotImplementedError):
+        pqn_vdn.make_train(tiny_vdn_config(ALG_NAME="pqn_rnn"))()
+    # LOG_VIA_CALLBACK trains and hands each update's row to the logger's
+    # callback, as JAX's
+    mem = MemorySink()
+    pqn_vdn.make_train(tiny_vdn_config(LOG_VIA_CALLBACK=True, TOTAL_TIMESTEPS=128), logger=MetricLogger([mem]))()
+    assert [r["update_steps"] for r in mem.rows] == [1, 2] and all(np.isfinite(r["td_loss"]) for r in mem.rows)
     # an LSTM and a batch_norm trunk train on the module path (held against
     # the JAX trainer in tests/test_torch_vdn_lstm.py); an LSTM on FAST_BPTT
     # raises the KeyError JAX's trainer raises
