@@ -233,6 +233,24 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    pqn_rnn_memory_chain, pqn_vdn_spread and pqn_pendulum for 4 updates each
    (2 finite rows each); HYP_TUNE with 2 trials of 4 updates; the stage
    timings (ms a stage, the stages' unfused rollout at full width);
+6p. the sharded trainers (parallel/spmd.py) at the YAMLs' global widths:
+   2 ranks of one gloo group on cuda:0, started once (torch.multiprocessing,
+   a file store under build/), run pqn_cartpole unfused (epsilon-greedy, the
+   returns) and fused (the CartPole kernel, its evals: 16 updates, with
+   --learning-bars tests/test_pqn_train.py::test_cartpole_learns's 200k held
+   to its bar, the last-10 mean above 100), Breakout fused, pqn_rnn_cartpole
+   (the GRU scan kernels, the closure returns), pqn_vdn_spread, Pendulum
+   fused, pqn_cartpole with NORM_TYPE=batch_norm NORM_INPUT=True (the
+   statistics over the group), train_segmented_spmd in 2 segments against
+   one make_train_spmd_resumable run (bit-equal), and one run on an nccl
+   group of world size 1 on rank 0; then make_train_spmd_seeds on a (2, 2)
+   mesh of 4 ranks (each seed row's params its own). Each run: the global
+   timestep counter, the replicas' params and batch statistics bit-equal
+   (the largest gap printed), finite metrics, each rank's launches against
+   the single-process formula at its local shapes, the wall, per-rank and
+   aggregate env-steps/s beside one process's rate on the same global
+   config, one gradient all-reduce's mean time (gloo staged through the
+   host: nothing said of NCCL across cards);
 7. time each kernel and its twin with CUDA events at the trainers' shapes
    (the GRU scan and the closure returns also at VDN's and the host
    trainer's (32, 64), and the seeded shapes: one seeded GRU launch against
@@ -242,7 +260,8 @@ processes). Phases, each ending the run with a non-zero exit if it fails:
    the classic envs' (32, 3) and (32, 2)), and torch.nn.GRU (cuDNN) beside the
    GRU scan as a yardstick (S calls of it beside the seeded launch);
 8. print the kernel table as one JSON line (the four kernels of phase 6j's
-   runs at their seeded shapes, with those runs' launches, phase 6o's added);
+   runs at their seeded shapes, with those runs' launches, phases 6o's and
+   6p's added, 6p's over every rank);
 9. print {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero, printing no result, where no GPU is visible or where the
@@ -490,6 +509,32 @@ CALLBACK_UPDATES, CALLBACK_INTERVAL = 4, 2
 CALLBACK_RUNS = ("pqn_cartpole", "pqn_rnn_memory_chain", "pqn_vdn_spread", "pqn_pendulum")
 SWEEP_TRIALS, SWEEP_UPDATES = 2, 4
 SEG_LEARNING_STEPS = 131072
+# phase 6p, the sharded trainers (parallel/spmd.py): SHARDED_WORLD ranks of
+# one gloo group on cuda:0, started once, run each of SHARDED_RUNS at the
+# YAML's global widths, (name, alg, overrides, trainer module, updates): the
+# gate run (the CartPole kernel, evals every chunk) for SHARDED_GATE_UPDATES,
+# with --learning-bars tests/test_pqn_train.py::test_cartpole_learns's length,
+# SHARDED_GATE_STEPS, held to its bar; the segmented pair (SHARDED_SEGMENTS
+# segments against one resumable run); an nccl group of world size 1 on
+# rank 0; then SHARDED_SEED_RUNS on a (2, 2) mesh of 4 ranks. The runs in
+# SHARDED_SINGLE run once more in this process on the same global config
+SHARDED_WORLD, SHARDED_SEGMENTS, SHARDED_TIMEOUT_S = 2, 2, 300
+SHARDED_GATE_RUN, SHARDED_GATE_UPDATES, SHARDED_GATE_STEPS, SHARDED_GATE = "cartpole fused", 16, 200_000, 100.0
+_NO_EVAL = "TEST_DURING_TRAINING=False"
+SHARDED_RUNS = (
+    ("cartpole unfused", "pqn_cartpole", ("FUSED_ROLLOUT=False", _NO_EVAL), "pqn", 4),
+    ("cartpole fused", "pqn_cartpole", ("EVAL_EARLY_EXIT=False",), "pqn", SHARDED_GATE_UPDATES),
+    ("breakout fused", "pqn_minatar", ("ENV_NAME=Breakout-MinAtar", _NO_EVAL), "pqn", 4),
+    ("rnn cartpole", "pqn_rnn_cartpole", (_NO_EVAL,), "pqn_rnn", 2),
+    ("vdn spread", "pqn_vdn_spread", (_NO_EVAL,), "pqn_vdn", 4),
+    ("pendulum fused", "pqn_pendulum", (_NO_EVAL,), "pqn_ac", 4),
+    ("cartpole batch_norm", "pqn_cartpole", ("NORM_TYPE=batch_norm", "NORM_INPUT=True", _NO_EVAL), "pqn", 4),
+    ("segmented", "pqn_cartpole", (_NO_EVAL,), "pqn", 4),
+    ("nccl", "pqn_cartpole", (_NO_EVAL,), "pqn", 4),
+)
+SHARDED_SEED_RUNS = (("seeds", "pqn_cartpole", (_NO_EVAL,), "pqn", 4),)
+SHARDED_SINGLE = ("cartpole unfused", "cartpole fused", "breakout fused", "rnn cartpole", "vdn spread",
+                  "pendulum fused", "cartpole batch_norm")
 KERNELS = (
     "lambda_returns", "cartpole_rollout", "breakout_rollout", "asterix_rollout",
     "freeway_rollout", "space_invaders_rollout", "seaquest_rollout", "gru_scan_fwd",
@@ -1904,6 +1949,329 @@ def staged_tooling_phase(cli, compose, counters, save_path, card, bars=False):
     return total
 
 
+def kernel_counters():
+    """Each kernel's wrapper by kernel name: the wrapper adds one to its
+    ``launches`` where it launches its kernel."""
+    from purejaxql_torch.ops import asterix_rollout as ar
+    from purejaxql_torch.ops import breakout_rollout as br
+    from purejaxql_torch.ops import cartpole_rollout as cr
+    from purejaxql_torch.ops import eps_greedy as eg
+    from purejaxql_torch.ops import freeway_rollout as fr
+    from purejaxql_torch.ops import gru_scan as gs
+    from purejaxql_torch.ops import lambda_returns as lr
+    from purejaxql_torch.ops import pendulum_rollout as pr
+    from purejaxql_torch.ops import seaquest_rollout as sq
+    from purejaxql_torch.ops import space_invaders_rollout as sr
+
+    return {
+        "lambda_returns": lr.lambda_returns,
+        "lambda_returns_closure": lr.lambda_returns_closure,
+        "cartpole_rollout": cr.cartpole_rollout,
+        "breakout_rollout": br.breakout_rollout,
+        "asterix_rollout": ar.asterix_rollout,
+        "freeway_rollout": fr.freeway_rollout,
+        "space_invaders_rollout": sr.space_invaders_rollout,
+        "seaquest_rollout": sq.seaquest_rollout,
+        "gru_scan_fwd": gs.gru_scan_fwd,
+        "gru_scan_bwd": gs.gru_scan_bwd,
+        "pendulum_ac_rollout": pr.pendulum_ac_rollout,
+        "eps_greedy": eg.eps_greedy,
+    }
+
+
+def sharded_config(compose, spec, bars):
+    """A phase 6p run's global config and its update count."""
+    name, alg, extra, _, updates = spec
+    cfg = compose(alg=alg, overrides=list(extra))
+    per_update = cfg["NUM_ENVS"] * cfg["NUM_STEPS"]
+    if name == SHARDED_GATE_RUN and bars:
+        updates = SHARDED_GATE_STEPS // per_update
+    steps = updates * per_update
+    return compose(alg=alg, overrides=[f"TOTAL_TIMESTEPS={steps}", f"TOTAL_TIMESTEPS_DECAY={steps}", *extra]), updates
+
+
+def sharded_expected(name, local, updates):
+    """A rank's launches in a phase 6p run by the single-process formula at
+    its local shapes: one rollout kernel and one returns an update (fused),
+    one epsilon-greedy a rollout step (unfused FF; the recurrent trainer's
+    prefill too), each GRU kernel and the closure returns once a grad step,
+    the fused eval's chunks (EVAL_EARLY_EXIT off: every chunk runs)."""
+    from purejaxql_torch.envs import make as make_env
+
+    T, U = local["NUM_STEPS"], updates
+    grad_steps = U * local["NUM_EPOCHS"] * local["NUM_MINIBATCHES"]
+    if name in ("cartpole unfused", "cartpole batch_norm"):
+        return {"eps_greedy": U * T, "lambda_returns": U}
+    if name == SHARDED_GATE_RUN:
+        max_steps = make_env(local["ENV_NAME"])[1].max_steps_in_episode
+        evals = 1 + U // max(1, int(U * local["TEST_INTERVAL"]))
+        return {"cartpole_rollout": U + evals * -(-max_steps // T), "lambda_returns": U}
+    if name in ("cartpole fused", "seeds", "nccl"):
+        return {"cartpole_rollout": U, "lambda_returns": U}
+    if name == "segmented":  # one resumable run and the segmented one
+        return {"cartpole_rollout": 2 * U, "lambda_returns": 2 * U}
+    if name == "breakout fused":
+        return {"breakout_rollout": U, "lambda_returns": U}
+    if name == "pendulum fused":
+        return {"pendulum_ac_rollout": U, "lambda_returns": U}
+    gru = {"gru_scan_fwd": grad_steps, "gru_scan_bwd": grad_steps, "lambda_returns_closure": grad_steps}
+    if name == "rnn cartpole":
+        return {"eps_greedy": local["MEMORY_WINDOW"] + T + U * T, **gru}
+    return gru  # vdn spread: masked epsilon-greedy, no kernel
+
+
+def _rank_state(train_state):
+    from purejaxql_torch.parallel.spmd import named_state
+
+    return {k: v.detach().cpu().clone() for k, v in named_state(train_state).items()}
+
+
+def _allreduce_ms(optimizers, group, iters=20):
+    """The mean wall time of one gradient all-reduce over ``group``
+    (``parallel/mesh.py:pmean_``, what each optimizer runs a step: the
+    actor-critic trainer's two, the others' one) at the optimizers'
+    parameter sizes, the ranks lined up by a barrier first."""
+    import torch
+    import torch.distributed as dist
+
+    from purejaxql_torch.parallel.mesh import pmean_
+
+    grads = [[torch.zeros_like(p) for p in opt.params] for opt in optimizers]
+    for g in grads:
+        pmean_(g, group)
+    dist.barrier(group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        for g in grads:
+            pmean_(g, group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (iters * len(grads))
+
+
+def _env_leaves(runner_state):
+    """The FF runner state's env tensors (obs, the Log state, the env state)."""
+    import torch
+
+    obs, log_state = runner_state[1]
+    leaves = [obs, log_state.episode_returns, log_state.episode_lengths, log_state.timestep]
+    leaves += [v for v in vars(log_state.env_state).values()]
+    return [t.detach().cpu() for t in leaves if torch.is_tensor(t)]
+
+
+def _sharded_rank(rank, world, tmp, specs, mesh_seeds, bars):
+    """One rank of phase 6p: joins the gloo group through ``tmp``'s file
+    store on cuda:0, runs each spec with its counts set to 0 just before and
+    read just after, and saves what it got to ``tmp/rank{rank}.pt``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    from purejaxql_torch.core.config import compose
+    from purejaxql_torch.parallel.mesh import init_distributed, make_mesh
+    from purejaxql_torch.parallel.spmd import (
+        local_config, make_train_spmd, make_train_spmd_resumable, make_train_spmd_seeds, train_segmented_spmd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(backend="gloo", init_method=f"file://{tmp}/store", timeout_s=SHARDED_TIMEOUT_S)
+    mesh = make_mesh(seed=mesh_seeds)
+    group = mesh.get_group("env")
+    counters = kernel_counters()
+    results = {}
+
+    def counted(fn, line_up=True):
+        for f in counters.values():
+            f.launches = 0
+        if line_up:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: f.launches for k, f in counters.items() if f.launches}
+
+    for spec in specs:
+        name, module = spec[0], spec[3]
+        config, updates = sharded_config(compose, spec, bars)
+        make_train = importlib.import_module(f"purejaxql_torch.algo.{module}").make_train
+        res = {"updates": updates}
+        if name == "segmented":
+            (whole, seg), wall, got = counted(lambda: (
+                make_train_spmd_resumable(config, mesh)(),
+                train_segmented_spmd(config, mesh, SHARDED_SEGMENTS)))
+            ws, ss = _rank_state(whole["runner_state"][0]), _rank_state(seg["runner_state"][0])
+            we, se = _env_leaves(whole["runner_state"]), _env_leaves(seg["runner_state"])
+            res.update(segment_gap=max([(ws[k] - ss[k]).abs().max().item() for k in ws]
+                                       + [(a.double() - b.double()).abs().max().item() for a, b in zip(we, se)]),
+                       train_state=seg["runner_state"][0], metrics=seg["metrics"])
+        elif name == "seeds":
+            out, wall, got = counted(lambda: make_train_spmd_seeds(config, mesh, make_train=make_train)())
+            res.update(train_state=out["train_state"], metrics=out["metrics"],
+                       seed_rows=out["state_dict"]["Dense_0.weight"].cpu())
+        elif name == "nccl":
+            # every rank makes the group; rank 0 alone trains on it while
+            # the others wait at the barrier after it
+            nccl = dist.new_group([0], backend="nccl")
+            if rank != 0:
+                dist.barrier()
+                continue
+            out, wall, got = counted(lambda: make_train(local_config(config, 1), group=nccl)(), line_up=False)
+            res.update(train_state=out["runner_state"][0], metrics=out["metrics"])
+        else:
+            out, wall, got = counted(lambda: make_train_spmd(config, mesh, make_train=make_train)())
+            res.update(train_state=out["train_state"], metrics=out["metrics"])
+        train_state = res.pop("train_state")
+        states = list(train_state.values()) if isinstance(train_state, dict) else [train_state]
+        optimizers = [s.optimizer for s in states]
+        res.update(
+            wall=wall, launches=got, timesteps=states[0].timesteps, state=_rank_state(train_state),
+            metrics={k: v.detach().cpu() for k, v in res["metrics"].items()},
+            allreduce_ms=_allreduce_ms(optimizers, nccl if name == "nccl" else group),
+            n_params=[sum(p.numel() for p in opt.params) for opt in optimizers],
+        )
+        if name == "nccl":
+            dist.barrier()
+        results[name] = res
+    torch.save(results, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world, tmp, specs, mesh_seeds, bars, deadline_s):
+    """Start ``world`` ranks of ``_sharded_rank``, wait for them within
+    ``deadline_s`` (a failed rank ends them all with its error), and return
+    their results."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    ctx = mp.start_processes(_sharded_rank, args=(world, tmp, specs, mesh_seeds, bars), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + deadline_s
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            fail(f"phase 6p: {world} ranks still running after {deadline_s} s")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def sharded_phase(compose, counters, save_path, card, bars=False):
+    """Phase 6p, the sharded trainers (parallel/spmd.py) at the YAMLs' full
+    width (global NUM_ENVS), SHARDED_WORLD ranks of one gloo group on cuda:0
+    started once for every run, then a (2, 2) mesh of 4 ranks. Each run: the
+    global timestep counter, the parameters and batch statistics bit-equal
+    across the ranks (the largest gap printed, 0.0), finite metrics, each
+    rank's launches against the single-process formula at its local shapes,
+    the wall, per-rank and aggregate env-steps/s beside one process's rate
+    on the same global config in this call (run here after the ranks end),
+    and one gradient all-reduce's mean time. gloo stages a CUDA tensor's
+    all-reduce through the host on one card: its times say nothing of NCCL
+    across cards. Returns the launches of the phase's runs over every rank."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from purejaxql_torch.parallel.spmd import local_config
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in counters}
+    deadline = 1800 if bars else 600
+    ranks2 = _spawn_ranks(SHARDED_WORLD, os.path.join(save_path, "sharded2"), SHARDED_RUNS, 1, bars, deadline)
+    ranks4 = _spawn_ranks(4, os.path.join(save_path, "sharded4"), SHARDED_SEED_RUNS, 2, bars, deadline)
+
+    def check_ranks(spec, ranks, n_env_shards, single=None):
+        name = spec[0]
+        config, updates = sharded_config(compose, spec, bars)
+        world = len(ranks)
+        local = local_config(config, n_env_shards)
+        expected = {k: v for k, v in sharded_expected(name, local, updates).items() if v}
+        results = [r[name] for r in ranks]
+        gap = 0.0
+        for res in results:
+            check(res["timesteps"] == config["TOTAL_TIMESTEPS"],
+                  f"6p {name}: {res['timesteps']} env steps, expected {config['TOTAL_TIMESTEPS']}")
+            check(res["launches"] == expected, f"6p {name}: launches {res['launches']}, expected {expected}")
+            for k, v in res["metrics"].items():
+                check(bool(torch.isfinite(v.double()).all()), f"6p {name}: non-finite metric {k}")
+            for k, v in res["state"].items():
+                check(bool(torch.isfinite(v.double()).all()), f"6p {name}: non-finite {k}")
+            for k, v in res["launches"].items():
+                total[k] += v
+        for start in range(0, world, n_env_shards):  # each seed row's ranks
+            row = results[start:start + n_env_shards]
+            for res in row[1:]:
+                gap = max(gap, max((res["state"][k].double() - row[0]["state"][k].double()).abs().max().item()
+                                   for k in res["state"]))
+        check(gap == 0.0, f"6p {name}: the replicas differ by {gap}")
+        wall = max(r["wall"] for r in results)
+        steps = config["TOTAL_TIMESTEPS"]  # a seed row's
+        line = (f"6p {name} ({world} rank{'s' if world > 1 else ''} on {card}): {steps} env steps "
+                f"{'a seed row ' if world > n_env_shards else ''}in {wall:.2f} s wall, per rank "
+                f"{[round(steps / n_env_shards / r['wall']) for r in results]} env-steps/s, aggregate "
+                f"{steps * world / n_env_shards / wall:.0f}")
+        if single is not None:
+            line += f"; one process {single[0]:.0f} env-steps/s ({single[1]:.2f} s)"
+        line += (f"; replicas' largest gap {gap}; launches a rank {results[0]['launches']} (formula {expected}); "
+                 f"one gradient all-reduce {np.mean([r['allreduce_ms'] for r in results]):.3f} ms "
+                 f"({' and '.join(map(str, results[0]['n_params']))} floats)")
+        print(line)
+        return results
+
+    def one_process(spec):
+        """The same global config in this process, no group."""
+        config, _ = sharded_config(compose, spec, bars)
+        make_train = importlib.import_module(f"purejaxql_torch.algo.{spec[3]}").make_train
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_train(config)()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return config["TOTAL_TIMESTEPS"] / wall, wall
+
+    for spec in SHARDED_RUNS:
+        name = spec[0]
+        single = one_process(spec) if name in SHARDED_SINGLE else None
+        results = check_ranks(spec, ranks2[:1] if name == "nccl" else ranks2, 1 if name == "nccl" else SHARDED_WORLD,
+                              single)
+        if name == SHARDED_GATE_RUN:
+            last10 = float(results[0]["metrics"]["returned_episode_returns"][-10:].mean())
+            print(f"6p {name}: mean of the last 10 returned_episode_returns {last10:.2f} "
+                  f"(tests/test_pqn_train.py::test_cartpole_learns's bar > {SHARDED_GATE}, "
+                  f"{'held' if bars else 'not held: --learning-bars holds it'})")
+            if bars:
+                check(last10 > SHARDED_GATE, f"6p {name} did not learn: {last10} <= {SHARDED_GATE}")
+        if name == "segmented":
+            gap = max(r["segment_gap"] for r in results)
+            print(f"6p segmented: {SHARDED_SEGMENTS} segments against one resumable run, params and env states "
+                  f"largest gap {gap}")
+            check(gap == 0.0, f"6p segmented: not bit-equal to the resumable run ({gap})")
+    for spec in SHARDED_SEED_RUNS:
+        results = check_ranks(spec, ranks4, 2)
+        rows = results[0]["seed_rows"]
+        check(all(torch.equal(r["seed_rows"], rows) for r in results), "6p seeds: the gathered rows differ by rank")
+        check(rows.shape[0] == 2 and not torch.equal(rows[0], rows[1]), "6p seeds: the seed rows' params are equal")
+        for i, r in enumerate(results):
+            check(torch.equal(r["state"]["Dense_0.weight"], rows[i // 2]), f"6p seeds: rank {i} is not its row")
+        print(f"6p seeds: a (2, 2) mesh, each seed row's params its own (Dense_0 rows differ by "
+              f"{(rows[0] - rows[1]).abs().max().item():.4g}), each row's 2 ranks bit-equal")
+    launched = {k: v for k, v in total.items() if v}
+    print(f"phase 6p (sharded trainers): {time.perf_counter() - t_phase:.1f} s wall; launches over the ranks "
+          f"{launched}")
+    return total
+
+
 def main() -> int:
     import argparse
 
@@ -1952,20 +2320,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = os.path.dirname(os.path.abspath(__file__))
-    counters = {
-        "lambda_returns": lr.lambda_returns,
-        "lambda_returns_closure": lr.lambda_returns_closure,
-        "cartpole_rollout": cr.cartpole_rollout,
-        "breakout_rollout": br.breakout_rollout,
-        "asterix_rollout": ar.asterix_rollout,
-        "freeway_rollout": fr.freeway_rollout,
-        "space_invaders_rollout": sr.space_invaders_rollout,
-        "seaquest_rollout": sq.seaquest_rollout,
-        "gru_scan_fwd": gs.gru_scan_fwd,
-        "gru_scan_bwd": gs.gru_scan_bwd,
-        "pendulum_ac_rollout": pr.pendulum_ac_rollout,
-        "eps_greedy": eg.eps_greedy,
-    }
+    counters = kernel_counters()
 
     # ---- 1. the card -------------------------------------------------------
     smi = subprocess.run(
@@ -3347,6 +3702,10 @@ def main() -> int:
     # training, LOG_VIA_CALLBACK, HYP_TUNE, the rollout tool, stage timings ------
     launches_6o = staged_tooling_phase(cli, compose, counters, save_path, card, bars)
 
+    # ---- 6p. the sharded trainers: 2 ranks of one gloo group on the card,
+    # then a (2, 2) mesh of 4; an nccl group of world size 1 -----------------------
+    launches_6p = sharded_phase(compose, counters, save_path, card, bars)
+
     # ---- 7. time the kernels at the trainers' shapes ---------------------------
     timings = {}
     for name, (kernel, plain) in lam_forms.items():
@@ -3493,7 +3852,8 @@ def main() -> int:
         k_ms, p_ms, b_ms, b_by = timings[key]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name] + launches_6o[name], "max_abs_err": errors[name], "ms": k_ms,
+            "launches": launches[name] + launches_6o[name] + launches_6p[name], "max_abs_err": errors[name],
+            "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall in all, the build included "

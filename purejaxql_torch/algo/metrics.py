@@ -1,8 +1,9 @@
 """Metric helpers for the in-loop evaluators (port of
-purejaxql_tpu/algo/metrics.py, single device), the step-order episode
-sums that the FF and actor-critic trainers replay their fused rollouts'
-(reward, done) streams with, and the LOG_VIA_CALLBACK hook of the FF,
-recurrent, VDN and actor-critic trainers."""
+purejaxql_tpu/algo/metrics.py), the step-order episode sums that the FF
+and actor-critic trainers replay their fused rollouts' (reward, done)
+streams with, the sharded trainers' mean of an update's metrics over the
+process group, and the LOG_VIA_CALLBACK hook of the FF, recurrent, VDN and
+actor-critic trainers."""
 
 from __future__ import annotations
 
@@ -11,13 +12,24 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 
-def episode_mean_metrics(infos: Dict[str, torch.Tensor], seeds: int = 1) -> Dict[str, torch.Tensor]:
+def episode_mean_metrics(infos: Dict[str, torch.Tensor], seeds: int = 1, group=None) -> Dict[str, torch.Tensor]:
     """Mean of each info leaf over the steps where `returned_episode` is set
     (NaN where no episode finished): the reference's
     ``nanmean(where(returned_episode, x, nan))``; with seeds, (T, S * E)
-    leaves of seed-major envs, each seed's mean, (S,)."""
+    leaves of seed-major envs, each seed's mean, (S,). With a process
+    ``group`` (metrics.py:22-47), the done-weighted global mean: the masked
+    sums and the count summed over the group in one all-reduce, NaN where no
+    episode ended on any rank, the same on every rank."""
     mask = infos["returned_episode"]
     nan = torch.tensor(float("nan"), device=mask.device)
+    if group is not None:
+        from purejaxql_torch.parallel.mesh import psum_
+
+        maskf = mask.float()
+        sums = torch.stack([maskf.sum()] + [(v.float() * maskf).sum() for v in infos.values()])
+        psum_([sums], group)
+        count = sums[0]
+        return {k: torch.where(count > 0, s / count.clamp(min=1.0), nan) for k, s in zip(infos, sums[1:])}
     if seeds == 1:
         return {k: torch.where(mask, v.float(), nan).nanmean() for k, v in infos.items()}
     lanes = lambda x: x.unflatten(1, (seeds, -1)).transpose(0, 1).reshape(seeds, -1)  # noqa: E731
@@ -57,17 +69,33 @@ def running_episode_sums(rew, done, ep_return0, ep_length0):
     return torch.stack(rets), torch.stack(lens), ep_r, ep_l
 
 
-def eval_episode_metrics(rew: torch.Tensor, done: torch.Tensor) -> Dict[str, torch.Tensor]:
+def eval_episode_metrics(rew: torch.Tensor, done: torch.Tensor, group=None) -> Dict[str, torch.Tensor]:
     """A fused greedy eval's metrics from its (T, E) reward and 0/1 done
     streams (pqn.py:721-736, pqn_ac.py:652-669): every episode's return and
-    length from a zero start, averaged over the steps that end one."""
+    length from a zero start, averaged over the steps that end one (over
+    every rank of a process ``group``)."""
     zero = torch.zeros(rew.shape[1], device=rew.device)
     ner, nel, _, _ = running_episode_sums(rew, done, zero, zero)
     return episode_mean_metrics({
         "returned_episode_returns": ner,
         "returned_episode_lengths": nel,
         "returned_episode": done.bool(),
-    })
+    }, group=group)
+
+
+def group_mean_metrics(metrics: Dict[str, Any], group) -> Dict[str, Any]:
+    """An update's metrics with each tensor meaned over the process
+    ``group`` in one all-reduce (pqn.py:612-613: a mean of the shards'
+    means, not a weighted one); the host counters as they are. ``None``
+    returns ``metrics`` unchanged."""
+    if group is None:
+        return metrics
+    from purejaxql_torch.parallel.mesh import pmean_
+
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    values = [metrics[k].float().clone() for k in keys]
+    pmean_(values, group)
+    return {**metrics, **dict(zip(keys, values))}
 
 
 def metric_callback(config: Dict[str, Any], logger) -> Optional[Callable]:

@@ -84,6 +84,16 @@ under its frozen statistics), SKIP_NOOP_PERMUTE and the done-masked metrics
 per seed, every action of the S x NUM_ENVS rows from one epsilon-greedy
 launch; BF16_COMPUTE too. FUSED_ROLLOUT is refused with seeds, as by the
 JAX CLI.
+
+With a process ``group`` (``make_train(group=...)``, pqn.py:174-198's
+``pmap_axis``) the trainer is one rank of a sharded run
+(parallel/spmd.py): NUM_ENVS is the rank's envs; every rank builds the
+same network from SEED, then draws from generators of its own
+(``algo/seeds.py:run_generators``, pqn.py:298-303); the gradients
+(``core/optim.py``), the batch norms' statistics (``models/factory.py``)
+and the update's metrics (``algo/metrics.py:group_mean_metrics``) are
+meaned over the group and the eval's episodes summed over it, one
+all-reduce each; the rollouts, targets and shuffles stay rank-local.
 """
 
 from __future__ import annotations
@@ -94,7 +104,9 @@ import torch
 
 from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.seeds import (
+    check_group_seeds,
     check_seeds,
+    run_generators,
     seed_generators,
     seed_mean,
     seed_minibatches,
@@ -108,6 +120,7 @@ from purejaxql_torch.algo.metrics import (
     emit_metric_rows,
     episode_mean_metrics,
     eval_episode_metrics,
+    group_mean_metrics,
     metric_callback,
     running_episode_sums,
     test_interval_updates,
@@ -425,10 +438,11 @@ def learn_minibatch_fast_td(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None, logger=None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None, group=None
 ) -> Callable[..., Dict[str, Any]]:
     """Build ``train(seed=None, runner_state=None) -> {"runner_state",
-    "metrics"}``.
+    "metrics"}``; with a process ``group``, one rank's trainer of a sharded
+    run (the module's docstring), one seed a rank.
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
@@ -448,6 +462,7 @@ def make_train(
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
+    check_group_seeds(config, group)
     seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
@@ -484,11 +499,11 @@ def make_train(
             gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
             host_gen = gens[0]
             network = make_q_network(config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen,
-                                     seeds=seeds)
+                                     seeds=seeds, group=group)
             network = network.to(device)
-            dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+            host_gen, dev_gen = run_generators(host_gen, device, group)
             optimizer = make_optimizer(
-                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
+                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds, group
             )
             train_state = PQNTrainState(network, optimizer)
         else:
@@ -594,7 +609,7 @@ def make_train(
                             break
                 rews = rews.reshape(-1, n_test)[:n_test_steps]
                 dones = dones.reshape(-1, n_test)[:n_test_steps]
-                return eval_episode_metrics(rews, dones.float())
+                return eval_episode_metrics(rews, dones.float(), group)
 
             obs, state = test_env.reset(dev_gen, n_test, env_params)
             infos = []
@@ -604,7 +619,7 @@ def make_train(
                 obs, state, _, _, info = test_env.step(dev_gen, state, action, env_params)
                 infos.append(info)
             return episode_mean_metrics(
-                {k: torch.stack([i[k] for i in infos]) for k in infos[0]}, seeds
+                {k: torch.stack([i[k] for i in infos]) for k in infos[0]}, seeds, group
             )
 
         if runner_state is None:
@@ -648,6 +663,7 @@ def make_train(
                 metrics.update({k: seed_sum(v.float() * ended, seeds, 1) / denom for k, v in infos.items()})
             else:
                 metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
+            metrics = group_mean_metrics(metrics, group)
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             if callback is not None and train_state.n_updates % log_interval == 0:

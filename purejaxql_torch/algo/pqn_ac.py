@@ -55,6 +55,15 @@ over (T, S * E) columns in one returns launch, each seed's greedy eval under
 a copy of its own statistics, and (S, NUM_UPDATES) metrics. FUSED_ROLLOUT
 is refused with seeds, as by the JAX CLI; the cuda policy fuses one seed
 only.
+
+With a process ``group`` (pqn_ac.py:107's ``pmap_axis``) the trainer is one
+rank of a sharded run (parallel/spmd.py), as the FF trainer's: the rank's
+generators after the shared actor and critics, the critic's and the
+actor's gradients, the norms' statistics and the update's metrics meaned
+over the group; the greedy eval's four sums (returns, lengths, ended envs,
+envs) summed over it (:739-743), the chunked eval's episodes too (:669).
+The normalizers' statistics stay rank-local, as the JAX package's env
+state stays shard-local.
 """
 
 from __future__ import annotations
@@ -70,13 +79,16 @@ from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     emit_metric_rows,
     eval_episode_metrics,
+    group_mean_metrics,
     metric_callback,
     running_episode_sums,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.seeds import (
+    check_group_seeds,
     check_seeds,
+    run_generators,
     seed_generators,
     seed_mean,
     seed_minibatches,
@@ -91,6 +103,7 @@ from purejaxql_torch.core.train_state import PQNTrainState
 from purejaxql_torch.envs import make as make_env
 from purejaxql_torch.envs import wrappers
 from purejaxql_torch.models.actor_critic import Actor, CriticEnsemble
+from purejaxql_torch.models.qnet import share_statistics
 from purejaxql_torch.ops.lambda_returns import lambda_returns
 from purejaxql_torch.ops.pendulum_rollout import (
     pendulum_ac_rollout,
@@ -98,6 +111,7 @@ from purejaxql_torch.ops.pendulum_rollout import (
     pendulum_from_state_matrix,
     state_matrix_from_pendulum,
 )
+from purejaxql_torch.parallel.mesh import psum_
 from purejaxql_torch.utils.platform import resolve_device
 
 
@@ -187,7 +201,7 @@ def eval_start(init_obs: torch.Tensor, reset_state, training_state):
 
 @torch.no_grad()
 def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_test: int, n_steps: int,
-                norm_state=None, seeds: int = 1) -> Dict[str, torch.Tensor]:
+                norm_state=None, seeds: int = 1, group=None) -> Dict[str, torch.Tensor]:
     """The unfused greedy eval (pqn_ac.py:678-748): ``n_test`` fresh envs of
     the wrapped ``env`` stepped ``n_steps`` times under the eval-mode actor,
     each env's first episode latched. With ``norm_state`` (the training
@@ -195,7 +209,9 @@ def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_tes
     those statistics (``eval_start``). Returns the returns' and lengths'
     sums over the envs that ended, each over their number, and the share
     of envs that ended; with ``seeds`` > 1, n_test is S seed-major blocks,
-    each seed's eval under its own statistics and each metric (S,)."""
+    each seed's eval under its own statistics and each metric (S,). With a
+    process ``group`` the four sums are summed over it in one all-reduce
+    (pqn_ac.py:739-743), the same metrics on every rank."""
     obs, state = env.reset(generator, n_test, env_params)
     if norm_state is not None:
         obs, state = eval_start(obs, state, norm_state)
@@ -208,6 +224,16 @@ def greedy_eval(env, env_params, actor: Actor, generator: torch.Generator, n_tes
         ret = torch.where(ended, ret, ret + info["original_reward"])
         length = torch.where(ended, length, length + 1)
         ended = ended | done
+    if group is not None:
+        sums = torch.stack([ret.sum(), length.sum(), ended.float().sum(),
+                            torch.tensor(float(n_test), device=device)])
+        psum_([sums], group)
+        ret_sum, len_sum, n_done, n_all = sums
+        return {
+            "returned_episode_returns": ret_sum / n_done,
+            "returned_episode_lengths": len_sum / n_done,
+            "done_episodes": n_done / n_all,
+        }
     n_done = seed_sum(ended, seeds)
     return {
         "returned_episode_returns": seed_sum(ret, seeds) / n_done,
@@ -347,9 +373,11 @@ def learn_minibatch(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None, logger=None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None, group=None
 ) -> Callable[..., Dict[str, Any]]:
-    """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
+    """Build ``train(seed=None) -> {"runner_state", "metrics"}``; with a
+    process ``group``, one rank's trainer of a sharded run (the module's
+    docstring).
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
@@ -370,6 +398,7 @@ def make_train(
     n_minibatches, n_epochs = config["NUM_MINIBATCHES"], config["NUM_EPOCHS"]
     config["NUM_UPDATES"] = config["TOTAL_TIMESTEPS"] // n_steps // n_envs
     _check_supported(config)
+    check_group_seeds(config, group)
     seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
@@ -417,16 +446,20 @@ def make_train(
             norm_type=config["NORM_TYPE"], init_scale=config.get("CRITIC_INIT_SCALE", 1.0),
             generator=init_gen, seeds=seeds,
         ).to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+        share_statistics(actor, group)
+        share_statistics(critics, group)
+        host_gen, dev_gen = run_generators(host_gen, device, group)
         # the evals draw from streams of their own, as JAX splits each eval a
         # key (pqn_ac.py:710-711, 750): with or without them, and wherever
         # they fall, training draws the same
         eval_host_gen = torch.Generator().manual_seed(draw_seed(host_gen))
         eval_gen = torch.Generator(device=device).manual_seed(draw_seed(eval_host_gen))
         train_state = {
-            "actor": PQNTrainState(actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr, seeds)),
+            "actor": PQNTrainState(
+                actor, make_optimizer(actor.parameters(), config["MAX_GRAD_NORM"], lr, seeds, group)
+            ),
             "critic": PQNTrainState(
-                critics, make_optimizer(critics.parameters(), config["MAX_GRAD_NORM"], lr, seeds)
+                critics, make_optimizer(critics.parameters(), config["MAX_GRAD_NORM"], lr, seeds, group)
             ),
         }
         actor_state, critic_state = train_state["actor"], train_state["critic"]
@@ -514,10 +547,11 @@ def make_train(
                     )
                     rews.append(rew)
                     dones.append(done)
-                return eval_episode_metrics(torch.cat(rews)[:n_test_steps], torch.cat(dones)[:n_test_steps])
+                return eval_episode_metrics(torch.cat(rews)[:n_test_steps], torch.cat(dones)[:n_test_steps], group)
 
             norm_state = training_env_state if config.get("NORMALIZE_OBS", False) else None
-            return greedy_eval(env, env_params, actor, eval_gen, seeds * n_test, n_test_steps, norm_state, seeds)
+            return greedy_eval(env, env_params, actor, eval_gen, seeds * n_test, n_test_steps, norm_state, seeds,
+                               group)
 
         # the first eval reads the statistics the training envs' reset made,
         # so it follows that reset (pqn_ac.py:750-751)
@@ -554,6 +588,7 @@ def make_train(
                 "loss_actor": actor_loss,
             }
             metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
+            metrics = group_mean_metrics(metrics, group)
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             if callback is not None and actor_state.n_updates % log_interval == 0:

@@ -58,6 +58,13 @@ for all seeds, and (S, NUM_UPDATES) metrics. ``pqn_rnn_craftax`` runs so
 too, in the strict and the fast program: each seed's reset pool or bank
 (``algo/pqn.py:build_env``), the stacked input BatchRenorm (each seed's
 statistics and step count) and BF16_COMPUTE in the FAST_BPTT forward.
+
+With a process ``group`` (pqn_rnn.py:55's ``pmap_axis``) the trainer is one
+rank of a sharded run (parallel/spmd.py), as the FF trainer's
+(``algo/pqn.py``): the rank's generators after the shared network, the
+gradients, the input and trunk norms' statistics (the FAST_BPTT forward's
+too) and the update's metrics meaned over the group, the eval's episodes
+summed over it.
 """
 
 from __future__ import annotations
@@ -67,17 +74,20 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from purejaxql_torch.algo.exploration import draw_seed, eps_greedy_batch, make_eps_greedy
+from purejaxql_torch.algo.exploration import eps_greedy_batch, make_eps_greedy
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     emit_metric_rows,
     episode_mean_metrics,
+    group_mean_metrics,
     metric_callback,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import build_env, stack_metrics
 from purejaxql_torch.algo.seeds import (
+    check_group_seeds,
     check_seeds,
+    run_generators,
     seed_column_minibatches,
     seed_generators,
     seed_mean,
@@ -175,9 +185,11 @@ def rnn_train_q_values(
     module forward or from ``fast_rnn_train_forward`` (in
     ``compute_dtype``); both leave the input norm's running statistics
     updated (pqn_rnn.py:276-314). A network with seeds takes and gives
-    seed-major rows."""
+    seed-major rows. The FAST_BPTT forward takes the input norm's process
+    group (``models/qnet.py:share_statistics``)."""
     if not fast_bptt:
         return network(hidden, obs, done, last_action, train=True)[1]
+    input_norm = network.BatchRenorm_0 if network.input_norm_type == "batch_renorm" else network.BatchNorm_0
     buffers = dict(network.named_buffers())
     _, q_vals, new_stats = fast_rnn_train_forward(
         dict(network.named_parameters()), buffers, hidden, obs, done, last_action,
@@ -185,7 +197,7 @@ def rnn_train_q_values(
         action_dim=network.action_dim, add_last_action=network.add_last_action,
         norm_input=network.norm_input, cell_type=network.cell_type,
         input_norm_type=network.input_norm_type, pallas=pallas, compute_dtype=compute_dtype,
-        seeds=network.seeds,
+        seeds=network.seeds, group=input_norm.group,
     )
     with torch.no_grad():
         for name, value in new_stats.items():
@@ -234,10 +246,11 @@ def learn_minibatch(
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None, logger=None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None, group=None
 ) -> Callable[..., Dict[str, Any]]:
     """Build ``train(seed=None, runner_state=None) -> {"runner_state",
-    "metrics"}``.
+    "metrics"}``; with a process ``group``, one rank's trainer of a sharded
+    run (the module's docstring).
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
@@ -255,6 +268,7 @@ def make_train(
     """
     config = derive_pqn_schedule_keys(apply_eval_subsample(dict(config)))
     _check_supported(config)
+    check_group_seeds(config, group)
     seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
@@ -291,11 +305,11 @@ def make_train(
             gens = seed_generators(config["SEED"] if seed is None else seed, seeds)
             host_gen = gens[0]
             network = make_rnn_q_network(
-                config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen, seeds=seeds
+                config, action_dim, obs_shape, generator=gens if seeds > 1 else host_gen, seeds=seeds, group=group
             ).to(device)
-            dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
+            host_gen, dev_gen = run_generators(host_gen, device, group)
             optimizer = make_optimizer(
-                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds
+                network.parameters(), config["MAX_GRAD_NORM"], lr_schedule(config), seeds, group
             )
             train_state = PQNTrainState(network, optimizer)
         else:
@@ -333,7 +347,7 @@ def make_train(
                 network, test_env, env_params, dev_gen, carry, config["EPS_TEST"],
                 config["TEST_NUM_STEPS"], rew_scale,
             )
-            return episode_mean_metrics(infos, seeds)
+            return episode_mean_metrics(infos, seeds, group)
 
         if runner_state is None:
             test_metrics = get_test_metrics() if test_during_training else {}
@@ -372,6 +386,7 @@ def make_train(
                 metrics.update({k: seed_sum(v.float() * ended, seeds, 1) / denom for k, v in infos.items()})
             else:
                 metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
+            metrics = group_mean_metrics(metrics, group)
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             if callback is not None and train_state.n_updates % log_interval == 0:

@@ -58,6 +58,12 @@ metrics and evals. The network reads its rows (S, A, E) seed-major, agents
 within each seed (``agent_rows``): each seed's A x B rows stay one block, so
 on FAST_BPTT with PALLAS_BPTT each GRU layer's scan is one launch of each
 kernel for all seeds, no cluster straddling two seeds.
+
+With a process ``group`` (pqn_vdn.py:71's ``pmap_axis``) the trainer is one
+rank of a sharded run (parallel/spmd.py), as the FF trainer's: the rank's
+generators after the shared network, the gradients, the norms' statistics
+and the update's metrics meaned over the group, the eval's episodes summed
+over it.
 """
 
 from __future__ import annotations
@@ -66,18 +72,21 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from purejaxql_torch.algo.exploration import draw_seed, greedy_legal_actions, masked_eps_greedy
+from purejaxql_torch.algo.exploration import greedy_legal_actions, masked_eps_greedy
 from purejaxql_torch.algo.metrics import (
     apply_eval_subsample,
     emit_metric_rows,
     episode_mean_metrics,
+    group_mean_metrics,
     metric_callback,
     test_interval_updates,
 )
 from purejaxql_torch.algo.pqn import stack_metrics
 from purejaxql_torch.algo.pqn_rnn import map_transitions, rnn_train_q_values, tree_map
 from purejaxql_torch.algo.seeds import (
+    check_group_seeds,
     check_seeds,
+    run_generators,
     seed_column_minibatches,
     seed_generators,
     seed_mean,
@@ -258,9 +267,11 @@ def vdn_lr(config: Dict[str, Any]):
 
 
 def make_train(
-    config: Dict[str, Any], device: Optional[str] = None, logger=None
+    config: Dict[str, Any], device: Optional[str] = None, logger=None, group=None
 ) -> Callable[..., Dict[str, Any]]:
-    """Build ``train(seed=None) -> {"runner_state", "metrics"}``.
+    """Build ``train(seed=None) -> {"runner_state", "metrics"}``; with a
+    process ``group``, one rank's trainer of a sharded run (the module's
+    docstring).
 
     ``device`` defaults to the config's DEVICE key, else ``cuda``; a missing
     GPU raises. ``metrics`` maps each metric name to a tensor of shape
@@ -276,6 +287,7 @@ def make_train(
     config["TOTAL_TIMESTEPS"] = int(float(config["TOTAL_TIMESTEPS"]))
     config["NUM_UPDATES"] = config["TOTAL_TIMESTEPS"] // config["NUM_STEPS"] // config["NUM_ENVS"]
     _check_supported(config)
+    check_group_seeds(config, group)
     seeds = config.get("NUM_SEEDS", 1)
     device = resolve_device(device if device is not None else config.get("DEVICE"))
 
@@ -308,10 +320,10 @@ def make_train(
         host_gen = gens[0]
         network = make_rnn_q_network(
             net_config, action_dim, (obs_size,), generator=gens if seeds > 1 else host_gen,
-            norms=(config["NORM_TYPE"], "batch_norm"), hidden_size=256, seeds=seeds,
+            norms=(config["NORM_TYPE"], "batch_norm"), hidden_size=256, seeds=seeds, group=group,
         ).to(device)
-        dev_gen = torch.Generator(device=device).manual_seed(draw_seed(host_gen))
-        optimizer = make_optimizer(network.parameters(), config["MAX_GRAD_NORM"], vdn_lr(config), seeds)
+        host_gen, dev_gen = run_generators(host_gen, device, group)
+        optimizer = make_optimizer(network.parameters(), config["MAX_GRAD_NORM"], vdn_lr(config), seeds, group)
         train_state = PQNTrainState(network, optimizer)
 
         def start(mgr: CTRolloutManager):
@@ -341,7 +353,7 @@ def make_train(
             _, _, infos = vdn_rollout(
                 network, test_manager, dev_gen, start(test_manager), 0.0, config["TEST_NUM_STEPS"], greedy=True
             )
-            return episode_mean_metrics(infos, seeds)
+            return episode_mean_metrics(infos, seeds, group)
 
         test_metrics = get_test_metrics() if test_during_training else {}
         # the random-policy prefill stores its rewards unscaled (pqn_vdn.py:515-520)
@@ -367,6 +379,7 @@ def make_train(
                 "qvals": qvals,
             }
             metrics.update({k: seed_mean(v.float(), seeds, 1) for k, v in infos.items()})
+            metrics = group_mean_metrics(metrics, group)
             if test_during_training:
                 metrics.update({f"test/{k}": v for k, v in test_metrics.items()})
             if callback is not None and train_state.n_updates % log_interval == 0:

@@ -69,9 +69,39 @@ def check_seeds(config: Dict[str, Any]) -> None:
             )
 
 
+def check_group_seeds(config: Dict[str, Any], group) -> None:
+    """A sharded trainer (a process ``group``) runs one seed a rank: the
+    mesh's seed axis stands for NUM_SEEDS (parallel/spmd.py), as the JAX
+    package's sharded trainers ignore it."""
+    if group is not None and config.get("NUM_SEEDS", 1) != 1:
+        raise NotImplementedError(
+            "NUM_SEEDS > 1 with a process group: a sharded trainer runs one seed a rank; "
+            "seeds go on the mesh's seed axis (parallel/spmd.py:make_train_spmd_seeds)"
+        )
+
+
 def seed_generators(seed: int, seeds: int) -> List[torch.Generator]:
     """The host generators of the lanes: lane i's seeded ``seed + i``."""
     return [torch.Generator().manual_seed(seed + i) for i in range(seeds)]
+
+
+def run_generators(host_gen: torch.Generator, device, group=None):
+    """A run's (host, device) generators once its network is drawn from
+    ``host_gen``: the device generator seeded by a draw of ``host_gen``. In
+    a process ``group`` (a sharded trainer) the rank draws from streams of
+    its own, the network being the same on every rank: first a host
+    generator seeded by ``parallel/mesh.py:fold_seed`` of a draw of
+    ``host_gen`` and the rank's index in the group, as the JAX trainers fold
+    the axis index in after ``create_agent`` (pqn.py:298-303)."""
+    from purejaxql_torch.algo.exploration import draw_seed
+
+    if group is not None:
+        import torch.distributed as dist
+
+        from purejaxql_torch.parallel.mesh import fold_seed
+
+        host_gen = torch.Generator().manual_seed(fold_seed(draw_seed(host_gen), dist.get_rank(group)))
+    return host_gen, torch.Generator(device=device).manual_seed(draw_seed(host_gen))
 
 
 def seed_sum(x: torch.Tensor, seeds: int, dim: int = 0) -> torch.Tensor:

@@ -147,6 +147,7 @@ def train_stepwise(
     every ``checkpoint_every`` updates. Returns (train_state, history), a
     metrics dict an update."""
     from purejaxql_torch.core.checkpoint import save_state
+    from purejaxql_torch.parallel.mesh import is_main_process
 
     stages = make_stages(config, jit=jit)
     config = stages.config
@@ -169,6 +170,7 @@ def train_stepwise(
         history.append(metrics)
         if on_update is not None:
             on_update(update, metrics)
-        if checkpoint_every and checkpoint_path and (update + 1) % checkpoint_every == 0:
+        if checkpoint_every and checkpoint_path and (update + 1) % checkpoint_every == 0 and is_main_process():
+            # one writer in a process group (stages.py:276-281)
             save_state(train_state, checkpoint_path)
     return train_state, history

@@ -42,6 +42,15 @@ every CHECKPOINT_EVERY updates and at the end; RESUME_FROM continues a saved
 state (either package's) up to NUM_UPDATES. HYP_TUNE=True runs a sweep
 (utils/sweep.py): wandb's where it is installed, else a local random search
 over SWEEP_SPACE, SWEEP_COUNT trials.
+
+    torchrun --nproc_per_node N -m purejaxql_torch.cli +alg=pqn_cartpole [KEY=val ...]
+
+``main`` joins the process group first (parallel/mesh.py:init_distributed,
+a no-op without torchrun's variables). In a group of N > 1 ranks the FF,
+recurrent, VDN and actor-critic trainers train one run sharded N ways
+(parallel/spmd.py:make_train_spmd: NUM_ENVS global, each rank on its card
+``cuda:{LOCAL_RANK}`` unless DEVICE says otherwise, one seed); only rank 0
+logs, saves and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -77,9 +86,11 @@ def _select_make_train(config):
 
 def single_run(config):
     import torch
+    import torch.distributed as dist
 
     from purejaxql_torch.algo.seeds import SINGLE_SEED_FAMILIES
     from purejaxql_torch.core.checkpoint import save_run
+    from purejaxql_torch.parallel.mesh import is_main_process
     from purejaxql_torch.utils.logging import make_logger
 
     logger = make_logger(config)
@@ -95,9 +106,21 @@ def single_run(config):
             "drop the flag or run one seed"
         )
     env_name = config["ENV_NAME"]
-    # the host-env trainers take no logger, as the JAX package's
-    # (purejaxql_tpu/cli.py:57-87)
-    train = make_train(config) if config.get("ALG_NAME") == "pqn_host" else make_train(config, logger=logger)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        # one run sharded over every rank (parallel/spmd.py), one seed a rank
+        if config.get("ALG_NAME") == "pqn_host" or config["NUM_SEEDS"] != 1:
+            raise SystemExit("a process group of several ranks trains the FF, recurrent, VDN and "
+                             "actor-critic trainers with NUM_SEEDS=1")
+        from purejaxql_torch.parallel.mesh import make_mesh
+        from purejaxql_torch.parallel.spmd import make_train_spmd
+
+        train = make_train_spmd(config, make_mesh(), make_train=make_train, logger=logger)
+    elif config.get("ALG_NAME") == "pqn_host":
+        # the host-env trainers take no logger, as the JAX package's
+        # (purejaxql_tpu/cli.py:57-87)
+        train = make_train(config)
+    else:
+        train = make_train(config, logger=logger)
 
     t0 = time.time()
     outs = train()
@@ -124,7 +147,9 @@ def single_run(config):
         logger.log_history(outs["metrics"])
     logger.close()
 
-    if config.get("SAVE_PATH"):
+    # one writer in a process group: the params are the same on every rank
+    # (purejaxql_tpu/cli.py:114-116)
+    if config.get("SAVE_PATH") and is_main_process():
         save_dir = os.path.join(config["SAVE_PATH"], env_name)
         run_name = f"{config.get('ALG_NAME', 'pqn')}_{env_name}_seed{config['SEED']}"
         extra = None
@@ -152,6 +177,7 @@ def _stepwise_run(config, logger):
     from purejaxql_torch.algo.exploration import draw_seed
     from purejaxql_torch.algo.stages import make_stages, train_stepwise
     from purejaxql_torch.core.checkpoint import load_state, save_state
+    from purejaxql_torch.parallel.mesh import is_main_process
 
     ckpt_path = config.get("CHECKPOINT_PATH") or os.path.join(
         config.get("SAVE_PATH") or ".", f"{config['ENV_NAME']}_state.safetensors"
@@ -179,21 +205,29 @@ def _stepwise_run(config, logger):
             targets = stages.compute_targets(train_state, transitions)
             train_state, loss, _ = stages.learn(train_state, transitions, targets, gen)
             on_update(train_state.n_updates, {"td_loss": float(loss)})
-            if config.get("CHECKPOINT_EVERY") and (update + 1) % config["CHECKPOINT_EVERY"] == 0:
+            if config.get("CHECKPOINT_EVERY") and (update + 1) % config["CHECKPOINT_EVERY"] == 0 \
+                    and is_main_process():
                 save_state(train_state, ckpt_path)
     else:
         train_state, _ = train_stepwise(
             config, checkpoint_every=config.get("CHECKPOINT_EVERY"), checkpoint_path=ckpt_path,
             on_update=on_update,
         )
-    save_state(train_state, ckpt_path)
-    print(f"State saved to {ckpt_path}")
+    # one writer in a process group (purejaxql_tpu/cli.py:186-203)
+    if is_main_process():
+        save_state(train_state, ckpt_path)
+        print(f"State saved to {ckpt_path}")
     logger.close()
     return train_state
 
 
 def main(argv=None):
     from purejaxql_torch.core.config import CONFIG_DIR, compose
+    from purejaxql_torch.parallel.mesh import init_distributed
+
+    # join the process group before anything runs (purejaxql_tpu/cli.py:
+    # 219-224); a no-op without torchrun's variables
+    init_distributed()
 
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in ("-h", "--help"):

@@ -16,6 +16,10 @@ global norm, as optax's ``clip_by_global_norm`` under ``jax.vmap`` does;
 RAdam's moments are elementwise and its count is shared by every lane, so
 nothing else changes. One seed runs the single-seed update as it is.
 
+With a process ``group`` (the sharded trainers, parallel/spmd.py) each step
+all-reduce-means the gradients over it before the clip, so every rank
+takes the global batch's step and the replicas stay in lockstep.
+
 The step count is a host integer, so every scalar of the update (bias
 corrections, rho, the rectifier, the step size) is computed on the host in
 float32 with optax's order of operations; only the per-element work runs on
@@ -49,9 +53,11 @@ class ClipRAdam:
         eps: float = 1e-8,
         threshold: float = 5.0,
         seeds: int = 1,
+        group=None,
     ):
         self.params: List[torch.Tensor] = list(params)
         self.seeds = seeds
+        self.group = group
         self.max_grad_norm = float(max_grad_norm)
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.threshold = b1, b2, eps, threshold
@@ -97,8 +103,14 @@ class ClipRAdam:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        """Apply one update from ``grads`` (one tensor per parameter)."""
+        """Apply one update from ``grads`` (one tensor per parameter). With a
+        process ``group`` the gradients are first all-reduce-meaned over it
+        in place, one collective (pqn.py:547-548: pmean, then clip)."""
         b1, b2 = self.b1, self.b2
+        if self.group is not None:
+            from purejaxql_torch.parallel.mesh import pmean_
+
+            pmean_(grads, self.group)
         grads = self.clip(grads)
 
         # moments: (1 - b) * g**order + b * m
@@ -131,5 +143,5 @@ class ClipRAdam:
         torch._foreach_add_(self.params, updates)
 
 
-def make_optimizer(params, max_grad_norm: float, learning_rate, seeds: int = 1) -> ClipRAdam:
-    return ClipRAdam(params, max_grad_norm, learning_rate, seeds=seeds)
+def make_optimizer(params, max_grad_norm: float, learning_rate, seeds: int = 1, group=None) -> ClipRAdam:
+    return ClipRAdam(params, max_grad_norm, learning_rate, seeds=seeds, group=group)

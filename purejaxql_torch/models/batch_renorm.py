@@ -39,7 +39,7 @@ from torch import nn
 
 
 def renorm_train(x, ra_mean, ra_var, r_max, d_max, steps, eps: float, momentum: float, warmup_steps: int,
-                 lanes: bool = False):
+                 lanes: bool = False, group=None):
     """One train-mode step of BatchRenorm on x, without its scale and bias:
     the (mean, var) x is normalized by, and the running (mean, var) after
     this step (detached). The batch statistics are over every axis but the
@@ -47,7 +47,10 @@ def renorm_train(x, ra_mean, ra_var, r_max, d_max, steps, eps: float, momentum: 
     without gradient) once ``steps`` reaches ``warmup_steps``, as a float
     blend. With ``lanes``, x is (..., S, N, F) and the state has a leading
     seed axis, (S, F) and (S,): each lane's statistics over its own rows and
-    the leading axes, against its own state, as under ``jax.vmap``."""
+    the leading axes, against its own state, as under ``jax.vmap``. With a
+    process ``group`` the batch mean and E[x^2] are all-reduce-meaned over
+    it (one collective) before the variance is formed (batch_renorm.py:
+    79-81)."""
     axes = tuple(d for d in range(x.dim() - 1) if not (lanes and d == x.dim() - 3))
     if x.dtype == torch.float32:
         const = lambda v: v  # noqa: E731
@@ -58,6 +61,10 @@ def renorm_train(x, ra_mean, ra_var, r_max, d_max, steps, eps: float, momentum: 
         n = x.numel() // math.prod(x.shape[d] for d in range(x.dim()) if d not in axes)
         batch_mean = (x.float().sum(axes, keepdim=lanes) / n).to(x.dtype)
         mean2 = ((x * x).float().sum(axes, keepdim=lanes) / n).to(x.dtype)
+    if group is not None:
+        from purejaxql_torch.parallel.mesh import pmean_moments
+
+        batch_mean, mean2 = pmean_moments(batch_mean, mean2, group)
     batch_var = torch.clamp(mean2 - batch_mean * batch_mean, min=0.0)
     shape = batch_mean.shape  # (F,), or (1, ..., S, 1, F) with lanes
     per_lane = (lambda v: v.reshape(*shape[:-1], 1)) if lanes else (lambda v: v)  # noqa: E731
@@ -98,13 +105,15 @@ class BatchRenorm(nn.Module):
         self.register_buffer("d_max", torch.tensor(d_max, dtype=torch.float32))
         self.register_buffer("steps", torch.zeros((), dtype=torch.int32))
         self.frozen = False
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             mean, var = self.mean, self.var
         else:
             mean, var, new_mean, new_var = renorm_train(x, self.mean, self.var, self.r_max, self.d_max, self.steps,
-                                                        self.eps, self.momentum, self.warmup_steps)
+                                                        self.eps, self.momentum, self.warmup_steps,
+                                                        group=self.group)
             if not self.frozen:
                 with torch.no_grad():
                     self.mean.copy_(new_mean)

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from purejaxql_torch.models.cnn import CNNQNetwork
-from purejaxql_torch.models.qnet import QNetwork
+from purejaxql_torch.models.qnet import QNetwork, share_statistics
 from purejaxql_torch.models.rnn import RNNQNetwork
 
 
@@ -50,8 +50,16 @@ def resolve_norms(config):
 
 
 def make_q_network(
-    config, action_dim: int, obs_shape, generator=None, seeds: int = 1
+    config, action_dim: int, obs_shape, generator=None, seeds: int = 1, group=None
 ) -> nn.Module:
+    """The FF trainer's network: the MLP ``QNetwork`` or the CNN of ARCH and
+    the obs shape; with a process ``group`` every BatchNorm and BatchRenorm
+    takes its train-mode statistics over it (``share_statistics``, the JAX
+    factory's ``norm_axis_name``, factory.py:41-65)."""
+    return share_statistics(_make_q_network(config, action_dim, obs_shape, generator, seeds), group)
+
+
+def _make_q_network(config, action_dim: int, obs_shape, generator, seeds: int) -> nn.Module:
     arch = config.get("ARCH") or ("cnn" if len(obs_shape) >= 3 else "mlp")
     dtype = torch.bfloat16 if config.get("BF16_COMPUTE", False) else torch.float32
     if arch == "mlp":
@@ -102,6 +110,7 @@ def make_rnn_q_network(
     norms=None,
     hidden_size: int = 128,
     seeds: int = 1,
+    group=None,
 ) -> RNNQNetwork:
     """The recurrent trainers' network (pqn_rnn.py:87-100, pqn_vdn.py:93-104):
     RNN_CELL's cells over flat observations, the trunk and input norms of
@@ -109,10 +118,11 @@ def make_rnn_q_network(
     the VDN trainer passes NORM_TYPE as written and a BatchNorm input), the
     last action as an input where ADD_LAST_ACTION says so,
     a dueling head where DUELING does; HIDDEN_SIZE defaults to
-    ``hidden_size`` (the recurrent trainer's 128, pqn_rnn.py:90)."""
+    ``hidden_size`` (the recurrent trainer's 128, pqn_rnn.py:90); with a
+    process ``group``, the norms' statistics over it (``share_statistics``)."""
     norms = norms if norms is not None else resolve_norms(config)
     check_rnn_q_network(obs_shape)
-    return RNNQNetwork(
+    return share_statistics(RNNQNetwork(
         obs_dim=int(obs_shape[0]),
         action_dim=action_dim,
         hidden_size=config.get("HIDDEN_SIZE", hidden_size),
@@ -126,4 +136,4 @@ def make_rnn_q_network(
         dueling=config.get("DUELING", False),
         generator=generator,
         seeds=seeds,
-    )
+    ), group)

@@ -70,6 +70,21 @@ def _stats(x: torch.Tensor, dim: int):
     return mean, var
 
 
+def batch_moments(x: torch.Tensor, dims, group=None):
+    """A batch norm's mean and variance E[x^2] - E[x]^2 (clamped at 0) over
+    ``dims``, kept for broadcasting. With a process group (``group``, set on
+    the module by ``share_statistics``) the local mean and E[x^2] are
+    all-reduce-meaned over it in one collective before the variance is
+    formed, so they are the global batch's (flax's ``axis_name``,
+    qnet.py:35-84); ``None`` is ``_stats`` as it is."""
+    if group is None:
+        return _stats(x, dims)
+    from purejaxql_torch.parallel.mesh import pmean_moments
+
+    mean, mean2 = pmean_moments(x.mean(dims, keepdim=True), (x * x).mean(dims, keepdim=True), group)
+    return mean, torch.clamp(mean2 - mean * mean, min=0.0)
+
+
 def _normalize(x, mean, var, eps, scale, bias):
     # flax order: (x - mean) * (rsqrt(var + eps) * scale) + bias
     return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias
@@ -140,11 +155,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.frozen = False
+        self.group = None
 
     def forward(self, x, train: bool):
         h = x.float()
         if train:
-            mean, var = _stats(h, tuple(range(h.dim() - 1)))
+            mean, var = batch_moments(h, tuple(range(h.dim() - 1)), self.group)
             if not self.frozen:
                 with torch.no_grad():
                     m = self.momentum
@@ -168,6 +184,17 @@ def frozen_statistics(network: nn.Module):
     finally:
         for m in norms:
             m.frozen = False
+
+
+def share_statistics(network: nn.Module, group) -> nn.Module:
+    """Take every BatchNorm's and BatchRenorm's train-mode statistics of
+    ``network`` (stacked ones included: every module with a ``frozen``
+    flag) over the process group ``group`` (``None``: the local batch), as
+    the JAX modules' ``norm_axis_name`` does. Returns ``network``."""
+    for m in network.modules():
+        if hasattr(m, "frozen"):
+            m.group = group
+    return network
 
 
 _NORMS = {"batch_norm": "BatchNorm", "batch_renorm": "BatchRenorm"}

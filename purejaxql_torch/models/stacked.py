@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from purejaxql_torch.models.batch_renorm import renorm_train
-from purejaxql_torch.models.qnet import _normalize, _stats, variance_scaling_
+from purejaxql_torch.models.qnet import _normalize, _stats, batch_moments, variance_scaling_
 
 
 def lane_matmul(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -114,11 +114,12 @@ class StackedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(members, features))
         self.register_buffer("var", torch.ones(members, features))
         self.frozen = False
+        self.group = None
 
     def forward(self, x, train: bool):
         h = x.float()
         if train:
-            mean, var = _stats(h, _lane_axes(h))
+            mean, var = batch_moments(h, _lane_axes(h), self.group)
             if not self.frozen:
                 with torch.no_grad():
                     m = self.momentum
@@ -153,13 +154,15 @@ class StackedBatchRenorm(nn.Module):
         self.register_buffer("d_max", torch.full((members,), d_max, dtype=torch.float32))
         self.register_buffer("steps", torch.zeros(members, dtype=torch.int32))
         self.frozen = False
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             mean, var = self.mean[:, None], self.var[:, None]
         else:
             mean, var, new_mean, new_var = renorm_train(x, self.mean, self.var, self.r_max, self.d_max, self.steps,
-                                                        self.eps, self.momentum, self.warmup_steps, lanes=True)
+                                                        self.eps, self.momentum, self.warmup_steps, lanes=True,
+                                                        group=self.group)
             if not self.frozen:
                 with torch.no_grad():
                     self.mean.copy_(new_mean)

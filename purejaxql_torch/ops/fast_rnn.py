@@ -44,6 +44,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 import torch
 
 from purejaxql_torch.models.batch_renorm import renorm_train
+from purejaxql_torch.models.qnet import batch_moments
 from purejaxql_torch.models.rnn import LSTM_GATES, map_carry
 from purejaxql_torch.models.stacked import lane_matmul
 from purejaxql_torch.ops.gru_scan import GRUScan
@@ -56,25 +57,29 @@ def _layer_norm(x, scale, bias, eps=1e-6):
     return y * scale + bias
 
 
-def _moments(x, lanes=False):
+def _moments(x, lanes=False, group=None):
     """The mean and biased variance over every axis but the last; with
-    ``lanes``, x (T, S, B, F), also but the seed axis, kept for broadcasting."""
+    ``lanes``, x (T, S, B, F), also but the seed axis, kept for
+    broadcasting. With a process ``group`` the mean and E[x^2] are
+    all-reduce-meaned over it (one collective) and the variance is
+    E[x^2] - E[x]^2 clamped at 0, the global batch's."""
     axes = tuple(d for d in range(x.dim() - 1) if not (lanes and d == x.dim() - 3))
+    if group is not None:
+        mean, var = batch_moments(x, axes, group)
+        return (mean, var) if lanes else (mean.reshape(-1), var.reshape(-1))
     mean = x.mean(axes, keepdim=lanes)
     return mean, torch.square(x - mean).mean(axes, keepdim=lanes)
 
 
-def _batch_stats_update(x, ra_mean, ra_var, momentum=0.99, lanes=False):
-    """flax nn.BatchNorm's running-average update (train mode): statistics
-    over every axis but the last (and the seed axis), biased variance, EMA
-    with ``momentum``."""
-    mean, var = _moments(x, lanes)
+def _batch_stats_update(mean, var, ra_mean, ra_var, momentum=0.99):
+    """flax nn.BatchNorm's running-average update (train mode) from the
+    batch's ``_moments``: EMA with ``momentum``."""
+    mean, var = mean.detach(), var.detach()
     return (momentum * ra_mean + (1 - momentum) * mean.reshape(ra_mean.shape),
             momentum * ra_var + (1 - momentum) * var.reshape(ra_var.shape))
 
 
-def _batch_norm_train(x, scale, bias, eps=1e-5, lanes=False):
-    mean, var = _moments(x, lanes)
+def _batch_norm_train(x, mean, var, scale, bias, eps=1e-5):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
@@ -93,7 +98,7 @@ def _mp_matmul(a, b, dtype=torch.float32):
     return torch.matmul(a.to(dtype).float(), b.to(dtype).float())
 
 
-def _batch_renorm_train(x, scale, bias, stats, lanes=False):
+def _batch_renorm_train(x, scale, bias, stats, lanes=False, group=None):
     """Train-mode BatchRenorm and its new statistics (fast_rnn.py:84-123),
     the arithmetic of ``models/batch_renorm.py``: the fast variance
     E[x^2] - E[x]^2 clamped at 0, r and d clipped by r_max and d_max and
@@ -101,10 +106,11 @@ def _batch_renorm_train(x, scale, bias, stats, lanes=False):
     the d-shift by sqrt(var) without epsilon. ``stats`` holds ``mean``,
     ``var``, ``r_max``, ``d_max`` and ``steps``; the returned ones are
     detached, ``steps`` one more. With ``lanes``, x (T, S, B, F) and each
-    statistic with a leading seed axis: each lane's own (``jax.vmap``)."""
+    statistic with a leading seed axis: each lane's own (``jax.vmap``). With
+    a process ``group``, the global batch's statistics (``renorm_train``)."""
     eps = 1e-3
     mean, var, new_mean, new_var = renorm_train(x, stats["mean"], stats["var"], stats["r_max"], stats["d_max"],
-                                                stats["steps"], eps, 0.999, 1000, lanes)
+                                                stats["steps"], eps, 0.999, 1000, lanes, group)
     new_stats = {"mean": new_mean, "var": new_var, "r_max": stats["r_max"], "d_max": stats["d_max"],
                  "steps": stats["steps"] + 1}
     return (x - mean) * (torch.rsqrt(var + eps) * scale) + bias, new_stats
@@ -229,6 +235,7 @@ def fast_rnn_train_forward(
     pallas: bool = False,
     compute_dtype: torch.dtype = torch.float32,
     seeds: int = 1,
+    group=None,
 ) -> Tuple[list, torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode forward of ``RNNQNetwork`` (fast_rnn.py:390-469). Returns
     (new_hidden, q_vals (T, B, A), new_batch_stats), the statistics detached
@@ -239,7 +246,9 @@ def fast_rnn_train_forward(
     ``pallas`` runs each GRU layer's recurrence through the CUDA kernels
     (``gru_layer_scan_kernel``); ``compute_dtype`` as the module says. With
     ``seeds`` > 1 the params are stacked and every row axis B holds S * B
-    seed-major rows, in and out.
+    seed-major rows, in and out. With a process ``group`` the input norm's
+    statistics are the global batch's (``_moments``, ``renorm_train``),
+    where the JAX function keeps them shard-local (fast_rnn.py:65-123).
     """
     lanes = seeds > 1
     if lanes:
@@ -252,17 +261,19 @@ def fast_rnn_train_forward(
         y, new_stats = _batch_renorm_train(
             x, params["BatchRenorm_0.weight"], params["BatchRenorm_0.bias"],
             {k: batch_stats[f"BatchRenorm_0.{k}"] for k in ("mean", "var", "r_max", "d_max", "steps")}, lanes,
+            group,
         )
         if norm_input:
             x = y
         new_batch_stats = {f"BatchRenorm_0.{k}": v for k, v in new_stats.items()}
     else:
+        mean, var = _moments(x, lanes, group)
         with torch.no_grad():
             new_mean, new_var = _batch_stats_update(
-                x, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"], lanes=lanes
+                mean, var, batch_stats["BatchNorm_0.mean"], batch_stats["BatchNorm_0.var"]
             )
         if norm_input:
-            x = _batch_norm_train(x, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"], lanes=lanes)
+            x = _batch_norm_train(x, mean, var, params["BatchNorm_0.weight"], params["BatchNorm_0.bias"])
         new_batch_stats = {"BatchNorm_0.mean": new_mean, "BatchNorm_0.var": new_var}
 
     for i in range(num_layers):

@@ -135,6 +135,13 @@ class MetricLogger:
 
 
 def make_logger(config: Dict[str, Any]) -> MetricLogger:
+    """The sinks the config asks for. In a process group only rank 0 owns
+    them (logging.py:143-151: the metrics are the same on every rank, so
+    rank 0's rows are the run's), unless LOG_ALL_PROCESSES."""
+    from purejaxql_torch.parallel.mesh import is_main_process
+
+    if not config.get("LOG_ALL_PROCESSES", False) and not is_main_process():
+        return MetricLogger([])
     sinks: List[Sink] = []
     mode = str(config.get("LOG_MODE", config.get("WANDB_MODE", "disabled")))
     if config.get("LOG_CONSOLE", False):

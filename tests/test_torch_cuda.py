@@ -1123,3 +1123,49 @@ def test_tiny_rnn_craftax_on_the_card_launches_eps_greedy_and_the_closure_return
     assert all(p.is_cuda for p in train_state.network.parameters())
     assert int(train_state.network.BatchRenorm_0.steps) == 2 * 4 * 4
     assert all(torch.isfinite(v).all() for v in out["metrics"].values())
+
+
+# ---- the sharded trainers: 2 ranks of a gloo group on cuda:0 (tests/torch_spmd_worker.py) ----
+
+
+@pytest.fixture(scope="module")
+def cuda_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels build with nvcc for sm_90a)")
+    import torch_spmd_worker as worker
+
+    return worker.spawn(["cuda_collectives", "cuda_ff", "cuda_batch_norm"], 2, tmp_path_factory.mktemp("cuda_ranks"),
+                        deadline_s=300)
+
+
+def test_gloo_collectives_on_cuda_tensors(cuda_ranks):
+    for res in cuda_ranks:
+        got = res["cuda_collectives"]
+        np.testing.assert_array_equal(got["pmean_a"], np.full(5, 1.5, np.float32))
+        np.testing.assert_array_equal(got["pmean_b"], np.full((2, 3), 15.0, np.float32))
+        np.testing.assert_array_equal(got["psum"], np.full(4, 3.0, np.float32))
+        np.testing.assert_array_equal(got["rows"], np.array([[0, 1, 2], [10, 11, 12]]))
+        np.testing.assert_array_equal(got["moments"], np.full(3, 1.5, np.float32))
+        np.testing.assert_array_equal(got["moments2"], np.full(3, 3.0, np.float32))
+        # the cotangents (rank + 1, and 1) meaned over the ranks: d(sum over
+        # ranks of each rank's loss) / d(each rank's moments)
+        np.testing.assert_array_equal(got["grad_m"], np.full(3, 1.5, np.float32))
+        np.testing.assert_array_equal(got["grad_m2"], np.full(3, 1.0, np.float32))
+
+
+@pytest.mark.parametrize("job", ["cuda_ff", "cuda_batch_norm"])
+def test_sharded_trainer_on_cuda_in_lockstep(cuda_ranks, job):
+    """Each rank trains on cuda:0 through the kernels; the global counter,
+    finite metrics and every parameter and statistic bit-equal across the
+    ranks."""
+    first = cuda_ranks[0][job]
+    # 8 updates of 8 envs x 16 steps a rank: one rollout launch an update
+    # fused, one epsilon-greedy launch a rollout step unfused
+    kernel, launches = ("cartpole_rollout", 8) if job == "cuda_ff" else ("eps_greedy", 128)
+    for res in cuda_ranks:
+        out = res[job]
+        assert out["timesteps"] == 2048
+        assert out["launches"][kernel] == launches and out["launches"]["lambda_returns"] == 8
+        assert np.isfinite(out["metrics"]["td_loss"]).all()
+        for k, v in out["state"].items():
+            np.testing.assert_array_equal(v, first["state"][k], err_msg=k)
